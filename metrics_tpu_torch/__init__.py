@@ -1,0 +1,14 @@
+"""metrics_tpu_torch: the PyTorch/CUDA port of metrics_tpu.
+
+It imports ``torch`` and ``numpy``, never ``jax`` and nothing of
+``metrics_tpu``. Metrics run on the card unless ``device="cpu"`` is passed;
+their kernels are hand-written CUDA, built from ``csrc/`` at first use (see
+:mod:`metrics_tpu_torch.ops`). This slice ports the flagship path:
+``ConfusionMatrix``, the exact rank AUROC (functional, and ``AUROC`` in its
+multiclass capacity mode) and ``MetricCollection``.
+"""
+from metrics_tpu_torch.classification import AUROC, ConfusionMatrix  # noqa: F401
+from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
+from metrics_tpu_torch.core.metric import Metric  # noqa: F401
+
+__version__ = "0.1.0"

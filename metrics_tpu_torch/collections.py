@@ -1,0 +1,364 @@
+"""MetricCollection: chain metrics with one call pattern, with compute-group
+state sharing.
+
+Counterpart of ``metrics_tpu/collections.py``: dict behaviour, per-metric
+kwarg filtering, prefix/postfix, clone, ``state_dict``, and compute groups
+(every metric starts as its own group; after the first update, groups whose
+states and shared hyperparameters are equal merge, and later updates touch
+only each group's leader). The fused and async update paths are a later
+slice: ``compile_update``/``compile_update_async`` raise.
+"""
+from collections import OrderedDict
+from copy import deepcopy
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.utils.prints import rank_zero_warn
+
+_FUSED_NOT_PORTED = (
+    "the fused and async collection updates are not ported yet (ROADMAP.md, queue A: 'fused and async update')"
+)
+
+
+def _flatten_dict(x: Dict) -> Dict:
+    """Flatten dict-valued results into the parent."""
+    new_dict = {}
+    for key, value in x.items():
+        if isinstance(value, dict):
+            new_dict.update(value)
+        else:
+            new_dict[key] = value
+    return new_dict
+
+
+def _equal_values(v1: Any, v2: Any) -> bool:
+    if isinstance(v1, torch.Tensor) or isinstance(v2, torch.Tensor):
+        return (
+            isinstance(v1, torch.Tensor)
+            and isinstance(v2, torch.Tensor)
+            and v1.shape == v2.shape
+            and v1.device == v2.device
+            and bool(torch.equal(v1, v2))
+        )
+    if isinstance(v1, np.ndarray) or isinstance(v2, np.ndarray):
+        return isinstance(v1, np.ndarray) and isinstance(v2, np.ndarray) and np.array_equal(v1, v2)
+    return bool(v1 == v2)
+
+
+class MetricCollection:
+    """Chain metrics that have the same call pattern into one object.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import AUROC, ConfusionMatrix
+        >>> preds = torch.tensor([[0.7, 0.2, 0.1], [0.2, 0.5, 0.3], [0.1, 0.2, 0.7], [0.3, 0.4, 0.3]])
+        >>> target = torch.tensor([0, 1, 2, 1])
+        >>> metrics = MetricCollection([ConfusionMatrix(num_classes=3, device="cpu"),
+        ...                             AUROC(num_classes=3, capacity=8, device="cpu")])
+        >>> metrics.update(preds, target)
+        >>> metrics.compute()["AUROC"]
+        tensor(1.)
+    """
+
+    def __init__(
+        self,
+        metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]],
+        *additional_metrics: Metric,
+        prefix: Optional[str] = None,
+        postfix: Optional[str] = None,
+        compute_groups: Union[bool, List[List[str]]] = True,
+    ) -> None:
+        self._metrics: "OrderedDict[str, Metric]" = OrderedDict()
+        self.prefix = self._check_arg(prefix, "prefix")
+        self.postfix = self._check_arg(postfix, "postfix")
+        self._enable_compute_groups = compute_groups
+        self._groups: Dict[int, List[str]] = {}
+        self._groups_checked: bool = False
+        self._bulk_insert = False
+        self.add_metrics(metrics, *additional_metrics)
+
+    # ------------------------------------------------------------------
+    # dict-like access
+    # ------------------------------------------------------------------
+    def __getitem__(self, key: str) -> Metric:
+        return self._metrics[key]
+
+    def __setitem__(self, key: str, value: Metric) -> None:
+        self._metrics[key] = value
+        if not self._bulk_insert:
+            self._on_membership_change()
+
+    def _on_membership_change(self) -> None:
+        """A membership change reseeds the compute groups."""
+        self._groups_checked = False
+        if self._enable_compute_groups:
+            self._init_compute_groups()
+        else:
+            self._groups = {}
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._metrics
+
+    def __len__(self) -> int:
+        return len(self._metrics)
+
+    def __iter__(self) -> Iterable[str]:
+        return iter(self._metrics)
+
+    def keys(self, keep_base: bool = False) -> Iterable[str]:
+        if keep_base:
+            return self._metrics.keys()
+        return self._to_renamed_ordered_dict().keys()
+
+    def items(self, keep_base: bool = False) -> Iterable[Tuple[str, Metric]]:
+        if keep_base:
+            return self._metrics.items()
+        return self._to_renamed_ordered_dict().items()
+
+    def values(self) -> Iterable[Metric]:
+        return self._metrics.values()
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    # ------------------------------------------------------------------
+    def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Call forward for each metric; kwargs are filtered per metric."""
+        res = {k: m(*args, **m._filter_kwargs(**kwargs)) for k, m in self.items(keep_base=True)}
+        res = _flatten_dict(res)
+        return {self._set_name(k): v for k, v in res.items()}
+
+    def __call__(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        return self.forward(*args, **kwargs)
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        """Call update for each metric (only group leaders once groups are known)."""
+        if self._groups_checked:
+            for cg in self._groups.values():
+                m0 = self._metrics[cg[0]]
+                m0.update(*args, **m0._filter_kwargs(**kwargs))
+        else:
+            for m in self._metrics.values():
+                m.update(*args, **m._filter_kwargs(**kwargs))
+            if self._enable_compute_groups:
+                self._merge_compute_groups()
+                self._groups_checked = True
+
+    def _merge_compute_groups(self) -> None:
+        """Pairwise-merge groups whose member states are identical."""
+        n_groups = len(self._groups)
+        while True:
+            for cg_idx1, cg_members1 in deepcopy(self._groups).items():
+                for cg_idx2, cg_members2 in deepcopy(self._groups).items():
+                    if cg_idx1 == cg_idx2:
+                        continue
+                    metric1 = self._metrics[cg_members1[0]]
+                    metric2 = self._metrics[cg_members2[0]]
+                    if self._equal_metric_states(metric1, metric2):
+                        self._groups[cg_idx1].extend(self._groups.pop(cg_idx2))
+                        break
+                if len(self._groups) != n_groups:
+                    break
+            if len(self._groups) == n_groups:
+                break
+            n_groups = len(self._groups)
+
+        self._groups = {idx: values for idx, values in enumerate(deepcopy(self._groups).values())}
+
+    @staticmethod
+    def _equal_update_attrs(metric1: Metric, metric2: Metric) -> bool:
+        """True if every public attribute the two metrics share compares
+        equal: metrics differing in a hyperparameter never share a group,
+        even when their states coincide on the first batch."""
+        skip = set(metric1._defaults) | set(metric2._defaults)
+        attrs1 = {k: v for k, v in vars(metric1).items() if not k.startswith("_") and k not in skip}
+        attrs2 = {k: v for k, v in vars(metric2).items() if not k.startswith("_") and k not in skip}
+        for key in attrs1.keys() & attrs2.keys():
+            v1, v2 = attrs1[key], attrs2[key]
+            if v1 is v2:
+                continue
+            try:
+                if not _equal_values(v1, v2):
+                    return False
+            except Exception:  # incomparable values: refuse to merge
+                return False
+        return True
+
+    @staticmethod
+    def _equal_metric_states(metric1: Metric, metric2: Metric) -> bool:
+        """True if the two metrics' state definitions, shared
+        hyperparameters and state values are identical."""
+        if metric1._defaults.keys() != metric2._defaults.keys() or not metric1._defaults:
+            return False
+        if not MetricCollection._equal_update_attrs(metric1, metric2):
+            return False
+        for key in metric1._defaults:
+            d1, d2 = metric1._defaults[key], metric2._defaults[key]
+            if type(d1) is not type(d2) or metric1._reductions[key] is not metric2._reductions[key]:
+                return False
+            if isinstance(d1, torch.Tensor) and (d1.shape != d2.shape or d1.dtype != d2.dtype):
+                return False
+
+        for key in metric1._defaults:
+            state1, state2 = getattr(metric1, key), getattr(metric2, key)
+            if type(state1) is not type(state2):
+                return False
+            if isinstance(state1, (int, float)):
+                if state1 != state2:
+                    return False
+            elif isinstance(state1, torch.Tensor):
+                if state1.shape != state2.shape or not bool(torch.allclose(state1, state2)):
+                    return False
+            elif isinstance(state1, list):
+                if len(state1) != len(state2):
+                    return False
+                if not all(s1.shape == s2.shape and bool(torch.allclose(s1, s2)) for s1, s2 in zip(state1, state2)):
+                    return False
+        return True
+
+    def compute(self) -> Dict[str, Any]:
+        """Compute each metric; group members borrow the leader's state."""
+        if self._enable_compute_groups and self._groups_checked:
+            for cg in self._groups.values():
+                m0 = self._metrics[cg[0]]
+                for name in cg[1:]:
+                    mi = self._metrics[name]
+                    for state in m0._defaults:
+                        object.__setattr__(mi, state, getattr(m0, state))
+                    mi._update_called = m0._update_called
+                    # installing the leader's states is an out-of-band write
+                    # only when the leader advanced since the last borrow
+                    src_epoch = (cg[0], m0._write_epoch)
+                    if getattr(mi, "_borrowed_epoch", None) != src_epoch:
+                        mi._mark_state_written()
+                        mi._borrowed_epoch = src_epoch
+        res = {k: m.compute() for k, m in self.items(keep_base=True)}
+        res = _flatten_dict(res)
+        return {self._set_name(k): v for k, v in res.items()}
+
+    def compile_update(self, *args: Any, **kwargs: Any) -> None:
+        raise NotImplementedError(_FUSED_NOT_PORTED)
+
+    def compile_update_async(self, *args: Any, **kwargs: Any) -> None:
+        raise NotImplementedError(_FUSED_NOT_PORTED)
+
+    def reset(self) -> None:
+        """Reset all metrics; discovered compute groups are kept."""
+        for m in self._metrics.values():
+            m.reset()
+
+    def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
+        mc = deepcopy(self)
+        if prefix:
+            mc.prefix = self._check_arg(prefix, "prefix")
+        if postfix:
+            mc.postfix = self._check_arg(postfix, "postfix")
+        return mc
+
+    def state_dict(self) -> Dict[str, Any]:
+        destination: Dict[str, Any] = {}
+        for name, m in self._metrics.items():
+            m.state_dict(destination, prefix=f"{name}.")
+        return destination
+
+    def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
+        for name, m in self._metrics.items():
+            m.load_state_dict(state_dict, prefix=f"{name}.")
+
+    # ------------------------------------------------------------------
+    # construction
+    # ------------------------------------------------------------------
+    def add_metrics(
+        self, metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]], *additional_metrics: Metric
+    ) -> None:
+        if isinstance(metrics, Metric):
+            metrics = [metrics]
+        if isinstance(metrics, Sequence) and not isinstance(metrics, str):
+            metrics = list(metrics)
+            remain: list = []
+            for m in additional_metrics:
+                (metrics if isinstance(m, Metric) else remain).append(m)
+            if remain:
+                rank_zero_warn(
+                    f"You have passes extra arguments {remain} which are not `Metric` so they will be ignored."
+                )
+        elif additional_metrics:
+            raise ValueError(
+                f"You have passes extra arguments {additional_metrics} which are not compatible"
+                f" with first passed dictionary {metrics} so they will be ignored."
+            )
+
+        # one membership update after the whole batch of inserts: an explicit
+        # compute_groups list is validated against the complete membership
+        self._bulk_insert = True
+        try:
+            if isinstance(metrics, dict):
+                for name in sorted(metrics.keys()):
+                    metric = metrics[name]
+                    if not isinstance(metric, Metric):
+                        raise ValueError(f"Value {metric} belonging to key {name} is not an instance of `Metric`")
+                    self[name] = metric
+            elif isinstance(metrics, Sequence):
+                for metric in metrics:
+                    if not isinstance(metric, Metric):
+                        raise ValueError(f"Input {metric} to `MetricCollection` is not a instance of `Metric`")
+                    name = metric.__class__.__name__
+                    if name in self:
+                        raise ValueError(f"Encountered two metrics both named {name}")
+                    self[name] = metric
+            else:
+                raise ValueError("Unknown input to MetricCollection.")
+        finally:
+            self._bulk_insert = False
+
+        self._on_membership_change()
+
+    def _init_compute_groups(self) -> None:
+        if isinstance(self._enable_compute_groups, list):
+            self._groups = {i: k for i, k in enumerate(self._enable_compute_groups)}
+            for v in self._groups.values():
+                for metric in v:
+                    if metric not in self:
+                        raise ValueError(
+                            f"Input {metric} in `compute_groups` argument does not match a metric in the"
+                            f" collection. Please make sure that {self._enable_compute_groups} matches"
+                            f" {list(self.keys(keep_base=True))}"
+                        )
+            self._groups_checked = True
+        else:
+            self._groups = {i: [str(k)] for i, k in enumerate(self._metrics.keys())}
+
+    @property
+    def compute_groups(self) -> Dict[int, List[str]]:
+        return self._groups
+
+    # ------------------------------------------------------------------
+    # naming
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _check_arg(arg: Optional[str], name: str) -> Optional[str]:
+        if arg is None or isinstance(arg, str):
+            return arg
+        raise ValueError(f"Expected input `{name}` to be a string, but got {type(arg)}")
+
+    def _set_name(self, base: str) -> str:
+        name = base if self.prefix is None else self.prefix + base
+        return name if self.postfix is None else name + self.postfix
+
+    def _to_renamed_ordered_dict(self) -> "OrderedDict[str, Metric]":
+        od: "OrderedDict[str, Metric]" = OrderedDict()
+        for k, v in self._metrics.items():
+            od[self._set_name(k)] = v
+        return od
+
+    def __repr__(self) -> str:
+        repr_str = self.__class__.__name__ + "("
+        for name, m in self._metrics.items():
+            repr_str += f"\n  {name}: {repr(m)}"
+        if self.prefix:
+            repr_str += f"\n  prefix={self.prefix}"
+        if self.postfix:
+            repr_str += f"\n  postfix={self.postfix}"
+        return repr_str + "\n)" if len(self._metrics) else repr_str + ")"

@@ -1,0 +1,43 @@
+"""Carry metric state from the JAX package into the port.
+
+A metric of the JAX package has no weights: what it has accumulated is its
+state dict, the output of ``update_state``. :func:`state_from_jax` takes
+that dict with each leaf turned into a numpy array (``np.asarray``) and
+returns the port's state dict for the same metric, which ``compute_state``
+and ``update_state`` of the port's metric accept, so an epoch started in
+JAX can be continued and computed here.
+"""
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.utils.data import _resolve_device
+
+
+def state_from_jax(
+    state: Mapping[str, np.ndarray], metric: Metric, device: Optional[Any] = None
+) -> Dict[str, torch.Tensor]:
+    """Tensors on ``device`` (default: the metric's) with the same dtypes as
+    the numpy leaves (int32 stays int32). The names, shapes and dtypes must
+    match ``metric.init_state()``; a mismatch raises ``ValueError``."""
+    device = metric.device if device is None else _resolve_device(device)
+    template = metric.init_state()
+    if set(state) != set(template):
+        raise ValueError(f"state names {sorted(state)} do not match {type(metric).__name__}'s {sorted(template)}")
+    out: Dict[str, torch.Tensor] = {}
+    for name, value in state.items():
+        # a writable C-ordered copy (numpy views of JAX arrays are read-only);
+        # np.ascontiguousarray would turn a 0-d leaf into shape (1,)
+        tensor = torch.from_numpy(np.array(value, order="C")).to(device)
+        expected = template[name]
+        if isinstance(expected, list):
+            raise ValueError(f"list state {name!r} cannot be carried over; this slice carries tensor states")
+        if tuple(tensor.shape) != tuple(expected.shape) or tensor.dtype != expected.dtype:
+            raise ValueError(
+                f"state {name!r}: got {tuple(tensor.shape)} {tensor.dtype},"
+                f" expected {tuple(expected.shape)} {expected.dtype}"
+            )
+        out[name] = tensor
+    return out

@@ -1,0 +1,395 @@
+"""The ``Metric`` base class.
+
+Counterpart of ``metrics_tpu/core/metric.py``: the state registry
+(``add_state``), the ``update``/``compute`` lifecycle with the write-epoch
+compute cache, the double-update ``forward``, ``reset``, the pure-state API
+(``init_state`` / ``update_state`` / ``compute_state`` / ``merge_states``)
+and ``state_dict`` / ``load_state_dict``.
+
+States are tensors on the metric's device (or lists of tensors), held as
+plain attributes. Every update replaces a state with a new tensor and never
+writes into the old one, so the pure-state API stays functional: a state
+dict handed to ``update_state`` is never modified.
+
+Not in this slice: the observability hooks, the fused/sliced/sketch
+plumbing, ``CompositionalMetric`` and cross-process sync (see
+``ROADMAP.md``).
+"""
+from abc import ABC, abstractmethod
+import inspect
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from metrics_tpu_torch.parallel.distributed import check_single_process
+from metrics_tpu_torch.utils.data import (
+    _as_tensor,
+    _resolve_device,
+    _squeeze_if_scalar,
+    dim_zero_cat,
+    dim_zero_max,
+    dim_zero_mean,
+    dim_zero_min,
+    dim_zero_sum,
+)
+from metrics_tpu_torch.utils.exceptions import MetricsUserError
+from metrics_tpu_torch.utils.prints import rank_zero_warn
+
+Tensor = torch.Tensor
+StateValue = Union[Tensor, List[Tensor]]
+
+#: auto-registered update counter accompanying any mean-reduced state: the
+#: default weights of `merge_states` on uneven accumulations; negative means
+#: "history unknown" (a checkpoint restored without it)
+_AUTO_COUNT = "_n_updates"
+
+_REDUCERS = {
+    "sum": dim_zero_sum,
+    "mean": dim_zero_mean,
+    "max": dim_zero_max,
+    "min": dim_zero_min,
+    "cat": dim_zero_cat,
+}
+_NOT_PORTED_REDUCERS = {
+    "merge": "sketches",
+    "ring": "sliced and windowed state",
+    "decay": "sliced and windowed state",
+}
+
+
+def _sentinel_count_sum(x: Tensor) -> Tensor:
+    """Dim-zero sum of per-rank `_n_updates` counters that propagates the
+    negative "history unknown" sentinel instead of summing past it."""
+    return torch.where((x >= 0).all(), x.sum(dim=0, dtype=x.dtype), torch.full_like(x[0], -1))
+
+
+def _state_tensor(value: Any, device: torch.device) -> Tensor:
+    """A state default as a tensor on ``device``, with the JAX package's
+    x64-off dtypes for host values (Python/numpy ints become int32, floats
+    float32)."""
+    if isinstance(value, Tensor):
+        return value.detach().to(device).clone()
+    arr = np.asarray(value)
+    if arr.dtype == np.int64:
+        arr = arr.astype(np.int32)
+    elif arr.dtype == np.float64:
+        arr = arr.astype(np.float32)
+    if arr.dtype == object:
+        raise ValueError("not an array")
+    return torch.as_tensor(arr, device=device)
+
+
+def _to_device_inputs(obj: Any, device: torch.device) -> Any:
+    """Host arrays (numpy) in update inputs go to the metric's device;
+    tensors stay where they are and everything else passes through."""
+    if isinstance(obj, (np.ndarray, np.generic)):
+        return _as_tensor(obj, device)
+    if isinstance(obj, tuple):
+        return tuple(_to_device_inputs(o, device) for o in obj)
+    if isinstance(obj, list):
+        return [_to_device_inputs(o, device) for o in obj]
+    if isinstance(obj, dict):
+        return {k: _to_device_inputs(v, device) for k, v in obj.items()}
+    return obj
+
+
+class Metric(ABC):
+    """Base class for all metrics of the port.
+
+    Subclasses implement ``_update(self, ...)`` (reading and assigning the
+    registered states) and ``_compute(self)``. ``device=None`` means the
+    card; without CUDA that raises, so CPU use is asked for explicitly with
+    ``device="cpu"``. The JAX package's sync arguments (``dist_sync_on_step``,
+    ``process_group``, ``dist_sync_fn``) arrive with the ``torch.distributed``
+    slice.
+    """
+
+    is_differentiable: Optional[bool] = None
+    higher_is_better: Optional[bool] = None
+
+    def __init__(self, device: Optional[Union[str, torch.device]] = None) -> None:
+        self._device = _resolve_device(device)
+        self._update_called = False
+        self._forward_cache: Any = None
+        self._computed: Any = None
+        # write-epoch clock: bumped on every state mutation; the cached
+        # `_computed` is served only while it was folded at the current epoch
+        self._write_epoch: int = 0
+        self._computed_epoch: int = -1
+        self._defaults: Dict[str, StateValue] = {}
+        self._reductions: Dict[str, Optional[Callable]] = {}
+        self._cat_states: Dict[str, bool] = {}
+
+    # ------------------------------------------------------------------
+    # state registry
+    # ------------------------------------------------------------------
+    def add_state(
+        self,
+        name: str,
+        default: StateValue,
+        dist_reduce_fx: Optional[Union[str, Callable]] = None,
+        persistent: bool = False,
+    ) -> None:
+        """Register a state: a tensor (reduced across processes by
+        ``dist_reduce_fx``) or an empty list (gathered and concatenated).
+        String reducers ``"sum"/"mean"/"max"/"min"/"cat"`` map to the
+        dim-zero functions. ``persistent`` is accepted as in the JAX package;
+        ``state_dict`` saves every state."""
+        if isinstance(default, list):
+            if default:
+                raise ValueError("state variable must be an array or an empty list (where you can append arrays)")
+        else:
+            try:
+                default = _state_tensor(default, self._device)
+            except (TypeError, ValueError, RuntimeError):
+                raise ValueError("state variable must be an array or an empty list (where you can append arrays)")
+
+        if isinstance(dist_reduce_fx, str) and dist_reduce_fx in _NOT_PORTED_REDUCERS:
+            raise NotImplementedError(
+                f"`dist_reduce_fx={dist_reduce_fx!r}` states are not ported yet (ROADMAP.md, queue A:"
+                f" '{_NOT_PORTED_REDUCERS[dist_reduce_fx]}')"
+            )
+        if isinstance(dist_reduce_fx, str) and dist_reduce_fx in _REDUCERS:
+            dist_reduce_fx = _REDUCERS[dist_reduce_fx]
+        elif dist_reduce_fx is not None and not callable(dist_reduce_fx):
+            raise ValueError(
+                "`dist_reduce_fx` must be callable or one of"
+                " ['mean', 'sum', 'cat', 'min', 'max', 'merge', 'ring', 'decay', None]"
+            )
+
+        object.__setattr__(self, name, [] if isinstance(default, list) else default.clone())
+        self._defaults[name] = default
+        self._reductions[name] = dist_reduce_fx
+        self._cat_states[name] = dist_reduce_fx is dim_zero_cat
+        # mean-reduced states need each side's update count to merge; the
+        # first one registers a sum-reduced counter (see merge_states)
+        if dist_reduce_fx is dim_zero_mean and _AUTO_COUNT not in self._defaults:
+            self.add_state(_AUTO_COUNT, default=0, dist_reduce_fx=_sentinel_count_sum)
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    # ------------------------------------------------------------------
+    @abstractmethod
+    def _update(self, *args: Any, **kwargs: Any) -> None:
+        """Accumulate batch statistics into the registered states."""
+
+    @abstractmethod
+    def _compute(self) -> Any:
+        """Compute the final value from the accumulated states."""
+
+    def _bump_auto_count(self, eager: bool) -> None:
+        """Increment the mean-merge update counter (no-op without mean
+        states). A negative counter stays negative. The eager path keeps
+        the counter a Python int (one host read after a reset or restore);
+        the pure-state path keeps it a tensor and never reads it."""
+        if _AUTO_COUNT not in self._defaults:
+            return
+        count = getattr(self, _AUTO_COUNT)
+        if isinstance(count, int):
+            object.__setattr__(self, _AUTO_COUNT, count + 1 if count >= 0 else count)
+        elif eager:
+            c = int(count)
+            object.__setattr__(self, _AUTO_COUNT, c + 1 if c >= 0 else c)
+        else:
+            object.__setattr__(self, _AUTO_COUNT, torch.where(count < 0, count, count + 1))
+
+    def _mark_state_written(self) -> None:
+        """Record an out-of-band state write (reset, restore, load, group borrow)."""
+        self._write_epoch += 1
+        self._computed = None
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        """Accumulate a batch into the states. numpy inputs go to the metric's device."""
+        self._write_epoch += 1
+        self._computed = None
+        self._update_called = True
+        self._update(*_to_device_inputs(args, self._device), **_to_device_inputs(kwargs, self._device))
+        self._bump_auto_count(eager=True)
+
+    def compute(self) -> Any:
+        """Compute (and cache) the metric from the accumulated states."""
+        if not self._update_called:
+            rank_zero_warn(
+                f"The ``compute`` method of metric {self.__class__.__name__} was called before"
+                " the ``update`` method which may lead to errors, as metric states have not yet been updated.",
+                UserWarning,
+            )
+        if self._computed is not None and self._computed_epoch == self._write_epoch:
+            return self._computed
+        check_single_process()
+        epoch0 = self._write_epoch
+        self._computed = _squeeze_if_scalar(self._compute())
+        self._computed_epoch = epoch0
+        return self._computed
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        """Update the accumulated states AND return the metric of this batch
+        alone (double update: accumulate; then snapshot, reset, update on
+        the batch, compute, restore)."""
+        self.update(*args, **kwargs)
+        snapshot = {attr: getattr(self, attr) for attr in self._defaults}
+        self.reset()
+        self.update(*args, **kwargs)
+        self._forward_cache = self.compute()
+        for attr, val in snapshot.items():
+            object.__setattr__(self, attr, val)
+        self._mark_state_written()
+        self._update_called = True
+        return self._forward_cache
+
+    def __call__(self, *args: Any, **kwargs: Any) -> Any:
+        return self.forward(*args, **kwargs)
+
+    def reset(self) -> None:
+        """Restore every state to its default."""
+        self._update_called = False
+        self._forward_cache = None
+        self._mark_state_written()
+        for attr, default in self._defaults.items():
+            object.__setattr__(self, attr, [] if isinstance(default, list) else default.clone())
+
+    # ------------------------------------------------------------------
+    # pure-state API
+    # ------------------------------------------------------------------
+    def init_state(self) -> Dict[str, StateValue]:
+        """Fresh state dict (copies of the defaults)."""
+        return {k: ([] if isinstance(v, list) else v.clone()) for k, v in self._defaults.items()}
+
+    def _bind(self, state: Dict[str, StateValue]) -> Dict[str, StateValue]:
+        old = {k: getattr(self, k) for k in self._defaults}
+        for k, v in state.items():
+            object.__setattr__(self, k, v)
+        return old
+
+    def update_state(self, state: Dict[str, StateValue], *args: Any, **kwargs: Any) -> Dict[str, StateValue]:
+        """Pure functional update: ``(state, batch) -> new state``; ``state`` is not modified."""
+        old = self._bind(state)
+        try:
+            self._update(*_to_device_inputs(args, self._device), **_to_device_inputs(kwargs, self._device))
+            # a state without the counter (hand-built, or restored from an
+            # old checkpoint) stays without it
+            if _AUTO_COUNT in state:
+                self._bump_auto_count(eager=False)
+            out = {k: getattr(self, k) for k in self._defaults if k != _AUTO_COUNT or k in state}
+            if isinstance(out.get(_AUTO_COUNT), int):
+                out[_AUTO_COUNT] = torch.tensor(out[_AUTO_COUNT], dtype=torch.int32, device=self._device)
+            return out
+        finally:
+            for k, v in old.items():
+                object.__setattr__(self, k, v)
+
+    def compute_state(self, state: Dict[str, StateValue]) -> Any:
+        """Pure functional compute: ``state -> value``."""
+        old = self._bind(state)
+        try:
+            return self._compute()
+        finally:
+            for k, v in old.items():
+                object.__setattr__(self, k, v)
+
+    def merge_states(
+        self,
+        a: Dict[str, StateValue],
+        b: Dict[str, StateValue],
+        counts: Optional[Sequence[Union[int, float, Tensor]]] = None,
+    ) -> Dict[str, StateValue]:
+        """Merge two independently accumulated states by each state's reducer.
+
+        Mean states merge as the count-weighted average; ``counts`` defaults
+        to the two states' `_n_updates` counters, and a negative counter on
+        either side (history unknown) falls back to the unweighted mean.
+        """
+        if counts is not None and len(counts) != 2:
+            raise ValueError(f"`counts` must be a pair (n_a, n_b), got {len(counts)} entries")
+        if counts is None and _AUTO_COUNT in a and _AUTO_COUNT in b:
+            counts = (a[_AUTO_COUNT], b[_AUTO_COUNT])
+        out: Dict[str, StateValue] = {}
+        for name, red in self._reductions.items():
+            if name == _AUTO_COUNT and (name not in a or name not in b):
+                continue
+            va, vb = a[name], b[name]
+            if name == _AUTO_COUNT:
+                va, vb = torch.as_tensor(va), torch.as_tensor(vb)
+                out[name] = torch.where((va >= 0) & (vb >= 0), va + vb, torch.full_like(va, -1))
+            elif isinstance(va, list) or isinstance(vb, list) or self._cat_states.get(name):
+                out[name] = (va if isinstance(va, list) else [va]) + (vb if isinstance(vb, list) else [vb])
+            elif red is dim_zero_sum:
+                out[name] = va + vb
+            elif red is dim_zero_mean:
+                if counts is None:
+                    out[name] = (va + vb) / 2
+                else:
+                    na, nb = (torch.as_tensor(c, dtype=torch.float32, device=va.device) for c in counts)
+                    total = na + nb
+                    weighted_ok = (na >= 0) & (nb >= 0) & (total > 0)
+                    out[name] = torch.where(
+                        weighted_ok, (na * va + nb * vb) / torch.clamp(total, min=1.0), (va + vb) / 2
+                    )
+            elif red is dim_zero_max:
+                out[name] = torch.maximum(va, vb)
+            elif red is dim_zero_min:
+                out[name] = torch.minimum(va, vb)
+            elif red is None:
+                raise MetricsUserError(
+                    f"Cannot merge tensor state {name!r} with reduction None (gathered-not-reduced"
+                    " states have no well-defined pairwise merge); use a list state instead"
+                )
+            else:
+                raise MetricsUserError(f"Cannot merge state {name!r} with custom reduction")
+        return out
+
+    # ------------------------------------------------------------------
+    # persistence
+    # ------------------------------------------------------------------
+    def state_dict(self, destination: Optional[Dict] = None, prefix: str = "") -> Dict[str, Any]:
+        """Flat dict of copies of all states."""
+        destination = {} if destination is None else destination
+        for name in self._defaults:
+            current = getattr(self, name)
+            if isinstance(current, list):
+                destination[prefix + name] = [v.clone() for v in current]
+            elif isinstance(current, int):  # the eager `_n_updates` counter
+                destination[prefix + name] = torch.tensor(current, dtype=torch.int32, device=self._device)
+            else:
+                destination[prefix + name] = current.clone()
+        return destination
+
+    def load_state_dict(self, state_dict: Dict[str, Any], prefix: str = "") -> None:
+        """Restore states saved by ``state_dict``. When real states are
+        restored without the `_n_updates` counter (an old checkpoint), the
+        counter becomes the -1 "history unknown" sentinel, so a later
+        count-weighted merge never weighs this side's data as zero."""
+        restored_real_state = False
+        for name in self._defaults:
+            key = prefix + name
+            if key in state_dict:
+                val = state_dict[key]
+                if isinstance(val, list):
+                    object.__setattr__(self, name, [torch.as_tensor(v, device=self._device) for v in val])
+                else:
+                    object.__setattr__(self, name, torch.as_tensor(val, device=self._device))
+                if name != _AUTO_COUNT:
+                    restored_real_state = True
+        if restored_real_state and _AUTO_COUNT in self._defaults and prefix + _AUTO_COUNT not in state_dict:
+            object.__setattr__(self, _AUTO_COUNT, torch.tensor(-1, dtype=torch.int32, device=self._device))
+        if restored_real_state:
+            self._mark_state_written()
+
+    # ------------------------------------------------------------------
+    # misc
+    # ------------------------------------------------------------------
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
+        """Keep the kwargs that ``self._update`` accepts."""
+        params = inspect.signature(self._update).parameters
+        if any(p.kind == p.VAR_KEYWORD for p in params.values()):
+            return kwargs
+        _params = (inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD)
+        return {k: v for k, v in kwargs.items() if k in params and params[k].kind not in _params}
+
+    def __repr__(self) -> str:
+        return f"{self.__class__.__name__}()"

@@ -1,0 +1,5 @@
+from metrics_tpu_torch.functional.classification import (  # noqa: F401
+    auroc_rank_multiclass,
+    auroc_rank_multiclass_masked,
+    confusion_matrix,
+)

@@ -1,0 +1,18 @@
+"""Hand-written CUDA kernels for the port's hot ops, each beside its plain
+PyTorch version and behind a device-routed entry point (see
+:mod:`metrics_tpu_torch.ops.dispatch`)."""
+from metrics_tpu_torch.ops.dispatch import (  # noqa: F401
+    count_launch,
+    launch_counts,
+    on_card,
+    reset_launch_counts,
+)
+from metrics_tpu_torch.ops.segment_sum import (  # noqa: F401
+    bincount_dispatch,
+    bincount_i32,
+    bincount_reference,
+    segment_sum,
+    segment_sum_dispatch,
+    segment_sum_f32,
+    segment_sum_reference,
+)

@@ -1,0 +1,82 @@
+"""Build the CUDA sources under ``metrics_tpu_torch/csrc`` at first use.
+
+Each source is compiled by ``nvcc`` into a shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds) and loaded with
+``ctypes``. Libraries go to ``metrics_tpu_torch/_build/``, named by a hash
+of the source and the flags, so an edited source builds anew and an
+unchanged one is loaded as it is. A failed build raises with the
+compiler's output: there is no fallback.
+"""
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Tuple
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+#: Hopper only: the ``a`` target keeps wgmma/setmaxnreg available to later kernels
+NVCC_FLAGS = (
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",
+    "-v",
+)
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``PATH``, else from ``$CUDA_HOME`` (default ``/usr/local/cuda``)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    candidate = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc was not found on PATH or under $CUDA_HOME/bin: the CUDA kernels of"
+        " metrics_tpu_torch are built from csrc/ at first use and need the CUDA toolkit"
+    )
+
+
+def library_path(source: str) -> Path:
+    """Where the library built from ``csrc/<source>`` lives (keyed on content and flags)."""
+    src = CSRC_DIR / source
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}-{digest}.so"
+
+
+def build(source: str) -> Tuple[Path, float, str]:
+    """Compile ``csrc/<source>`` unless its library exists.
+
+    Returns ``(library path, build seconds, compiler output)``; seconds and
+    output are ``0.0`` and ``""`` when the library was already built.
+    """
+    lib = library_path(source)
+    if lib.is_file():
+        return lib, 0.0, ""
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build under a private name and rename: concurrent first uses never
+    # load a half-written library
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)],
+        capture_output=True,
+        text=True,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed to build {source} (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib, seconds, proc.stdout + proc.stderr

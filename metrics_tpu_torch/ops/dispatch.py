@@ -1,0 +1,52 @@
+"""Device routing and launch counters for the port's kernels.
+
+Counterpart of ``metrics_tpu/ops/dispatch.py``, reduced to what a card
+needs: each op's entry point looks at where its tensors live. CPU tensors
+take the op's plain PyTorch version; CUDA tensors launch the hand-written
+kernel or raise. There is no environment switch to the plain version and
+no shape-based route: either would be a fallback that hides the kernel.
+
+Every kernel wrapper adds one to its launch counter each time it launches
+its kernel (and nowhere else), so a run can show that a path really went
+through the kernels: reset the counters, drive the path, read them.
+"""
+import threading
+from typing import Dict
+
+import torch
+
+__all__ = ["on_card", "count_launch", "launch_counts", "reset_launch_counts"]
+
+_LAUNCHES: Dict[str, int] = {}
+_LOCK = threading.Lock()
+
+
+def on_card(*tensors: torch.Tensor) -> bool:
+    """True when every tensor is on one CUDA device, False when every
+    tensor is on the CPU; anything else raises."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"expected tensors on one device, got {sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"metrics_tpu_torch kernels run on CUDA or CPU tensors, got device {device}")
+
+
+def count_launch(name: str) -> None:
+    with _LOCK:
+        _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches per kernel since the last :func:`reset_launch_counts`."""
+    with _LOCK:
+        return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    with _LOCK:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0

@@ -1,0 +1,241 @@
+"""Segment-sum and bincount: the CUDA kernels, their plain versions, and
+the device-routed entry points.
+
+Counterpart of ``metrics_tpu/ops/scatter_pallas.py`` (``segment_sum_tiled``
+and its ``bincount_dispatch`` / ``segment_sum_dispatch`` entries). The
+kernels live in ``csrc/segment_sum.cu`` (see its header for the design):
+
+* :func:`bincount_i32` -- int32 counts of int32/int64 ids, out-of-range
+  and negative ids dropped in the kernel;
+* :func:`segment_sum_f32` -- ``[B, D] x [B] -> [S, D]`` float32 sums,
+  deterministic, each (segment, column) summed in row order.
+
+Each wrapper takes CUDA tensors only, launches on the current stream and
+counts its launch (:mod:`metrics_tpu_torch.ops.dispatch`). The plain
+versions, :func:`bincount_reference` and :func:`segment_sum_reference`,
+compute the same functions with ``torch.bincount`` / ``index_add_``; the
+entry points use them for CPU tensors only.
+"""
+import ctypes
+import math
+import threading
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+
+from metrics_tpu_torch.ops.build import build
+from metrics_tpu_torch.ops.dispatch import count_launch, on_card
+from metrics_tpu_torch.utils.data import _as_tensor, _is_integer
+
+Tensor = torch.Tensor
+
+SOURCE = "segment_sum.cu"
+
+#: launch geometry of ``segment_sum_f32_kernel`` (must match the .cu constants)
+_WARPS = 8
+_TILE_FLOATS = 10240
+#: blocks to aim for when S is small: about two per SM of an H100 (132 SMs)
+_TARGET_BLOCKS = 264
+
+_LIB: Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernels' shared library."""
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            path, _, _ = build(SOURCE)
+            lib = ctypes.CDLL(str(path))
+            ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+            for name in ("bincount_i32_ids32", "bincount_i32_ids64"):
+                fn = getattr(lib, name)
+                fn.argtypes = [ptr, ll, ptr, ll, ptr]
+                fn.restype = i32
+            for name in ("segment_sum_f32_ids32", "segment_sum_f32_ids64"):
+                fn = getattr(lib, name)
+                fn.argtypes = [ptr, ptr, ll, i32, ptr, ll, i32, i32, ll, i32, ptr]
+                fn.restype = i32
+            lib.cuda_error_string.argtypes = [i32]
+            lib.cuda_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+        return _LIB
+
+
+def _launch(kernel: str, device: torch.device, fn: Any, *args: Any) -> None:
+    """Call a C launcher with ``device``'s current stream, raise on the CUDA
+    error it returns, and count the launch."""
+    if device.index == torch.cuda.current_device():
+        code = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            code = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        reason = load_library().cuda_error_string(code).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {code} ({reason})")
+    count_launch(kernel)
+
+
+def _check_cuda(name: str, *tensors: Tensor) -> None:
+    if not on_card(*tensors):
+        raise ValueError(f"{name} is a CUDA kernel; it takes CUDA tensors (the CPU takes the plain version)")
+
+
+def _ids_for_kernel(ids: Tensor) -> Tensor:
+    """Kernel ids are int32 or int64; narrower integers are promoted (never
+    narrowed: a downcast could wrap a huge label into range)."""
+    if not _is_integer(ids.dtype):
+        raise TypeError(f"segment ids must be integer-typed, got dtype {ids.dtype}")
+    if ids.dtype not in (torch.int32, torch.int64):
+        ids = ids.to(torch.int32)
+    return ids.reshape(-1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
+
+def bincount_i32(ids: Tensor, minlength: int) -> Tensor:
+    """int32 counts of ``ids`` over ``[0, minlength)`` on the card; other ids drop."""
+    _check_cuda("bincount_i32", ids)
+    ids = _ids_for_kernel(ids)
+    lib = _LIB or load_library()
+    out = torch.zeros(minlength, dtype=torch.int32, device=ids.device)
+    fn = lib.bincount_i32_ids64 if ids.dtype == torch.int64 else lib.bincount_i32_ids32
+    _launch("bincount_i32", ids.device, fn, ids.data_ptr(), ids.numel(), out.data_ptr(), minlength)
+    return out
+
+
+def segment_sum_geometry(d: int, num_segments: int) -> Tuple[int, int, int, int]:
+    """``(dc, sw, seg_tiles, col_chunks)`` of a ``segment_sum_f32`` launch:
+    ``dc`` columns per block (at most one warp's 32 lanes), ``sw`` segments
+    per warp, and the grid. The tile (8 warps x ``sw`` segments x ``dc``
+    columns) fits the kernel's 40 KB of shared memory; ``sw`` shrinks when
+    S is small so that about ``_TARGET_BLOCKS`` blocks are in flight."""
+    dc = min(d, 32)
+    col_chunks = -(-d // dc)
+    sw_max = _TILE_FLOATS // (_WARPS * dc)
+    sw = max(1, min(sw_max, math.ceil(num_segments * col_chunks / (_WARPS * _TARGET_BLOCKS))))
+    seg_tiles = -(-num_segments // (_WARPS * sw))
+    return dc, sw, seg_tiles, col_chunks
+
+
+def segment_sum_f32(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
+    """``[B, D]`` (or ``[B]``) float32 rows summed by id into
+    ``[num_segments, D]`` (or ``[num_segments]``) on the card; out-of-range
+    ids drop. Deterministic: each output is summed in row order."""
+    _check_cuda("segment_sum_f32", vals, ids)
+    if vals.dtype != torch.float32:
+        raise TypeError(f"segment_sum_f32 takes float32 values, got {vals.dtype}")
+    if vals.ndim not in (1, 2):
+        raise ValueError(f"segment_sum_f32 takes [B] or [B, D] values, got shape {tuple(vals.shape)}")
+    squeeze = vals.ndim == 1
+    rows = (vals[:, None] if squeeze else vals).contiguous()
+    ids = _ids_for_kernel(ids)
+    b, d = rows.shape
+    if ids.numel() != b:
+        raise ValueError(f"expected {b} segment ids, got {ids.numel()}")
+    if d == 0:  # nothing to sum: no launch
+        return torch.zeros((num_segments, 0), dtype=torch.float32, device=vals.device)
+    dc, sw, seg_tiles, col_chunks = segment_sum_geometry(d, num_segments)
+    lib = _LIB or load_library()
+    out = torch.empty((num_segments, d), dtype=torch.float32, device=vals.device)
+    fn = lib.segment_sum_f32_ids64 if ids.dtype == torch.int64 else lib.segment_sum_f32_ids32
+    _launch(
+        "segment_sum_f32",
+        vals.device,
+        fn,
+        rows.data_ptr(), ids.data_ptr(), b, d, out.data_ptr(), num_segments, dc, sw, seg_tiles, col_chunks,
+    )
+    return out[:, 0] if squeeze else out
+
+
+# ---------------------------------------------------------------------------
+# the plain versions
+# ---------------------------------------------------------------------------
+
+
+def bincount_reference(ids: Tensor, minlength: int) -> Tensor:
+    """Plain bincount: out-of-range ids are masked to an extra bin first
+    (``torch.bincount`` raises on negatives), which is then cut off."""
+    ids = ids.reshape(-1).to(torch.int64)
+    keep = (ids >= 0) & (ids < minlength)
+    counts = torch.bincount(torch.where(keep, ids, minlength), minlength=minlength + 1)
+    return counts[:minlength].to(torch.int32)
+
+
+def segment_sum_reference(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
+    """Plain segment-sum over the leading axis with ``index_add_``, in the
+    values' dtype; out-of-range ids go to an extra row (``index_add_``
+    asserts on them), which is then cut off."""
+    ids = ids.reshape(-1).to(torch.int64)
+    keep = (ids >= 0) & (ids < num_segments)
+    out = vals.new_zeros((num_segments + 1,) + tuple(vals.shape[1:]))
+    out.index_add_(0, torch.where(keep, ids, num_segments), vals)
+    return out[:num_segments]
+
+
+# ---------------------------------------------------------------------------
+# device-routed entry points
+# ---------------------------------------------------------------------------
+
+
+def segment_sum(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
+    """Segment-sum of ``[B]`` / ``[B, D]`` values: the kernel for CUDA
+    tensors (float32 only; other dtypes raise), the plain version for CPU
+    tensors (any dtype, result in the values' dtype)."""
+    if not on_card(vals, ids):
+        if ids.is_floating_point():
+            raise TypeError(f"segment ids must be integer-typed, got dtype {ids.dtype}")
+        return segment_sum_reference(vals, ids, num_segments)
+    return segment_sum_f32(vals, ids, num_segments)
+
+
+def segment_sum_dispatch(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
+    """Segment-sum over the LEADING axis: ``[B, ...]`` rows add into
+    ``[num_segments, ...]``. Trailing dims are flattened through the kernel
+    and restored. Out-of-range ids (negative included) drop."""
+    lead = vals.shape[0] if vals.ndim else 0
+    flat = vals.reshape(lead, -1) if vals.ndim > 2 else vals
+    out = segment_sum(flat, ids, num_segments)
+    if vals.ndim > 2:
+        out = out.reshape((num_segments,) + tuple(vals.shape[1:]))
+    return out
+
+
+def bincount_dispatch(x: Any, minlength: int, device: Optional[Any] = None) -> Tensor:
+    """Static-length int32 bincount with hardened inputs, as the JAX
+    package's ``bincount_dispatch``:
+
+    * ``minlength`` must be a positive Python int;
+    * ``x`` must be integer-typed: floats (and bools) raise ``TypeError``;
+    * negative ids raise ``ValueError`` when they are already on the host
+      (numpy arrays, lists, tuples), a free check. Tensor ids are never read
+      back for validation: their negatives drop, like ids past
+      ``minlength``, on both the card and the CPU.
+
+    Host ids go to ``device`` (the card unless ``device="cpu"``); tensors
+    count where they lie.
+    """
+    if not isinstance(minlength, int) or isinstance(minlength, bool) or minlength <= 0:
+        raise ValueError(f"`minlength` must be a positive int, got {minlength!r}")
+    host_vals = np.asarray(x) if isinstance(x, (np.ndarray, list, tuple)) else None
+    if host_vals is not None and not np.issubdtype(host_vals.dtype, np.integer):
+        raise TypeError(
+            f"bincount indices must be integer-typed, got dtype {host_vals.dtype};"
+            " cast labels to an integer dtype at the call site"
+        )
+    if host_vals is not None and host_vals.size and host_vals.min() < 0:
+        raise ValueError(f"bincount indices must be non-negative, got min {int(host_vals.min())}")
+    x = _as_tensor(x if host_vals is None else host_vals, device).reshape(-1)
+    if not _is_integer(x.dtype):
+        raise TypeError(
+            f"bincount indices must be integer-typed, got dtype {x.dtype};"
+            " cast labels to an integer dtype at the call site"
+        )
+    if on_card(x):
+        return bincount_i32(x, minlength)
+    return bincount_reference(x, minlength)

@@ -1,0 +1,35 @@
+"""Cross-process state synchronisation: single-process only in this slice.
+
+Counterpart of ``metrics_tpu/parallel/distributed.py``. With one process
+the world size is 1 and syncing a state is the identity. A metric computed
+inside an initialised ``torch.distributed`` group of more than one process
+raises instead of returning a rank-local value: the ``torch.distributed``
+sync is its own item of the port (ROADMAP.md, queue A).
+"""
+from typing import Any, Optional
+
+import torch
+
+_NOT_PORTED = (
+    "cross-process metric sync is not ported yet (ROADMAP.md, queue A:"
+    " 'torch.distributed sync'); this slice runs in one process"
+)
+
+
+def distributed_available() -> bool:
+    """True when an initialised ``torch.distributed`` group has more than one process."""
+    dist = torch.distributed
+    return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+
+
+def world_size(group: Optional[Any] = None) -> int:
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(group)
+    return 1
+
+
+def check_single_process() -> None:
+    """Raise where a sync would be needed: more than one process."""
+    if distributed_available():
+        raise NotImplementedError(_NOT_PORTED)

@@ -1,0 +1,316 @@
+"""Input canonicalisation for classification metrics.
+
+Counterpart of ``metrics_tpu/utils/checks.py`` (the classification part):
+the shape/dtype case-deduction table, the ``num_classes`` and ``top_k``
+consistency rules, and ``_input_format_classification``, which turns every
+supported input style into canonical int32 binary ``(N, C)`` / ``(N, C, X)``
+tensors. The errors and their messages match the JAX package's.
+
+The value checks (label ranges, implied class counts) read the data, which
+on the card is a device-to-host copy that waits for the card. All of them
+are taken from one small tensor of minima and maxima, read in one
+``.tolist()`` call per formatted batch (:func:`_value_stats`).
+"""
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from metrics_tpu_torch.utils.data import select_topk, to_onehot
+from metrics_tpu_torch.utils.enums import DataType
+
+Tensor = torch.Tensor
+
+
+def _check_for_empty_tensors(preds: Tensor, target: Tensor) -> bool:
+    return preds.numel() == 0 and target.numel() == 0
+
+
+def _value_stats(preds: Tensor, target: Tensor) -> Dict[str, int]:
+    """``tmin``/``tmax`` of the target and, for integer predictions,
+    ``pmin``/``pmax``: every value a check below reads, in ONE host read."""
+    parts: Dict[str, Tensor] = {}
+    if target.numel():
+        parts["tmin"], parts["tmax"] = target.min(), target.max()
+    if not preds.is_floating_point() and preds.numel():
+        parts["pmin"], parts["pmax"] = preds.min(), preds.max()
+    if not parts:
+        return {}
+    values = torch.stack([v.to(torch.int64) for v in parts.values()]).tolist()
+    return dict(zip(parts, values))
+
+
+def _basic_input_validation(
+    preds: Tensor,
+    target: Tensor,
+    threshold: float,
+    multiclass: Optional[bool],
+    ignore_index: Optional[int],
+) -> Dict[str, int]:
+    """Case-independent validation; returns the value stats it read."""
+    if _check_for_empty_tensors(preds, target):
+        return {}
+    if target.is_floating_point():
+        raise ValueError("The `target` has to be an integer tensor.")
+
+    preds_float = preds.is_floating_point()
+    if not preds.ndim or not target.ndim:
+        raise ValueError("The `preds` and `target` should be non-scalar tensors.")
+    if preds.shape[0] != target.shape[0]:
+        raise ValueError("The `preds` and `target` should have the same first dimension.")
+
+    stats = _value_stats(preds, target)
+    tmin = stats.get("tmin", 0)
+    if ignore_index is None and tmin < 0:
+        raise ValueError("The `target` has to be a non-negative tensor.")
+    if ignore_index is not None and ignore_index >= 0 and tmin < 0:
+        raise ValueError("The `target` has to be a non-negative tensor.")
+    if not preds_float and stats.get("pmin", 0) < 0:
+        raise ValueError("If `preds` are integers, they have to be non-negative.")
+    if multiclass is False and stats.get("tmax", 0) > 1:
+        raise ValueError("If you set `multiclass=False`, then `target` should not exceed 1.")
+    if multiclass is False and not preds_float and stats.get("pmax", 0) > 1:
+        raise ValueError("If you set `multiclass=False` and `preds` are integers, then `preds` should not exceed 1.")
+    return stats
+
+
+def _check_shape_and_type_consistency(
+    preds: Tensor, target: Tensor, stats: Dict[str, int]
+) -> Tuple[DataType, int]:
+    """Deduce the input case from shapes/dtypes."""
+    preds_float = preds.is_floating_point()
+
+    if preds.ndim == target.ndim:
+        if preds.shape != target.shape:
+            raise ValueError(
+                "The `preds` and `target` should have the same shape,"
+                f" got `preds` with shape={tuple(preds.shape)} and `target` with shape={tuple(target.shape)}."
+            )
+        if preds_float and target.numel() > 0 and stats["tmax"] > 1:
+            raise ValueError(
+                "If `preds` and `target` are of shape (N, ...) and `preds` are floats, `target` should be binary."
+            )
+        if preds.ndim == 1 and preds_float:
+            case = DataType.BINARY
+        elif preds.ndim == 1 and not preds_float:
+            case = DataType.MULTICLASS
+        elif preds.ndim > 1 and preds_float:
+            case = DataType.MULTILABEL
+        else:
+            case = DataType.MULTIDIM_MULTICLASS
+        implied_classes = preds[0].numel() if preds.numel() > 0 else 0
+
+    elif preds.ndim == target.ndim + 1:
+        if not preds_float:
+            raise ValueError("If `preds` have one dimension more than `target`, `preds` should be a float tensor.")
+        if preds.shape[2:] != target.shape[1:]:
+            raise ValueError(
+                "If `preds` have one dimension more than `target`, the shape of `preds` should be"
+                " (N, C, ...), and the shape of `target` should be (N, ...)."
+            )
+        implied_classes = preds.shape[1] if preds.numel() > 0 else 0
+        case = DataType.MULTICLASS if preds.ndim == 2 else DataType.MULTIDIM_MULTICLASS
+    else:
+        raise ValueError(
+            "Either `preds` and `target` both should have the (same) shape (N, ...), or `target` should be (N, ...)"
+            " and `preds` should be (N, C, ...)."
+        )
+
+    return case, implied_classes
+
+
+def _check_num_classes_binary(num_classes: int, multiclass: Optional[bool]) -> None:
+    if num_classes > 2:
+        raise ValueError("Your data is binary, but `num_classes` is larger than 2.")
+    if num_classes == 2 and not multiclass:
+        raise ValueError(
+            "Your data is binary and `num_classes=2`, but `multiclass` is not True."
+            " Set it to True if you want to transform binary data to multi-class format."
+        )
+    if num_classes == 1 and multiclass:
+        raise ValueError(
+            "You have binary data and have set `multiclass=True`, but `num_classes` is 1."
+            " Either set `multiclass=None`(default) or set `num_classes=2`"
+            " to transform binary data to multi-class format."
+        )
+
+
+def _check_num_classes_mc(
+    preds: Tensor,
+    target: Tensor,
+    num_classes: int,
+    multiclass: Optional[bool],
+    implied_classes: int,
+    stats: Dict[str, int],
+) -> None:
+    if num_classes == 1 and multiclass is not False:
+        raise ValueError(
+            "You have set `num_classes=1`, but predictions are integers."
+            " If you want to convert (multi-dimensional) multi-class data with 2 classes"
+            " to binary/multi-label, set `multiclass=False`."
+        )
+    if num_classes > 1:
+        if multiclass is False and implied_classes != num_classes:
+            raise ValueError(
+                "You have set `multiclass=False`, but the implied number of classes "
+                " (from shape of inputs) does not match `num_classes`."
+            )
+        if target.numel() > 0 and num_classes <= stats["tmax"]:
+            raise ValueError("The highest label in `target` should be smaller than `num_classes`.")
+        if preds.shape != target.shape and num_classes != implied_classes:
+            raise ValueError("The size of C dimension of `preds` does not match `num_classes`.")
+
+
+def _check_num_classes_ml(num_classes: int, multiclass: Optional[bool], implied_classes: int) -> None:
+    if multiclass and num_classes != 2:
+        raise ValueError(
+            "Your have set `multiclass=True`, but `num_classes` is not equal to 2."
+            " If you are trying to transform multi-label data to 2 class multi-dimensional"
+            " multi-class, you should set `num_classes` to either 2 or None."
+        )
+    if not multiclass and num_classes != implied_classes:
+        raise ValueError("The implied number of classes (from shape of inputs) does not match num_classes.")
+
+
+def _check_top_k(top_k: int, case: str, implied_classes: int, multiclass: Optional[bool], preds_float: bool) -> None:
+    if case == DataType.BINARY:
+        raise ValueError("You can not use `top_k` parameter with binary data.")
+    if not isinstance(top_k, int) or top_k <= 0:
+        raise ValueError("The `top_k` has to be an integer larger than 0.")
+    if not preds_float:
+        raise ValueError("You have set `top_k`, but you do not have probability predictions.")
+    if multiclass is False:
+        raise ValueError("If you set `multiclass=False`, you can not set `top_k`.")
+    if case == DataType.MULTILABEL and multiclass:
+        raise ValueError(
+            "If you want to transform multi-label data to 2 class multi-dimensional"
+            "multi-class data using `multiclass=True`, you can not use `top_k`."
+        )
+    if top_k >= implied_classes:
+        raise ValueError("The `top_k` has to be strictly smaller than the `C` dimension of `preds`.")
+
+
+def _check_inputs_with_stats(
+    preds: Tensor,
+    target: Tensor,
+    threshold: float,
+    num_classes: Optional[int],
+    multiclass: Optional[bool],
+    top_k: Optional[int],
+    ignore_index: Optional[int] = None,
+) -> Tuple[DataType, Dict[str, int]]:
+    """:func:`_check_classification_inputs`, also returning the value stats
+    it read so that a caller needs no second host read."""
+    stats = _basic_input_validation(preds, target, threshold, multiclass, ignore_index)
+    case, implied_classes = _check_shape_and_type_consistency(preds, target, stats)
+
+    if preds.shape != target.shape:
+        if multiclass is False and implied_classes != 2:
+            raise ValueError(
+                "You have set `multiclass=False`, but have more than 2 classes in your data,"
+                " based on the C dimension of `preds`."
+            )
+        if target.numel() > 0 and stats["tmax"] >= implied_classes:
+            raise ValueError(
+                "The highest label in `target` should be smaller than the size of the `C` dimension of `preds`."
+            )
+
+    if num_classes:
+        if case == DataType.BINARY:
+            _check_num_classes_binary(num_classes, multiclass)
+        elif case in (DataType.MULTICLASS, DataType.MULTIDIM_MULTICLASS):
+            _check_num_classes_mc(preds, target, num_classes, multiclass, implied_classes, stats)
+        elif case == DataType.MULTILABEL:
+            _check_num_classes_ml(num_classes, multiclass, implied_classes)
+
+    if top_k is not None:
+        _check_top_k(top_k, case, implied_classes, multiclass, preds.is_floating_point())
+
+    return case, stats
+
+
+def _check_classification_inputs(
+    preds: Tensor,
+    target: Tensor,
+    threshold: float,
+    num_classes: Optional[int],
+    multiclass: Optional[bool],
+    top_k: Optional[int],
+    ignore_index: Optional[int] = None,
+) -> DataType:
+    """Full input validation; returns the deduced case."""
+    case, _ = _check_inputs_with_stats(preds, target, threshold, num_classes, multiclass, top_k, ignore_index)
+    return case
+
+
+def _input_squeeze(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
+    """Remove size-1 dims (keeping the batch dim)."""
+    if preds.ndim and preds.shape[0] == 1:
+        return preds.squeeze().unsqueeze(0), target.squeeze().unsqueeze(0)
+    return preds.squeeze(), target.squeeze()
+
+
+def _input_format_classification(
+    preds: Tensor,
+    target: Tensor,
+    threshold: float = 0.5,
+    top_k: Optional[int] = None,
+    num_classes: Optional[int] = None,
+    multiclass: Optional[bool] = None,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, DataType]:
+    """Convert every supported input style to canonical int32 binary tensors.
+
+    Returns ``(preds, target, case)`` with preds/target of shape ``(N, C)``
+    or ``(N, C, X)``, as ``metrics_tpu``'s function of the same name does.
+    """
+    preds, target = _input_squeeze(preds, target)
+
+    if preds.dtype in (torch.float16, torch.bfloat16):
+        preds = preds.to(torch.float32)
+
+    case, stats = _check_inputs_with_stats(
+        preds,
+        target,
+        threshold=threshold,
+        num_classes=num_classes,
+        multiclass=multiclass,
+        top_k=top_k,
+        ignore_index=ignore_index,
+    )
+
+    if case in (DataType.BINARY, DataType.MULTILABEL) and not top_k:
+        preds = (preds >= threshold).to(torch.int32)
+        num_classes = num_classes if not multiclass else 2
+
+    if case == DataType.MULTILABEL and top_k:
+        preds = select_topk(preds, top_k)
+
+    if case in (DataType.MULTICLASS, DataType.MULTIDIM_MULTICLASS) or multiclass:
+        if preds.is_floating_point():
+            num_classes = preds.shape[1]
+            preds = select_topk(preds, top_k or 1)
+        else:
+            if num_classes is None:
+                # integer predictions reaching here are the caller's own, so
+                # the stats read above still describe them
+                num_classes = max(stats["pmax"], stats["tmax"]) + 1
+            preds = to_onehot(preds, max(2, num_classes))
+
+        target = to_onehot(target, max(2, num_classes))
+
+        if multiclass is False:
+            preds, target = preds[:, 1, ...], target[:, 1, ...]
+
+    if not _check_for_empty_tensors(preds, target):
+        if (case in (DataType.MULTICLASS, DataType.MULTIDIM_MULTICLASS) and multiclass is not False) or multiclass:
+            target = target.reshape(target.shape[0], target.shape[1], -1)
+            preds = preds.reshape(preds.shape[0], preds.shape[1], -1)
+        else:
+            target = target.reshape(target.shape[0], -1)
+            preds = preds.reshape(preds.shape[0], -1)
+
+    # some transformations above create a trailing size-1 dim for MC/binary case
+    if preds.ndim > 2 and preds.shape[-1] == 1:
+        preds, target = preds.squeeze(-1), target.squeeze(-1)
+
+    return preds.to(torch.int32), target.to(torch.int32), case

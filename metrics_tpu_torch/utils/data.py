@@ -1,0 +1,176 @@
+"""Tensor helpers: device placement, dim-zero reducers, one-hot, top-k
+selection, collection mapping, the routed bincount and the payload sort.
+
+Counterpart of ``metrics_tpu/utils/data.py``. The JAX package runs with
+x64 off, so its integer states are int32 and its host floats become
+float32; the helpers here keep those dtypes where they are part of a
+metric's contract (torch would default to int64 / float64).
+"""
+from typing import Any, Callable, List, Mapping, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+Tensor = torch.Tensor
+
+_INT_DTYPES = (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64)
+_SIGNED_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64)
+
+
+def _resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
+    """``None`` means the card. A CUDA device without CUDA raises: the port
+    never moves to the CPU unless the caller asks for it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run metrics_tpu_torch on the CPU"
+        )
+    return dev
+
+
+def _as_tensor(x: Any, device: Optional[Union[str, torch.device]] = None) -> Tensor:
+    """A tensor stays where it is. Host data (numpy, lists, scalars) goes to
+    ``device`` (the card by default); float64 becomes float32, as it does
+    in the JAX package with x64 off. Integer arrays keep their width."""
+    if isinstance(x, Tensor):
+        return x
+    arr = np.asarray(x)
+    if arr.dtype == np.float64:
+        arr = arr.astype(np.float32)
+    return torch.as_tensor(arr, device=_resolve_device(device))
+
+
+def _is_integer(dtype: torch.dtype) -> bool:
+    return dtype in _INT_DTYPES
+
+
+def dim_zero_cat(x: Union[Tensor, List[Tensor], Tuple[Tensor, ...]]) -> Tensor:
+    """Concatenation along dim 0; accepts a single tensor or a list."""
+    if not isinstance(x, (list, tuple)):
+        return x
+    x = [torch.atleast_1d(el) for el in x]
+    if not x:
+        raise ValueError("No samples to concatenate")
+    return torch.cat(x, dim=0)
+
+
+def dim_zero_sum(x: Tensor) -> Tensor:
+    # integer sums keep their width (torch would widen int32 to int64)
+    if x.dtype == torch.bool:
+        return torch.sum(x, dim=0, dtype=torch.int32)
+    return torch.sum(x, dim=0, dtype=x.dtype if _is_integer(x.dtype) else None)
+
+
+def dim_zero_mean(x: Tensor) -> Tensor:
+    return torch.mean(x if x.is_floating_point() else x.to(torch.float32), dim=0)
+
+
+def dim_zero_max(x: Tensor) -> Tensor:
+    return torch.amax(x, dim=0)
+
+
+def dim_zero_min(x: Tensor) -> Tensor:
+    return torch.amin(x, dim=0)
+
+
+def _total_order_key(x: Tensor) -> Tensor:
+    """Integer key whose signed order is IEEE totalOrder of the floats in
+    ``x`` (-NaN < -inf < ... < -0.0 < +0.0 < ... < +inf < +NaN): the order
+    ``lax.top_k`` ranks by, so argmax over the key picks what the JAX
+    package's top-1 picks, NaN rows and signed zeros included."""
+    if x.dtype == torch.float64:
+        bits, flip = x.view(torch.int64), 0x7FFFFFFFFFFFFFFF
+    else:
+        bits, flip = x.to(torch.float32).view(torch.int32), 0x7FFFFFFF
+    return torch.where(bits < 0, bits ^ flip, bits)
+
+
+def to_onehot(label_tensor: Tensor, num_classes: Optional[int] = None) -> Tensor:
+    """Integer labels ``(N, ...)`` to an int32 one-hot ``(N, C, ...)``.
+
+    Labels outside ``[0, C)`` give an all-zero row, as ``jax.nn.one_hot``
+    does (``torch.nn.functional.one_hot`` would raise)."""
+    if label_tensor.ndim == 2 and label_tensor.is_floating_point():
+        return label_tensor
+    if num_classes is None:
+        num_classes = int(label_tensor.max()) + 1
+    classes = torch.arange(num_classes, device=label_tensor.device)
+    onehot = (label_tensor.unsqueeze(-1) == classes).to(torch.int32)
+    return onehot.movedim(-1, 1)
+
+
+def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
+    """Int32 mask of the ``topk`` highest entries along ``dim``; ties go to
+    the lower index and floats rank by IEEE totalOrder (``lax.top_k``)."""
+    moved = prob_tensor.movedim(dim, -1)
+    key = _total_order_key(moved) if moved.is_floating_point() else moved
+    if topk == 1:
+        idx = key.argmax(dim=-1, keepdim=True)  # first maximum
+    else:
+        idx = torch.sort(key, dim=-1, descending=True, stable=True).indices[..., :topk]
+    mask = torch.zeros(moved.shape, dtype=torch.int32, device=moved.device).scatter_(-1, idx, 1)
+    return mask.movedim(-1, dim)
+
+
+def to_categorical(tensor: Tensor, argmax_dim: int = 1) -> Tensor:
+    """Probabilities/logits to integer labels by argmax (totalOrder, first maximum)."""
+    key = _total_order_key(tensor) if tensor.is_floating_point() else tensor
+    return key.argmax(dim=argmax_dim)
+
+
+def apply_to_collection(
+    data: Any,
+    dtype: Union[type, tuple],
+    function: Callable,
+    *args: Any,
+    wrong_dtype: Optional[Union[type, tuple]] = None,
+    **kwargs: Any,
+) -> Any:
+    """Recursively apply ``function`` to all ``dtype`` elements of a collection."""
+    elem_type = type(data)
+    if isinstance(data, dtype) and (wrong_dtype is None or not isinstance(data, wrong_dtype)):
+        return function(data, *args, **kwargs)
+    if isinstance(data, Mapping):
+        return elem_type(
+            {k: apply_to_collection(v, dtype, function, *args, wrong_dtype=wrong_dtype, **kwargs) for k, v in data.items()}
+        )
+    if isinstance(data, tuple) and hasattr(data, "_fields"):  # namedtuple
+        return elem_type(*(apply_to_collection(d, dtype, function, *args, wrong_dtype=wrong_dtype, **kwargs) for d in data))
+    if isinstance(data, Sequence) and not isinstance(data, str):
+        return elem_type([apply_to_collection(d, dtype, function, *args, wrong_dtype=wrong_dtype, **kwargs) for d in data])
+    return data
+
+
+def _bincount(x: Any, minlength: int) -> Tensor:
+    """Static-length int32 bincount routed by device: the ``bincount_i32``
+    kernel for a CUDA tensor, the plain version for a CPU one. See
+    :func:`metrics_tpu_torch.ops.bincount_dispatch` for the input contract.
+    Lazy import: this module is imported by nearly every metric."""
+    from metrics_tpu_torch.ops import bincount_dispatch
+
+    return bincount_dispatch(x, minlength)
+
+
+def stable_sort_with_payloads(
+    key: Tensor, *payloads: Tensor, descending: bool = False
+) -> Tuple[Tensor, ...]:
+    """Stable sort of ``key`` along its last axis, carrying ``payloads``
+    (same shape) through the same permutation. Descending order is a key
+    negation, which is the permutation of ``argsort(-key, stable=True)``;
+    it requires a floating or signed-integer key. Returns
+    ``(sorted_key, *sorted_payloads)``."""
+    if descending and not (key.is_floating_point() or key.dtype in _SIGNED_DTYPES):
+        raise ValueError(
+            "stable_sort_with_payloads(descending=True) requires a floating or"
+            f" signed-integer key (negation-based descending order); got dtype {key.dtype}."
+            " Cast unsigned/bool keys to a signed or floating dtype first."
+        )
+    work_key = -key if descending else key
+    sorted_key, order = torch.sort(work_key, dim=-1, stable=True)
+    sorted_key = -sorted_key if descending else sorted_key
+    return (sorted_key,) + tuple(p.gather(-1, order) for p in payloads)
+
+
+def _squeeze_if_scalar(data: Any) -> Any:
+    """Recursively squeeze single-element tensors to 0-d."""
+    return apply_to_collection(data, Tensor, lambda x: x.reshape(()) if x.numel() == 1 else x)

@@ -1,0 +1,29 @@
+"""Rank-zero-only warnings, keyed on the ``torch.distributed`` rank (0 when
+no process group is initialised)."""
+import warnings
+from functools import wraps
+from typing import Any, Callable
+
+import torch
+
+
+def _process_index() -> int:
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+def rank_zero_only(fn: Callable) -> Callable:
+    @wraps(fn)
+    def wrapped_fn(*args: Any, **kwargs: Any) -> Any:
+        if _process_index() == 0:
+            return fn(*args, **kwargs)
+        return None
+
+    return wrapped_fn
+
+
+@rank_zero_only
+def rank_zero_warn(message: str, *args: Any, **kwargs: Any) -> None:
+    warnings.warn(message, *args, stacklevel=kwargs.pop("stacklevel", 3), **kwargs)

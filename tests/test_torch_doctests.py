@@ -1,0 +1,28 @@
+"""The docstring examples of metrics_tpu_torch run and print what they show (on the CPU)."""
+import doctest
+import importlib
+import pkgutil
+
+import pytest
+import torch
+
+import metrics_tpu_torch
+
+torch.set_num_threads(2)
+
+def _has_examples(module: str) -> bool:
+    return any(t.examples for t in doctest.DocTestFinder().find(importlib.import_module(module)))
+
+
+_MODULES = sorted(info.name for info in pkgutil.walk_packages(metrics_tpu_torch.__path__, "metrics_tpu_torch."))
+_WITH_EXAMPLES = [name for name in _MODULES if _has_examples(name)]
+
+
+def test_examples_exist():
+    assert len(_WITH_EXAMPLES) >= 4
+
+
+@pytest.mark.parametrize("module", _WITH_EXAMPLES)
+def test_docstring_examples(module):
+    result = doctest.testmod(importlib.import_module(module), optionflags=doctest.NORMALIZE_WHITESPACE)
+    assert result.failed == 0 and result.attempted > 0
