@@ -6,7 +6,8 @@ Run from the root of a checkout, with one CUDA card:
 
 Phases, each printed as one JSON line:
 
-1. build   -- compile csrc/segment_sum.cu with nvcc (seconds, ptxas report);
+1. build   -- compile csrc/segment_sum.cu and csrc/qsketch.cu with nvcc, one
+   process per source, started together (seconds, ptxas report);
 2. parity  -- each kernel against its plain PyTorch version on the same card
    tensors: bincount_i32 at the ConfusionMatrix shape (4096 ids, 10**6
    bins) plus negative and out-of-range ids, bit-exact; segment_sum_f32 at
@@ -14,7 +15,12 @@ Phases, each printed as one JSON line:
    and [4096,130]->1000, bit-exact on integer-valued data and within the
    float32 summation bound otherwise, bit-identical to the plain version run
    on the CPU (both add each output in row order), and bit-identical across
-   two runs;
+   two runs; qsketch_sort_bucket (the sketch compaction's sort, prefix sum
+   and bucket map) at [1024,3], [16384,3], [32768,16], [12288,2002] and a
+   ragged [5001,4] with tied keys and zero-weight rows, on integer weights:
+   weighted rows, bucket ids and permutation bit-exact against the plain
+   version on the card and on the CPU and across two runs, and the whole
+   compaction chain bit-exact against its plain version;
 3. flagship -- the main path: 50 pre-stacked 4096x1000 softmax batches
    (seed 42, the fixture of bench.py), per step ConfusionMatrix.update_state
    plus auroc_rank_multiclass; launch counters reset just before and read
@@ -25,9 +31,26 @@ Phases, each printed as one JSON line:
 4. stateful -- MetricCollection(ConfusionMatrix, AUROC(capacity=65536)) over
    12 batches (49,152 rows), launch counters reset and read likewise,
    computed values checked against the same numpy references;
-5. the kernels line: per kernel its launches on the main path, its error
-   against the plain version, and its time, the plain version's time, the
-   library call's time and the byte bound, all at the main path's shapes.
+5. sketch-binary -- the sketched default AUROC() (capacity 8192) streams
+   800 batches of 8192 (6,553,600 samples, seed 42: y = rand < 0.26, score
+   = sigmoid(randn + 1.2 y)); launch counters reset and read likewise (every
+   batch after the first compacts once: 799 launches of each kernel); ms per
+   update, warm compute() ms (median of 5 after a cold one), state bytes,
+   and five updates under torch.profiler; gates: AUROC within 5e-3 of the
+   float64 midrank AUROC of the whole stream, total sketch weight exactly
+   6,553,600, and within 1e-6 of the same stream through the port on the
+   CPU (the count of sketch rows that differ bitwise is printed);
+6. sketch-window -- AUROC() over the first 8192 samples (inside the
+   lossless window: no compaction) within 1e-6 of scipy, and the binary
+   capacity mode AUROC(capacity=8192) on the same samples likewise;
+7. sketch-multiclass -- AUROC(num_classes=1000) over 12 flagship batches
+   (sketch rows of 2002 columns, 10 compactions), checked against the port
+   on the CPU within the float32 summation bound; its error against scipy
+   is printed;
+8. the kernels line: per kernel its launches on its main path (flagship for
+   K1, sketch-binary for K3), its error against the plain version, and its
+   time, the plain version's time, the library call's time and the byte
+   bound, all at the main paths' shapes.
 
 Then the card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed check
@@ -38,6 +61,8 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from importlib import import_module
 
 import numpy as np
 
@@ -51,7 +76,25 @@ STATEFUL_BATCHES = 12
 HBM_BYTES_PER_S = 3.35e12
 KERNEL_SOURCE = "metrics_tpu_torch/csrc/segment_sum.cu"
 REPLACES = "metrics_tpu/ops/scatter_pallas.py:68"
+QSKETCH_SOURCE = "metrics_tpu_torch/csrc/qsketch.cu"
+QSKETCH_REPLACES = "metrics_tpu/ops/qsketch_pallas.py:149"
 TIMING_LAUNCHES = 200
+#: the sketched default: capacity, batch, batches (one test day of a
+#: display-ads click log) and the positive rate of that stream
+SKETCH_CAPACITY = 8192
+SKETCH_BATCH = 8192
+SKETCH_BATCHES = 800
+CTR_POSITIVE_RATE = 0.26
+SKETCH_MC_BATCHES = 12
+COMPUTE_REPEATS = 5
+#: K3 parity cases: (name, rows, columns, share of zero-weight rows, tied keys)
+QSKETCH_PARITY_CASES = (
+    ("[1024,3]", 1024, 3, 0.0, False),
+    ("[16384,3]", 16384, 3, 0.0, False),
+    ("[32768,16]", 32768, 16, 0.0, False),
+    ("[12288,2002]", 12288, 2002, 0.0, False),
+    ("[5001,4] tied keys, zero-weight rows", 5001, 4, 0.3, True),
+)
 
 
 def emit(obj):
@@ -97,10 +140,11 @@ def _self_device_us(evt):
     return getattr(evt, "self_device_time_total", None) or evt.self_cuda_time_total
 
 
-def kernel_device_ms(torch, fn, kernel_name, launches=50):
-    """Device time of one launch of the kernel named ``kernel_name`` alone,
-    from torch.profiler; the wrappers' host work and the output zeroing are
-    not in it."""
+def kernel_device_ms(torch, fn, kernel_names, launches=50):
+    """Device time of one call of ``fn`` spent in the kernels named
+    ``kernel_names`` (a name or a tuple of the names a wrapper launches
+    once each), from torch.profiler; the wrappers' host work and the output
+    zeroing are not in it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -109,12 +153,39 @@ def kernel_device_ms(torch, fn, kernel_name, launches=50):
         for _ in range(launches):
             fn()
         torch.cuda.synchronize()
-    rows = [evt for evt in prof.key_averages() if kernel_name in evt.key]
-    # the profiler may miss an event at the edge of its window: average over
-    # the launches it saw
-    count = sum(evt.count for evt in rows)
-    check(count > 0, f"the profiler saw no launch of {kernel_name}")
-    return sum(_self_device_us(evt) for evt in rows) / count / 1e3
+    averages = prof.key_averages()
+    total_ms = 0.0
+    for kernel_name in (kernel_names,) if isinstance(kernel_names, str) else kernel_names:
+        rows = [evt for evt in averages if kernel_name in evt.key]
+        # the profiler may miss an event at the edge of its window: average
+        # over the launches it saw
+        count = sum(evt.count for evt in rows)
+        check(count > 0, f"the profiler saw no launch of {kernel_name}")
+        total_ms += sum(_self_device_us(evt) for evt in rows) / count / 1e3
+    return total_ms
+
+
+def device_profile(torch, step, steps):
+    """``step(i)`` for ``i < steps`` under torch.profiler: wall and device
+    time per step and the kernels that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(i)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    # device rows (kernels, memsets, copies) have no CPU time of their own
+    device = [evt for evt in prof.key_averages() if evt.self_cpu_time_total == 0 and _self_device_us(evt) > 0]
+    device_us = sum(_self_device_us(evt) for evt in device)
+    top = sorted(device, key=_self_device_us, reverse=True)[:8]
+    return {
+        "profiled_wall_ms_per_step": wall_s / steps * 1e3,
+        "device_busy_ms_per_step": device_us / steps / 1e3,
+        "device_us_per_step_by_kernel": {evt.key[:80]: _self_device_us(evt) / steps for evt in top},
+    }
 
 
 def host_us_per_call(torch, fn, calls=200):
@@ -145,9 +216,256 @@ def numpy_auroc(scores, target, num_classes):
     return per_class, float(np.mean(per_class[defined]))
 
 
+def midrank_auroc(score, y):
+    """Binary AUROC from scipy midranks of the whole stream, in float64."""
+    from scipy.stats import rankdata
+
+    ranks = rankdata(score.astype(np.float64))
+    positive = y.astype(bool)
+    n_pos = int(positive.sum())
+    n_neg = positive.size - n_pos
+    return float((ranks[positive].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+
+
+def make_ctr_stream(rows):
+    """A click log of ``rows`` samples from seed 42: a click with
+    probability 0.26, the model's score sigmoid(randn + 1.2 * click), float32
+    scores and int64 labels."""
+    rng = np.random.default_rng(42)
+    clicked = rng.random(rows) < CTR_POSITIVE_RATE
+    score = 1.0 / (1.0 + np.exp(-(rng.standard_normal(rows) + 1.2 * clicked)))
+    return score.astype(np.float32), clicked.astype(np.int64)
+
+
+def median_ms(torch, fn, repeats=COMPUTE_REPEATS):
+    """Median wall time of ``fn()`` with a synchronise, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def bitwise_rows_differ(torch, a, b):
+    """Rows of two float32 sketches that differ in any bit."""
+    return int((a.cpu().view(torch.int32) != b.cpu().view(torch.int32)).any(dim=1).sum())
+
+
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def qsketch_rows(torch, gen, n, cols, zero_share=0.0, tied=False):
+    """Sketch rows ``[w, key, payload...]``: integer weights 1..4 (0 for about
+    ``zero_share`` of the rows), float keys (integers with many ties when
+    ``tied``), integer payloads."""
+    rows = torch.zeros(n, cols)
+    rows[:, 0] = torch.randint(1, 5, (n,), generator=gen).float()
+    rows[:, 0][torch.rand(n, generator=gen) < zero_share] = 0
+    rows[:, 1] = torch.randint(0, 50, (n,), generator=gen).float() if tied else torch.randn(n, generator=gen)
+    rows[:, 2:] = torch.randint(0, 3, (n, cols - 2), generator=gen).float()
+    return rows
+
+
+def qsketch_parity_phase(torch, ops, card):
+    """qsketch_sort_bucket against its plain version; launches here are not counted."""
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    results = []
+    for name, n, cols, zero_share, tied in QSKETCH_PARITY_CASES:
+        host = qsketch_rows(torch, gen, n, cols, zero_share, tied)
+        rows = host.cuda()
+        got = ops.qsketch_sort_bucket(rows, SKETCH_CAPACITY)
+        again = ops.qsketch_sort_bucket(rows, SKETCH_CAPACITY)
+        plain = ops.qsketch_sort_bucket_reference(rows, SKETCH_CAPACITY)
+        plain_cpu = ops.qsketch_sort_bucket_reference(host, SKETCH_CAPACITY)
+        torch.cuda.synchronize()
+        for part, a, b, c, d in zip(("weighted rows", "bucket ids", "permutation"), got, again, plain, plain_cpu):
+            check(torch.equal(a, b), f"qsketch_sort_bucket {name}: two runs differ in the {part}")
+            check(torch.equal(a, c), f"qsketch_sort_bucket {name}: the {part} differ from the plain version")
+            check(torch.equal(a.cpu(), d), f"qsketch_sort_bucket {name}: the {part} differ from the plain version on the CPU")
+        # the whole compaction (K3, K1's float form, the epilogue) at a
+        # capacity these rows overflow
+        capacity = min(SKETCH_CAPACITY, n // 16 * 8)
+        compacted = ops.qsketch_compact_dispatch(rows, capacity)
+        check(
+            torch.equal(compacted.cpu(), ops.compact_rows_reference(host, capacity)),
+            f"qsketch compaction {name}: differs from its plain version",
+        )
+        results.append(
+            {
+                "case": name,
+                "max_abs_err": float((got[0] - plain[0]).abs().max()),
+                "buckets_differ": int((got[1] != plain[1]).sum()),
+                "compaction_capacity": capacity,
+                "ms": time_ms(torch, lambda: ops.qsketch_sort_bucket(rows, SKETCH_CAPACITY), launches=20),
+                "card": card,
+            }
+        )
+    emit({"phase": "parity_qsketch", "qsketch_sort_bucket": results})
+
+
+def sketch_binary_phase(torch, ops, card, AUROC):
+    """The sketched default over one day of a click log (the main path of K3)."""
+    rows = SKETCH_BATCH * SKETCH_BATCHES
+    t0 = time.perf_counter()
+    score_np, y_np = make_ctr_stream(rows)
+    score, y = torch.from_numpy(score_np).cuda(), torch.from_numpy(y_np).cuda()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def batch(i):
+        return score[i * SKETCH_BATCH : (i + 1) * SKETCH_BATCH], y[i * SKETCH_BATCH : (i + 1) * SKETCH_BATCH]
+
+    metric = AUROC()
+    check(metric.device.type == "cuda", f"AUROC() defaults to {metric.device}, not the card")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(SKETCH_BATCHES):
+        metric.update(*batch(i))
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    # the first batch fills the empty sketch; every later one may overflow
+    # it, so each compacts once
+    compactions = SKETCH_BATCHES - 1
+    for name in ("qsketch_sort_bucket", "segment_sum_f32"):
+        check(launches.get(name) == compactions, f"sketch-binary launched {name} {launches.get(name)} times, expected {compactions}")
+
+    t0 = time.perf_counter()
+    value = float(metric.compute())
+    cold_compute_ms = (time.perf_counter() - t0) * 1e3
+    state = {name: getattr(metric, name) for name in ("csketch", "n_seen")}
+    warm_compute_ms = median_ms(torch, lambda: metric.compute_state(state))
+    total_weight = float(metric.csketch[:, 0].double().sum())
+    check(total_weight == rows, f"sketch total weight {total_weight}, expected {rows}")
+    reference = midrank_auroc(score_np, y_np)
+    err = abs(value - reference)
+    check(err <= 5e-3, f"sketched AUROC {value} is {err} off the float64 midrank AUROC {reference}")
+
+    cpu_metric = AUROC(device="cpu")
+    for i in range(SKETCH_BATCHES):
+        lo, hi = i * SKETCH_BATCH, (i + 1) * SKETCH_BATCH
+        cpu_metric.update(torch.from_numpy(score_np[lo:hi]), torch.from_numpy(y_np[lo:hi]))
+    cpu_value = float(cpu_metric.compute())
+    check(abs(value - cpu_value) <= 1e-6, f"sketch-binary: card {value} and CPU {cpu_value} differ")
+    rows_differ = bitwise_rows_differ(torch, metric.csketch, cpu_metric.csketch)
+    ms_per_update = update_s / SKETCH_BATCHES * 1e3
+    profile = device_profile(torch, lambda i: metric.update(*batch(i)), 5)
+    emit(
+        {
+            "phase": "sketch-binary",
+            "card": card,
+            "rows": rows,
+            "batch": SKETCH_BATCH,
+            "sketch_capacity": SKETCH_CAPACITY,
+            "setup_s": setup_s,
+            "ms_per_update": ms_per_update,
+            "samples_per_s": rows / update_s,
+            "cold_compute_ms": cold_compute_ms,
+            "warm_compute_ms": warm_compute_ms,
+            "state_bytes": sum(t.numel() * t.element_size() for t in state.values()),
+            "launches": launches,
+            "auroc": value,
+            "float64_midrank_auroc": reference,
+            "abs_err_vs_midrank": err,
+            "cpu_auroc": cpu_value,
+            "abs_diff_card_cpu": abs(value - cpu_value),
+            "sketch_rows_differ_bitwise": rows_differ,
+            "total_weight": total_weight,
+            **profile,
+            "device_idle_share": 1 - profile["device_busy_ms_per_step"] / ms_per_update,
+        }
+    )
+    return launches, score_np, y_np, metric, batch
+
+
+def sketch_window_phase(torch, ops, card, AUROC, score_np, y_np):
+    """The default inside its lossless window: exact, no compaction; and the
+    binary capacity mode on the same samples."""
+    score = torch.from_numpy(score_np[:SKETCH_CAPACITY]).cuda()
+    y = torch.from_numpy(y_np[:SKETCH_CAPACITY]).cuda()
+    metric = AUROC()
+    ops.reset_launch_counts()
+    metric.update(score, y)
+    value = float(metric.compute())
+    launches = ops.launch_counts()
+    check(launches.get("qsketch_sort_bucket", 0) == 0, f"sketch-window compacted: {launches}")
+    reference = midrank_auroc(score_np[:SKETCH_CAPACITY], y_np[:SKETCH_CAPACITY])
+    err = abs(value - reference)
+    check(err <= 1e-6, f"sketch-window AUROC {value} is {err} off scipy's {reference}")
+    capacity_metric = AUROC(capacity=SKETCH_CAPACITY)
+    capacity_metric.update(score, y)
+    capacity_err = abs(float(capacity_metric.compute()) - reference)
+    check(capacity_err <= 1e-6, f"binary AUROC(capacity) is {capacity_err} off scipy's {reference}")
+    emit(
+        {
+            "phase": "sketch-window",
+            "card": card,
+            "rows": SKETCH_CAPACITY,
+            "auroc": value,
+            "abs_err_vs_scipy": err,
+            "binary_capacity_abs_err_vs_scipy": capacity_err,
+            "launches": launches,
+        }
+    )
+
+
+def sketch_multiclass_phase(torch, ops, card, AUROC, preds_all, target_all, preds_np, target_np):
+    """AUROC(num_classes=1000) in the sketched default: 2002-column rows."""
+    metric = AUROC(num_classes=NUM_CLASSES)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(SKETCH_MC_BATCHES):
+        metric.update(preds_all[i], target_all[i])
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    # two batches fill the empty sketch; each later one compacts once
+    compactions = SKETCH_MC_BATCHES - SKETCH_CAPACITY // BATCH
+    check(launches.get("qsketch_sort_bucket") == compactions, f"sketch-multiclass launches {launches}")
+    t0 = time.perf_counter()
+    value = float(metric.compute())
+    cold_compute_ms = (time.perf_counter() - t0) * 1e3
+    state = {name: getattr(metric, name) for name in ("csketch", "n_seen")}
+    warm_compute_ms = median_ms(torch, lambda: metric.compute_state(state))
+
+    cpu_metric = AUROC(num_classes=NUM_CLASSES, device="cpu")
+    for i in range(SKETCH_MC_BATCHES):
+        cpu_metric.update(torch.from_numpy(preds_np[i]), torch.from_numpy(target_np[i]))
+    cpu_value = float(cpu_metric.compute())
+    # the weighted kernels read at most `capacity` rows per class: the card's
+    # and the CPU's cumulative sums of n float32 terms differ by at most
+    # (n - 1) 2**-24 of their totals, in each rate and in the trapezoid sum
+    bound = 3 * SKETCH_CAPACITY * 2.0**-24
+    diff = abs(value - cpu_value)
+    check(diff <= bound, f"sketch-multiclass: card {value} and CPU {cpu_value} differ by {diff} > {bound}")
+    rows = SKETCH_MC_BATCHES * BATCH
+    _, reference = numpy_auroc(preds_np[:SKETCH_MC_BATCHES].reshape(rows, -1), target_np[:SKETCH_MC_BATCHES].reshape(-1), NUM_CLASSES)
+    emit(
+        {
+            "phase": "sketch-multiclass",
+            "card": card,
+            "rows": rows,
+            "sketch_cols": int(metric.csketch.shape[1]),
+            "ms_per_update": update_s / SKETCH_MC_BATCHES * 1e3,
+            "cold_compute_ms": cold_compute_ms,
+            "warm_compute_ms": warm_compute_ms,
+            "state_bytes": sum(t.numel() * t.element_size() for t in state.values()),
+            "launches": launches,
+            "macro_auroc": value,
+            "cpu_macro_auroc": cpu_value,
+            "abs_diff_card_cpu": diff,
+            "summation_bound": bound,
+            "sketch_rows_differ_bitwise": bitwise_rows_differ(torch, metric.csketch, cpu_metric.csketch),
+            "scipy_macro_auroc": reference,
+            "abs_err_vs_scipy": abs(value - reference),
+        }
+    )
 
 
 def parity_phase(torch, ops, card, flagship_ids, rank_vals, auroc_ids):
@@ -212,16 +530,29 @@ def main():
     from metrics_tpu_torch import ops
     from metrics_tpu_torch.functional import auroc_rank_multiclass
     from metrics_tpu_torch.ops.build import build
-    from metrics_tpu_torch.ops.segment_sum import SOURCE, load_library
+    from metrics_tpu_torch.ops.qsketch import pack_rows
 
     device = torch.device("cuda")
     torch.manual_seed(0)
 
-    # 1. build
-    path, build_s, log = build(SOURCE)
-    load_library()
-    ptxas = [line.strip() for line in log.splitlines() if "Used" in line]
-    emit({"phase": "build", "library": path.name, "seconds": build_s, "ptxas": ptxas})
+    # 1. build: one nvcc per source, all started together
+    modules = [import_module(f"metrics_tpu_torch.ops.{name}") for name in ("segment_sum", "qsketch")]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(modules)) as pool:
+        built = list(pool.map(build, [module.SOURCE for module in modules]))
+    build_wall_s = time.perf_counter() - t0
+    for module in modules:
+        module.load_library()
+    emit(
+        {
+            "phase": "build",
+            "wall_seconds": build_wall_s,
+            "libraries": [
+                {"library": path.name, "seconds": seconds, "ptxas": [line.strip() for line in log.splitlines() if "Used" in line]}
+                for path, seconds, log in built
+            ],
+        }
+    )
 
     # set-up: the fixture, made on the host and moved to the card once
     t0 = time.perf_counter()
@@ -240,6 +571,7 @@ def main():
 
     # 2. kernel parity
     max_err = parity_phase(torch, ops, card, flagship_ids, rank_vals, auroc_ids)
+    qsketch_parity_phase(torch, ops, card)
 
     # 3. the flagship epoch (the main path)
     confmat = ConfusionMatrix(num_classes=NUM_CLASSES)
@@ -357,7 +689,30 @@ def main():
         }
     )
 
-    # 5. kernel times at the main path's shapes (these launches are not
+    # 5-7. the sketched default: binary (the main path of K3), inside its
+    # window, and at 1000 classes
+    sketch_launches, score_np, y_np, sketch_metric, sketch_batch = sketch_binary_phase(torch, ops, card, AUROC)
+    sketch_window_phase(torch, ops, card, AUROC, score_np, y_np)
+    sketch_multiclass_phase(torch, ops, card, AUROC, preds_all, target_all, preds_np, target_np)
+
+    # K3's input on its main path: the sketch and one batch of unit rows,
+    # packed occupied-first, as an absorb hands them to the compaction
+    batch_score, batch_y = sketch_batch(0)
+    unit_rows = torch.stack([torch.ones_like(batch_score), batch_score, batch_y.float()], dim=1)
+    k3_rows = pack_rows(torch.cat([sketch_metric.csketch, unit_rows]))
+    k3_keys = torch.where(k3_rows[:, 0] > 0, k3_rows[:, 1], torch.inf)
+    k3_got = ops.qsketch_sort_bucket(k3_rows, SKETCH_CAPACITY)
+    k3_plain = ops.qsketch_sort_bucket_reference(k3_rows, SKETCH_CAPACITY)
+    check(all(torch.equal(a, b) for a, b in zip(k3_got[1:], k3_plain[1:])), "K3 on its main-path input: buckets or order differ")
+
+    def qsketch_call():
+        return ops.qsketch_sort_bucket(k3_rows, SKETCH_CAPACITY)
+
+    n_pad = k3_got[0].shape[0]
+    # rows read once; weighted rows, bucket ids and permutation written once
+    k3_bytes = k3_rows.numel() * 4 + n_pad * (k3_rows.shape[1] * 4 + 4 + 4)
+
+    # 8. kernel times at the main path's shapes (these launches are not
     # counted). "ms", "plain_ms" and "library_ms" are CUDA-event times per
     # call over back-to-back calls, so they include any host time the card
     # waits for; "device_ms" is the kernel alone (profiler) and
@@ -403,6 +758,24 @@ def main():
             "library_ms": time_ms(torch, index_add_call),
             "host_us_per_call": host_us_per_call(torch, segment_sum_call),
             "device_ms": kernel_device_ms(torch, segment_sum_call, "segment_sum_f32_kernel"),
+        },
+        {
+            "name": "qsketch_sort_bucket",
+            "route": "cuda",
+            "source": QSKETCH_SOURCE,
+            "replaces": QSKETCH_REPLACES,
+            "shape": list(k3_rows.shape),
+            "launches": sketch_launches["qsketch_sort_bucket"],
+            "max_abs_err": float((k3_got[0] - k3_plain[0]).abs().max()),
+            "ms": time_ms(torch, qsketch_call),
+            "plain_ms": time_ms(torch, lambda: ops.qsketch_sort_bucket_reference(k3_rows, SKETCH_CAPACITY)),
+            "bound_ms": k3_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": time_ms(torch, lambda: torch.sort(k3_keys, stable=True)),
+            "host_us_per_call": host_us_per_call(torch, qsketch_call),
+            "device_ms": kernel_device_ms(
+                torch, qsketch_call, ("sort_runs_kernel", "scan_bucket_kernel", "gather_rows_kernel")
+            ),
         },
     ]
     emit({"phase": "kernel_times", "card": card})

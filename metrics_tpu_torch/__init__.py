@@ -3,9 +3,11 @@
 It imports ``torch`` and ``numpy``, never ``jax`` and nothing of
 ``metrics_tpu``. Metrics run on the card unless ``device="cpu"`` is passed;
 their kernels are hand-written CUDA, built from ``csrc/`` at first use (see
-:mod:`metrics_tpu_torch.ops`). This slice ports the flagship path:
-``ConfusionMatrix``, the exact rank AUROC (functional, and ``AUROC`` in its
-multiclass capacity mode) and ``MetricCollection``.
+:mod:`metrics_tpu_torch.ops`). Ported so far: ``ConfusionMatrix``, the
+exact rank AUROC and the curve AUROC (functional), ``AUROC`` in its
+sketched streaming default (binary, one-vs-rest, multilabel) and its
+capacity modes, the quantile sketch (:mod:`metrics_tpu_torch.sketches`)
+and ``MetricCollection``.
 """
 from metrics_tpu_torch.classification import AUROC, ConfusionMatrix  # noqa: F401
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401

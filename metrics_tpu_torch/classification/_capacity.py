@@ -2,9 +2,10 @@
 
 Counterpart of ``metrics_tpu/classification/_capacity.py``: ``capacity=N``
 replaces the unbounded list states with a static buffer triple (preds,
-target, valid) plus an overflow tally. This slice ports the multiclass
-layout (``[N, C]`` score rows with integer labels) and the binary ``[N]``
-layout's buffers; the binary and multilabel computes wait for their slice.
+target, valid) plus an overflow tally, in the binary layout (``[N]``
+scores, 0/1 targets) or the multiclass one (``[N, C]`` score rows with
+integer labels); the multilabel layout's buffers are here, its compute
+waits for its slice.
 
 Each update reads the batch's label range and the buffer's fill count in
 one host read, raises on a label out of range or on overflow, and writes
@@ -114,6 +115,11 @@ class CapacityCurveMixin:
                 f" the declared capacity ({self._capacity}). Construct the metric with a larger `capacity`."
             )
         return self.valid.reshape(-1)
+
+    def _capacity_buffers(self) -> Tuple[Tensor, Tensor, Tensor]:
+        """Flat (preds, target, valid) for the binary kernels."""
+        valid = self._capacity_guard()
+        return self.preds.reshape(-1), self.target.reshape(-1), valid
 
     def _capacity_buffers_2d(self) -> Tuple[Tensor, Tensor, Tensor]:
         """Row-flattened (preds ``[N, C]``, target, valid) for the multiclass

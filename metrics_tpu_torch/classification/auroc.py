@@ -1,30 +1,53 @@
-"""Modular AUROC in the exact multiclass capacity mode.
+"""Modular AUROC: the sketched streaming default and the capacity modes.
 
-Counterpart of ``metrics_tpu/classification/auroc.py`` for
-``AUROC(num_classes>=2, capacity=N)``: ``[N, C]`` score rows and labels
-accumulate in fixed buffers on the device, and ``compute`` is the masked
-rank AUROC. The JAX package's other modes are later slices of the port and
-raise ``NotImplementedError`` here: the sketched default and the binary
-capacity mode (ROADMAP.md, queue A: 'sketches'), and ``exact=True``
-(queue A: 'regression and breadth', with the curve functions).
+Counterpart of ``metrics_tpu/classification/auroc.py``, with the same state
+modes, mode locking and errors:
+
+* **default**: the quantile-sketch streaming state
+  (``classification/_sketch.py``): O(``sketch_capacity``) memory and a
+  ``merge`` reducer. Exact for every stream that fits the capacity (the
+  lossless window); past it, weighted kernels within the sketch's
+  rank-error bound. Once the stream may overflow, every update compacts on
+  the card (the sort/bucket and segment-sum kernels).
+* ``capacity=N``: fixed exact buffers, binary (``[N]`` scores) or, with
+  ``num_classes >= 2``, ``[N, C]`` score rows and the masked rank AUROC.
+* ``exact=True`` (unbounded list states) is not ported yet and raises
+  ``NotImplementedError`` (ROADMAP.md, queue A: 'regression and breadth').
 """
-from typing import Any, Optional
+from typing import Any, Mapping, Optional
 
 import torch
 
 from metrics_tpu_torch.classification._capacity import CapacityCurveMixin
+from metrics_tpu_torch.classification._sketch import DEFAULT_SKETCH_CAPACITY, SketchCurveMixin
 from metrics_tpu_torch.core.metric import Metric
-from metrics_tpu_torch.functional.classification.auroc import auroc_rank_multiclass_masked
-from metrics_tpu_torch.utils.enums import AverageMethod
+from metrics_tpu_torch.functional.classification.auroc import (
+    _auroc_compute,
+    _auroc_update,
+    auroc_rank_multiclass_masked,
+)
+from metrics_tpu_torch.functional.classification.exact_curve import binary_auroc_fixed
+from metrics_tpu_torch.functional.classification.sketch_curve import (
+    average_class_scores,
+    binary_auroc_max_fpr_weighted,
+    binary_auroc_weighted,
+    weighted_class_supports,
+)
+from metrics_tpu_torch.utils.enums import AverageMethod, DataType
 
 Tensor = torch.Tensor
 
 
-class AUROC(CapacityCurveMixin, Metric):
-    """Area under the ROC curve, exact, over a fixed-capacity buffer.
+class AUROC(SketchCurveMixin, CapacityCurveMixin, Metric):
+    """Area under the ROC curve.
 
     Example:
         >>> import torch
+        >>> preds = torch.tensor([0.13, 0.26, 0.08, 0.19, 0.34])
+        >>> target = torch.tensor([0, 0, 1, 1, 1])
+        >>> auroc = AUROC(pos_label=1, device="cpu")
+        >>> auroc(preds, target)
+        tensor(0.5000)
         >>> preds = torch.tensor([[0.7, 0.2, 0.1], [0.2, 0.5, 0.3], [0.1, 0.2, 0.7], [0.3, 0.4, 0.3]])
         >>> target = torch.tensor([0, 1, 2, 1])
         >>> auroc = AUROC(num_classes=3, capacity=8, device="cpu")
@@ -35,6 +58,7 @@ class AUROC(CapacityCurveMixin, Metric):
 
     is_differentiable = False
     higher_is_better = True
+    _host_state = ("mode", "_sketch_cols", "_sketch_tgt_kind", "_sketch_case_locked")
 
     def __init__(
         self,
@@ -44,6 +68,8 @@ class AUROC(CapacityCurveMixin, Metric):
         max_fpr: Optional[float] = None,
         capacity: Optional[int] = None,
         exact: bool = False,
+        sketch_capacity: int = DEFAULT_SKETCH_CAPACITY,
+        shape_stable_reads: bool = False,
         **kwargs: Any,
     ) -> None:
         super().__init__(**kwargs)
@@ -64,30 +90,81 @@ class AUROC(CapacityCurveMixin, Metric):
         if exact:
             raise NotImplementedError(
                 "AUROC(exact=True) is not ported yet (ROADMAP.md, queue A: 'regression and breadth');"
-                " use AUROC(num_classes=C, capacity=N)"
+                " the default sketched mode is exact while the stream fits `sketch_capacity`"
             )
-        if capacity is None:
-            raise NotImplementedError(
-                "the sketched AUROC default is not ported yet (ROADMAP.md, queue A: 'sketches');"
-                " use AUROC(num_classes=C, capacity=N)"
-            )
-        if max_fpr is not None:
-            raise ValueError("`capacity` mode does not support `max_fpr`")
-        if num_classes is None or num_classes < 2:
-            raise NotImplementedError(
-                "binary capacity-mode AUROC is not ported yet (ROADMAP.md, queue A: 'sketches');"
-                " this slice ports the multiclass capacity mode (num_classes >= 2)"
-            )
-        if average == AverageMethod.MICRO:
-            raise ValueError(
-                "`capacity` multiclass mode supports average in ('macro', 'weighted', 'none'); 'micro' is not"
-                " defined for the one-vs-rest rank kernel"
-            )
-        self._init_capacity(capacity, num_cols=num_classes)
 
-    def _update(self, preds: Tensor, target: Tensor) -> None:
-        self._capacity_update(preds, target)
+        self.mode: Optional[DataType] = None
+        self._multiclass_capacity = False
+        if capacity is not None:
+            if max_fpr is not None:
+                raise ValueError("`capacity` mode does not support `max_fpr`")
+            if num_classes is not None and num_classes >= 2:
+                if average == AverageMethod.MICRO:
+                    raise ValueError(
+                        "`capacity` multiclass mode supports average in ('macro', 'weighted', 'none'); 'micro' is"
+                        " not defined for the one-vs-rest rank kernel"
+                    )
+                self._init_capacity(capacity, num_cols=num_classes)
+                self._multiclass_capacity = True
+            else:
+                self._init_capacity(capacity)
+        else:
+            self._init_sketch_curve(sketch_capacity, num_classes, shape_stable_reads=shape_stable_reads)
+
+    def _set_host_state(self, values: Mapping[str, Any]) -> None:
+        values = dict(values)
+        if values.get("mode") is not None:
+            values["mode"] = DataType(values["mode"])
+        super()._set_host_state(values)
+
+    def _update(self, preds: Tensor, target: Tensor, n_valid: Optional[Any] = None) -> None:
+        if self._capacity is not None:
+            self._capacity_update(preds, target, pos_label=None if self._multiclass_capacity else self.pos_label)
+            return
+        preds, target, mode = _auroc_update(preds, target)
+        if self.mode and self.mode != mode:
+            raise ValueError(
+                "The mode of data (binary, multi-label, multi-class) should be constant, but changed"
+                f" between batches from {self.mode} to {mode}"
+            )
+        self._sketch_insert_canonical(
+            preds, target, self.pos_label if mode == DataType.BINARY else 1, n_valid=n_valid
+        )
+        self.mode = mode
 
     def _compute(self) -> Tensor:
-        preds, target, valid = self._capacity_buffers_2d()
-        return auroc_rank_multiclass_masked(preds, target, valid, self.num_classes, average=self.average)
+        if self._capacity is not None:
+            if self._multiclass_capacity:
+                preds, target, valid = self._capacity_buffers_2d()
+                return auroc_rank_multiclass_masked(preds, target, valid, self.num_classes, average=self.average)
+            return binary_auroc_fixed(*self._capacity_buffers())
+        if not self.mode:
+            raise RuntimeError("You have to have determined mode.")
+        fill, seen = self._sketch_fill_and_seen()
+        if self._sketch_reads_exact(fill, seen):
+            preds, target, pos_label = self._sketch_exact_arrays(fill)
+            return _auroc_compute(preds, target, self.mode, self.num_classes, pos_label, self.average, self.max_fpr)
+        return self._sketch_approx_compute(fill)
+
+    def _sketch_approx_compute(self, fill: int) -> Tensor:
+        """Weighted AUROC from the (bucket-padded) sketch rows, past the
+        lossless window or on every read under ``shape_stable_reads``."""
+        scores, y, w = self._sketch_weighted_arrays(fill)
+        if self.max_fpr is not None and self.mode != DataType.BINARY:
+            # the exact path raises this inside _auroc_compute; the
+            # misconfiguration stays loud past the window too
+            raise ValueError(
+                "Partial AUC computation not available in multilabel/multiclass setting,"
+                f" 'max_fpr' must be set to `None`, received `{self.max_fpr}`."
+            )
+        if self.mode == DataType.BINARY:
+            if self.max_fpr is not None and self.max_fpr < 1:
+                return binary_auroc_max_fpr_weighted(scores, y, w, self.max_fpr)
+            return binary_auroc_weighted(scores, y, w)
+        if self.mode == DataType.MULTILABEL and self.average == AverageMethod.MICRO:
+            flat_w = w[:, None].expand(y.shape).reshape(-1)
+            return binary_auroc_weighted(scores.reshape(-1), y.reshape(-1), flat_w)
+        per_class = binary_auroc_weighted(scores.T, y.T, w[None, :].expand(y.shape[1], -1))
+        supports = weighted_class_supports(y, w)
+        average = None if self.average == AverageMethod.NONE else self.average
+        return average_class_scores(per_class, supports, average)

@@ -6,7 +6,14 @@ that dict with each leaf turned into a numpy array (``np.asarray``) and
 returns the port's state dict for the same metric, which ``compute_state``
 and ``update_state`` of the port's metric accept, so an epoch started in
 JAX can be continued and computed here.
+
+Some metrics also keep host-side attributes that their states need to be
+read: a sketched ``AUROC`` fixes its input mode (binary, multiclass,
+multilabel) and its sketch's row layout at its first update. Pass the JAX
+metric as ``host_from`` to carry those too (they are read from it by
+attribute; nothing of JAX is imported).
 """
+from enum import Enum
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -17,12 +24,18 @@ from metrics_tpu_torch.utils.data import _resolve_device
 
 
 def state_from_jax(
-    state: Mapping[str, np.ndarray], metric: Metric, device: Optional[Any] = None
+    state: Mapping[str, np.ndarray], metric: Metric, device: Optional[Any] = None, host_from: Optional[Any] = None
 ) -> Dict[str, torch.Tensor]:
     """Tensors on ``device`` (default: the metric's) with the same dtypes as
     the numpy leaves (int32 stays int32). The names, shapes and dtypes must
-    match ``metric.init_state()``; a mismatch raises ``ValueError``."""
+    match ``metric.init_state()``; a mismatch raises ``ValueError``.
+
+    ``host_from`` (the JAX metric that accumulated ``state``) first sets
+    ``metric``'s host-side attributes (``metric._host_state``) to its own;
+    enum values arrive as their strings."""
     device = metric.device if device is None else _resolve_device(device)
+    if host_from is not None:
+        metric._set_host_state({name: _host_value(getattr(host_from, name)) for name in metric._host_state})
     template = metric.init_state()
     if set(state) != set(template):
         raise ValueError(f"state names {sorted(state)} do not match {type(metric).__name__}'s {sorted(template)}")
@@ -41,3 +54,7 @@ def state_from_jax(
             )
         out[name] = tensor
     return out
+
+
+def _host_value(value: Any) -> Any:
+    return value.value if isinstance(value, Enum) else value

@@ -11,18 +11,21 @@ plain attributes. Every update replaces a state with a new tensor and never
 writes into the old one, so the pure-state API stays functional: a state
 dict handed to ``update_state`` is never modified.
 
-Not in this slice: the observability hooks, the fused/sliced/sketch
-plumbing, ``CompositionalMetric`` and cross-process sync (see
+Sketch states (``dist_reduce_fx="merge"`` or a ``merge_like`` reducer
+such as :func:`metrics_tpu_torch.sketches.sketch_merge_fx`) merge through
+their own reducer. Not in this slice: the observability hooks, the
+fused/sliced plumbing, ``CompositionalMetric`` and cross-process sync (see
 ``ROADMAP.md``).
 """
 from abc import ABC, abstractmethod
 import inspect
-from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from metrics_tpu_torch.parallel.distributed import check_single_process
+from metrics_tpu_torch.sketches.quantile import sketch_merge_fx
 from metrics_tpu_torch.utils.data import (
     _as_tensor,
     _resolve_device,
@@ -52,7 +55,6 @@ _REDUCERS = {
     "cat": dim_zero_cat,
 }
 _NOT_PORTED_REDUCERS = {
-    "merge": "sketches",
     "ring": "sliced and windowed state",
     "decay": "sliced and windowed state",
 }
@@ -64,12 +66,21 @@ def _sentinel_count_sum(x: Tensor) -> Tensor:
     return torch.where((x >= 0).all(), x.sum(dim=0, dtype=x.dtype), torch.full_like(x[0], -1))
 
 
+def _clone_state(value: Tensor, device: Optional[torch.device] = None) -> Tensor:
+    """A copy of a state tensor (on ``device`` if given) with the host-side
+    facts attached to it (such as a sketch's occupancy bound): the content
+    is the same, so they still hold."""
+    out = (value if device is None else value.detach().to(device)).clone()
+    out.__dict__.update(value.__dict__)
+    return out
+
+
 def _state_tensor(value: Any, device: torch.device) -> Tensor:
     """A state default as a tensor on ``device``, with the JAX package's
     x64-off dtypes for host values (Python/numpy ints become int32, floats
     float32)."""
     if isinstance(value, Tensor):
-        return value.detach().to(device).clone()
+        return _clone_state(value, device)
     arr = np.asarray(value)
     if arr.dtype == np.int64:
         arr = arr.astype(np.int32)
@@ -107,6 +118,10 @@ class Metric(ABC):
 
     is_differentiable: Optional[bool] = None
     higher_is_better: Optional[bool] = None
+    #: host-side attributes that the states need to be read (such as the
+    #: input mode a first update fixed); carried with the states by
+    #: :func:`metrics_tpu_torch.convert.state_from_jax`
+    _host_state: Tuple[str, ...] = ()
 
     def __init__(self, device: Optional[Union[str, torch.device]] = None) -> None:
         self._device = _resolve_device(device)
@@ -134,7 +149,7 @@ class Metric(ABC):
         """Register a state: a tensor (reduced across processes by
         ``dist_reduce_fx``) or an empty list (gathered and concatenated).
         String reducers ``"sum"/"mean"/"max"/"min"/"cat"`` map to the
-        dim-zero functions. ``persistent`` is accepted as in the JAX package;
+        dim-zero functions, ``"merge"`` to the quantile-sketch reducer. ``persistent`` is accepted as in the JAX package;
         ``state_dict`` saves every state."""
         if isinstance(default, list):
             if default:
@@ -150,7 +165,9 @@ class Metric(ABC):
                 f"`dist_reduce_fx={dist_reduce_fx!r}` states are not ported yet (ROADMAP.md, queue A:"
                 f" '{_NOT_PORTED_REDUCERS[dist_reduce_fx]}')"
             )
-        if isinstance(dist_reduce_fx, str) and dist_reduce_fx in _REDUCERS:
+        if dist_reduce_fx == "merge":
+            dist_reduce_fx = sketch_merge_fx()
+        elif isinstance(dist_reduce_fx, str) and dist_reduce_fx in _REDUCERS:
             dist_reduce_fx = _REDUCERS[dist_reduce_fx]
         elif dist_reduce_fx is not None and not callable(dist_reduce_fx):
             raise ValueError(
@@ -158,7 +175,7 @@ class Metric(ABC):
                 " ['mean', 'sum', 'cat', 'min', 'max', 'merge', 'ring', 'decay', None]"
             )
 
-        object.__setattr__(self, name, [] if isinstance(default, list) else default.clone())
+        object.__setattr__(self, name, [] if isinstance(default, list) else _clone_state(default))
         self._defaults[name] = default
         self._reductions[name] = dist_reduce_fx
         self._cat_states[name] = dist_reduce_fx is dim_zero_cat
@@ -247,14 +264,14 @@ class Metric(ABC):
         self._forward_cache = None
         self._mark_state_written()
         for attr, default in self._defaults.items():
-            object.__setattr__(self, attr, [] if isinstance(default, list) else default.clone())
+            object.__setattr__(self, attr, [] if isinstance(default, list) else _clone_state(default))
 
     # ------------------------------------------------------------------
     # pure-state API
     # ------------------------------------------------------------------
     def init_state(self) -> Dict[str, StateValue]:
         """Fresh state dict (copies of the defaults)."""
-        return {k: ([] if isinstance(v, list) else v.clone()) for k, v in self._defaults.items()}
+        return {k: ([] if isinstance(v, list) else _clone_state(v)) for k, v in self._defaults.items()}
 
     def _bind(self, state: Dict[str, StateValue]) -> Dict[str, StateValue]:
         old = {k: getattr(self, k) for k in self._defaults}
@@ -330,6 +347,10 @@ class Metric(ABC):
                 out[name] = torch.maximum(va, vb)
             elif red is dim_zero_min:
                 out[name] = torch.minimum(va, vb)
+            elif getattr(red, "merge_like", False):
+                # sketch states merge through their own reducer, given the
+                # stacked states as a distributed sync would give them
+                out[name] = red(torch.stack([va, vb]))
             elif red is None:
                 raise MetricsUserError(
                     f"Cannot merge tensor state {name!r} with reduction None (gathered-not-reduced"
@@ -352,7 +373,7 @@ class Metric(ABC):
             elif isinstance(current, int):  # the eager `_n_updates` counter
                 destination[prefix + name] = torch.tensor(current, dtype=torch.int32, device=self._device)
             else:
-                destination[prefix + name] = current.clone()
+                destination[prefix + name] = _clone_state(current)
         return destination
 
     def load_state_dict(self, state_dict: Dict[str, Any], prefix: str = "") -> None:
@@ -375,6 +396,13 @@ class Metric(ABC):
             object.__setattr__(self, _AUTO_COUNT, torch.tensor(-1, dtype=torch.int32, device=self._device))
         if restored_real_state:
             self._mark_state_written()
+
+    def _set_host_state(self, values: Mapping[str, Any]) -> None:
+        """Adopt host-side attributes (names from ``_host_state``)."""
+        for name, value in values.items():
+            if name not in self._host_state:
+                raise ValueError(f"{name!r} is not host state of {type(self).__name__}")
+            setattr(self, name, value)
 
     # ------------------------------------------------------------------
     # misc

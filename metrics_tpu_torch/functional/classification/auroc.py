@@ -1,11 +1,15 @@
-"""Exact one-vs-rest multiclass AUROC by the Mann-Whitney rank statistic.
+"""Area under the ROC curve.
 
-Counterpart of the rank part of
-``metrics_tpu/functional/classification/auroc.py`` (``_sorted_mean_ranks``,
-``auroc_rank_multiclass_masked``, ``auroc_rank_multiclass``). The curve-based
-``auroc`` waits for the port of ``roc``.
+Counterpart of ``metrics_tpu/functional/classification/auroc.py``: the
+curve-based ``auroc`` (``_auroc_update``/``_auroc_compute``: binary,
+multiclass one-vs-rest and multilabel, macro/weighted/micro/none, and the
+``max_fpr`` partial AUC with the McClish correction), and the exact
+one-vs-rest rank AUROC by the Mann-Whitney statistic
+(``_sorted_mean_ranks``, ``auroc_rank_multiclass_masked``,
+``auroc_rank_multiclass``).
 
-Layout as in the JAX package: class-major ``[C, N]`` scores, one stable
+The curve-based path runs eagerly: its curves have one point per distinct
+score, and its checks read the card. Rank AUROC layout as in the JAX package: class-major ``[C, N]`` scores, one stable
 sort along the minor axis (``torch.sort(stable=True)``), midranks from run
 boundaries with cummax/cummin. The positive rank sums differ in form: each
 valid row is a positive of exactly one class, so the sums are a
@@ -14,15 +18,136 @@ segment-sum of the N rows' own-class midranks by their label (the
 all ``C x N`` entries. Midranks are half-integers, so both forms give the
 same sums exactly while they stay below 2**23.
 """
-from typing import Any, Optional
+from typing import Any, Optional, Sequence, Tuple, Union
 
 import torch
 
+from metrics_tpu_torch.functional.classification.auc import _auc_compute_without_check
+from metrics_tpu_torch.functional.classification.roc import roc
 from metrics_tpu_torch.ops import segment_sum_dispatch
-from metrics_tpu_torch.utils.data import _as_tensor
-from metrics_tpu_torch.utils.enums import AverageMethod
+from metrics_tpu_torch.utils.checks import _input_format_classification
+from metrics_tpu_torch.utils.data import _as_tensor, _bincount
+from metrics_tpu_torch.utils.enums import AverageMethod, DataType
+from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 Tensor = torch.Tensor
+
+
+def _auroc_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor, DataType]:
+    """Validate the inputs (one host read), deduce the mode, and flatten
+    multi-dimensional multiclass and multilabel inputs to ``(N, C)`` rows."""
+    _, _, mode = _input_format_classification(preds, target)
+
+    if mode == DataType.MULTIDIM_MULTICLASS:
+        n_classes = preds.shape[1]
+        preds = preds.transpose(0, 1).reshape(n_classes, -1).T
+        target = target.flatten()
+    if mode == DataType.MULTILABEL and preds.ndim > 2:
+        n_classes = preds.shape[1]
+        preds = preds.transpose(0, 1).reshape(n_classes, -1).T
+        target = target.transpose(0, 1).reshape(n_classes, -1).T
+
+    return preds, target, mode
+
+
+def _auroc_compute(
+    preds: Tensor,
+    target: Tensor,
+    mode: DataType,
+    num_classes: Optional[int] = None,
+    pos_label: Optional[int] = None,
+    average: Optional[str] = "macro",
+    max_fpr: Optional[float] = None,
+    sample_weights: Optional[Sequence] = None,
+) -> Tensor:
+    # binary mode overrides num_classes
+    if mode == DataType.BINARY:
+        num_classes = 1
+
+    if max_fpr is not None:
+        if not isinstance(max_fpr, float) or not 0 < max_fpr <= 1:
+            raise ValueError(f"`max_fpr` should be a float in range (0, 1], got: {max_fpr}")
+        if mode != DataType.BINARY:
+            raise ValueError(
+                "Partial AUC computation not available in multilabel/multiclass setting,"
+                f" 'max_fpr' must be set to `None`, received `{max_fpr}`."
+            )
+
+    if mode == DataType.MULTILABEL:
+        if average == AverageMethod.MICRO:
+            fpr, tpr, _ = roc(preds.flatten(), target.flatten(), 1, pos_label, sample_weights)
+        elif num_classes:
+            output = [
+                roc(preds[:, i], target[:, i], num_classes=1, pos_label=1, sample_weights=sample_weights)
+                for i in range(num_classes)
+            ]
+            fpr = [o[0] for o in output]
+            tpr = [o[1] for o in output]
+        else:
+            raise ValueError("Detected input to be `multilabel` but you did not provide `num_classes` argument")
+    else:
+        if mode != DataType.BINARY:
+            if num_classes is None:
+                raise ValueError("Detected input to `multiclass` but you did not provide `num_classes` argument")
+            if average == AverageMethod.WEIGHTED and len(torch.unique(target)) < num_classes:
+                # classes with 0 observations are excluded (their weight is 0)
+                target_bool_mat = torch.zeros((len(target), num_classes), dtype=torch.bool, device=target.device)
+                target_bool_mat[torch.arange(len(target), device=target.device), target.long()] = True
+                class_observed = target_bool_mat.sum(dim=0) > 0
+                for c, observed in enumerate(class_observed.tolist()):
+                    if not observed:
+                        rank_zero_warn(f"Class {c} had 0 observations, omitted from AUROC calculation", UserWarning)
+                preds = preds[:, class_observed]
+                target_bool_mat = target_bool_mat[:, class_observed]
+                target = torch.nonzero(target_bool_mat)[:, 1]
+                num_classes = int(class_observed.sum())
+                if num_classes == 1:
+                    raise ValueError("Found 1 non-empty class in `multiclass` AUROC calculation")
+        fpr, tpr, _ = roc(preds, target, num_classes, pos_label, sample_weights)
+
+    if max_fpr is None or max_fpr == 1:
+        if mode == DataType.MULTILABEL and average == AverageMethod.MICRO:
+            pass
+        elif num_classes != 1:
+            auc_scores = [_auc_compute_without_check(x, y, 1.0) for x, y in zip(fpr, tpr)]
+            if average == AverageMethod.NONE:
+                return torch.stack(auc_scores)
+            if average == AverageMethod.MACRO:
+                return torch.mean(torch.stack(auc_scores))
+            if average == AverageMethod.WEIGHTED:
+                if mode == DataType.MULTILABEL:
+                    support = torch.sum(target, dim=0)
+                else:
+                    support = _bincount(target.flatten().to(torch.int32), minlength=num_classes)
+                return torch.sum(torch.stack(auc_scores) * support / torch.sum(support))
+            allowed_average = (AverageMethod.NONE.value, AverageMethod.MACRO.value, AverageMethod.WEIGHTED.value)
+            raise ValueError(
+                f"Argument `average` expected to be one of the following: {allowed_average} but got {average}"
+            )
+        return _auc_compute_without_check(fpr, tpr, 1.0)
+
+    # partial AUC needs both classes present: the roc kernel zero-fills the
+    # degenerate axis, which the interpolation below would silently turn
+    # into NaN (no negatives) or a meaningless value (no positives)
+    last_fpr, last_tpr = torch.stack([fpr[-1], tpr[-1]]).tolist()
+    if not last_fpr > 0:
+        raise ValueError("Partial AUC (`max_fpr`) is undefined when `target` contains no negative samples.")
+    if not last_tpr > 0:
+        raise ValueError("Partial AUC (`max_fpr`) is undefined when `target` contains no positive samples.")
+
+    max_area = torch.tensor(max_fpr, dtype=torch.float32, device=fpr.device)
+    # add a single point at max_fpr by linear interpolation
+    stop = int(torch.searchsorted(fpr, max_area.reshape(1), side="right"))
+    weight = (max_area - fpr[stop - 1]) / (fpr[stop] - fpr[stop - 1])
+    interp_tpr = tpr[stop - 1] + weight * (tpr[stop] - tpr[stop - 1])
+    tpr = torch.cat([tpr[:stop], interp_tpr.reshape(1)])
+    fpr = torch.cat([fpr[:stop], max_area.reshape(1)])
+
+    partial_auc = _auc_compute_without_check(fpr, tpr, 1.0)
+
+    # McClish correction: 0.5 if non-discriminant, 1 if maximal
+    min_area = 0.5 * max_area**2
+    return 0.5 * (1 + (partial_auc - min_area) / (max_area - min_area))
 
 
 def _sorted_mean_ranks(sorted_x: Tensor) -> Tensor:
@@ -129,3 +254,29 @@ def auroc_rank_multiclass(
     preds = _as_tensor(preds, device)
     valid = torch.ones((preds.shape[0],), dtype=torch.bool, device=preds.device)
     return auroc_rank_multiclass_masked(preds, target, valid, num_classes, average=average, device=preds.device)
+
+
+def auroc(
+    preds: Any,
+    target: Any,
+    num_classes: Optional[int] = None,
+    pos_label: Optional[int] = None,
+    average: Optional[str] = "macro",
+    max_fpr: Optional[float] = None,
+    sample_weights: Optional[Sequence] = None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Tensor:
+    """Computes the Area Under the Receiver Operating Characteristic Curve.
+    Host inputs go to ``device`` (the card unless ``"cpu"``); tensors are
+    computed where they lie.
+
+    Example:
+        >>> import torch
+        >>> preds = torch.tensor([0.13, 0.26, 0.08, 0.19, 0.34])
+        >>> target = torch.tensor([0, 0, 1, 1, 1])
+        >>> auroc(preds, target, pos_label=1)
+        tensor(0.5000)
+    """
+    preds, target = _as_tensor(preds, device), _as_tensor(target, device)
+    preds, target, mode = _auroc_update(preds, target)
+    return _auroc_compute(preds, target, mode, num_classes, pos_label, average, max_fpr, sample_weights)

@@ -1,0 +1,110 @@
+"""Weighted curve kernels for the sketched curve metrics.
+
+Counterpart of the AUROC part of ``metrics_tpu/functional/classification/
+sketch_curve.py``. Past its lossless window a sketched metric holds
+WEIGHTED rows ``(score, y, w)`` where ``y`` may be fractional (a compaction
+averages the indicator payloads and keeps their first moments exactly).
+These kernels generalise the exact-curve cumulants (``exact_curve.py``)
+from counts to masses: ``tps = cumsum(w * y)``, ``fps = cumsum(w * (1 - y))``,
+with the same descending sort, tie runs and endpoint conventions; at unit
+weights and crisp labels they give the unweighted kernels' values.
+
+They work along the last axis and batch over any leading axes, which takes
+the place of the JAX package's ``vmap`` over class columns.
+``coco_precision_recall_grid`` waits for the detection slice.
+"""
+from typing import Optional, Tuple
+
+import torch
+
+from metrics_tpu_torch.functional.classification.exact_curve import _run_ends
+from metrics_tpu_torch.utils.data import stable_sort_with_payloads
+
+Tensor = torch.Tensor
+
+
+def _weighted_sorted_cumulants(
+    scores: Tensor, y: Tensor, w: Tensor
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Descending-score sort (zero-weight rows last) with weighted run-end
+    cumulants; the weighted twin of ``exact_curve._masked_sorted_cumulants``."""
+    valid = w > 0
+    neg_inf = torch.tensor(float("-inf"), device=scores.device)
+    key = torch.where(valid, scores.to(torch.float32), neg_inf)
+    sorted_key, sorted_wy, sorted_w = stable_sort_with_payloads(
+        key, (w * y).to(torch.float32), torch.where(valid, w, 0.0).to(torch.float32), descending=True
+    )
+    tps = torch.cumsum(sorted_wy, dim=-1)
+    fps = torch.cumsum(sorted_w - sorted_wy, dim=-1)
+    run_end, run_start = _run_ends(sorted_key)
+    return sorted_key, sorted_w > 0, tps, fps, run_end, run_start
+
+
+def binary_auroc_weighted(scores: Tensor, y: Tensor, w: Tensor) -> Tensor:
+    """Weighted binary AUROC (trapezoid over run-end ROC points) along the
+    last axis; NaN where either class carries no weight."""
+    _, _, tps, fps, run_end, _ = _weighted_sorted_cumulants(scores, y, w)
+    total_pos, total_neg = tps[..., -1:], fps[..., -1:]
+    tpr = tps.gather(-1, run_end) / torch.clamp(total_pos, min=1e-12)
+    fpr = fps.gather(-1, run_end) / torch.clamp(total_neg, min=1e-12)
+    first = 0.5 * tpr[..., 0] * fpr[..., 0]
+    rest = torch.sum(0.5 * (tpr[..., 1:] + tpr[..., :-1]) * (fpr[..., 1:] - fpr[..., :-1]), dim=-1)
+    defined = (total_pos[..., 0] > 0) & (total_neg[..., 0] > 0)
+    return torch.where(defined, first + rest, torch.nan)
+
+
+def binary_auroc_max_fpr_weighted(scores: Tensor, y: Tensor, w: Tensor, max_fpr: float) -> Tensor:
+    """Weighted partial AUC (1-D) with the McClish standardisation: the ROC
+    interpolated at ``max_fpr``, integrated on ``[0, max_fpr]`` and mapped
+    to ``0.5 * (1 + (pauc - min) / (max - min))``."""
+    _, valid, tps, fps, run_end, _ = _weighted_sorted_cumulants(scores, y, w)
+    total_pos, total_neg = tps[-1], fps[-1]
+    zero = tps.new_zeros(1)
+    tpr = torch.cat([zero, tps[run_end] / torch.clamp(total_pos, min=1e-12)])
+    fpr = torch.cat([zero, fps[run_end] / torch.clamp(total_neg, min=1e-12)])
+    idx = torch.arange(run_end.shape[0], device=run_end.device)
+    is_point = torch.cat([torch.ones(1, dtype=torch.bool, device=valid.device), (run_end == idx) & valid])
+    # clamp the curve to fpr <= max_fpr: points beyond collapse onto the
+    # interpolated boundary point, so the trapezoid over ALL points equals
+    # the truncated integral (non-points repeat their run-end neighbour)
+    fpr_mono = torch.cummax(torch.where(is_point, fpr, float("-inf")), dim=0).values
+    tpr_mono = torch.cummax(torch.where(is_point, tpr, 0.0), dim=0).values
+    below = fpr_mono <= max_fpr
+    # the tpr at max_fpr between the two points that straddle it
+    idx_hi = torch.clamp(below.sum(), 1, fpr_mono.shape[0] - 1).reshape(1)
+    f_lo, f_hi = fpr_mono.gather(0, idx_hi - 1)[0], fpr_mono.gather(0, idx_hi)[0]
+    t_lo, t_hi = tpr_mono.gather(0, idx_hi - 1)[0], tpr_mono.gather(0, idx_hi)[0]
+    t_at = torch.where(f_hi > f_lo, t_lo + (t_hi - t_lo) * (max_fpr - f_lo) / torch.clamp(f_hi - f_lo, min=1e-12), t_lo)
+    fpr_c = torch.where(below, fpr_mono, max_fpr)
+    tpr_c = torch.where(below, tpr_mono, t_at)
+    area = torch.sum(0.5 * (tpr_c[1:] + tpr_c[:-1]) * (fpr_c[1:] - fpr_c[:-1]))
+    min_area = 0.5 * max_fpr * max_fpr
+    max_area = max_fpr
+    pauc = 0.5 * (1.0 + (area - min_area) / max(max_area - min_area, 1e-12))
+    return torch.where((total_pos > 0) & (total_neg > 0), pauc, torch.nan)
+
+
+def weighted_class_supports(y_cols: Tensor, w: Tensor) -> Tensor:
+    """Per-class positive weight mass ``[C]`` for weighted averaging."""
+    return torch.sum(w[:, None] * y_cols, dim=0)
+
+
+def average_class_scores(scores_per_class: Tensor, supports: Tensor, average: Optional[str]) -> Tensor:
+    """macro / weighted / none averaging over per-class scores, excluding
+    classes with zero positive mass (absent tail classes must not poison
+    sharded evaluations)."""
+    defined = supports > 0
+    any_defined = defined.any()
+    if average in (None, "none"):
+        return scores_per_class
+    zero = torch.zeros_like(scores_per_class)
+    if average == "macro":
+        val = torch.where(defined, scores_per_class, zero).sum() / torch.clamp(defined.sum(), min=1)
+        return torch.where(any_defined, val, torch.nan)
+    if average == "weighted":
+        wts = torch.where(defined, supports, zero)
+        val = (torch.where(defined, scores_per_class, zero) * wts).sum() / torch.clamp(wts.sum(), min=1e-12)
+        return torch.where(any_defined, val, torch.nan)
+    raise ValueError(
+        f"Argument `average` expected to be one of ('macro', 'weighted', 'none', None) but got {average}"
+    )

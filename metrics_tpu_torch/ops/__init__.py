@@ -7,6 +7,12 @@ from metrics_tpu_torch.ops.dispatch import (  # noqa: F401
     on_card,
     reset_launch_counts,
 )
+from metrics_tpu_torch.ops.qsketch import (  # noqa: F401
+    compact_rows_reference,
+    qsketch_compact_dispatch,
+    qsketch_sort_bucket,
+    qsketch_sort_bucket_reference,
+)
 from metrics_tpu_torch.ops.segment_sum import (  # noqa: F401
     bincount_dispatch,
     bincount_i32,

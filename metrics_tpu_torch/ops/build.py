@@ -7,13 +7,15 @@ of the source and the flags, so an edited source builds anew and an
 unchanged one is loaded as it is. A failed build raises with the
 compiler's output: there is no fallback.
 """
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -80,3 +82,29 @@ def build(source: str) -> Tuple[Path, float, str]:
         raise RuntimeError(f"nvcc failed to build {source} (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
     return lib, seconds, proc.stdout + proc.stderr
+
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS_LOCK = threading.Lock()
+
+
+def load(source: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/<source>``; declare each C
+    launcher's ``argtypes`` from ``signatures`` (each returns its CUDA error
+    code as an int) and ``cuda_error_string``. Loaded once per process."""
+    lib = _LIBS.get(source)
+    if lib is not None:
+        return lib
+    with _LIBS_LOCK:
+        lib = _LIBS.get(source)
+        if lib is None:
+            path, _, _ = build(source)
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.cuda_error_string.argtypes = [ctypes.c_int]
+            lib.cuda_error_string.restype = ctypes.c_char_p
+            _LIBS[source] = lib
+        return lib

@@ -10,12 +10,13 @@ Every kernel wrapper adds one to its launch counter each time it launches
 its kernel (and nowhere else), so a run can show that a path really went
 through the kernels: reset the counters, drive the path, read them.
 """
+import ctypes
 import threading
-from typing import Dict
+from typing import Any, Dict
 
 import torch
 
-__all__ = ["on_card", "count_launch", "launch_counts", "reset_launch_counts"]
+__all__ = ["on_card", "check_cuda", "launch", "count_launch", "launch_counts", "reset_launch_counts"]
 
 _LAUNCHES: Dict[str, int] = {}
 _LOCK = threading.Lock()
@@ -33,6 +34,26 @@ def on_card(*tensors: torch.Tensor) -> bool:
     if device.type == "cpu":
         return False
     raise ValueError(f"metrics_tpu_torch kernels run on CUDA or CPU tensors, got device {device}")
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies on one CUDA device (a kernel wrapper's guard)."""
+    if not on_card(*tensors):
+        raise ValueError(f"{name} is a CUDA kernel; it takes CUDA tensors (the CPU takes the plain version)")
+
+
+def launch(kernel: str, lib: ctypes.CDLL, device: torch.device, fn: Any, *args: Any) -> None:
+    """Call the C launcher ``fn`` of ``lib`` with ``device``'s current
+    stream, raise on the CUDA error it returns, and count the launch."""
+    if device.index == torch.cuda.current_device():
+        code = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            code = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        reason = lib.cuda_error_string(code).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {code} ({reason})")
+    count_launch(kernel)
 
 
 def count_launch(name: str) -> None:

@@ -18,14 +18,13 @@ entry points use them for CPU tensors only.
 """
 import ctypes
 import math
-import threading
 from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
-from metrics_tpu_torch.ops.build import build
-from metrics_tpu_torch.ops.dispatch import count_launch, on_card
+from metrics_tpu_torch.ops.build import load
+from metrics_tpu_torch.ops.dispatch import check_cuda, launch, on_card
 from metrics_tpu_torch.utils.data import _as_tensor, _is_integer
 
 Tensor = torch.Tensor
@@ -38,49 +37,18 @@ _TILE_FLOATS = 10240
 #: blocks to aim for when S is small: about two per SM of an H100 (132 SMs)
 _TARGET_BLOCKS = 264
 
-_LIB: Optional[ctypes.CDLL] = None
-_LIB_LOCK = threading.Lock()
+_PTR, _LL, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIGNATURES = {
+    "bincount_i32_ids32": [_PTR, _LL, _PTR, _LL, _PTR],
+    "bincount_i32_ids64": [_PTR, _LL, _PTR, _LL, _PTR],
+    "segment_sum_f32_ids32": [_PTR, _PTR, _LL, _I32, _PTR, _LL, _I32, _I32, _LL, _I32, _PTR],
+    "segment_sum_f32_ids64": [_PTR, _PTR, _LL, _I32, _PTR, _LL, _I32, _I32, _LL, _I32, _PTR],
+}
 
 
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernels' shared library."""
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            path, _, _ = build(SOURCE)
-            lib = ctypes.CDLL(str(path))
-            ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            for name in ("bincount_i32_ids32", "bincount_i32_ids64"):
-                fn = getattr(lib, name)
-                fn.argtypes = [ptr, ll, ptr, ll, ptr]
-                fn.restype = i32
-            for name in ("segment_sum_f32_ids32", "segment_sum_f32_ids64"):
-                fn = getattr(lib, name)
-                fn.argtypes = [ptr, ptr, ll, i32, ptr, ll, i32, i32, ll, i32, ptr]
-                fn.restype = i32
-            lib.cuda_error_string.argtypes = [i32]
-            lib.cuda_error_string.restype = ctypes.c_char_p
-            _LIB = lib
-        return _LIB
-
-
-def _launch(kernel: str, device: torch.device, fn: Any, *args: Any) -> None:
-    """Call a C launcher with ``device``'s current stream, raise on the CUDA
-    error it returns, and count the launch."""
-    if device.index == torch.cuda.current_device():
-        code = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(device):
-            code = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if code != 0:
-        reason = load_library().cuda_error_string(code).decode()
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {code} ({reason})")
-    count_launch(kernel)
-
-
-def _check_cuda(name: str, *tensors: Tensor) -> None:
-    if not on_card(*tensors):
-        raise ValueError(f"{name} is a CUDA kernel; it takes CUDA tensors (the CPU takes the plain version)")
+    return load(SOURCE, _SIGNATURES)
 
 
 def _ids_for_kernel(ids: Tensor) -> Tensor:
@@ -100,12 +68,12 @@ def _ids_for_kernel(ids: Tensor) -> Tensor:
 
 def bincount_i32(ids: Tensor, minlength: int) -> Tensor:
     """int32 counts of ``ids`` over ``[0, minlength)`` on the card; other ids drop."""
-    _check_cuda("bincount_i32", ids)
+    check_cuda("bincount_i32", ids)
     ids = _ids_for_kernel(ids)
-    lib = _LIB or load_library()
+    lib = load_library()
     out = torch.zeros(minlength, dtype=torch.int32, device=ids.device)
     fn = lib.bincount_i32_ids64 if ids.dtype == torch.int64 else lib.bincount_i32_ids32
-    _launch("bincount_i32", ids.device, fn, ids.data_ptr(), ids.numel(), out.data_ptr(), minlength)
+    launch("bincount_i32", lib, ids.device, fn, ids.data_ptr(), ids.numel(), out.data_ptr(), minlength)
     return out
 
 
@@ -127,7 +95,7 @@ def segment_sum_f32(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
     """``[B, D]`` (or ``[B]``) float32 rows summed by id into
     ``[num_segments, D]`` (or ``[num_segments]``) on the card; out-of-range
     ids drop. Deterministic: each output is summed in row order."""
-    _check_cuda("segment_sum_f32", vals, ids)
+    check_cuda("segment_sum_f32", vals, ids)
     if vals.dtype != torch.float32:
         raise TypeError(f"segment_sum_f32 takes float32 values, got {vals.dtype}")
     if vals.ndim not in (1, 2):
@@ -141,11 +109,12 @@ def segment_sum_f32(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
     if d == 0:  # nothing to sum: no launch
         return torch.zeros((num_segments, 0), dtype=torch.float32, device=vals.device)
     dc, sw, seg_tiles, col_chunks = segment_sum_geometry(d, num_segments)
-    lib = _LIB or load_library()
+    lib = load_library()
     out = torch.empty((num_segments, d), dtype=torch.float32, device=vals.device)
     fn = lib.segment_sum_f32_ids64 if ids.dtype == torch.int64 else lib.segment_sum_f32_ids32
-    _launch(
+    launch(
         "segment_sum_f32",
+        lib,
         vals.device,
         fn,
         rows.data_ptr(), ids.data_ptr(), b, d, out.data_ptr(), num_segments, dc, sw, seg_tiles, col_chunks,

@@ -249,6 +249,24 @@ def _input_squeeze(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
     return preds.squeeze(), target.squeeze()
 
 
+def _score_mode_static(preds: Tensor, target: Tensor) -> DataType:
+    """Shape-only mode deduction for float-SCORE inputs (the curve family):
+    the ``DataType`` :func:`_input_format_classification` would return,
+    from the ranks alone, with no value read."""
+    preds, target = _input_squeeze(preds, target)
+    if preds.ndim == 1 and target.ndim == 1:
+        return DataType.BINARY
+    if preds.ndim == 2 and target.ndim == 1:
+        return DataType.MULTICLASS
+    if preds.ndim == target.ndim and preds.ndim >= 2:
+        return DataType.MULTILABEL
+    if preds.ndim >= 3 and target.ndim == preds.ndim - 1:
+        return DataType.MULTIDIM_MULTICLASS
+    raise ValueError(
+        f"Could not deduce the classification mode from score shapes {tuple(preds.shape)} / {tuple(target.shape)}"
+    )
+
+
 def _input_format_classification(
     preds: Tensor,
     target: Tensor,

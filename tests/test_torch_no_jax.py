@@ -36,7 +36,7 @@ def test_port_imports_with_jax_blocked():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15  # every module of the slice was imported
+    assert int(out.stdout.strip()) >= 34  # every module of the port was imported
 
 
 def _imported_modules(path: Path):

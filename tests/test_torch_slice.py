@@ -224,9 +224,12 @@ def test_metric_lifecycle_errors():
         _RunningMean(device="cpu").add_state("bad", default=[1])
     with pytest.raises(ValueError, match="dist_reduce_fx"):
         _RunningMean(device="cpu").add_state("bad", default=0, dist_reduce_fx="median")
-    for reducer in ("merge", "ring", "decay"):
+    for reducer in ("ring", "decay"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             _RunningMean(device="cpu").add_state("later", default=0, dist_reduce_fx=reducer)
+    sketched = _RunningMean(device="cpu")
+    sketched.add_state("sketch", default=torch.zeros((8, 2)), dist_reduce_fx="merge")
+    assert getattr(sketched._reductions["sketch"], "merge_like", False)
     with pytest.raises(MetricsUserError, match="reduction None"):
         metric = _RunningMean(device="cpu")
         metric.add_state("gathered", default=0.0, dist_reduce_fx=None)
