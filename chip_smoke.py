@@ -6,8 +6,9 @@ Run from the root of a checkout, with one CUDA card:
 
 Phases, each printed as one JSON line:
 
-1. build   -- compile csrc/segment_sum.cu and csrc/qsketch.cu with nvcc, one
-   process per source, started together (seconds, ptxas report);
+1. build   -- compile csrc/segment_sum.cu, csrc/qsketch.cu and csrc/box_iou.cu
+   with nvcc, one process per source, started together (seconds, ptxas
+   report);
 2. parity  -- each kernel against its plain PyTorch version on the same card
    tensors: bincount_i32 at the ConfusionMatrix shape (4096 ids, 10**6
    bins) plus negative and out-of-range ids, bit-exact; segment_sum_f32 at
@@ -20,7 +21,12 @@ Phases, each printed as one JSON line:
    ragged [5001,4] with tied keys and zero-weight rows, on integer weights:
    weighted rows, bucket ids and permutation bit-exact against the plain
    version on the card and on the CPU and across two runs, and the whole
-   compaction chain bit-exact against its plain version;
+   compaction chain bit-exact against its plain version; parity_box_iou:
+   box_iou_pairwise (K5) at [1024,1024], [4096,4096] and [1000,3000] and
+   box_iou_batched (K6) at [65536,8,8], [4096,128,32], [1024,128,128],
+   [16384,64,16] and [1000,100,30], with zero-area, touching, inverted and
+   zero-padded boxes, bit-exact against the plain version on the card and
+   on the CPU and across two runs, ms per call for each shape;
 3. flagship -- the main path: 50 pre-stacked 4096x1000 softmax batches
    (seed 42, the fixture of bench.py), per step ConfusionMatrix.update_state
    plus auroc_rank_multiclass; launch counters reset just before and read
@@ -47,10 +53,28 @@ Phases, each printed as one JSON line:
    (sketch rows of 2002 columns, 10 compactions), checked against the port
    on the CPU within the float32 summation bound; its error against scipy
    is printed;
-8. the kernels line: per kernel its launches on its main path (flagship for
-   K1, sketch-binary for K3), its error against the plain version, and its
-   time, the plain version's time, the library call's time and the byte
-   bound, all at the main paths' shapes.
+8. map-coco -- the main path of K6: COCO mAP over the COCO-shaped fixture
+   of bench.py at the size of COCO val2017 (5000 images, seed 3, 91
+   classes, 10-100 detections and 1-30 ground truths per image), fed as
+   lists of per-image card tensors, 16 images per update (313 updates),
+   through MeanAveragePrecision(class_metrics=True, max_images=8192);
+   launch counters reset before the updates and read after the cold
+   compute(); ms per update, cold and warm (median of 3) compute seconds,
+   images/s, table bytes, peak device memory; gates: every result key equal
+   bit for bit to the port's CPU run of the same stream and to an
+   exact=True run on the card, and images_seen 5000;
+9. map-default -- the same stream through the default capacity (4096
+   images, past capacity): the admitted images equal the 4096 ids of
+   highest hash key computed in numpy, and card and CPU results are equal
+   bit for bit;
+10. map-pycoco -- the two-batch COCO fixture of the JAX package's tests
+   within its tolerance (1e-1) of pycocotools' official numbers; the
+   largest deviation per key is printed;
+11. the kernels line: per kernel its launches on its main path (flagship for
+   K1, sketch-binary for K3, map-coco for K6, the entry point ops.box_iou
+   on 2-D boxes for K5), its error against the plain version, and its
+   time, the plain version's time, the library call's time (none computes
+   box IoU) and the byte bound, all at the main paths' shapes.
 
 Then the card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed check
@@ -61,6 +85,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from importlib import import_module
 
@@ -87,6 +112,23 @@ SKETCH_BATCHES = 800
 CTR_POSITIVE_RATE = 0.26
 SKETCH_MC_BATCHES = 12
 COMPUTE_REPEATS = 5
+#: box IoU: the sources and TPU kernels, the parity shapes ([N, M] for K5;
+#: [U, D, G] for K6: the COCO fixture's chunk, the TPU route's measured
+#: shapes and a ragged one) and the byte-bound shapes of the kernels line
+BOX_IOU_SOURCE = "metrics_tpu_torch/csrc/box_iou.cu"
+K5_REPLACES = "metrics_tpu/ops/box_iou_pallas.py:54"
+K6_REPLACES = "metrics_tpu/ops/box_iou_pallas.py:104"
+K5_PARITY_SHAPES = ((1024, 1024), (4096, 4096), (1000, 3000))
+K6_PARITY_SHAPES = ((65536, 8, 8), (4096, 128, 32), (1024, 128, 128), (16384, 64, 16), (1000, 100, 30))
+K5_LINE_SHAPE = (4096, 4096)
+K6_LINE_SHAPE = (65536, 8, 8)
+#: the COCO-val-sized detection stream: images, images per update, classes,
+#: seed, and a table capacity that holds them all
+MAP_IMAGES = 5000
+MAP_BATCH = 16
+MAP_CLASSES = 91
+MAP_SEED = 3
+MAP_LOSSLESS_CAPACITY = 8192
 #: K3 parity cases: (name, rows, columns, share of zero-weight rows, tied keys)
 QSKETCH_PARITY_CASES = (
     ("[1024,3]", 1024, 3, 0.0, False),
@@ -518,6 +560,379 @@ def parity_phase(torch, ops, card, flagship_ids, rank_vals, auroc_ids):
     return {name: rows[0]["max_abs_err"] for name, rows in results.items()}
 
 
+def iou_boxes(torch, gen, n, scale=500.0):
+    """``[n, 4]`` xyxy boxes (float32, CPU) with the degenerate kinds the
+    kernels must take: zero width and height, a touching pair, an inverted
+    box, and zero padding at the end."""
+    xy = torch.rand((n, 2), generator=gen) * scale
+    boxes = torch.cat([xy, xy + torch.rand((n, 2), generator=gen) * scale / 3], dim=1)
+    if n >= 8:
+        boxes[0] = torch.tensor([10.0, 10.0, 10.0, 30.0])
+        boxes[1] = torch.tensor([10.0, 10.0, 30.0, 10.0])
+        boxes[2] = torch.tensor([30.0, 30.0, 10.0, 10.0])
+        boxes[3] = boxes[4] + torch.stack([boxes[4, 2] - boxes[4, 0], torch.tensor(0.0)]).repeat(2)
+        boxes[-2:] = 0
+    return boxes
+
+
+def box_iou_parity_phase(torch, ops, card):
+    """K5 and K6 against their plain version, on card tensors and on the CPU,
+    bit for bit; launches here are not counted."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    results = {"box_iou_pairwise": [], "box_iou_batched": []}
+    cases = [("box_iou_pairwise", f"[{n},{m}]", (n,), (m,)) for n, m in K5_PARITY_SHAPES]
+    cases += [("box_iou_batched", f"[{u},{d},{g}]", (u, d), (u, g)) for u, d, g in K6_PARITY_SHAPES]
+    for kernel, name, lead1, lead2 in cases:
+        host1 = iou_boxes(torch, gen, int(np.prod(lead1))).reshape(*lead1, 4)
+        host2 = iou_boxes(torch, gen, int(np.prod(lead2))).reshape(*lead2, 4)
+        if kernel == "box_iou_batched":
+            # each unit's ground truths zero-padded past a random count, as the mAP packing leaves them
+            live = torch.arange(lead2[1])[None, :] < torch.randint(1, lead2[1] + 1, (lead2[0], 1), generator=gen)
+            host2 = host2 * live[:, :, None]
+        b1, b2 = host1.cuda(), host2.cuda()
+        fn = getattr(ops, kernel)
+        got = fn(b1, b2)
+        again = fn(b1, b2)
+        plain = ops.box_iou_reference(b1, b2)
+        plain_cpu = ops.box_iou_reference(host1, host2)
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)), f"{kernel} {name}: two runs differ")
+        check(torch.equal(got.view(torch.int32), plain.view(torch.int32)), f"{kernel} {name}: differs from the plain version")
+        check(
+            torch.equal(got.cpu().view(torch.int32), plain_cpu.view(torch.int32)),
+            f"{kernel} {name}: differs from the plain version on the CPU",
+        )
+        results[kernel].append(
+            {
+                "case": name,
+                "max_abs_err": float((got - plain).abs().max()),
+                "ms": time_ms(torch, lambda: fn(b1, b2), launches=20),
+                "card": card,
+            }
+        )
+    # float64 keeps float64 through the same kernel
+    b1, b2 = (iou_boxes(torch, gen, 256).double().reshape(16, 16, 4).cuda() for _ in range(2))
+    check(torch.equal(ops.box_iou_batched(b1, b2), ops.box_iou_reference(b1, b2)), "box_iou_batched float64 differs")
+    emit({"phase": "parity_box_iou", "seconds": time.perf_counter() - t_phase, **results})
+
+
+def make_detection_data(n_imgs, n_classes=MAP_CLASSES, seed=MAP_SEED):
+    """The COCO-shaped fixture of bench.py (``_make_detection_data``): 91
+    classes, 10-100 detections and 1-30 ground truths per image, float32
+    boxes, scores and int32 labels."""
+    rng = np.random.default_rng(seed)
+    preds, target = [], []
+    for _ in range(n_imgs):
+        nd = int(rng.integers(10, 101))
+        ng = int(rng.integers(1, 31))
+
+        def boxes(n):
+            x1 = rng.uniform(0, 500, n)
+            y1 = rng.uniform(0, 500, n)
+            w = rng.uniform(4, 150, n)
+            h = rng.uniform(4, 150, n)
+            return np.stack([x1, y1, x1 + w, y1 + h], 1).astype(np.float32)
+
+        preds.append(
+            dict(
+                boxes=boxes(nd),
+                scores=rng.uniform(0, 1, nd).astype(np.float32),
+                labels=rng.integers(0, n_classes, nd).astype(np.int32),
+            )
+        )
+        target.append(dict(boxes=boxes(ng), labels=rng.integers(0, n_classes, ng).astype(np.int32)))
+    return preds, target
+
+
+def images_on(torch, images, device):
+    """Per-image dicts of tensors on ``device``: each field concatenated on
+    the host, moved in one copy and split back into per-image views."""
+    out = [dict() for _ in images]
+    for key in images[0]:
+        parts = [image[key] for image in images]
+        whole = torch.from_numpy(np.concatenate(parts)).to(device)
+        for image, view in zip(out, torch.split(whole, [len(p) for p in parts])):
+            image[key] = view
+    return out
+
+
+def feed_map(metric, preds, target):
+    for lo in range(0, len(preds), MAP_BATCH):
+        metric.update(preds[lo : lo + MAP_BATCH], target[lo : lo + MAP_BATCH])
+
+
+def keys_that_differ(torch, a, b):
+    """Keys whose float32 values differ in any bit."""
+    check(list(a) == list(b), f"result keys differ: {list(a)} and {list(b)}")
+    return [k for k in a if not torch.equal(a[k].cpu().reshape(-1).view(torch.int32), b[k].cpu().reshape(-1).view(torch.int32))]
+
+
+def numpy_reservoir_key(ids):
+    """The reservoir's hash priority, computed independently in numpy uint32."""
+    x = ids.astype(np.uint32)
+    x = (x ^ (x >> np.uint32(16))) * np.uint32(0x7FEB352D)
+    x = (x ^ (x >> np.uint32(15))) * np.uint32(0x846CA68B)
+    x = x ^ (x >> np.uint32(16))
+    return ((x >> np.uint32(8)).astype(np.float32) + np.float32(1.0)) / np.float32(1 << 24)
+
+
+def map_phases(torch, ops, card, MeanAveragePrecision):
+    """map-coco (the main path of K6), map-default and map-pycoco."""
+    t_phase = t0 = time.perf_counter()
+    preds_np, target_np = make_detection_data(MAP_IMAGES)
+    preds, target = images_on(torch, preds_np, "cuda"), images_on(torch, target_np, "cuda")
+    preds_cpu, target_cpu = images_on(torch, preds_np, "cpu"), images_on(torch, target_np, "cpu")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_updates = -(-MAP_IMAGES // MAP_BATCH)
+
+    # map-coco: lossless capacity, the K6 main path
+    torch.cuda.synchronize()
+    memory_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    metric = MeanAveragePrecision(class_metrics=True, max_images=MAP_LOSSLESS_CAPACITY)
+    check(metric.device.type == "cuda", f"MeanAveragePrecision() defaults to {metric.device}, not the card")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    feed_map(metric, preds, target)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result = metric.compute()
+    torch.cuda.synchronize()
+    cold_compute_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(launches.get("box_iou_batched", 0) > 0, f"map-coco launched no box_iou_batched: {launches}")
+    check(int(metric.images_seen) == MAP_IMAGES, f"images_seen {int(metric.images_seen)}, expected {MAP_IMAGES}")
+    peak = torch.cuda.max_memory_allocated()
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        metric.compute_state(metric.state_dict())
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    breakdown = compute_breakdown(torch, metric)
+    compute_profile = device_profile(torch, lambda i: metric.compute_state(metric.state_dict()), 1)
+
+    t0 = time.perf_counter()
+    cpu_metric = MeanAveragePrecision(class_metrics=True, max_images=MAP_LOSSLESS_CAPACITY, device="cpu")
+    feed_map(cpu_metric, preds_cpu, target_cpu)
+    cpu_result = cpu_metric.compute()
+    cpu_s = time.perf_counter() - t0
+    differ_cpu = keys_that_differ(torch, result, cpu_result)
+    check(not differ_cpu, f"map-coco: card and CPU differ in {differ_cpu}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        exact = MeanAveragePrecision(class_metrics=True, exact=True)
+    feed_map(exact, preds, target)
+    t0 = time.perf_counter()
+    exact_result = exact.compute()
+    exact_compute_s = time.perf_counter() - t0
+    differ_exact = keys_that_differ(torch, result, exact_result)
+    check(not differ_exact, f"map-coco: table and exact=True differ in {differ_exact}")
+    table = metric.table
+    emit(
+        {
+            "phase": "map-coco",
+            "seconds": time.perf_counter() - t_phase,
+            "card": card,
+            "images": MAP_IMAGES,
+            "batch_images": MAP_BATCH,
+            "updates": n_updates,
+            "max_images": MAP_LOSSLESS_CAPACITY,
+            "setup_s": setup_s,
+            "ms_per_update": update_s / n_updates * 1e3,
+            "cold_compute_s": cold_compute_s,
+            "warm_compute_s_median_of_3": float(np.median(warm)),
+            "images_per_s": MAP_IMAGES / (update_s + cold_compute_s),
+            "launches": launches,
+            "table_bytes": table.numel() * table.element_size(),
+            "peak_memory_bytes": peak,
+            "memory_before_phase_bytes": memory_before,
+            "peak_memory_of_phase_bytes": peak - memory_before,
+            "warm_compute_breakdown_s": breakdown,
+            "compute_device_busy_ms": compute_profile["device_busy_ms_per_step"],
+            "compute_device_idle_share": 1 - compute_profile["device_busy_ms_per_step"] / compute_profile["profiled_wall_ms_per_step"],
+            "compute_device_us_by_kernel": compute_profile["device_us_per_step_by_kernel"],
+            "map": float(result["map"]),
+            "map_50": float(result["map_50"]),
+            "mar_100": float(result["mar_100"]),
+            "keys_differ_card_cpu": differ_cpu,
+            "keys_differ_table_exact": differ_exact,
+            "cpu_run_s": cpu_s,
+            "exact_compute_s": exact_compute_s,
+        }
+    )
+
+    # map-default: the default capacity (4096) past capacity
+    t_phase = time.perf_counter()
+    default = MeanAveragePrecision(class_metrics=True)
+    t0 = time.perf_counter()
+    feed_map(default, preds, target)
+    torch.cuda.synchronize()
+    default_update_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    default_result = default.compute()
+    default_compute_s = time.perf_counter() - t0
+    capacity = default.table.shape[0]
+    leaf = default.table.cpu().numpy()
+    admitted = np.sort(leaf[leaf[:, 0] > -np.inf, 1].astype(np.int64))
+    ids = np.arange(MAP_IMAGES, dtype=np.int64)
+    want = np.sort(ids[np.lexsort((ids, -numpy_reservoir_key(ids)))[:capacity]])
+    check(np.array_equal(admitted, want), "map-default: the admitted images are not the top ids by hash")
+    cpu_default = MeanAveragePrecision(class_metrics=True, device="cpu")
+    feed_map(cpu_default, preds_cpu, target_cpu)
+    differ_default = keys_that_differ(torch, default_result, cpu_default.compute())
+    check(not differ_default, f"map-default: card and CPU differ in {differ_default}")
+    emit(
+        {
+            "phase": "map-default",
+            "seconds": time.perf_counter() - t_phase,
+            "card": card,
+            "images": MAP_IMAGES,
+            "max_images": capacity,
+            "admitted": int(admitted.size),
+            "admitted_equal_numpy_top_by_hash": True,
+            "ms_per_update": default_update_s / n_updates * 1e3,
+            "compute_s": default_compute_s,
+            "images_per_s": MAP_IMAGES / (default_update_s + default_compute_s),
+            "map": float(default_result["map"]),
+            "map_50": float(default_result["map_50"]),
+            "mar_100": float(default_result["mar_100"]),
+            "keys_differ_card_cpu": differ_default,
+        }
+    )
+
+    # map-pycoco: the two-batch COCO fixture with pycocotools' numbers
+    t_phase = time.perf_counter()
+    pycoco = MeanAveragePrecision(class_metrics=True)
+    for batch_preds, batch_target in zip(PYCOCO_PREDS, PYCOCO_TARGET):
+        pycoco.update([pycoco_sample(torch, p) for p in batch_preds], [pycoco_sample(torch, t) for t in batch_target])
+    got = pycoco.compute()
+    deviation = {
+        key: float(np.max(np.abs(got[key].cpu().numpy() - np.asarray(expected, np.float32))))
+        for key, expected in PYCOCO_EXPECTED.items()
+    }
+    worst = max(deviation.values())
+    check(worst <= PYCOCO_ATOL, f"map-pycoco: {worst} off pycocotools (atol {PYCOCO_ATOL})")
+    emit(
+        {
+            "phase": "map-pycoco",
+            "seconds": time.perf_counter() - t_phase,
+            "card": card,
+            "atol": PYCOCO_ATOL,
+            "max_abs_dev_by_key": deviation,
+        }
+    )
+    return launches
+
+
+def compute_breakdown(torch, metric):
+    """Seconds of one warm ``compute()`` in its stages: the host unit
+    packing, the matching on the card (chunk copies, matcher, K6, reads
+    back), the host float64 PR reduction, and the rest (the table read,
+    the unpack, the summaries). The stages are timed by wrapping them for
+    this one call."""
+    module = import_module("metrics_tpu_torch.detection.mean_ap")
+    seconds = {"pack_units": 0.0, "match": 0.0, "precision_recall": 0.0}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name] += time.perf_counter() - t0
+            return out
+
+        return wrapper
+
+    saved = (module._pack_units, module._calculate_precision_recall, module.MeanAveragePrecision._match)
+    module._pack_units = timed("pack_units", saved[0])
+    module._calculate_precision_recall = timed("precision_recall", saved[1])
+    module.MeanAveragePrecision._match = timed("match", saved[2])
+    try:
+        t0 = time.perf_counter()
+        metric.compute_state(metric.state_dict())
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        module._pack_units, module._calculate_precision_recall, module.MeanAveragePrecision._match = saved
+    return {**seconds, "rest": total - sum(seconds.values()), "total": total}
+
+
+def pycoco_sample(torch, sample):
+    out = {k: torch.tensor(v, dtype=torch.float32, device="cuda") for k, v in sample.items() if k != "labels"}
+    out["labels"] = torch.tensor(sample["labels"], dtype=torch.int32, device="cuda")
+    return out
+
+
+#: the COCO subset of the JAX package's test suite (tests/detection/test_map.py,
+#: from pycocotools' instances_val2014_fakebbox100 results) and the official
+#: pycocotools values, held at that test's tolerance
+PYCOCO_PREDS = [
+    [
+        dict(boxes=[[258.15, 41.29, 606.41, 285.07]], scores=[0.236], labels=[4]),
+        dict(boxes=[[61.00, 22.75, 565.00, 632.42], [12.66, 3.32, 281.26, 275.23]], scores=[0.318, 0.726], labels=[3, 2]),
+    ],
+    [
+        dict(
+            boxes=[
+                [87.87, 276.25, 384.29, 379.43],
+                [0.00, 3.66, 142.15, 316.06],
+                [296.55, 93.96, 314.97, 152.79],
+                [328.94, 97.05, 342.49, 122.98],
+                [356.62, 95.47, 372.33, 147.55],
+                [464.08, 105.09, 495.74, 146.99],
+                [276.11, 103.84, 291.44, 150.72],
+            ],
+            scores=[0.546, 0.3, 0.407, 0.611, 0.335, 0.805, 0.953],
+            labels=[4, 1, 0, 0, 0, 0, 0],
+        ),
+        dict(boxes=[[0.00, 2.87, 601.00, 421.52]], scores=[0.699], labels=[5]),
+    ],
+]
+PYCOCO_TARGET = [
+    [
+        dict(boxes=[[214.1500, 41.2900, 562.4100, 285.0700]], labels=[4]),
+        dict(boxes=[[13.00, 22.75, 548.98, 632.42], [1.66, 3.32, 270.26, 275.23]], labels=[2, 2]),
+    ],
+    [
+        dict(
+            boxes=[
+                [61.87, 276.25, 358.29, 379.43],
+                [2.75, 3.66, 162.15, 316.06],
+                [295.55, 93.96, 313.97, 152.79],
+                [326.94, 97.05, 340.49, 122.98],
+                [356.62, 95.47, 372.33, 147.55],
+                [462.08, 105.09, 493.74, 146.99],
+                [277.11, 103.84, 292.44, 150.72],
+            ],
+            labels=[4, 1, 0, 0, 0, 0, 0],
+        ),
+        dict(boxes=[[13.99, 2.87, 640.00, 421.52]], labels=[5]),
+    ],
+]
+PYCOCO_EXPECTED = {
+    "map": 0.706,
+    "map_50": 0.901,
+    "map_75": 0.846,
+    "map_small": 0.689,
+    "map_medium": 0.800,
+    "map_large": 0.701,
+    "mar_1": 0.592,
+    "mar_10": 0.716,
+    "mar_100": 0.716,
+    "mar_small": 0.767,
+    "mar_medium": 0.800,
+    "mar_large": 0.700,
+    "map_per_class": [0.725, 0.800, 0.454, -1.000, 0.650, 0.900],
+    "mar_100_per_class": [0.780, 0.800, 0.450, -1.000, 0.650, 0.900],
+}
+PYCOCO_ATOL = 1e-1
+
+
 def main():
     import torch
 
@@ -526,7 +941,7 @@ def main():
         return 2
     card = card_line()
 
-    from metrics_tpu_torch import AUROC, ConfusionMatrix, MetricCollection
+    from metrics_tpu_torch import AUROC, ConfusionMatrix, MeanAveragePrecision, MetricCollection
     from metrics_tpu_torch import ops
     from metrics_tpu_torch.functional import auroc_rank_multiclass
     from metrics_tpu_torch.ops.build import build
@@ -536,7 +951,7 @@ def main():
     torch.manual_seed(0)
 
     # 1. build: one nvcc per source, all started together
-    modules = [import_module(f"metrics_tpu_torch.ops.{name}") for name in ("segment_sum", "qsketch")]
+    modules = [import_module(f"metrics_tpu_torch.ops.{name}") for name in ("segment_sum", "qsketch", "box_iou")]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(modules)) as pool:
         built = list(pool.map(build, [module.SOURCE for module in modules]))
@@ -572,6 +987,7 @@ def main():
     # 2. kernel parity
     max_err = parity_phase(torch, ops, card, flagship_ids, rank_vals, auroc_ids)
     qsketch_parity_phase(torch, ops, card)
+    box_iou_parity_phase(torch, ops, card)
 
     # 3. the flagship epoch (the main path)
     confmat = ConfusionMatrix(num_classes=NUM_CLASSES)
@@ -695,6 +1111,19 @@ def main():
     sketch_window_phase(torch, ops, card, AUROC, score_np, y_np)
     sketch_multiclass_phase(torch, ops, card, AUROC, preds_all, target_all, preds_np, target_np)
 
+    # 9-11. COCO mAP: the main path of K6, past capacity, and pycocotools
+    map_launches = map_phases(torch, ops, card, MeanAveragePrecision)
+    # K5 is reached by 2-D boxes through the entry point ops.box_iou
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    k5_inputs = [(iou_boxes(torch, gen, n).cuda(), iou_boxes(torch, gen, m).cuda()) for n, m in K5_PARITY_SHAPES]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for b1, b2 in k5_inputs:
+        ops.box_iou(b1, b2)
+    torch.cuda.synchronize()
+    pairwise_launches = ops.launch_counts().get("box_iou_pairwise", 0)
+    check(pairwise_launches == len(K5_PARITY_SHAPES), f"ops.box_iou launched box_iou_pairwise {pairwise_launches} times")
+
     # K3's input on its main path: the sketch and one batch of unit rows,
     # packed occupied-first, as an absorb hands them to the compaction
     batch_score, batch_y = sketch_batch(0)
@@ -778,6 +1207,38 @@ def main():
             ),
         },
     ]
+    k5_b1, k5_b2 = (iou_boxes(torch, gen, n).cuda() for n in K5_LINE_SHAPE)
+    u, d, g = K6_LINE_SHAPE
+    k6_b1 = iou_boxes(torch, gen, u * d).reshape(u, d, 4).cuda()
+    k6_b2 = iou_boxes(torch, gen, u * g).reshape(u, g, 4).cuda()
+    iou_note = "no single PyTorch call computes box IoU: torchvision is absent, and the plain broadcast is not a library kernel"
+    for name, replaces, launches, b1, b2, read_boxes, outputs in (
+        ("box_iou_pairwise", K5_REPLACES, pairwise_launches, k5_b1, k5_b2, sum(K5_LINE_SHAPE), int(np.prod(K5_LINE_SHAPE))),
+        ("box_iou_batched", K6_REPLACES, map_launches["box_iou_batched"], k6_b1, k6_b2, u * (d + g), u * d * g),
+    ):
+        fn = getattr(ops, name)
+        got, plain = fn(b1, b2), ops.box_iou_reference(b1, b2)
+        check(torch.equal(got.view(torch.int32), plain.view(torch.int32)), f"{name} at its line shape differs from the plain version")
+        kernels.append(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": BOX_IOU_SOURCE,
+                "replaces": replaces,
+                "shape": [list(b1.shape), list(b2.shape)],
+                "launches": launches,
+                "max_abs_err": float((got - plain).abs().max()),
+                "ms": time_ms(torch, lambda: fn(b1, b2)),
+                "plain_ms": time_ms(torch, lambda: ops.box_iou_reference(b1, b2), launches=20),
+                # boxes read once (16 bytes each), IoUs written once
+                "bound_ms": (read_boxes * 16 + outputs * 4) / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes",
+                "library_ms": None,
+                "library_note": iou_note,
+                "host_us_per_call": host_us_per_call(torch, lambda: fn(b1, b2)),
+                "device_ms": kernel_device_ms(torch, lambda: fn(b1, b2), "box_iou_kernel"),
+            }
+        )
     emit({"phase": "kernel_times", "card": card})
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -6,11 +6,14 @@ their kernels are hand-written CUDA, built from ``csrc/`` at first use (see
 :mod:`metrics_tpu_torch.ops`). Ported so far: ``ConfusionMatrix``, the
 exact rank AUROC and the curve AUROC (functional), ``AUROC`` in its
 sketched streaming default (binary, one-vs-rest, multilabel) and its
-capacity modes, the quantile sketch (:mod:`metrics_tpu_torch.sketches`)
-and ``MetricCollection``.
+capacity modes, ``MeanAveragePrecision`` (COCO mAP/mAR, its reservoir
+table and its exact mode), the quantile sketch, the keyed reservoir and
+the streaming moments (:mod:`metrics_tpu_torch.sketches`) and
+``MetricCollection``.
 """
 from metrics_tpu_torch.classification import AUROC, ConfusionMatrix  # noqa: F401
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
 from metrics_tpu_torch.core.metric import Metric  # noqa: F401
+from metrics_tpu_torch.detection import MeanAveragePrecision  # noqa: F401
 
 __version__ = "0.1.0"

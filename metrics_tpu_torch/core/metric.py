@@ -11,9 +11,11 @@ plain attributes. Every update replaces a state with a new tensor and never
 writes into the old one, so the pure-state API stays functional: a state
 dict handed to ``update_state`` is never modified.
 
-Sketch states (``dist_reduce_fx="merge"`` or a ``merge_like`` reducer
-such as :func:`metrics_tpu_torch.sketches.sketch_merge_fx`) merge through
-their own reducer. Not in this slice: the observability hooks, the
+Sketch states (``dist_reduce_fx="merge"`` or a ``merge_like`` reducer:
+:func:`~metrics_tpu_torch.sketches.sketch_merge_fx`,
+:func:`~metrics_tpu_torch.sketches.reservoir_merge_fx` or
+:func:`~metrics_tpu_torch.sketches.moments_merge_fx`) merge through their
+own reducer. Not in this slice: the observability hooks, the
 fused/sliced plumbing, ``CompositionalMetric`` and cross-process sync (see
 ``ROADMAP.md``).
 """
@@ -149,7 +151,9 @@ class Metric(ABC):
         """Register a state: a tensor (reduced across processes by
         ``dist_reduce_fx``) or an empty list (gathered and concatenated).
         String reducers ``"sum"/"mean"/"max"/"min"/"cat"`` map to the
-        dim-zero functions, ``"merge"`` to the quantile-sketch reducer. ``persistent`` is accepted as in the JAX package;
+        dim-zero functions, ``"merge"`` to the quantile-sketch reducer; the
+        reservoir and moments reducers are passed as their ``*_merge_fx()``
+        callables. ``persistent`` is accepted as in the JAX package;
         ``state_dict`` saves every state."""
         if isinstance(default, list):
             if default:

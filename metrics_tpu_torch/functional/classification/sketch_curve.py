@@ -11,16 +11,68 @@ weights and crisp labels they give the unweighted kernels' values.
 
 They work along the last axis and batch over any leading axes, which takes
 the place of the JAX package's ``vmap`` over class columns.
-``coco_precision_recall_grid`` waits for the detection slice.
+
+:func:`coco_precision_recall_grid` is the detection twin: the same
+sort-then-cumulate reduction onto COCO's fixed recall grid, in host numpy
+float64 with the reference's mergesort and zigzag-removal semantics, as
+the JAX package keeps it (detection AP is held bit for bit).
 """
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from metrics_tpu_torch.functional.classification.exact_curve import _run_ends
 from metrics_tpu_torch.utils.data import stable_sort_with_payloads
 
 Tensor = torch.Tensor
+
+#: the reference's denominator epsilon (float64 machine epsilon)
+_COCO_EPS = float(np.finfo(np.float64).eps)
+
+
+def coco_precision_recall_grid(
+    scores: np.ndarray,
+    matches: np.ndarray,
+    ignore: np.ndarray,
+    npig: int,
+    rec_thrs: np.ndarray,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """COCO PR integration for one (class, area, max_det) cell.
+
+    ``scores [nd]`` in unit-major arrival order, ``matches``/``ignore``
+    ``[T, nd]`` bool over the IoU-threshold axis, ``npig`` the number of
+    non-ignored ground truths, ``rec_thrs [R]`` the fixed recall grid.
+    Returns ``(precision [T, R], recall [T])`` float64: descending
+    mergesort, float64 cumulative TP/FP counts, the right-to-left running
+    max (the fixed point of the iterative zigzag removal), a left
+    ``searchsorted`` onto the recall grid with first-out-of-bounds
+    truncation.
+    """
+    T = matches.shape[0]
+    R = rec_thrs.shape[0]
+    nd = scores.shape[0]
+    precision = np.zeros((T, R))
+    recall = np.zeros((T,))
+    if nd == 0:
+        return precision, recall
+
+    inds = np.argsort(-scores, kind="mergesort")
+    matches = matches[:, inds]
+    ignore = ignore[:, inds]
+
+    tps = np.cumsum(matches & ~ignore, axis=1, dtype=np.float64)
+    fps = np.cumsum(~matches & ~ignore, axis=1, dtype=np.float64)
+
+    rc_all = tps / npig  # [T, nd]
+    pr_all = tps / (fps + tps + _COCO_EPS)
+    recall[:] = rc_all[:, -1]
+    pr_all = np.maximum.accumulate(pr_all[:, ::-1], axis=1)[:, ::-1]
+    for t in range(T):
+        r_inds = np.searchsorted(rc_all[t], rec_thrs, side="left")
+        num = int(r_inds.argmax()) if r_inds.max() >= nd else R
+        precision[t, :num] = pr_all[t, r_inds[:num]]
+    return precision, recall
 
 
 def _weighted_sorted_cumulants(

@@ -1,6 +1,13 @@
 """Hand-written CUDA kernels for the port's hot ops, each beside its plain
 PyTorch version and behind a device-routed entry point (see
 :mod:`metrics_tpu_torch.ops.dispatch`)."""
+from metrics_tpu_torch.ops.box_iou import (  # noqa: F401
+    box_iou,
+    box_iou_batched,
+    box_iou_broadcast,
+    box_iou_pairwise,
+    box_iou_reference,
+)
 from metrics_tpu_torch.ops.dispatch import (  # noqa: F401
     count_launch,
     launch_counts,

@@ -29,6 +29,14 @@ def world_size(group: Optional[Any] = None) -> int:
     return 1
 
 
+def process_index() -> int:
+    """This process's ``torch.distributed`` rank, 0 when no group is initialised."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
 def check_single_process() -> None:
     """Raise where a sync would be needed: more than one process."""
     if distributed_available():

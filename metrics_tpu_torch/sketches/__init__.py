@@ -1,8 +1,17 @@
 """Fixed-shape, mergeable stream sketches (counterpart of ``metrics_tpu/sketches``).
 
-This slice ports the weighted quantile sketch that backs the sketched
-curve metrics (``AUROC()``'s default mode).
+Ported so far: the weighted quantile sketch that backs the sketched curve
+metrics (``AUROC()``'s default mode), the keyed reservoir behind the mAP
+metric's per-image table, the exact streaming moments, and the exact-mode
+helpers.
 """
+from metrics_tpu_torch.sketches.compat import register_exact_list_states, warn_exact_buffer  # noqa: F401
+from metrics_tpu_torch.sketches.moments import (  # noqa: F401
+    mean_cov_from_moments,
+    moments_init,
+    moments_merge_fx,
+    moments_update,
+)
 from metrics_tpu_torch.sketches.quantile import (  # noqa: F401
     QSKETCH_RANK_EPS,
     fill_bound,
@@ -19,4 +28,14 @@ from metrics_tpu_torch.sketches.quantile import (  # noqa: F401
     qsketch_total_weight,
     rank_error_bound,
     sketch_merge_fx,
+)
+from metrics_tpu_torch.sketches.reservoir import (  # noqa: F401
+    detection_table_init,
+    reservoir_fill,
+    reservoir_init,
+    reservoir_insert_keyed,
+    reservoir_key,
+    reservoir_merge,
+    reservoir_merge_fx,
+    reservoir_rows,
 )

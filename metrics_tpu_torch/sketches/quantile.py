@@ -64,7 +64,10 @@ def _version(tensor: Tensor) -> Optional[int]:
         return None
 
 
-def _with_fill_bound(sketch: Tensor, bound: int) -> Tensor:
+def with_fill_bound(sketch: Tensor, bound: int) -> Tensor:
+    """Attach the host-side bound ``bound`` on the occupied rows of
+    ``sketch`` (a quantile sketch or a reservoir), stamped with the tensor's
+    write counter; returns ``sketch``."""
     setattr(sketch, _FILL_BOUND, (int(bound), _version(sketch)))
     return sketch
 
@@ -87,7 +90,7 @@ def qsketch_init(capacity: int, payload_cols: int = 0, device: Optional[Any] = N
     if not (isinstance(payload_cols, int) and payload_cols >= 0):
         raise ValueError(f"`payload_cols` must be a non-negative int, got {payload_cols}")
     empty = torch.zeros((capacity, 2 + payload_cols), dtype=torch.float32, device=_resolve_device(device))
-    return _with_fill_bound(empty, 0)
+    return with_fill_bound(empty, 0)
 
 
 def _absorb(sketch: Tensor, new_rows: Tensor, new_bound: Optional[int] = None) -> Tensor:
@@ -107,11 +110,11 @@ def _absorb(sketch: Tensor, new_rows: Tensor, new_bound: Optional[int] = None) -
     incoming = new_rows.shape[0] if new_bound is None else min(new_bound, new_rows.shape[0])
     bound = fill_bound(sketch) + incoming
     if bound <= capacity:
-        return _with_fill_bound(pack_rows(rows, keep=capacity), bound)
+        return with_fill_bound(pack_rows(rows, keep=capacity), bound)
     packed = pack_rows(rows)
     overflow = (packed[:, 0] > 0).sum() > capacity
     compacted = qsketch_compact_dispatch(packed, capacity)
-    return _with_fill_bound(torch.where(overflow, compacted[:capacity], packed[:capacity]), capacity)
+    return with_fill_bound(torch.where(overflow, compacted[:capacity], packed[:capacity]), capacity)
 
 
 def qsketch_insert(
@@ -182,7 +185,7 @@ def qsketch_absorb_rows(sketch: Tensor, rows: Any) -> Tensor:
         )
     incoming = rows.new_zeros((max(sketch.shape[0], rows.shape[0]), sketch.shape[1]))
     incoming[: rows.shape[0]] = rows
-    return qsketch_merge(sketch, _with_fill_bound(incoming, rows.shape[0]))
+    return qsketch_merge(sketch, with_fill_bound(incoming, rows.shape[0]))
 
 
 class _QSketchReduce:

@@ -4,14 +4,7 @@ import warnings
 from functools import wraps
 from typing import Any, Callable
 
-import torch
-
-
-def _process_index() -> int:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank()
-    return 0
+from metrics_tpu_torch.parallel.distributed import process_index as _process_index
 
 
 def rank_zero_only(fn: Callable) -> Callable:
