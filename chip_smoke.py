@@ -6,9 +6,9 @@ Run from the root of a checkout, with one CUDA card:
 
 Phases, each printed as one JSON line:
 
-1. build   -- compile csrc/segment_sum.cu, csrc/qsketch.cu and csrc/box_iou.cu
-   with nvcc, one process per source, started together (seconds, ptxas
-   report);
+1. build   -- compile csrc/segment_sum.cu, csrc/qsketch.cu, csrc/box_iou.cu and
+   csrc/row_topk.cu with nvcc, one process per source, started together
+   (seconds, ptxas report);
 2. parity  -- each kernel against its plain PyTorch version on the same card
    tensors: bincount_i32 at the ConfusionMatrix shape (4096 ids, 10**6
    bins) plus negative and out-of-range ids, bit-exact; segment_sum_f32 at
@@ -27,6 +27,14 @@ Phases, each printed as one JSON line:
    [16384,64,16] and [1000,100,30], with zero-area, touching, inverted and
    zero-padded boxes, bit-exact against the plain version on the card and
    on the CPU and across two runs, ms per call for each shape;
+   parity_row_topk: row_topk (K4) at [2048,2176] k=64 (an insert chunk's
+   widened rows) with 8 rows of the row mask set, [8192,2176] k=64 with 8
+   rows set and with every row, [16384,256] k=128, [64,256] k=16,
+   [8192,2048] k=1024, a ragged [1000,3000] k=100 and [16,40000] k=10 (past
+   one block's shared memory), on ties, NaN of both signs, signed zeros,
+   +-inf, invalid slots and rows with fewer valid slots than k, bit-exact
+   against the plain version on the card and on the CPU and across two
+   runs, ms per call for each shape;
 3. flagship -- the main path: 50 pre-stacked 4096x1000 softmax batches
    (seed 42, the fixture of bench.py), per step ConfusionMatrix.update_state
    plus auroc_rank_multiclass; launch counters reset just before and read
@@ -70,13 +78,42 @@ Phases, each printed as one JSON line:
 10. map-pycoco -- the two-batch COCO fixture of the JAX package's tests
    within its tolerance (1e-1) of pycocotools' official numbers; the
    largest deviation per key is printed;
-11. the kernels line: per kernel its launches on its main path (flagship for
+11. retrieval-mslr -- the main path of K4: bench.py's config-4 fixture
+   (seed 7, 5000 queries of 40-199 documents, 587,354 documents, 8%
+   relevant) as card tensors in updates of 16,384 documents through
+   MetricCollection([RetrievalNormalizedDCG(max_queries=8192),
+   RetrievalMAP(max_queries=8192)]) (two compute groups, so two tables, each
+   287 insert chunks); launch counters reset before the updates and read
+   after the cold compute() (one row_topk and three segment_sum_f32
+   launches per chunk and table); ms per update, cold and warm compute ms,
+   queries/s, table bytes, peak device memory, two updates under
+   torch.profiler; gates: tables and results bit-identical to the port's
+   CPU run of the stream, every row's NSEEN/POS/NEG equal to numpy's
+   per-query counts, every compacted row holding 64 to 128 documents;
+12. retrieval-window -- the same stream with max_docs=256 (lossless): the
+   table's layout equal bit for bit to the exact=True pack, NDCG and MAP
+   within 1e-6 of exact=True on the card and within 1e-5 of numpy float64;
+13. retrieval-sampled -- the defaults (1024 queries, past capacity): the
+   admitted queries equal the 1024 of highest (hash key, -id) in numpy, card
+   and CPU bit-identical;
+14. retrieval-merge -- the stream split at its middle document into two
+   collections merged with merge_states: at max_docs=128 card and CPU
+   bit-identical, one row_topk launch per merged table; at max_docs=256 the
+   merged layout equal to the single stream's;
+15. the kernels line: per kernel its launches on its main path (flagship for
    K1, sketch-binary for K3, map-coco for K6, the entry point ops.box_iou
-   on 2-D boxes for K5), its error against the plain version, and its
-   time, the plain version's time, the library call's time (none computes
-   box IoU) and the byte bound, all at the main paths' shapes.
+   on 2-D boxes for K5, retrieval-mslr for K4), its error against the plain
+   version, and its time, the plain version's time, the library call's
+   time (none computes box IoU) and the byte bound, all at the main paths'
+   shapes (K4 at a chunk's own widened [2048,2176] rows and overflow mask,
+   and with every row active); each device time with the number of
+   profiler windows it took (a window that saw no launch is taken again,
+   at most three in all).
 
-Then the card's name and power limit as nvidia-smi reports them, and last
+PERF.md gives the run times measured on an H100 (150-193 s of command
+time, 40-55 s of it in the four retrieval phases with their CPU runs of
+the stream, before the insert widened fewer rows). Then the card's name
+and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed check
 raises, so the script exits non-zero and prints no result line; it does the
 same without CUDA, or without the metrics_tpu_torch package beside it.
@@ -129,6 +166,29 @@ MAP_BATCH = 16
 MAP_CLASSES = 91
 MAP_SEED = 3
 MAP_LOSSLESS_CAPACITY = 8192
+#: per-row top-k (K4): the source, the TPU kernel, and the parity cases
+#: (name, rows, columns, k, active rows or None for all): the table insert's
+#: widened rows with the overflow mask of about 7 rows and with all rows, the
+#: merge, bench.py's parity shape, the TPU route's cap, a ragged shape and a
+#: width past one block's 16384 keys
+ROW_TOPK_SOURCE = "metrics_tpu_torch/csrc/row_topk.cu"
+K4_REPLACES = "metrics_tpu/ops/topk_pallas.py:124"
+K4_PARITY_CASES = (
+    ("[2048,2176] masked", 2048, 2176, 64, 8),
+    ("[8192,2176] masked", 8192, 2176, 64, 8),
+    ("[8192,2176]", 8192, 2176, 64, None),
+    ("[16384,256]", 16384, 256, 128, None),
+    ("[64,256]", 64, 256, 16, None),
+    ("[8192,2048]", 8192, 2048, 1024, None),
+    ("[1000,3000]", 1000, 3000, 100, None),
+    ("[16,40000]", 16, 40000, 10, None),
+)
+#: the MSLR-WEB30K-shaped stream of bench.py's config 4: queries, seed,
+#: documents per update, and a query capacity that admits every query
+RETRIEVAL_QUERIES = 5000
+RETRIEVAL_SEED = 7
+RETRIEVAL_UPDATE_DOCS = 16384
+RETRIEVAL_MAX_QUERIES = 8192
 #: K3 parity cases: (name, rows, columns, share of zero-weight rows, tied keys)
 QSKETCH_PARITY_CASES = (
     ("[1024,3]", 1024, 3, 0.0, False),
@@ -182,29 +242,37 @@ def _self_device_us(evt):
     return getattr(evt, "self_device_time_total", None) or evt.self_cuda_time_total
 
 
-def kernel_device_ms(torch, fn, kernel_names, launches=50):
-    """Device time of one call of ``fn`` spent in the kernels named
-    ``kernel_names`` (a name or a tuple of the names a wrapper launches
-    once each), from torch.profiler; the wrappers' host work and the output
-    zeroing are not in it."""
+def kernel_device_time(torch, fn, kernel_names, launches=50):
+    """``{"device_ms": ..., "device_windows": ...}``: the device time of one
+    call of ``fn`` spent in the kernels named ``kernel_names`` (a name or a
+    tuple of the names a wrapper launches once each), from torch.profiler,
+    and the profiling windows taken to read it; the wrappers' host work and
+    the output zeroing are not in it."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel_names,) if isinstance(kernel_names, str) else kernel_names
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    averages = prof.key_averages()
+    # a profiling window now and then records none of a kernel's launches
+    # (seen once for ten 2 ms launches of row_topk): such a window is taken
+    # again, at most three times in all
+    for windows in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+        rows = {name: [evt for evt in averages if name in evt.key] for name in names}
+        if all(sum(evt.count for evt in found) > 0 for found in rows.values()):
+            break
     total_ms = 0.0
-    for kernel_name in (kernel_names,) if isinstance(kernel_names, str) else kernel_names:
-        rows = [evt for evt in averages if kernel_name in evt.key]
+    for kernel_name, found in rows.items():
         # the profiler may miss an event at the edge of its window: average
         # over the launches it saw
-        count = sum(evt.count for evt in rows)
+        count = sum(evt.count for evt in found)
         check(count > 0, f"the profiler saw no launch of {kernel_name}")
-        total_ms += sum(_self_device_us(evt) for evt in rows) / count / 1e3
-    return total_ms
+        total_ms += sum(_self_device_us(evt) for evt in found) / count / 1e3
+    return {"device_ms": total_ms, "device_windows": windows}
 
 
 def device_profile(torch, step, steps):
@@ -933,6 +1001,435 @@ PYCOCO_EXPECTED = {
 PYCOCO_ATOL = 1e-1
 
 
+def row_topk_inputs(torch, gen, r, n, nan_share=0.02):
+    """``[r, n]`` float32 preds, payload and valid on the host: quantized
+    scores (ties), NaN of both signs, signed zeros, +-inf, about 30% invalid
+    slots, and rows with fewer valid slots than any k here (every 7th row
+    keeps three)."""
+    preds = torch.randint(-64, 64, (r, n), generator=gen).float() / 8
+    pick = torch.rand((r, n), generator=gen)
+    preds[pick < nan_share] = float("nan")
+    preds[(pick >= nan_share) & (pick < 2 * nan_share)] = -float("nan")
+    preds[(pick >= 0.1) & (pick < 0.12)] = -0.0
+    preds[(pick >= 0.12) & (pick < 0.13)] = float("inf")
+    preds[(pick >= 0.13) & (pick < 0.14)] = -float("inf")
+    valid = (torch.rand((r, n), generator=gen) < 0.7).float()
+    valid[::7, 3:] = 0
+    payload = torch.randint(0, 1000, (r, n), generator=gen).float()
+    return preds, payload, valid
+
+
+def bits(torch, x):
+    """The tensor's bits on the host (bool as bytes, 4-byte types as int32)."""
+    x = x.detach().cpu().contiguous()
+    return x.view(torch.int8) if x.dtype == torch.bool else x.view(torch.int32)
+
+
+def same_bits(torch, a, b):
+    return all(torch.equal(bits(torch, x), bits(torch, y)) for x, y in zip(a, b))
+
+
+def row_topk_parity_phase(torch, ops, card):
+    """K4 against its plain version on card tensors and on the CPU and
+    across two runs, bit for bit; launches here are not counted."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    results = []
+    for name, r, n, k, active in K4_PARITY_CASES:
+        host = row_topk_inputs(torch, gen, r, n)
+        rows_host = None
+        if active is not None:
+            rows_host = torch.zeros(r, dtype=torch.bool)
+            rows_host[torch.randperm(r, generator=gen)[:active]] = True
+        card_in = [x.cuda() for x in host]
+        rows = None if rows_host is None else rows_host.cuda()
+        got = ops.row_topk_f32(*card_in, k, rows=rows)
+        again = ops.row_topk_f32(*card_in, k, rows=rows)
+        plain = ops.row_topk_reference(*card_in, k, rows=rows)
+        plain_cpu = ops.row_topk_reference(*host, k, rows=rows_host)
+        torch.cuda.synchronize()
+        check(same_bits(torch, got, again), f"row_topk {name}: two runs differ")
+        check(same_bits(torch, got, plain), f"row_topk {name}: differs from the plain version")
+        check(same_bits(torch, got, plain_cpu), f"row_topk {name}: differs from the plain version on the CPU")
+        finite = torch.isfinite(got[0]) & torch.isfinite(plain[0])
+        results.append(
+            {
+                "case": name,
+                "k": k,
+                "active_rows": r if active is None else active,
+                "max_abs_err": float((got[0] - plain[0])[finite].abs().max()) if bool(finite.any()) else 0.0,
+                "ms": time_ms(torch, lambda: ops.row_topk_f32(*card_in, k, rows=rows), launches=20),
+                "card": card,
+            }
+        )
+    emit({"phase": "parity_row_topk", "seconds": time.perf_counter() - t_phase, "row_topk": results})
+
+
+def make_mslr_stream():
+    """bench.py's config-4 fixture (``bench_retrieval``): seed 7, 5000
+    queries of 40-199 documents, uniform scores, 8% relevant."""
+    rng = np.random.RandomState(RETRIEVAL_SEED)
+    counts = rng.randint(40, 200, RETRIEVAL_QUERIES)
+    idx = np.repeat(np.arange(RETRIEVAL_QUERIES), counts)
+    preds = rng.rand(len(idx)).astype(np.float32)
+    target = (rng.rand(len(idx)) < 0.08).astype(np.int32)
+    return idx, preds, target
+
+
+def retrieval_collection(torch, tret, MetricCollection, device=None, **kw):
+    """The config-4 pair, NDCG and MAP, as a user builds it (two compute
+    groups: NDCG allows graded targets and MAP does not)."""
+    return MetricCollection(
+        [tret.RetrievalNormalizedDCG(device=device, **kw), tret.RetrievalMAP(device=device, **kw)]
+    )
+
+
+def feed_retrieval(collection, stream, lo=0, hi=None):
+    idx, preds, target = stream
+    hi = idx.shape[0] if hi is None else hi
+    for start in range(lo, hi, RETRIEVAL_UPDATE_DOCS):
+        end = min(start + RETRIEVAL_UPDATE_DOCS, hi)
+        collection.update(preds[start:end], target[start:end], indexes=idx[start:end])
+
+
+def stream_on(torch, stream_np, device):
+    return tuple(torch.from_numpy(x).to(device) for x in stream_np)
+
+
+def results_differ(torch, a, b):
+    return [k for k in a if not torch.equal(bits(torch, a[k]), bits(torch, b[k]))]
+
+
+def tables_differ(torch, a, b):
+    return [f"{k}.qtable" for k in a.keys(keep_base=True) if not torch.equal(bits(torch, a[k].qtable), bits(torch, b[k].qtable))]
+
+
+def numpy_ndcg_map(idx, preds, target):
+    """Mean NDCG and MAP over every query in float64 numpy (queries without a
+    relevant document count 0, the default policy)."""
+    n = idx.shape[0]
+    order = np.lexsort((np.arange(n), -preds.astype(np.float64), idx))
+    q, t = idx[order], target[order].astype(np.float64)
+    starts = np.r_[0, np.nonzero(np.diff(q))[0] + 1]
+    counts = np.diff(np.r_[starts, n])
+    rank = np.arange(n) - np.repeat(starts, counts) + 1.0
+    cum = np.cumsum(t)
+    cum_in_query = cum - np.repeat(np.r_[0.0, cum[starts[1:] - 1]], counts)
+    num_pos = np.add.reduceat(t, starts)
+    ap = np.add.reduceat(t * cum_in_query / rank, starts) / np.maximum(num_pos, 1)
+    dcg = np.add.reduceat(t / np.log2(rank + 1), starts)
+    ideal_t = t[np.lexsort((-t, q))]
+    idcg = np.add.reduceat(ideal_t / np.log2(rank + 1), starts)
+    ndcg = np.where(idcg > 0, dcg / np.where(idcg > 0, idcg, 1), 0.0)
+    return float(ndcg.mean()), float(np.where(num_pos > 0, ap, 0.0).mean())
+
+
+def query_counts(idx, target):
+    """Per-query documents, positive mass and negatives, from numpy."""
+    return np.bincount(idx), np.bincount(idx, weights=target), np.bincount(idx, weights=target == 0)
+
+
+def table_rows(torch, table, tret):
+    """(query id, NSEEN, POS, NEG, FILL) of the occupied rows of a table, on the host."""
+    t = table.cpu()
+    occ = t[:, tret.table.COL_KEY] > 0
+    qid = tret.table._join_qid(t[:, tret.table.COL_QHI], t[:, tret.table.COL_QLO])[occ].numpy()
+    cols = [tret.table.COL_NSEEN, tret.table.COL_POS, tret.table.COL_NEG, tret.table.COL_FILL]
+    return (qid, *(t[occ, c].numpy() for c in cols))
+
+
+def capture_row_topk_call(torch, tret, stream):
+    """The inputs of the K4 launch with the most overflowing rows among the
+    first update's chunks, replayed on a fresh metric (the wrapper is
+    wrapped for this replay only)."""
+    module = import_module("metrics_tpu_torch.retrieval.table")
+    calls = []
+    saved = module.row_topk
+
+    def recording(*args, **kwargs):
+        calls.append((args, kwargs))
+        return saved(*args, **kwargs)
+
+    module.row_topk = recording
+    try:
+        metric = tret.RetrievalMAP(max_queries=RETRIEVAL_MAX_QUERIES)
+        metric.update(*(x[:RETRIEVAL_UPDATE_DOCS] for x in (stream[1], stream[2], stream[0])))
+    finally:
+        module.row_topk = saved
+    args, kwargs = max(calls, key=lambda call: int(call[1]["rows"].sum()))
+    return args, kwargs["rows"]
+
+
+def retrieval_phases(torch, ops, card, MetricCollection):
+    """retrieval-mslr (the main path of K4), retrieval-window,
+    retrieval-sampled and retrieval-merge."""
+    tret = import_module("metrics_tpu_torch.retrieval")
+    padded = import_module("metrics_tpu_torch.functional.retrieval.padded")
+    t_phase = t0 = time.perf_counter()
+    stream_np = make_mslr_stream()
+    stream = stream_on(torch, stream_np, "cuda")
+    stream_cpu = stream_on(torch, stream_np, "cpu")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_docs = stream_np[0].shape[0]
+    n_updates = -(-n_docs // RETRIEVAL_UPDATE_DOCS)
+    chunks = sum(-(-min(RETRIEVAL_UPDATE_DOCS, n_docs - lo) // 2048) for lo in range(0, n_docs, RETRIEVAL_UPDATE_DOCS))
+    docs_per_query, pos_per_query, neg_per_query = query_counts(*stream_np[::2])
+
+    # retrieval-mslr: every query admitted, queries past 128 docs compacted
+    torch.cuda.synchronize()
+    memory_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mslr = retrieval_collection(torch, tret, MetricCollection, max_queries=RETRIEVAL_MAX_QUERIES)
+    check(all(m.device.type == "cuda" for m in mslr.values()), "the retrieval metrics do not default to the card")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    feed_retrieval(mslr, stream)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    values = mslr.compute()
+    torch.cuda.synchronize()
+    cold_compute_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    n_tables = len(mslr.compute_groups)
+    check(launches.get("row_topk") == n_tables * chunks, f"retrieval-mslr row_topk launches {launches}, expected {n_tables} x {chunks}")
+    check(launches.get("segment_sum_f32") == 3 * n_tables * chunks, f"retrieval-mslr segment_sum_f32 launches {launches}")
+    peak = torch.cuda.max_memory_allocated()
+
+    def warm():
+        for m in mslr.values():
+            m._computed = None
+        mslr.compute()
+
+    warm_ms = median_ms(torch, warm, repeats=3)
+    profile = device_profile(
+        torch, lambda i: feed_retrieval(retrieval_collection(torch, tret, MetricCollection, max_queries=RETRIEVAL_MAX_QUERIES), stream, 0, RETRIEVAL_UPDATE_DOCS), 2
+    )
+    t0 = time.perf_counter()
+    mslr_cpu = retrieval_collection(torch, tret, MetricCollection, device="cpu", max_queries=RETRIEVAL_MAX_QUERIES)
+    feed_retrieval(mslr_cpu, stream_cpu)
+    values_cpu = mslr_cpu.compute()
+    cpu_s = time.perf_counter() - t0
+    differ = results_differ(torch, values, values_cpu) + tables_differ(torch, mslr, mslr_cpu)
+    check(not differ, f"retrieval-mslr: card and CPU differ in {differ}")
+    compacted = 0
+    for name, metric in mslr.items(keep_base=True):
+        qid, nseen, pos, neg, fill = table_rows(torch, metric.qtable, tret)
+        check(qid.size == RETRIEVAL_QUERIES, f"{name}: {qid.size} queries admitted, expected all {RETRIEVAL_QUERIES}")
+        check(np.array_equal(nseen, docs_per_query[qid]), f"{name}: NSEEN differs from numpy")
+        check(np.array_equal(pos, pos_per_query[qid]), f"{name}: POS differs from numpy")
+        check(np.array_equal(neg, neg_per_query[qid]), f"{name}: NEG differs from numpy")
+        over = nseen > 128
+        check(bool(((fill[over] >= 64) & (fill[over] <= 128)).all()), f"{name}: a compacted row holds too few or too many docs")
+        compacted = int(over.sum())
+    table = mslr["RetrievalMAP"].qtable
+    emit(
+        {
+            "phase": "retrieval-mslr",
+            "seconds": time.perf_counter() - t_phase,
+            "card": card,
+            "queries": RETRIEVAL_QUERIES,
+            "documents": n_docs,
+            "docs_per_update": RETRIEVAL_UPDATE_DOCS,
+            "updates": n_updates,
+            "chunks_per_table": chunks,
+            "tables": n_tables,
+            "compute_groups": {str(k): v for k, v in mslr.compute_groups.items()},
+            "max_queries": RETRIEVAL_MAX_QUERIES,
+            "compacted_queries": compacted,
+            "setup_s": setup_s,
+            "ms_per_update": update_s / n_updates * 1e3,
+            "cold_compute_ms": cold_compute_s * 1e3,
+            "warm_compute_ms_median_of_3": warm_ms,
+            "queries_per_s": RETRIEVAL_QUERIES / (update_s + cold_compute_s),
+            "launches": launches,
+            "table_bytes": table.numel() * table.element_size(),
+            "peak_memory_bytes": peak,
+            "peak_memory_of_phase_bytes": peak - memory_before,
+            "update_device_busy_ms": profile["device_busy_ms_per_step"],
+            "update_profiled_wall_ms": profile["profiled_wall_ms_per_step"],
+            "update_device_us_by_kernel": profile["device_us_per_step_by_kernel"],
+            "ndcg": float(values["RetrievalNormalizedDCG"]),
+            "map": float(values["RetrievalMAP"]),
+            "differ_card_cpu": differ,
+            "cpu_run_s": cpu_s,
+        }
+    )
+
+    # retrieval-window: max_docs 256 holds every query whole
+    t_phase = time.perf_counter()
+    window = retrieval_collection(torch, tret, MetricCollection, max_queries=RETRIEVAL_MAX_QUERIES, max_docs=256)
+    feed_retrieval(window, stream)
+    window_values = window.compute()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        exact = MetricCollection([tret.RetrievalNormalizedDCG(exact=True), tret.RetrievalMAP(exact=True)])
+    feed_retrieval(exact, stream)
+    exact_values = exact.compute()
+    m_exact = exact["RetrievalMAP"]
+    pack = padded.pack_queries(torch.cat(m_exact.indexes), torch.cat(m_exact.preds), torch.cat(m_exact.target))
+    layout = tret.retrieval_table_layout(window["RetrievalMAP"].qtable)
+    q, d = pack[0].shape
+    check(same_bits(torch, [x[:q, :d] for x in layout[:3]], pack), "retrieval-window: layout differs from the exact pack")
+    check(not bool(layout[2][q:].any()) and not bool(layout[2][:, d:].any()), "retrieval-window: slots past the exact pack are occupied")
+    ref_ndcg, ref_map = numpy_ndcg_map(*stream_np)
+    err_exact = {k: abs(float(window_values[k]) - float(exact_values[k])) for k in window_values}
+    err_numpy = {
+        "RetrievalNormalizedDCG": abs(float(window_values["RetrievalNormalizedDCG"]) - ref_ndcg),
+        "RetrievalMAP": abs(float(window_values["RetrievalMAP"]) - ref_map),
+    }
+    check(max(err_exact.values()) <= 1e-6, f"retrieval-window: {err_exact} off exact=True")
+    check(max(err_numpy.values()) <= 1e-5, f"retrieval-window: {err_numpy} off numpy float64")
+    emit(
+        {
+            "phase": "retrieval-window",
+            "seconds": time.perf_counter() - t_phase,
+            "card": card,
+            "max_docs": 256,
+            "layout_equals_exact_pack": True,
+            "abs_err_vs_exact": err_exact,
+            "abs_err_vs_numpy_float64": err_numpy,
+            "ndcg": float(window_values["RetrievalNormalizedDCG"]),
+            "map": float(window_values["RetrievalMAP"]),
+        }
+    )
+
+    # retrieval-sampled: the defaults (1024 queries) evict
+    t_phase = time.perf_counter()
+    sampled = retrieval_collection(torch, tret, MetricCollection)
+    t0 = time.perf_counter()
+    feed_retrieval(sampled, stream)
+    torch.cuda.synchronize()
+    sampled_update_s = time.perf_counter() - t0
+    sampled_values = sampled.compute()
+    sampled_cpu = retrieval_collection(torch, tret, MetricCollection, device="cpu")
+    feed_retrieval(sampled_cpu, stream_cpu)
+    differ_sampled = results_differ(torch, sampled_values, sampled_cpu.compute()) + tables_differ(torch, sampled, sampled_cpu)
+    check(not differ_sampled, f"retrieval-sampled: card and CPU differ in {differ_sampled}")
+    ids = np.arange(RETRIEVAL_QUERIES, dtype=np.int64)
+    capacity = sampled["RetrievalMAP"].max_queries
+    want = np.sort(ids[np.lexsort((ids, -numpy_reservoir_key(ids)))[:capacity]])
+    for name, metric in sampled.items(keep_base=True):
+        admitted = np.sort(table_rows(torch, metric.qtable, tret)[0])
+        check(np.array_equal(admitted, want), f"retrieval-sampled: {name} admitted other queries than the top {capacity} by hash")
+    emit(
+        {
+            "phase": "retrieval-sampled",
+            "seconds": time.perf_counter() - t_phase,
+            "card": card,
+            "max_queries": capacity,
+            "admitted_equal_numpy_top_by_hash": True,
+            "ms_per_update": sampled_update_s / n_updates * 1e3,
+            "ndcg": float(sampled_values["RetrievalNormalizedDCG"]),
+            "map": float(sampled_values["RetrievalMAP"]),
+            "differ_card_cpu": differ_sampled,
+        }
+    )
+
+    # retrieval-merge: two halves of the stream merged through merge_states
+    t_phase = time.perf_counter()
+    half = n_docs // 2
+    merged_out = {}
+    for max_docs in (128, 256):
+        for device, source in (("cuda", stream), ("cpu", stream_cpu)):
+            if max_docs == 256 and device == "cpu":
+                continue
+            sides = []
+            for lo, hi in ((0, half), (half, n_docs)):
+                side = retrieval_collection(torch, tret, MetricCollection, device=device, max_queries=RETRIEVAL_MAX_QUERIES, max_docs=max_docs)
+                feed_retrieval(side, source, lo, hi)
+                sides.append(side)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+            merged = {}
+            for name, metric in sides[0].items(keep_base=True):
+                state = metric.merge_states({"qtable": metric.qtable}, {"qtable": sides[1][name].qtable})
+                merged[name] = (state["qtable"], metric.compute_state(state))
+            if device == "cuda":
+                torch.cuda.synchronize()
+                merged_out[max_docs, "launches"] = ops.launch_counts()
+            merged_out[max_docs, device] = merged
+    merge_launches = merged_out[128, "launches"].get("row_topk", 0)
+    check(merge_launches == 2, f"retrieval-merge: {merge_launches} row_topk launches, expected one per merged table")
+    differ_merge = [
+        name
+        for name, (table, value) in merged_out[128, "cuda"].items()
+        if not same_bits(torch, (table, value), merged_out[128, "cpu"][name])
+    ]
+    check(not differ_merge, f"retrieval-merge: card and CPU differ in {differ_merge}")
+    for name, (table, _) in merged_out[256, "cuda"].items():
+        got = tret.retrieval_table_layout(table)
+        want = tret.retrieval_table_layout(window[name].qtable)
+        check(same_bits(torch, got, want), f"retrieval-merge: {name} merged layout differs from the single stream's")
+    emit(
+        {
+            "phase": "retrieval-merge",
+            "seconds": time.perf_counter() - t_phase,
+            "card": card,
+            "split_at_document": half,
+            "row_topk_launches_in_merges_max_docs_128": merge_launches,
+            "differ_card_cpu_max_docs_128": differ_merge,
+            "merged_layout_equals_single_stream_max_docs_256": True,
+        }
+    )
+    return launches, capture_row_topk_call(torch, tret, stream)
+
+
+def row_topk_line(torch, ops, launches, captured):
+    """K4's entry of the kernels line, at the main path's own inputs: a
+    chunk's [2048, 2176] widened rows with the overflow mask it had, and the
+    same rows all active."""
+    (preds, payload, valid, k), rows = captured
+    active = rows.nonzero()[:, 0]
+    r, n = preds.shape
+    got = ops.row_topk_f32(preds, payload, valid, k, rows=rows)
+    plain = ops.row_topk_reference(preds, payload, valid, k, rows=rows)
+    check(same_bits(torch, got, plain), "row_topk at its main-path input differs from the plain version")
+    keys = torch.where(valid > 0, preds, -torch.inf)
+
+    def library(select):
+        order = torch.sort(keys[select], dim=-1, descending=True, stable=True).indices[:, :k]
+        return keys[select].gather(-1, order), payload[select].gather(-1, order), valid[select].gather(-1, order)
+
+    all_rows = torch.arange(r, device=preds.device)
+
+    def bound_ms(n_active, mask_bytes):
+        # the active rows' three inputs read once and three outputs written
+        # once, and the row mask read once (the callers keep no other row)
+        return (n_active * (n + k) * 4 * 3 + mask_bytes) / HBM_BYTES_PER_S * 1e3
+
+    finite = torch.isfinite(got[0]) & torch.isfinite(plain[0])
+    return {
+        "name": "row_topk",
+        "route": "cuda",
+        "source": ROW_TOPK_SOURCE,
+        "replaces": K4_REPLACES,
+        "shape": [r, n],
+        "k": k,
+        "active_rows": int(active.numel()),
+        "launches": launches["row_topk"],
+        "max_abs_err": float((got[0] - plain[0])[finite].abs().max()) if bool(finite.any()) else 0.0,
+        "ms": time_ms(torch, lambda: ops.row_topk_f32(preds, payload, valid, k, rows=rows)),
+        "plain_ms": time_ms(torch, lambda: ops.row_topk_reference(preds, payload, valid, k, rows=rows), launches=20),
+        "bound_ms": bound_ms(int(active.numel()), r),
+        "bound_by": "bytes",
+        "library_ms": time_ms(torch, lambda: library(active)),
+        "library_note": "torch.sort(descending=True, stable=True) of the active rows' keys and two gathers (torch.topk is not tie-stable)",
+        "host_us_per_call": host_us_per_call(torch, lambda: ops.row_topk_f32(preds, payload, valid, k, rows=rows)),
+        **kernel_device_time(torch, lambda: ops.row_topk_f32(preds, payload, valid, k, rows=rows), "topk_block_kernel"),
+        "all_rows": {
+            "ms": time_ms(torch, lambda: ops.row_topk_f32(preds, payload, valid, k), launches=20),
+            **kernel_device_time(torch, lambda: ops.row_topk_f32(preds, payload, valid, k), "topk_block_kernel", launches=10),
+            "plain_ms": time_ms(torch, lambda: ops.row_topk_reference(preds, payload, valid, k), launches=10),
+            "library_ms": time_ms(torch, lambda: library(all_rows), launches=20),
+            "bound_ms": bound_ms(r, 0),
+        },
+    }
+
+
 def main():
     import torch
 
@@ -951,7 +1448,7 @@ def main():
     torch.manual_seed(0)
 
     # 1. build: one nvcc per source, all started together
-    modules = [import_module(f"metrics_tpu_torch.ops.{name}") for name in ("segment_sum", "qsketch", "box_iou")]
+    modules = [import_module(f"metrics_tpu_torch.ops.{name}") for name in ("segment_sum", "qsketch", "box_iou", "row_topk")]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(modules)) as pool:
         built = list(pool.map(build, [module.SOURCE for module in modules]))
@@ -988,6 +1485,7 @@ def main():
     max_err = parity_phase(torch, ops, card, flagship_ids, rank_vals, auroc_ids)
     qsketch_parity_phase(torch, ops, card)
     box_iou_parity_phase(torch, ops, card)
+    row_topk_parity_phase(torch, ops, card)
 
     # 3. the flagship epoch (the main path)
     confmat = ConfusionMatrix(num_classes=NUM_CLASSES)
@@ -1113,6 +1611,8 @@ def main():
 
     # 9-11. COCO mAP: the main path of K6, past capacity, and pycocotools
     map_launches = map_phases(torch, ops, card, MeanAveragePrecision)
+    # retrieval: the main path of K4, the window, the sampled default, merges
+    retrieval_launches, k4_captured = retrieval_phases(torch, ops, card, MetricCollection)
     # K5 is reached by 2-D boxes through the entry point ops.box_iou
     gen = torch.Generator(device="cpu").manual_seed(5)
     k5_inputs = [(iou_boxes(torch, gen, n).cuda(), iou_boxes(torch, gen, m).cuda()) for n, m in K5_PARITY_SHAPES]
@@ -1171,7 +1671,7 @@ def main():
             "bound_by": "bytes",
             "library_ms": time_ms(torch, lambda: torch.bincount(flagship_ids, minlength=NUM_CLASSES**2)),
             "host_us_per_call": host_us_per_call(torch, bincount_call),
-            "device_ms": kernel_device_ms(torch, bincount_call, "bincount_i32_kernel"),
+            **kernel_device_time(torch, bincount_call, "bincount_i32_kernel"),
         },
         {
             "name": "segment_sum_f32",
@@ -1186,7 +1686,7 @@ def main():
             "bound_by": "bytes",
             "library_ms": time_ms(torch, index_add_call),
             "host_us_per_call": host_us_per_call(torch, segment_sum_call),
-            "device_ms": kernel_device_ms(torch, segment_sum_call, "segment_sum_f32_kernel"),
+            **kernel_device_time(torch, segment_sum_call, "segment_sum_f32_kernel"),
         },
         {
             "name": "qsketch_sort_bucket",
@@ -1202,7 +1702,7 @@ def main():
             "bound_by": "bytes",
             "library_ms": time_ms(torch, lambda: torch.sort(k3_keys, stable=True)),
             "host_us_per_call": host_us_per_call(torch, qsketch_call),
-            "device_ms": kernel_device_ms(
+            **kernel_device_time(
                 torch, qsketch_call, ("sort_runs_kernel", "scan_bucket_kernel", "gather_rows_kernel")
             ),
         },
@@ -1236,9 +1736,10 @@ def main():
                 "library_ms": None,
                 "library_note": iou_note,
                 "host_us_per_call": host_us_per_call(torch, lambda: fn(b1, b2)),
-                "device_ms": kernel_device_ms(torch, lambda: fn(b1, b2), "box_iou_kernel"),
+                **kernel_device_time(torch, lambda: fn(b1, b2), "box_iou_kernel"),
             }
         )
+    kernels.append(row_topk_line(torch, ops, retrieval_launches, k4_captured))
     emit({"phase": "kernel_times", "card": card})
     emit({"kernels": kernels})
     print(card, flush=True)

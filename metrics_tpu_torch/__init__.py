@@ -7,7 +7,8 @@ their kernels are hand-written CUDA, built from ``csrc/`` at first use (see
 exact rank AUROC and the curve AUROC (functional), ``AUROC`` in its
 sketched streaming default (binary, one-vs-rest, multilabel) and its
 capacity modes, ``MeanAveragePrecision`` (COCO mAP/mAR, its reservoir
-table and its exact mode), the quantile sketch, the keyed reservoir and
+table and its exact mode), the eight retrieval metrics (their per-query
+table and their exact mode), the quantile sketch, the keyed reservoir and
 the streaming moments (:mod:`metrics_tpu_torch.sketches`) and
 ``MetricCollection``.
 """
@@ -15,5 +16,15 @@ from metrics_tpu_torch.classification import AUROC, ConfusionMatrix  # noqa: F40
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
 from metrics_tpu_torch.core.metric import Metric  # noqa: F401
 from metrics_tpu_torch.detection import MeanAveragePrecision  # noqa: F401
+from metrics_tpu_torch.retrieval import (  # noqa: F401
+    RetrievalFallOut,
+    RetrievalHitRate,
+    RetrievalMAP,
+    RetrievalMRR,
+    RetrievalNormalizedDCG,
+    RetrievalPrecision,
+    RetrievalRecall,
+    RetrievalRPrecision,
+)
 
 __version__ = "0.1.0"

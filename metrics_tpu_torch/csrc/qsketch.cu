@@ -33,7 +33,8 @@
 //  * Keys only. Each row's key becomes an order-preserving uint32 (sign
 //    flipped for positives, all bits for negatives), packed with the row
 //    index into a unique uint64, so the sort is on 8 bytes a row and needs
-//    no stability. The payload moves once, by gather, at the end.
+//    no stability. The payload moves once, by gather, at the end. The
+//    network and the key map are bitonic.cuh's, shared with row_topk.cu.
 //  * Up to 16384 rows (the binary default: n_pad = 2 * 8192): one block of
 //    1024 threads sorts all keys with a bitonic network in 128 KB of dynamic
 //    shared memory. Beyond that, blocks sort 16384-row runs the same way and
@@ -52,10 +53,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "bitonic.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kRun = 16384;  // keys one block sorts in shared memory (128 KB)
+using bitonic::kRun;
+using bitonic::kThreads;
 constexpr unsigned int kPlusInf = 0xff800000u;  // the ordered form of +inf
 
 __device__ __forceinline__ unsigned long long sort_key(const float* __restrict__ rows, long long n, int cols,
@@ -69,23 +72,10 @@ __device__ __forceinline__ unsigned long long sort_key(const float* __restrict__
     } else if (key != key) {
       ord = 0xffffffffu;  // every NaN after +inf
     } else {
-      const unsigned int bits = key == 0.0f ? 0u : __float_as_uint(key);  // -0.0 as +0.0
-      ord = (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+      ord = bitonic::ascending_bits(key);
     }
   }
   return ((unsigned long long)ord << 32) | (unsigned long long)(unsigned int)i;
-}
-
-// lower index of the t-th compare-exchange pair at stride j (a power of two)
-__device__ __forceinline__ long long pair_low(long long t, long long j) { return ((t & ~(j - 1)) << 1) | (t & (j - 1)); }
-
-__device__ __forceinline__ void compare_exchange(unsigned long long* s, long long i, long long l, bool ascending) {
-  const unsigned long long a = s[i];
-  const unsigned long long b = s[l];
-  if ((a > b) == ascending) {
-    s[i] = b;
-    s[l] = a;
-  }
 }
 
 // Stages k = 2 .. run of the bitonic network over one run of `run` keys;
@@ -98,25 +88,14 @@ __global__ void __launch_bounds__(kThreads)
   const long long base = (long long)blockIdx.x * run;
   for (int t = threadIdx.x; t < run; t += blockDim.x) s[t] = sort_key(rows, n, cols, base + t);
   __syncthreads();
-  for (int k = 2; k <= run; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = threadIdx.x; t < run / 2; t += blockDim.x) {
-        const long long i = pair_low(t, j);
-        compare_exchange(s, i, i + j, ((base + i) & k) == 0);
-      }
-      __syncthreads();
-    }
-  }
+  bitonic::sort_run(s, run, base);
   for (int t = threadIdx.x; t < run; t += blockDim.x) keys[base + t] = s[t];
 }
 
 // One compare-exchange pass of stage k at a stride j >= run, over all keys.
 __global__ void merge_global_kernel(unsigned long long* __restrict__ keys, long long n_pad, long long k, long long j) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < n_pad / 2; t += stride) {
-    const long long i = pair_low(t, j);
-    compare_exchange(keys, i, i + j, (i & k) == 0);
-  }
+  bitonic::global_pass(keys, n_pad, k, j, (long long)blockIdx.x * blockDim.x + threadIdx.x,
+                       (long long)gridDim.x * blockDim.x);
 }
 
 // The strides j < run of stage k > run, inside each run.
@@ -124,16 +103,7 @@ __global__ void __launch_bounds__(kThreads)
     merge_runs_kernel(unsigned long long* __restrict__ keys, int run, long long k) {
   extern __shared__ unsigned long long s[];
   const long long base = (long long)blockIdx.x * run;
-  for (int t = threadIdx.x; t < run; t += blockDim.x) s[t] = keys[base + t];
-  __syncthreads();
-  for (int j = run >> 1; j > 0; j >>= 1) {
-    for (int t = threadIdx.x; t < run / 2; t += blockDim.x) {
-      const long long i = pair_low(t, j);
-      compare_exchange(s, i, i + j, ((base + i) & k) == 0);
-    }
-    __syncthreads();
-  }
-  for (int t = threadIdx.x; t < run; t += blockDim.x) keys[base + t] = s[t];
+  bitonic::merge_run(keys + base, s, run, base, k);
 }
 
 // Sorted weights, their prefix sum and the bucket of each sorted row; one

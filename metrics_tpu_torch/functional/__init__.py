@@ -6,3 +6,13 @@ from metrics_tpu_torch.functional.classification import (  # noqa: F401
     confusion_matrix,
     roc,
 )
+from metrics_tpu_torch.functional.retrieval import (  # noqa: F401
+    retrieval_average_precision,
+    retrieval_fall_out,
+    retrieval_hit_rate,
+    retrieval_normalized_dcg,
+    retrieval_precision,
+    retrieval_r_precision,
+    retrieval_recall,
+    retrieval_reciprocal_rank,
+)

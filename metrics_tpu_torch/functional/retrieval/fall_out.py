@@ -1,0 +1,32 @@
+"""Retrieval fall-out.
+
+Counterpart of ``metrics_tpu/functional/retrieval/fall_out.py``.
+"""
+from typing import Any, Optional, Union
+
+import torch
+
+from metrics_tpu_torch.functional.retrieval._common import _descending, _inputs, _zero
+from metrics_tpu_torch.utils.checks import _check_retrieval_k
+
+Tensor = torch.Tensor
+
+
+def retrieval_fall_out(
+    preds: Any, target: Any, k: Optional[int] = None, device: Optional[Union[str, torch.device]] = None
+) -> Tensor:
+    """Fraction of the non-relevant documents retrieved in the top k.
+
+    Example:
+        >>> import torch
+        >>> retrieval_fall_out(torch.tensor([0.2, 0.3, 0.5]), torch.tensor([True, False, True]), k=2)
+        tensor(1.)
+    """
+    preds, target = _inputs(preds, target, device)
+    k = preds.shape[-1] if k is None else k
+    _check_retrieval_k(k)
+    target = 1 - target
+    if not bool(target.sum()):
+        return _zero(preds)
+    relevant = target[_descending(preds)][:k].sum().to(torch.float32)
+    return relevant / target.sum()

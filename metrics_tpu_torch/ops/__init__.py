@@ -20,6 +20,7 @@ from metrics_tpu_torch.ops.qsketch import (  # noqa: F401
     qsketch_sort_bucket,
     qsketch_sort_bucket_reference,
 )
+from metrics_tpu_torch.ops.row_topk import row_topk, row_topk_f32, row_topk_reference  # noqa: F401
 from metrics_tpu_torch.ops.segment_sum import (  # noqa: F401
     bincount_dispatch,
     bincount_i32,

@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds) and loaded with
 ``ctypes``. Libraries go to ``metrics_tpu_torch/_build/``, named by a hash
-of the source and the flags, so an edited source builds anew and an
-unchanged one is loaded as it is. A failed build raises with the
+of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header builds anew and an unchanged one is loaded as it
+is. A failed build raises with the
 compiler's output: there is no fallback.
 """
 import ctypes
@@ -50,9 +51,11 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives (keyed on content and flags)."""
+    """Where the library built from ``csrc/<source>`` lives (keyed on its
+    content, every header under ``csrc/`` and the flags)."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(path.name.encode() + path.read_bytes() for path in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 

@@ -1,0 +1,43 @@
+"""RetrievalHitRate.
+
+Counterpart of ``metrics_tpu/retrieval/hit_rate.py``.
+"""
+from typing import Any, Optional
+
+import torch
+
+from metrics_tpu_torch.functional.retrieval.hit_rate import retrieval_hit_rate
+from metrics_tpu_torch.functional.retrieval.padded import hit_rate_row
+from metrics_tpu_torch.retrieval.base import RetrievalMetric
+from metrics_tpu_torch.utils.checks import _check_retrieval_k
+
+Tensor = torch.Tensor
+
+
+class RetrievalHitRate(RetrievalMetric):
+    """Mean hit rate@k over queries.
+
+    The default state is the fixed-capacity per-query table (``max_queries``
+    / ``max_docs`` size it); ``exact=True`` keeps the unbounded
+    list states of the reference.
+    """
+
+    _padded_metric = staticmethod(hit_rate_row)
+
+    @property
+    def _padded_k(self) -> Optional[int]:
+        return self.k
+
+    def __init__(
+        self,
+        empty_target_action: str = "neg",
+        ignore_index: Optional[int] = None,
+        k: Optional[int] = None,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(empty_target_action=empty_target_action, ignore_index=ignore_index, **kwargs)
+        _check_retrieval_k(k)
+        self.k = k
+
+    def _metric(self, preds: Tensor, target: Tensor) -> Tensor:
+        return retrieval_hit_rate(preds, target, k=self.k)

@@ -1,0 +1,44 @@
+"""RetrievalNormalizedDCG.
+
+Counterpart of ``metrics_tpu/retrieval/ndcg.py``.
+"""
+from typing import Any, Optional
+
+import torch
+
+from metrics_tpu_torch.functional.retrieval.ndcg import retrieval_normalized_dcg
+from metrics_tpu_torch.functional.retrieval.padded import ndcg_row
+from metrics_tpu_torch.retrieval.base import RetrievalMetric
+from metrics_tpu_torch.utils.checks import _check_retrieval_k
+
+Tensor = torch.Tensor
+
+
+class RetrievalNormalizedDCG(RetrievalMetric):
+    """Mean nDCG@k over queries (graded targets allowed).
+
+    The default state is the fixed-capacity per-query table (``max_queries``
+    / ``max_docs`` size it); ``exact=True`` keeps the unbounded
+    list states of the reference.
+    """
+
+    _padded_metric = staticmethod(ndcg_row)
+
+    @property
+    def _padded_k(self) -> Optional[int]:
+        return self.k
+
+    def __init__(
+        self,
+        empty_target_action: str = "neg",
+        ignore_index: Optional[int] = None,
+        k: Optional[int] = None,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(empty_target_action=empty_target_action, ignore_index=ignore_index, **kwargs)
+        _check_retrieval_k(k)
+        self.k = k
+        self.allow_non_binary_target = True
+
+    def _metric(self, preds: Tensor, target: Tensor) -> Tensor:
+        return retrieval_normalized_dcg(preds, target, k=self.k)

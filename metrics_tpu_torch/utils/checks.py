@@ -1,6 +1,7 @@
-"""Input canonicalisation for classification metrics.
+"""Input canonicalisation for classification and retrieval metrics.
 
-Counterpart of ``metrics_tpu/utils/checks.py`` (the classification part):
+Counterpart of ``metrics_tpu/utils/checks.py`` (the classification and
+retrieval parts):
 the shape/dtype case-deduction table, the ``num_classes`` and ``top_k``
 consistency rules, and ``_input_format_classification``, which turns every
 supported input style into canonical int32 binary ``(N, C)`` / ``(N, C, X)``
@@ -9,13 +10,15 @@ tensors. The errors and their messages match the JAX package's.
 The value checks (label ranges, implied class counts) read the data, which
 on the card is a device-to-host copy that waits for the card. All of them
 are taken from one small tensor of minima and maxima, read in one
-``.tolist()`` call per formatted batch (:func:`_value_stats`).
+``.tolist()`` call per formatted batch (:func:`_value_stats`); a
+retrieval table update likewise reads its binary-target and ``ignore_index``
+checks in one call (:func:`_read_retrieval_values`).
 """
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from metrics_tpu_torch.utils.data import select_topk, to_onehot
+from metrics_tpu_torch.utils.data import _is_integer, select_topk, to_onehot
 from metrics_tpu_torch.utils.enums import DataType
 
 Tensor = torch.Tensor
@@ -332,3 +335,133 @@ def _input_format_classification(
         preds, target = preds.squeeze(-1), target.squeeze(-1)
 
     return preds.to(torch.int32), target.to(torch.int32), case
+
+
+# ---------------------------------------------------------------------------
+# retrieval input checks
+# ---------------------------------------------------------------------------
+
+
+def _flat(x: Tensor, dtype: torch.dtype) -> Tensor:
+    """``x`` as a flat tensor of ``dtype``; the same tensor object when it
+    already is one, so metrics fed one batch keep identical state tensors
+    (the retrieval pack memo is keyed on identity)."""
+    x = x.to(dtype)
+    return x if x.ndim == 1 else x.reshape(-1)
+
+
+def _check_retrieval_target_dtypes(preds: Tensor, target: Tensor) -> None:
+    if not (_is_integer(target.dtype) or target.dtype == torch.bool or target.is_floating_point()):
+        raise ValueError("`target` must be a tensor of booleans, integers or floats")
+    if not preds.is_floating_point():
+        raise ValueError("`preds` must be a tensor of floats")
+
+
+def _read_retrieval_values(checkable: Optional[Tensor], valid: Optional[Tensor]) -> Dict[str, float]:
+    """``tmax``/``tmin`` of ``checkable`` and ``any_valid`` of ``valid``
+    (each part only when given), in ONE host read."""
+    parts: Dict[str, Tensor] = {}
+    if checkable is not None:
+        parts["tmax"], parts["tmin"] = checkable.max(), checkable.min()
+    if valid is not None:
+        parts["any_valid"] = valid.any()
+    if not parts:
+        return {}
+    values = torch.stack([v.to(torch.float64) for v in parts.values()]).tolist()
+    return dict(zip(parts, values))
+
+
+def _check_binary(stats: Dict[str, float]) -> None:
+    # int() truncates, as the JAX package's int(jnp.max(target)) does
+    if int(stats["tmax"]) > 1 or int(stats["tmin"]) < 0:
+        raise ValueError("`target` must contain `binary` values")
+
+
+def _check_retrieval_target_and_prediction_types(
+    preds: Tensor, target: Tensor, allow_non_binary_target: bool = False
+) -> Tuple[Tensor, Tensor]:
+    """Dtype and binary-value checks; float32 preds and float32 (float
+    targets) or int32 targets, flattened."""
+    _check_retrieval_target_dtypes(preds, target)
+    if not allow_non_binary_target:
+        _check_binary(_read_retrieval_values(target, None))
+    target = _flat(target, torch.float32 if target.is_floating_point() else torch.int32)
+    return _flat(preds, torch.float32), target
+
+
+def _check_retrieval_functional_inputs(
+    preds: Tensor, target: Tensor, allow_non_binary_target: bool = False
+) -> Tuple[Tensor, Tensor]:
+    """Inputs of the single-query retrieval functionals."""
+    if preds.shape != target.shape:
+        raise ValueError("`preds` and `target` must be of the same shape")
+    if not preds.numel() or not preds.ndim:
+        raise ValueError("`preds` and `target` must be non-empty and non-scalar tensors")
+    return _check_retrieval_target_and_prediction_types(preds, target, allow_non_binary_target=allow_non_binary_target)
+
+
+def _check_retrieval_inputs(
+    indexes: Tensor,
+    preds: Tensor,
+    target: Tensor,
+    allow_non_binary_target: bool = False,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Inputs of a retrieval metric's ``exact=True`` update: ``ignore_index``
+    rows are filtered out (a data-dependent shape), indexes become int32
+    (wrapping int64 ids past 2**31, as the JAX package's ``astype`` does)."""
+    if indexes.shape != preds.shape or preds.shape != target.shape:
+        raise ValueError("`indexes`, `preds` and `target` must be of the same shape")
+    if not _is_integer(indexes.dtype):
+        raise ValueError("`indexes` must be a tensor of long integers")
+    if ignore_index is not None:
+        keep = target != ignore_index
+        indexes, preds, target = indexes[keep], preds[keep], target[keep]
+    if not indexes.numel() or not indexes.ndim:
+        raise ValueError("`indexes`, `preds` and `target` must be non-empty and non-scalar tensors")
+    preds, target = _check_retrieval_target_and_prediction_types(
+        preds, target, allow_non_binary_target=allow_non_binary_target
+    )
+    return _flat(indexes, torch.int32), preds, target
+
+
+def _check_retrieval_inputs_static(
+    indexes: Tensor,
+    preds: Tensor,
+    target: Tensor,
+    allow_non_binary_target: bool = False,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Fixed-shape variant for the table-state update: instead of filtering
+    ``ignore_index`` rows it returns a ``valid`` mask beside the flattened
+    tensors. The value checks (binary target, a batch that ``ignore_index``
+    erases completely) share one host read."""
+    if indexes.shape != preds.shape or preds.shape != target.shape:
+        raise ValueError("`indexes`, `preds` and `target` must be of the same shape")
+    if not _is_integer(indexes.dtype):
+        raise ValueError("`indexes` must be a tensor of long integers")
+    if not indexes.numel() or not indexes.ndim:
+        raise ValueError("`indexes`, `preds` and `target` must be non-empty and non-scalar tensors")
+    _check_retrieval_target_dtypes(preds, target)
+    target = target.reshape(-1)
+    valid = (
+        torch.ones(target.shape, dtype=torch.bool, device=target.device)
+        if ignore_index is None
+        else target != ignore_index
+    )
+    checkable = None
+    if not allow_non_binary_target:
+        checkable = target if ignore_index is None else torch.where(valid, target, torch.zeros_like(target))
+    stats = _read_retrieval_values(checkable, None if ignore_index is None else valid)
+    if checkable is not None:
+        _check_binary(stats)
+    if ignore_index is not None and not stats["any_valid"]:
+        raise ValueError("`indexes`, `preds` and `target` must be non-empty and non-scalar tensors")
+    target = _flat(target, torch.float32 if target.is_floating_point() else torch.int32)
+    return _flat(indexes, torch.int32), _flat(preds, torch.float32), target, valid
+
+
+def _check_retrieval_k(k: Optional[int]) -> None:
+    """Shared @k validation for retrieval metrics."""
+    if (k is not None) and not (isinstance(k, int) and k > 0):
+        raise ValueError("`k` has to be a positive integer or None")

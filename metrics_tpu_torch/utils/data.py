@@ -1,5 +1,6 @@
 """Tensor helpers: device placement, dim-zero reducers, one-hot, top-k
-selection, collection mapping, the routed bincount and the payload sort.
+selection, collection mapping, query grouping, the routed bincount and the
+payload sort.
 
 Counterpart of ``metrics_tpu/utils/data.py``. The JAX package runs with
 x64 off, so its integer states are int32 and its host floats become
@@ -139,6 +140,17 @@ def apply_to_collection(
     if isinstance(data, Sequence) and not isinstance(data, str):
         return elem_type([apply_to_collection(d, dtype, function, *args, wrong_dtype=wrong_dtype, **kwargs) for d in data])
     return data
+
+
+def get_group_indexes(indexes: Tensor) -> List[Tensor]:
+    """Positions grouped by value: one int32 index tensor per distinct id,
+    groups in ascending id order, positions in their original order (one
+    stable argsort and a split, on the host). The tensors lie on
+    ``indexes``' device."""
+    ids = indexes.detach().cpu().numpy().reshape(-1)
+    order = np.argsort(ids, kind="stable")
+    boundaries = np.nonzero(np.diff(ids[order]))[0] + 1
+    return [torch.as_tensor(g.astype(np.int32), device=indexes.device) for g in np.split(order, boundaries)]
 
 
 def _bincount(x: Any, minlength: int) -> Tensor:

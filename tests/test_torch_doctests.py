@@ -20,6 +20,9 @@ _WITH_EXAMPLES = [name for name in _MODULES if _has_examples(name)]
 
 def test_examples_exist():
     assert len(_WITH_EXAMPLES) >= 4
+    # every retrieval functional shows its value
+    retrieval = [name for name in _WITH_EXAMPLES if name.startswith("metrics_tpu_torch.functional.retrieval.")]
+    assert len(retrieval) == 8
 
 
 @pytest.mark.parametrize("module", _WITH_EXAMPLES)
