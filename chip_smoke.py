@@ -6,9 +6,9 @@ Run from the root of a checkout, with one CUDA card:
 
 Phases, each printed as one JSON line:
 
-1. build   -- compile csrc/segment_sum.cu, csrc/qsketch.cu, csrc/box_iou.cu and
-   csrc/row_topk.cu with nvcc, one process per source, started together
-   (seconds, ptxas report);
+1. build   -- compile csrc/segment_sum.cu, csrc/segment_extremum.cu,
+   csrc/qsketch.cu, csrc/box_iou.cu and csrc/row_topk.cu with nvcc, one
+   process per source, started together (seconds, ptxas report);
 2. parity  -- each kernel against its plain PyTorch version on the same card
    tensors: bincount_i32 at the ConfusionMatrix shape (4096 ids, 10**6
    bins) plus negative and out-of-range ids, bit-exact; segment_sum_f32 at
@@ -34,7 +34,17 @@ Phases, each printed as one JSON line:
    one block's shared memory), on ties, NaN of both signs, signed zeros,
    +-inf, invalid slots and rows with fewer valid slots than k, bit-exact
    against the plain version on the card and on the CPU and across two
-   runs, ms per call for each shape;
+   runs, ms per call for each shape; parity_segment_extremum:
+   segment_max_f32 and segment_min_f32 (K2) at [256]->1000 (the sliced
+   update), [4096]->1000, [4096]->100000, [8192,256]->128 (the TPU route's
+   width cap), [4096,1000]->64 (past it), [1048576]->64 and [16,3]->5, on
+   ties, NaN of both signs, signed zeros, +-inf, empty segments and ids
+   that drop (negative, past S, int64 past int32), and segment_sum_i32 at
+   [4096]->1000 and ->100000 on wrapping int32 sums: bit-exact (NaN by
+   position) against the plain version on the card and on the CPU, int32
+   ids equal to int64 ids; ms, device ms, plain ms, the library call's ms
+   (scatter_reduce_ / index_add_), host us per call and the byte bound for
+   each shape;
 3. flagship -- the main path: 50 pre-stacked 4096x1000 softmax batches
    (seed 42, the fixture of bench.py), per step ConfusionMatrix.update_state
    plus auroc_rank_multiclass; launch counters reset just before and read
@@ -100,19 +110,47 @@ Phases, each printed as one JSON line:
    collections merged with merge_states: at max_docs=128 card and CPU
    bit-identical, one row_topk launch per merged table; at max_docs=256 the
    merged layout equal to the single stream's;
-15. the kernels line: per kernel its launches on its main path (flagship for
+15. sliced-psnr -- the main path of K2: SlicedMetric(PeakSignalNoiseRatio(),
+   num_slices=1000) on the card over 16 updates of 256 images of 3x256x256
+   (targets uniform, preds the targets plus 0.05 N(0,1), tenant ids uniform
+   over 1000 with six dropped rows; each update made on the card from its
+   own seed); launch counters reset before the updates and read after the
+   cold compute() (per update one segment_max_f32, one segment_min_f32,
+   one segment_sum_f32 and two segment_sum_i32); gates: the states after 4
+   updates equal to the port's CPU run bit for bit; after 16 the min/max,
+   counts and rows exact and the squared error within rtol 1e-5 of float64,
+   compute() within 1e-4 dB of the float64 PSNR with NaN exactly on the
+   empty tenants, compute(slice_ids=) and compute(top_k=10) equal to
+   gathers of compute(); ms per update, images/s, compute ms, state bytes,
+   peak memory, two profiled updates and the device's idle share;
+16. sliced-mse -- bench.py's bench_sliced fixture (seed 8, integer-valued
+   rows in batches of 3072/3584/4096) at 1000 tenants (12 batches) and
+   100,000 (6 batches), states bit-identical to a numpy per-slice
+   fan-out, rows/s, and segment_sum_f32's device time at each shape;
+17. windowed-psnr -- WindowedMetric(SlicedMetric(PSNR(), 1000), window=8,
+   updates_per_bucket=4) over 40 updates of the same traffic (the ring
+   wraps); compute(), compute(window=2) and compute(window=3, before=1),
+   in that order and reversed, each against a fresh SlicedMetric fed that
+   window's updates (regenerated from their seeds): max/min/count leaves
+   exact, squared error within rtol 1e-6, values within 1e-4 dB;
+18. windowed-decay -- bench.py's bench_windowed stream (seed 12, 120
+   updates of about 2048 rows) through WindowedMetric(MSE(), mode="decay",
+   decay=0.99) and the ring WindowedMetric(MSE(), window=8,
+   updates_per_bucket=4): card and CPU states bit for bit, decay within
+   1e-5 of a float64 recurrence, the ring equal to its window's batches;
+19. the kernels line: per kernel its launches on its main path (flagship for
    K1, sketch-binary for K3, map-coco for K6, the entry point ops.box_iou
-   on 2-D boxes for K5, retrieval-mslr for K4), its error against the plain
+   on 2-D boxes for K5, retrieval-mslr for K4, sliced-psnr for K2 and
+   segment_sum_i32), its error against the plain
    version, and its time, the plain version's time, the library call's
    time (none computes box IoU) and the byte bound, all at the main paths'
    shapes (K4 at a chunk's own widened [2048,2176] rows and overflow mask,
-   and with every row active); each device time with the number of
+   and with every row active; K2 and segment_sum_i32 at the sliced
+   update's [256] -> 1000); each device time with the number of
    profiler windows it took (a window that saw no launch is taken again,
    at most three in all).
 
-PERF.md gives the run times measured on an H100 (150-193 s of command
-time, 40-55 s of it in the four retrieval phases with their CPU runs of
-the stream, before the insert widened fewer rows). Then the card's name
+PERF.md gives the run times measured on an H100 and where they go. Then the card's name
 and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed check
 raises, so the script exits non-zero and prints no result line; it does the
@@ -189,6 +227,39 @@ RETRIEVAL_QUERIES = 5000
 RETRIEVAL_SEED = 7
 RETRIEVAL_UPDATE_DOCS = 16384
 RETRIEVAL_MAX_QUERIES = 8192
+#: segment max/min (K2): the source, the TPU kernel, the parity cases (name,
+#: rows, columns, segments: the sliced update's shape, a batch over 1000 and
+#: 100,000 tenants, the TPU route's width cap, past it, a long batch, a small
+#: ragged one) and segment_sum_i32's (name, rows, segments)
+SEGEXT_SOURCE = "metrics_tpu_torch/csrc/segment_extremum.cu"
+K2_REPLACES = "metrics_tpu/ops/scatter_pallas.py:218"
+K2_PARITY_CASES = (
+    ("[256,1]->1000", 256, 1, 1000),
+    ("[4096,1]->1000", 4096, 1, 1000),
+    ("[4096,1]->100000", 4096, 1, 100_000),
+    ("[8192,256]->128", 8192, 256, 128),
+    ("[4096,1000]->64", 4096, 1000, 64),
+    ("[1048576,1]->64", 1 << 20, 1, 64),
+    ("[16,3]->5", 16, 3, 5),
+)
+I32_PARITY_CASES = (("[4096]->1000", 4096, 1000), ("[4096]->100000", 4096, 100_000))
+#: per-tenant image quality (sliced-psnr, windowed-psnr): tenants, updates,
+#: images per update, image shape, noise scale, rows checked against the CPU,
+#: seeds (one per update)
+PSNR_TENANTS = 1000
+PSNR_UPDATES = 16
+PSNR_BATCH = 256
+PSNR_IMAGE = (3, 256, 256)
+PSNR_NOISE = 0.05
+PSNR_CPU_UPDATES = 4
+PSNR_SEED = 5000
+WINDOW_UPDATES = 40
+WINDOW_SEED = 7000
+#: bench.py's fixtures: bench_sliced's batch sizes, bench_windowed's stream
+SLICED_SIZES = (3072, 3584, 4096)
+DECAY_UPDATES = 120
+DECAY_SHAPES = (1536, 2048, 1948)
+DECAY_ALPHA = 0.99
 #: K3 parity cases: (name, rows, columns, share of zero-weight rows, tied keys)
 QSKETCH_PARITY_CASES = (
     ("[1024,3]", 1024, 3, 0.0, False),
@@ -1430,6 +1501,543 @@ def row_topk_line(torch, ops, launches, captured):
     }
 
 
+def extremum_inputs(torch, gen, b, d, s):
+    """K2 parity inputs on the host: ``[b, d]`` float32 values with ties,
+    NaN of both signs, +-0.0 and +-inf; int64 ids over ``[-2, s + 2)`` with
+    a few far past int32's range (all of these drop), segment ``s - 1``
+    always empty; and the same ids as int32, with the far ones set to -1."""
+    vals = torch.randint(-64, 64, (b, d), generator=gen).float() / 8
+    pick = torch.rand((b, d), generator=gen)
+    vals[pick < 0.01] = float("nan")
+    vals[(pick >= 0.01) & (pick < 0.02)] = -float("nan")
+    vals[(pick >= 0.1) & (pick < 0.15)] = -0.0
+    vals[(pick >= 0.15) & (pick < 0.16)] = float("inf")
+    vals[(pick >= 0.16) & (pick < 0.17)] = -float("inf")
+    ids = torch.randint(-2, s + 2, (b,), generator=gen)
+    ids[ids == s - 1] = s
+    far = torch.rand(b, generator=gen) < 0.01
+    ids[far] = torch.where(torch.rand(b, generator=gen)[far] < 0.5, 2**33 + 1, -(2**33))
+    return vals, ids, torch.where(far, -1, ids).to(torch.int32)
+
+
+def int_sum_inputs(torch, gen, b, s):
+    """segment_sum_i32 parity inputs: int32 values over the whole range (so
+    sums wrap), ids as :func:`extremum_inputs` makes them."""
+    vals = torch.randint(-(2**31), 2**31 - 1, (b,), generator=gen, dtype=torch.int64).to(torch.int32)
+    _, ids, ids32 = extremum_inputs(torch, gen, b, 1, s)
+    return vals, ids, ids32
+
+
+def segment_line(torch, kernel_fn, plain_fn, library_fn, vals, ids, s, device_name, plain_launches=20):
+    """Times of one segment kernel at one shape: CUDA-event ms, device ms
+    (profiler), the plain version's ms, the library call's ms, the wrapper's
+    host time and the byte bound (values and ids read once, output written
+    once)."""
+    d = vals.shape[1] if vals.ndim == 2 else 1
+    bound = (vals.numel() * vals.element_size() + ids.numel() * ids.element_size() + s * d * vals.element_size())
+    return {
+        "ms": time_ms(torch, lambda: kernel_fn(vals, ids, s)),
+        **kernel_device_time(torch, lambda: kernel_fn(vals, ids, s), device_name),
+        "plain_ms": time_ms(torch, lambda: plain_fn(vals, ids, s), launches=plain_launches),
+        "library_ms": time_ms(torch, library_fn),
+        "host_us_per_call": host_us_per_call(torch, lambda: kernel_fn(vals, ids, s)),
+        "bound_ms": bound / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+    }
+
+
+def library_extremum(torch, vals, ids, s, is_max):
+    """One scatter_reduce_ call computing K2's function but for signed zeros
+    (it keeps the first zero it meets): the ids are mapped past S beforehand
+    (into a row that is dropped), outside the timed call."""
+    d = vals.shape[1] if vals.ndim == 2 else 1
+    rows = vals.reshape(-1, d)
+    index = torch.where((ids >= 0) & (ids < s), ids, s).reshape(-1, 1).expand(rows.shape).contiguous()
+    fill = -torch.inf if is_max else torch.inf
+    out = torch.full((s + 1, d), fill, device=vals.device)
+    mode = "amax" if is_max else "amin"
+    return lambda: out.fill_(fill).scatter_reduce_(0, index, rows, mode, include_self=True)
+
+
+def library_index_add(torch, vals, ids, s):
+    """One index_add_ call: the plain segment sum (atomics), ids mapped past S beforehand."""
+    index = torch.where((ids >= 0) & (ids < s), ids, s)
+    out = torch.zeros(s + 1, dtype=vals.dtype, device=vals.device)
+    return lambda: out.zero_().index_add_(0, index, vals)
+
+
+def segment_extremum_parity_phase(torch, ops, card):
+    """K2 (segment_max_f32 / segment_min_f32) and segment_sum_i32 against
+    their plain versions on card tensors and on the CPU, with int32 and
+    int64 ids and across two runs, bit for bit; launches here are not
+    counted."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    results = []
+    for name, b, d, s in K2_PARITY_CASES:
+        vals, ids, ids32 = extremum_inputs(torch, gen, b, d, s)
+        if d == 1:  # [B] values, as the sliced scalar leaves give them
+            vals = vals[:, 0]
+        vals_c, ids_c, ids32_c = vals.cuda(), ids.cuda(), ids32.cuda()
+        case = {"case": name, "nan": int(vals.isnan().sum()), "dropped_ids": int(((ids < 0) | (ids >= s)).sum())}
+        for is_max, kernel in ((True, ops.segment_max_f32), (False, ops.segment_min_f32)):
+            got = kernel(vals_c, ids32_c, s)
+            again = kernel(vals_c, ids_c, s)
+            plain = ops.segment_extremum_reference(vals_c, ids_c, s, is_max)
+            plain_cpu = ops.segment_extremum_reference(vals, ids, s, is_max)
+            torch.cuda.synchronize()
+            label = f"{kernel.__name__} {name}"
+            check(same_bits(torch, [got], [again]), f"{label}: int32 and int64 ids differ")
+            check(same_bits(torch, [got], [plain]), f"{label}: differs from the plain version")
+            check(same_bits(torch, [got], [plain_cpu]), f"{label}: differs from the plain version on the CPU")
+            check(bool(torch.isinf(got.reshape(s, -1)[s - 1]).all()), f"{label}: the empty segment is not filled with inf")
+            if is_max:
+                case["empty_segments"] = int(torch.isinf(got.reshape(s, -1)).all(dim=1).sum())
+                case["max_abs_err"] = 0.0
+                case.update(
+                    segment_line(
+                        torch, kernel,
+                        lambda v, i, n: ops.segment_extremum_reference(v, i, n, True),
+                        library_extremum(torch, vals_c, ids_c, s, True),
+                        vals_c, ids_c, s, "segment_max_f32_kernel",
+                        plain_launches=5 if b * d > 1 << 20 else 20,
+                    ),
+                    card=card,
+                )
+        results.append(case)
+    i32 = []
+    for name, b, s in I32_PARITY_CASES:
+        vals, ids, ids32 = int_sum_inputs(torch, gen, b, s)
+        vals_c, ids_c, ids32_c = vals.cuda(), ids.cuda(), ids32.cuda()
+        got = ops.segment_sum_i32(vals_c, ids32_c, s)
+        again = ops.segment_sum_i32(vals_c, ids_c, s)
+        plain = ops.segment_sum_reference(vals_c, ids_c, s)
+        plain_cpu = ops.segment_sum_reference(vals, ids, s)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"segment_sum_i32 {name}: int32 and int64 ids differ")
+        check(torch.equal(got, plain), f"segment_sum_i32 {name}: differs from the plain version")
+        check(torch.equal(got.cpu(), plain_cpu), f"segment_sum_i32 {name}: differs from the plain version on the CPU")
+        i32.append(
+            {
+                "case": name,
+                "max_abs_err": 0,
+                **segment_line(
+                    torch, ops.segment_sum_i32, ops.segment_sum_reference,
+                    library_index_add(torch, vals_c, ids_c, s), vals_c, ids_c, s, "segment_sum_i32_kernel",
+                ),
+                "card": card,
+            }
+        )
+    emit(
+        {
+            "phase": "parity_segment_extremum",
+            "seconds": time.perf_counter() - t_phase,
+            "library_note": "scatter_reduce_('amax'/'amin', include_self=True) computes the same function except for signed zeros (it keeps the first zero it meets); index_add_ for segment_sum_i32",
+            "segment_max_f32": results,
+            "segment_sum_i32": i32,
+        }
+    )
+
+
+def psnr_batch(torch, seed):
+    """One update of the per-tenant image-quality traffic, made on the card
+    from ``seed``: 256 images of 3 x 256 x 256, targets uniform in [0, 1),
+    preds the targets plus 0.05 N(0, 1) noise, tenant ids uniform over 1000
+    with six rows (ids -1 and 1000) that must drop."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (PSNR_BATCH,) + PSNR_IMAGE
+    target = torch.rand(shape, generator=gen, device="cuda")
+    preds = target + PSNR_NOISE * torch.randn(shape, generator=gen, device="cuda")
+    ids = torch.randint(0, PSNR_TENANTS, (PSNR_BATCH,), generator=gen, device="cuda")
+    ids[::97] = -1
+    ids[1::97] = PSNR_TENANTS
+    return ids, preds, target
+
+
+def psnr_float64(torch, batches):
+    """Per-tenant states in float64 / int64 from the batches (an independent
+    computation): sum of squared error, pixel count, running min and max of
+    the targets (from the metric's 0.0 defaults), rows."""
+    s = PSNR_TENANTS
+    dev = batches[0][0].device
+    sse = torch.zeros(s + 1, dtype=torch.float64, device=dev)
+    total = torch.zeros(s + 1, dtype=torch.int64, device=dev)
+    rows = torch.zeros(s + 1, dtype=torch.int64, device=dev)
+    lo = torch.zeros(s + 1, dtype=torch.float64, device=dev)
+    hi = torch.zeros(s + 1, dtype=torch.float64, device=dev)
+    for ids, preds, target in batches:
+        idx = torch.where((ids >= 0) & (ids < s), ids, s)
+        diff = preds.double() - target.double()
+        sse.index_add_(0, idx, (diff * diff).flatten(1).sum(dim=1))
+        total.index_add_(0, idx, torch.full_like(idx, target[0].numel()))
+        rows.index_add_(0, idx, torch.ones_like(idx))
+        lo.scatter_reduce_(0, idx, target.double().flatten(1).amin(dim=1), "amin")
+        hi.scatter_reduce_(0, idx, target.double().flatten(1).amax(dim=1), "amax")
+    return {"sum_squared_error": sse[:s], "total": total[:s], "min_target": lo[:s], "max_target": hi[:s], "_slice_rows": rows[:s]}
+
+
+def psnr_from_float64(torch, ref):
+    data_range = ref["max_target"] - ref["min_target"]
+    return (2 * torch.log(data_range) - torch.log(ref["sum_squared_error"] / ref["total"])) * (10 / np.log(10.0))
+
+
+def state_bits_differ(torch, a, b):
+    """Names of the leaves of two state dicts that differ in any bit."""
+    return [name for name in a if not same_bits(torch, [a[name]], [b[name]])]
+
+
+def capture_calls(targets, fn):
+    """Run ``fn()`` with the functions ``targets`` (``(module, name)``
+    pairs) wrapped to record their arguments; returns ``{name: [args, ...]}``."""
+    modules = {name: import_module(module) for module, name in targets}
+    saved = {name: getattr(modules[name], name) for name in modules}
+    calls = {name: [] for name in modules}
+
+    def recorder(name):
+        def recording(*args):
+            calls[name].append(args)
+            return saved[name](*args)
+
+        return recording
+
+    for name, module in modules.items():
+        setattr(module, name, recorder(name))
+    try:
+        fn()
+    finally:
+        for name, module in modules.items():
+            setattr(module, name, saved[name])
+    return calls
+
+
+def sliced_psnr_phase(torch, ops, card, SlicedMetric, PeakSignalNoiseRatio):
+    """sliced-psnr: the main path of K2, per-tenant PSNR at full width."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batches = [psnr_batch(torch, PSNR_SEED + i) for i in range(PSNR_UPDATES)]
+    torch.cuda.synchronize()
+    data_bytes = sum(x.numel() * x.element_size() for batch in batches for x in batch)
+    # warm-up on a throwaway metric, recording the kernels' main-path inputs
+    warm = SlicedMetric(PeakSignalNoiseRatio(), num_slices=PSNR_TENANTS)
+    captured = capture_calls(
+        [("metrics_tpu_torch.ops.segment_extremum", "segment_max_f32"), ("metrics_tpu_torch.ops.segment_extremum", "segment_min_f32"),
+         ("metrics_tpu_torch.ops.segment_sum", "segment_sum_i32")],
+        lambda: warm.update(*batches[0]),
+    )
+    warm.compute()  # the first vmapped compute of a process pays a one-time set-up
+
+    metric = SlicedMetric(PeakSignalNoiseRatio(), num_slices=PSNR_TENANTS)
+    check(metric.device.type == "cuda", "SlicedMetric does not default to the card")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i, batch in enumerate(batches):
+        metric.update(*batch)
+        if i + 1 == PSNR_CPU_UPDATES:
+            after_cpu_updates = metric.state_dict()
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    values = metric.compute()
+    torch.cuda.synchronize()
+    compute_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    expected = {"segment_max_f32": PSNR_UPDATES, "segment_min_f32": PSNR_UPDATES, "segment_sum_f32": PSNR_UPDATES, "segment_sum_i32": 2 * PSNR_UPDATES}
+    for name, n in expected.items():
+        check(launches.get(name) == n, f"sliced-psnr {name} launched {launches.get(name)} times, expected {n}")
+    peak = torch.cuda.max_memory_allocated()
+    state_bytes = sum(v.numel() * v.element_size() for v in metric.state_dict().values())
+
+    # the card against the port's CPU run of the first updates, bit for bit
+    t0 = time.perf_counter()
+    cpu_metric = SlicedMetric(PeakSignalNoiseRatio(device="cpu"), num_slices=PSNR_TENANTS)
+    for batch in batches[:PSNR_CPU_UPDATES]:
+        cpu_metric.update(*(x.cpu() for x in batch))
+    differ = state_bits_differ(torch, after_cpu_updates, cpu_metric.state_dict())
+    check(not differ, f"sliced-psnr: card and CPU states differ after {PSNR_CPU_UPDATES} updates in {differ}")
+    cpu_s = time.perf_counter() - t0
+
+    # the states and values against an independent float64 computation
+    ref = psnr_float64(torch, batches)
+    state = metric.state_dict()
+    for name in ("min_target", "max_target", "total", "_slice_rows"):
+        check(torch.equal(state[name].double(), ref[name].double()), f"sliced-psnr {name} differs from the float64 reference")
+    sse_rel = float(((state["sum_squared_error"].double() - ref["sum_squared_error"]).abs() / ref["sum_squared_error"].clamp(min=1e-30)).max())
+    check(sse_rel <= 1e-5, f"sliced-psnr sum_squared_error off the float64 reference by rtol {sse_rel}")
+    want = psnr_from_float64(torch, ref)
+    empty = ref["_slice_rows"] == 0
+    check(torch.equal(torch.isnan(values), torch.isnan(want)) and torch.equal(torch.isnan(want), empty), "sliced-psnr: NaN slices differ from the empty ones")
+    psnr_err = float((values.double() - want)[~empty].abs().max())
+    check(psnr_err <= 1e-4, f"sliced-psnr compute() off the float64 PSNR by {psnr_err} dB")
+    subset = torch.tensor([0, 17, PSNR_TENANTS - 1, 17, 500], device="cuda")
+    check(same_bits(torch, [metric.compute(slice_ids=subset)], [values[subset]]), "compute(slice_ids=) differs from a gather of compute()")
+    top_ids, top_values = metric.compute(top_k=10)
+    want_ids = torch.sort(ref["_slice_rows"], descending=True, stable=True).indices[:10]
+    check(torch.equal(top_ids.long(), want_ids), "compute(top_k=10) picked other slices than a stable sort of the counts")
+    check(same_bits(torch, [top_values], [values[want_ids]]), "compute(top_k=10) differs from a gather of compute()")
+
+    # the read after a serving batch: one more update dirties the slices it
+    # writes, and a subset read refolds only the dirty ones among its ids
+    extra = psnr_batch(torch, PSNR_SEED + PSNR_UPDATES)
+    metric.update(*extra)
+    written = torch.unique(extra[0][(extra[0] >= 0) & (extra[0] < PSNR_TENANTS)])
+    dirty = metric._dirty[:PSNR_TENANTS].clone()
+    check(torch.equal(torch.nonzero(dirty).flatten(), written), "sliced-psnr: the dirty slices are not the ones the update wrote")
+    part_ids = torch.cat([written[:8], torch.nonzero(~dirty).flatten()[:8]])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    part = metric.compute(slice_ids=part_ids)
+    torch.cuda.synchronize()
+    partial_read_ms = (time.perf_counter() - t0) * 1e3
+    dirty[part_ids] = False
+    check(torch.equal(metric._dirty[:PSNR_TENANTS], dirty), "sliced-psnr: the subset read folded other slices than its dirty ones")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = metric.compute()
+    torch.cuda.synchronize()
+    refold_read_ms = (time.perf_counter() - t0) * 1e3
+    fresh = SlicedMetric(PeakSignalNoiseRatio(), num_slices=PSNR_TENANTS)
+    for batch in batches + [extra]:
+        fresh.update(*batch)
+    state, fresh_state = metric.state_dict(), fresh.state_dict()
+    for name in ("min_target", "max_target", "total", "_slice_rows"):
+        check(same_bits(torch, [state[name]], [fresh_state[name]]), f"sliced-psnr refold: {name} differs from a fresh SlicedMetric")
+    sse, want_sse = state["sum_squared_error"].double(), fresh_state["sum_squared_error"].double()
+    refold_sse_rel = float(((sse - want_sse).abs() / want_sse.clamp(min=1e-30)).max())
+    check(refold_sse_rel <= 1e-6, f"sliced-psnr refold: sum_squared_error off a fresh SlicedMetric by rtol {refold_sse_rel}")
+    want_full = fresh.compute()
+    refold_rel = 0.0
+    for name, got, want in (("compute(slice_ids=)", part, want_full[part_ids]), ("compute()", full, want_full)):
+        check(torch.equal(torch.isnan(got), torch.isnan(want)), f"sliced-psnr refold {name}: NaN slices differ from a fresh SlicedMetric")
+        finite = ~torch.isnan(want)
+        rel = float(((got - want)[finite].abs() / want[finite].abs()).max())
+        check(rel <= 1e-6, f"sliced-psnr refold {name}: off a fresh SlicedMetric by rtol {rel}")
+        refold_rel = max(refold_rel, rel)
+    del fresh, extra
+
+    # two profiled updates: device time and the device's idle share
+    profiled = SlicedMetric(PeakSignalNoiseRatio(), num_slices=PSNR_TENANTS)
+    profile = device_profile(torch, lambda i: profiled.update(*batches[i]), 2)
+    ms_per_update = update_s / PSNR_UPDATES * 1e3
+    emit(
+        {
+            "phase": "sliced-psnr",
+            "card": card,
+            "tenants": PSNR_TENANTS,
+            "updates": PSNR_UPDATES,
+            "images_per_update": PSNR_BATCH,
+            "image_shape": list(PSNR_IMAGE),
+            "ms_per_update": ms_per_update,
+            "images_per_s": PSNR_UPDATES * PSNR_BATCH / update_s,
+            "compute_ms": compute_s * 1e3,
+            "launches": launches,
+            "state_bytes": state_bytes,
+            "data_bytes_on_card": data_bytes,
+            "peak_memory_bytes": peak,
+            "tenants_empty": int(empty.sum()),
+            "sse_max_rel_err_vs_float64": sse_rel,
+            "psnr_max_abs_err_db_vs_float64": psnr_err,
+            "cpu_run_s": cpu_s,
+            "refold_dirty_slices": int(written.numel()),
+            "partial_read_ms": partial_read_ms,
+            "refold_read_ms": refold_read_ms,
+            "refold_max_rel_err_vs_fresh": refold_rel,
+            **profile,
+            "device_idle_share": 1 - profile["device_busy_ms_per_step"] / ms_per_update,
+            "seconds": time.perf_counter() - t_phase,
+        }
+    )
+    del batches
+    return launches, captured
+
+
+def sliced_mse_phase(torch, ops, card, SlicedMetric, MeanSquaredError):
+    """sliced-mse: bench.py's bench_sliced fixture as card tensors, against
+    a numpy per-slice fan-out, bit for bit (the data are integers)."""
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(8)
+    out = {"phase": "sliced-mse", "card": card}
+    for num_slices, n_batches in ((1000, 12), (100_000, 6)):
+        host = []
+        for i in range(n_batches):
+            b = SLICED_SIZES[i % len(SLICED_SIZES)]
+            host.append((rng.randint(0, num_slices, b), rng.randint(0, 8, b).astype(np.float32), rng.randint(0, 8, b).astype(np.float32)))
+        batches = [tuple(torch.from_numpy(x).cuda() for x in batch) for batch in host]
+        metric = SlicedMetric(MeanSquaredError(), num_slices=num_slices)
+        metric.update(*batches[0])
+        metric.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in batches:
+            metric.update(*batch)
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - t0
+        ids = np.concatenate([b[0] for b in host])
+        err = np.concatenate([(b[1] - b[2]).astype(np.float64) ** 2 for b in host])
+        want_sse = np.bincount(ids, weights=err, minlength=num_slices).astype(np.float32)
+        want_total = np.bincount(ids, minlength=num_slices).astype(np.int32)
+        check(np.array_equal(metric.sum_squared_error.cpu().numpy().view(np.int32), want_sse.view(np.int32)), f"sliced-mse S={num_slices}: sum_squared_error differs from numpy")
+        check(np.array_equal(metric.total.cpu().numpy(), want_total), f"sliced-mse S={num_slices}: total differs from numpy")
+        check(np.array_equal(metric.slice_counts.cpu().numpy(), want_total), f"sliced-mse S={num_slices}: slice counts differ from numpy")
+        rows = sum(b[0].shape[0] for b in host)
+        # the float sum at this shape: one row's squared error per id
+        last_ids, last_preds, last_target = batches[-1]
+        row_err = (last_preds - last_target) ** 2
+        out[f"S={num_slices}"] = {
+            "batches": n_batches,
+            "rows": rows,
+            "rows_per_s": rows / update_s,
+            "ms_per_update": update_s / n_batches * 1e3,
+            "segment_sum_f32": {
+                "shape": [int(row_err.shape[0])],
+                "segments": num_slices,
+                **kernel_device_time(torch, lambda: ops.segment_sum_f32(row_err, last_ids, num_slices), "segment_sum_f32_kernel"),
+            },
+        }
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+
+def windowed_psnr_phase(torch, ops, card, SlicedMetric, WindowedMetric, PeakSignalNoiseRatio):
+    """windowed-psnr: the per-tenant live view over 40 updates (the ring
+    wraps), its reads held against fresh SlicedMetrics fed each window's
+    updates, regenerated from their seeds."""
+    t_phase = time.perf_counter()
+    metric = WindowedMetric(SlicedMetric(PeakSignalNoiseRatio(), num_slices=PSNR_TENANTS), window=8, updates_per_bucket=4)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    update_s = 0.0
+    for i in range(WINDOW_UPDATES):
+        batch = psnr_batch(torch, WINDOW_SEED + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metric.update(*batch)
+        torch.cuda.synchronize()
+        update_s += time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(launches.get("segment_max_f32") == WINDOW_UPDATES, f"windowed-psnr launches {launches}")
+    check(launches.get("segment_sum_i32") == 2 * WINDOW_UPDATES, f"windowed-psnr launches {launches}")
+    # 40 updates of 4 per bucket: buckets 0-9, the ring of 8 holds 2-9
+    reads = (
+        ("compute()", {}, range(8, 40)),
+        ("compute(window=2)", {"window": 2}, range(32, 40)),
+        ("compute(window=3, before=1)", {"window": 3, "before": 1}, range(24, 36)),
+    )
+    fresh = {}
+    for name, _, updates in reads:
+        m = SlicedMetric(PeakSignalNoiseRatio(), num_slices=PSNR_TENANTS)
+        for i in updates:
+            m.update(*psnr_batch(torch, WINDOW_SEED + i))
+        fresh[name] = (m.state_dict(), m.compute())
+    worst = {}
+    read_ms = {}
+    for order in (reads, reads[::-1]):
+        for name, kw, _ in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = metric.compute(**kw)
+            torch.cuda.synchronize()
+            read_ms.setdefault(name, (time.perf_counter() - t0) * 1e3)
+            state = metric.window_state(kw.get("window"), before=kw.get("before", 0))
+            want_state, want = fresh[name]
+            for leaf in ("min_target", "max_target", "total", "_slice_rows"):
+                check(same_bits(torch, [state[leaf]], [want_state[leaf]]), f"windowed-psnr {name}: {leaf} differs from a fresh SlicedMetric")
+            sse, want_sse = state["sum_squared_error"].double(), want_state["sum_squared_error"].double()
+            rel = float(((sse - want_sse).abs() / want_sse.clamp(min=1e-30)).max())
+            check(rel <= 1e-6, f"windowed-psnr {name}: sum_squared_error off a fresh SlicedMetric by rtol {rel}")
+            check(torch.equal(torch.isnan(got), torch.isnan(want)), f"windowed-psnr {name}: NaN slices differ")
+            finite = ~torch.isnan(want)
+            err = float((got - want)[finite].abs().max())
+            check(err <= 1e-4, f"windowed-psnr {name}: off a fresh SlicedMetric by {err} dB")
+            worst[name] = max(worst.get(name, 0.0), err)
+    emit(
+        {
+            "phase": "windowed-psnr",
+            "card": card,
+            "updates": WINDOW_UPDATES,
+            "window": 8,
+            "updates_per_bucket": 4,
+            "ms_per_update": update_s / WINDOW_UPDATES * 1e3,
+            "images_per_s": WINDOW_UPDATES * PSNR_BATCH / update_s,
+            "launches": launches,
+            "read_ms": read_ms,
+            "max_abs_err_db_vs_fresh": worst,
+            "state_bytes": sum(v.numel() * v.element_size() for v in metric.state_dict().values()),
+            "seconds": time.perf_counter() - t_phase,
+        }
+    )
+
+
+def windowed_decay_phase(torch, ops, card, WindowedMetric, MeanSquaredError):
+    """windowed-decay: bench.py's bench_windowed stream through the decay and
+    the ring MSE, card against the port's CPU run bit for bit, decay against
+    a float64 recurrence, the ring against the window's batches."""
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(12)
+    host = []
+    for i in range(DECAY_UPDATES):
+        n = DECAY_SHAPES[i % len(DECAY_SHAPES)]
+        host.append((rng.randint(0, 2, n).astype(np.int32), rng.randint(0, 2, n).astype(np.int32)))
+    card_batches = [tuple(torch.from_numpy(x).cuda() for x in batch) for batch in host]
+    cpu_batches = [tuple(torch.from_numpy(x) for x in batch) for batch in host]
+    out = {"phase": "windowed-decay", "card": card, "updates": DECAY_UPDATES}
+    makers = {
+        "decay": lambda device: WindowedMetric(MeanSquaredError(device=device), mode="decay", decay=DECAY_ALPHA),
+        "ring": lambda device: WindowedMetric(MeanSquaredError(device=device), window=8, updates_per_bucket=4),
+    }
+    for mode, make in makers.items():
+        metric, cpu_metric = make(None), make("cpu")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in card_batches:
+            metric.update(*batch)
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - t0
+        for batch in cpu_batches:
+            cpu_metric.update(*batch)
+        differ = state_bits_differ(torch, metric.state_dict(), cpu_metric.state_dict())
+        check(not differ, f"windowed-decay {mode}: card and CPU states differ in {differ}")
+        value = float(metric.compute())
+        if mode == "decay":
+            sse = total = 0.0
+            for preds, target in host:
+                sse = DECAY_ALPHA * sse + float(((preds - target).astype(np.float64) ** 2).sum())
+                total = DECAY_ALPHA * total + preds.size
+            err = abs(value - sse / total)
+            check(err <= 1e-5, f"windowed-decay: off the float64 recurrence by {err}")
+        else:
+            # 120 updates of 4 per bucket: buckets 0-29, the ring holds 22-29
+            fresh = MeanSquaredError()
+            for batch in card_batches[88:]:
+                fresh.update(*batch)
+            err = abs(value - float(fresh.compute()))
+            check(err == 0.0, f"windowed-decay ring: off the window's batches by {err}")
+        out[mode] = {"ms_per_update": update_s / DECAY_UPDATES * 1e3, "value": value, "abs_err": err}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+
+def segment_fold_line(torch, ops, name, source, replaces, launches, args, plain_fn, library_fn, device_name):
+    """A kernels-line entry of a row-order segment kernel at its main-path
+    input ``args`` (values, ids, S)."""
+    vals, ids, s = args
+    kernel_fn = getattr(ops, name)
+    got, plain = kernel_fn(vals, ids, s), plain_fn(vals, ids, s)
+    check(same_bits(torch, [got], [plain]), f"{name} at its main-path input differs from the plain version")
+    finite = torch.isfinite(got) if got.is_floating_point() else torch.ones_like(got, dtype=torch.bool)
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "shape": [list(vals.shape), s],
+        "launches": launches[name],
+        "max_abs_err": float((got - plain)[finite].abs().max()) if bool(finite.any()) else 0.0,
+        **segment_line(torch, kernel_fn, plain_fn, library_fn, vals, ids, s, device_name),
+    }
+
+
 def main():
     import torch
 
@@ -1438,7 +2046,16 @@ def main():
         return 2
     card = card_line()
 
-    from metrics_tpu_torch import AUROC, ConfusionMatrix, MeanAveragePrecision, MetricCollection
+    from metrics_tpu_torch import (
+        AUROC,
+        ConfusionMatrix,
+        MeanAveragePrecision,
+        MeanSquaredError,
+        MetricCollection,
+        PeakSignalNoiseRatio,
+        SlicedMetric,
+        WindowedMetric,
+    )
     from metrics_tpu_torch import ops
     from metrics_tpu_torch.functional import auroc_rank_multiclass
     from metrics_tpu_torch.ops.build import build
@@ -1448,7 +2065,10 @@ def main():
     torch.manual_seed(0)
 
     # 1. build: one nvcc per source, all started together
-    modules = [import_module(f"metrics_tpu_torch.ops.{name}") for name in ("segment_sum", "qsketch", "box_iou", "row_topk")]
+    modules = [
+        import_module(f"metrics_tpu_torch.ops.{name}")
+        for name in ("segment_sum", "segment_extremum", "qsketch", "box_iou", "row_topk")
+    ]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(modules)) as pool:
         built = list(pool.map(build, [module.SOURCE for module in modules]))
@@ -1486,6 +2106,7 @@ def main():
     qsketch_parity_phase(torch, ops, card)
     box_iou_parity_phase(torch, ops, card)
     row_topk_parity_phase(torch, ops, card)
+    segment_extremum_parity_phase(torch, ops, card)
 
     # 3. the flagship epoch (the main path)
     confmat = ConfusionMatrix(num_classes=NUM_CLASSES)
@@ -1613,6 +2234,11 @@ def main():
     map_launches = map_phases(torch, ops, card, MeanAveragePrecision)
     # retrieval: the main path of K4, the window, the sampled default, merges
     retrieval_launches, k4_captured = retrieval_phases(torch, ops, card, MetricCollection)
+    # per-tenant sliced and windowed state: the main path of K2
+    sliced_launches, k2_captured = sliced_psnr_phase(torch, ops, card, SlicedMetric, PeakSignalNoiseRatio)
+    sliced_mse_phase(torch, ops, card, SlicedMetric, MeanSquaredError)
+    windowed_psnr_phase(torch, ops, card, SlicedMetric, WindowedMetric, PeakSignalNoiseRatio)
+    windowed_decay_phase(torch, ops, card, WindowedMetric, MeanSquaredError)
     # K5 is reached by 2-D boxes through the entry point ops.box_iou
     gen = torch.Generator(device="cpu").manual_seed(5)
     k5_inputs = [(iou_boxes(torch, gen, n).cuda(), iou_boxes(torch, gen, m).cuda()) for n, m in K5_PARITY_SHAPES]
@@ -1740,6 +2366,22 @@ def main():
             }
         )
     kernels.append(row_topk_line(torch, ops, retrieval_launches, k4_captured))
+    for name, is_max in (("segment_max_f32", True), ("segment_min_f32", False)):
+        vals, ids, s = k2_captured[name][0]
+        kernels.append(
+            segment_fold_line(
+                torch, ops, name, SEGEXT_SOURCE, K2_REPLACES, sliced_launches, (vals, ids, s),
+                lambda v, i, n, is_max=is_max: ops.segment_extremum_reference(v, i, n, is_max),
+                library_extremum(torch, vals, ids, s, is_max), f"{name}_kernel",
+            )
+        )
+    vals, ids, s = k2_captured["segment_sum_i32"][0]
+    kernels.append(
+        segment_fold_line(
+            torch, ops, "segment_sum_i32", KERNEL_SOURCE, REPLACES, sliced_launches, (vals, ids, s),
+            ops.segment_sum_reference, library_index_add(torch, vals, ids, s), "segment_sum_i32_kernel",
+        )
+    )
     emit({"phase": "kernel_times", "card": card})
     emit({"kernels": kernels})
     print(card, flush=True)

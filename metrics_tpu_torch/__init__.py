@@ -8,14 +8,19 @@ exact rank AUROC and the curve AUROC (functional), ``AUROC`` in its
 sketched streaming default (binary, one-vs-rest, multilabel) and its
 capacity modes, ``MeanAveragePrecision`` (COCO mAP/mAR, its reservoir
 table and its exact mode), the eight retrieval metrics (their per-query
-table and their exact mode), the quantile sketch, the keyed reservoir and
-the streaming moments (:mod:`metrics_tpu_torch.sketches`) and
-``MetricCollection``.
+table and their exact mode), ``MeanSquaredError`` and
+``PeakSignalNoiseRatio``, the per-slice and windowed wrappers
+``SlicedMetric`` (:mod:`metrics_tpu_torch.sliced`) and ``WindowedMetric``
+(:mod:`metrics_tpu_torch.windowed`), the quantile sketch, the keyed
+reservoir and the streaming moments (:mod:`metrics_tpu_torch.sketches`)
+and ``MetricCollection``.
 """
 from metrics_tpu_torch.classification import AUROC, ConfusionMatrix  # noqa: F401
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
 from metrics_tpu_torch.core.metric import Metric  # noqa: F401
 from metrics_tpu_torch.detection import MeanAveragePrecision  # noqa: F401
+from metrics_tpu_torch.image import PeakSignalNoiseRatio  # noqa: F401
+from metrics_tpu_torch.regression import MeanSquaredError  # noqa: F401
 from metrics_tpu_torch.retrieval import (  # noqa: F401
     RetrievalFallOut,
     RetrievalHitRate,
@@ -26,5 +31,7 @@ from metrics_tpu_torch.retrieval import (  # noqa: F401
     RetrievalRecall,
     RetrievalRPrecision,
 )
+from metrics_tpu_torch.sliced import SlicedMetric  # noqa: F401
+from metrics_tpu_torch.windowed import WindowedMetric  # noqa: F401
 
 __version__ = "0.1.0"

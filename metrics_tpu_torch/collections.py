@@ -171,7 +171,14 @@ class MetricCollection:
     def _equal_update_attrs(metric1: Metric, metric2: Metric) -> bool:
         """True if every public attribute the two metrics share compares
         equal: metrics differing in a hyperparameter never share a group,
-        even when their states coincide on the first batch."""
+        even when their states coincide on the first batch. Sliced and
+        windowed metrics keep their real update configuration on the wrapped
+        template (and a window's decay factor), which must agree too."""
+        t1, t2 = getattr(metric1, "_template", None), getattr(metric2, "_template", None)
+        if (t1 is None) != (t2 is None) or getattr(metric1, "_alpha", None) != getattr(metric2, "_alpha", None):
+            return False
+        if t1 is not None and (type(t1) is not type(t2) or not MetricCollection._equal_update_attrs(t1, t2)):
+            return False
         skip = set(metric1._defaults) | set(metric2._defaults)
         attrs1 = {k: v for k, v in vars(metric1).items() if not k.startswith("_") and k not in skip}
         attrs2 = {k: v for k, v in vars(metric2).items() if not k.startswith("_") and k not in skip}

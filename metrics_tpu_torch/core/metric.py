@@ -15,9 +15,11 @@ Sketch states (``dist_reduce_fx="merge"`` or a ``merge_like`` reducer:
 :func:`~metrics_tpu_torch.sketches.sketch_merge_fx`,
 :func:`~metrics_tpu_torch.sketches.reservoir_merge_fx` or
 :func:`~metrics_tpu_torch.sketches.moments_merge_fx`) merge through their
-own reducer. Not in this slice: the observability hooks, the
-fused/sliced plumbing, ``CompositionalMetric`` and cross-process sync (see
-``ROADMAP.md``).
+own reducer; windowed ring and decay states (``"ring"``/``"decay"``) add
+like sums. Max and min states fold with the JAX package's semantics (NaN
+wins, +0.0 over -0.0 for max): :func:`~metrics_tpu_torch.utils.data.maximum_ieee`.
+Not in this slice: the observability hooks, the fused plumbing,
+``CompositionalMetric`` and cross-process sync (see ``ROADMAP.md``).
 """
 from abc import ABC, abstractmethod
 import inspect
@@ -37,6 +39,8 @@ from metrics_tpu_torch.utils.data import (
     dim_zero_mean,
     dim_zero_min,
     dim_zero_sum,
+    maximum_ieee,
+    minimum_ieee,
 )
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -55,10 +59,6 @@ _REDUCERS = {
     "max": dim_zero_max,
     "min": dim_zero_min,
     "cat": dim_zero_cat,
-}
-_NOT_PORTED_REDUCERS = {
-    "ring": "sliced and windowed state",
-    "decay": "sliced and windowed state",
 }
 
 
@@ -151,7 +151,8 @@ class Metric(ABC):
         """Register a state: a tensor (reduced across processes by
         ``dist_reduce_fx``) or an empty list (gathered and concatenated).
         String reducers ``"sum"/"mean"/"max"/"min"/"cat"`` map to the
-        dim-zero functions, ``"merge"`` to the quantile-sketch reducer; the
+        dim-zero functions, ``"merge"`` to the quantile-sketch reducer,
+        ``"ring"``/``"decay"`` to the windowed sum reducers; the
         reservoir and moments reducers are passed as their ``*_merge_fx()``
         callables. ``persistent`` is accepted as in the JAX package;
         ``state_dict`` saves every state."""
@@ -164,13 +165,13 @@ class Metric(ABC):
             except (TypeError, ValueError, RuntimeError):
                 raise ValueError("state variable must be an array or an empty list (where you can append arrays)")
 
-        if isinstance(dist_reduce_fx, str) and dist_reduce_fx in _NOT_PORTED_REDUCERS:
-            raise NotImplementedError(
-                f"`dist_reduce_fx={dist_reduce_fx!r}` states are not ported yet (ROADMAP.md, queue A:"
-                f" '{_NOT_PORTED_REDUCERS[dist_reduce_fx]}')"
-            )
         if dist_reduce_fx == "merge":
             dist_reduce_fx = sketch_merge_fx()
+        elif dist_reduce_fx in ("ring", "decay"):
+            # lazy: the windowed package imports this module
+            from metrics_tpu_torch.windowed.reducers import decay_sum_fx, ring_sum_fx
+
+            dist_reduce_fx = ring_sum_fx() if dist_reduce_fx == "ring" else decay_sum_fx()
         elif isinstance(dist_reduce_fx, str) and dist_reduce_fx in _REDUCERS:
             dist_reduce_fx = _REDUCERS[dist_reduce_fx]
         elif dist_reduce_fx is not None and not callable(dist_reduce_fx):
@@ -348,13 +349,16 @@ class Metric(ABC):
                         weighted_ok, (na * va + nb * vb) / torch.clamp(total, min=1.0), (va + vb) / 2
                     )
             elif red is dim_zero_max:
-                out[name] = torch.maximum(va, vb)
+                out[name] = maximum_ieee(va, vb)
             elif red is dim_zero_min:
-                out[name] = torch.minimum(va, vb)
+                out[name] = minimum_ieee(va, vb)
             elif getattr(red, "merge_like", False):
                 # sketch states merge through their own reducer, given the
                 # stacked states as a distributed sync would give them
                 out[name] = red(torch.stack([va, vb]))
+            elif getattr(red, "inner_reduce", None) == "sum":
+                # windowed ring rows and decayed sums add pairwise
+                out[name] = va + vb
             elif red is None:
                 raise MetricsUserError(
                     f"Cannot merge tensor state {name!r} with reduction None (gathered-not-reduced"

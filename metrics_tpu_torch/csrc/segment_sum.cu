@@ -19,28 +19,23 @@
 //    The TPU's one-hot product would touch all B * S (id, bin) pairs; this
 //    touches B.
 //  * segment_sum_f32: no float atomics, because the JAX package's fused,
-//    sliced and windowed bit-parity tests assume runs repeat bit for bit. A
-//    block owns a tile of segments (and up to 32 columns) in shared memory;
-//    each of its 8 warps owns a slice of that tile. The block stages the ids
-//    in chunks; each warp scans them 32 at a time with a ballot and, in row
-//    order, its lanes (one per column) add the matched rows into its slice.
-//    Each (segment, column) is thus summed by one lane in row order: the
-//    result is deterministic and equal bit for bit to a sequential
-//    index_add_ on the CPU. The tile is written out once, so the output
-//    needs no zeroing. The segment tile shrinks when S is small so that about
-//    two blocks per SM stay in flight.
-// Both kernels launch on the caller's stream and allocate nothing; the Python
+//    sliced and windowed bit-parity tests assume runs repeat bit for bit. It is
+//    the row-order segment tile of segment_fold.cuh (shared with K2 in
+//    segment_extremum.cu): each (segment, column) is summed by one lane in row
+//    order, so the result is deterministic and equal bit for bit to a
+//    sequential index_add_ on the CPU.
+//  * segment_sum_i32: the same tile over int32 values, for the integer leaves
+//    of SlicedMetric (row counters, PSNR's and MSE's `total`). The JAX package
+//    sends integer payloads to XLA's exact scatter; its int32 adds wrap modulo
+//    2**32, so this kernel adds the bits as uint32.
+// The kernels launch on the caller's stream and allocate nothing; the Python
 // wrappers allocate outputs and check devices, dtypes and shapes.
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "segment_fold.cuh"
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTileFloats = 10240;  // 40 KB of segment tile
-constexpr int kIdChunk = 1024;      // 4 KB of staged tile-local ids
-constexpr unsigned kFullMask = 0xffffffffu;
+namespace {
 
 template <typename Id>
 __global__ void bincount_i32_kernel(const Id* __restrict__ ids, long long n, int* __restrict__ out,
@@ -53,51 +48,17 @@ __global__ void bincount_i32_kernel(const Id* __restrict__ ids, long long n, int
 }
 
 template <typename Id>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(segfold::kThreads)
     segment_sum_f32_kernel(const float* __restrict__ vals, const Id* __restrict__ ids, long long b, int d,
                            float* __restrict__ out, long long s, int dc, int sw) {
-  __shared__ float tile[kTileFloats];
-  __shared__ int local[kIdChunk];
+  segfold::fold_tile<segfold::SumF32, Id>(vals, ids, b, d, out, s, dc, sw);
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int seg_tile = kWarps * sw;  // segments owned by this block
-  const long long lo = (long long)blockIdx.x * seg_tile;
-  const int c0 = blockIdx.y * dc;
-  const int cols = min(dc, d - c0);
-  const int wlo = warp * sw;  // this warp's slice of the tile: [wlo, wlo + sw)
-  const int whi = wlo + sw;
-
-  for (int i = threadIdx.x; i < seg_tile * dc; i += kThreads) tile[i] = 0.0f;
-
-  for (long long base = 0; base < b; base += kIdChunk) {
-    const int n = (int)min((long long)kIdChunk, b - base);
-    __syncthreads();  // the previous chunk is consumed (and the tile zeroed)
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      const long long t = (long long)ids[base + i] - lo;
-      local[i] = (t >= 0 && t < seg_tile && lo + t < s) ? (int)t : -1;
-    }
-    __syncthreads();
-    for (int r0 = 0; r0 < n; r0 += 32) {
-      const int t = (r0 + lane < n) ? local[r0 + lane] : -1;
-      unsigned mine = __ballot_sync(kFullMask, t >= wlo && t < whi);
-      while (mine) {  // matched rows in ascending row order
-        const int k = __ffs(mine) - 1;
-        mine &= mine - 1;
-        const int tk = __shfl_sync(kFullMask, t, k);
-        if (lane < cols) tile[tk * dc + lane] += vals[(base + r0 + k) * d + c0 + lane];
-      }
-    }
-  }
-  __syncthreads();
-
-  const long long left = s - lo;
-  const int segs = (int)(left < seg_tile ? left : seg_tile);
-  for (int i = threadIdx.x; i < segs * cols; i += kThreads) {
-    const int sg = i / cols;
-    const int c = i - sg * cols;
-    out[(lo + sg) * d + c0 + c] = tile[sg * dc + c];
-  }
+template <typename Id>
+__global__ void __launch_bounds__(segfold::kThreads)
+    segment_sum_i32_kernel(const unsigned* __restrict__ vals, const Id* __restrict__ ids, long long b, int d,
+                           unsigned* __restrict__ out, long long s, int dc, int sw) {
+  segfold::fold_tile<segfold::SumU32, Id>(vals, ids, b, d, out, s, dc, sw);
 }
 
 template <typename Id>
@@ -109,20 +70,6 @@ int launch_bincount(const void* ids, long long n, void* out, long long minlength
   if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond 16 blocks per SM
   bincount_i32_kernel<Id><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const Id*)ids, n, (int*)out, minlength);
-  return (int)cudaGetLastError();
-}
-
-template <typename Id>
-int launch_segment_sum(const void* vals, const void* ids, long long b, int d, void* out, long long s, int dc,
-                       int sw, long long seg_tiles, int col_chunks, void* stream) {
-  if (b < 0 || d < 1 || s < 1 || dc < 1 || dc > 32 || sw < 1 || (long long)kWarps * sw * dc > kTileFloats ||
-      seg_tiles < 1 || seg_tiles > 0x7fffffffLL || seg_tiles * kWarps * sw < s || col_chunks < 1 ||
-      col_chunks > 65535 || (long long)col_chunks * dc < d) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 grid((unsigned)seg_tiles, (unsigned)col_chunks);
-  segment_sum_f32_kernel<Id><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)vals, (const Id*)ids, b, d, (float*)out, s, dc, sw);
   return (int)cudaGetLastError();
 }
 
@@ -140,12 +87,26 @@ int bincount_i32_ids64(const void* ids, long long n, void* out, long long minlen
 
 int segment_sum_f32_ids32(const void* vals, const void* ids, long long b, int d, void* out, long long s, int dc,
                           int sw, long long seg_tiles, int col_chunks, void* stream) {
-  return launch_segment_sum<int>(vals, ids, b, d, out, s, dc, sw, seg_tiles, col_chunks, stream);
+  return segfold::launch_fold<float, int>(segment_sum_f32_kernel<int>, vals, ids, b, d, out, s, dc, sw, seg_tiles,
+                                          col_chunks, stream);
 }
 
 int segment_sum_f32_ids64(const void* vals, const void* ids, long long b, int d, void* out, long long s, int dc,
                           int sw, long long seg_tiles, int col_chunks, void* stream) {
-  return launch_segment_sum<long long>(vals, ids, b, d, out, s, dc, sw, seg_tiles, col_chunks, stream);
+  return segfold::launch_fold<float, long long>(segment_sum_f32_kernel<long long>, vals, ids, b, d, out, s, dc, sw,
+                                                seg_tiles, col_chunks, stream);
+}
+
+int segment_sum_i32_ids32(const void* vals, const void* ids, long long b, int d, void* out, long long s, int dc,
+                          int sw, long long seg_tiles, int col_chunks, void* stream) {
+  return segfold::launch_fold<unsigned, int>(segment_sum_i32_kernel<int>, vals, ids, b, d, out, s, dc, sw, seg_tiles,
+                                             col_chunks, stream);
+}
+
+int segment_sum_i32_ids64(const void* vals, const void* ids, long long b, int d, void* out, long long s, int dc,
+                          int sw, long long seg_tiles, int col_chunks, void* stream) {
+  return segfold::launch_fold<unsigned, long long>(segment_sum_i32_kernel<long long>, vals, ids, b, d, out, s, dc,
+                                                   sw, seg_tiles, col_chunks, stream);
 }
 
 const char* cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -6,6 +6,8 @@ from metrics_tpu_torch.functional.classification import (  # noqa: F401
     confusion_matrix,
     roc,
 )
+from metrics_tpu_torch.functional.image import peak_signal_noise_ratio  # noqa: F401
+from metrics_tpu_torch.functional.regression import mean_squared_error  # noqa: F401
 from metrics_tpu_torch.functional.retrieval import (  # noqa: F401
     retrieval_average_precision,
     retrieval_fall_out,

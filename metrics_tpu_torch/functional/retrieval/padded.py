@@ -29,24 +29,9 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from metrics_tpu_torch.utils.data import dim_zero_cat, stable_sort_with_payloads
+from metrics_tpu_torch.utils.data import _tree_sum, dim_zero_cat, stable_sort_with_payloads
 
 Tensor = torch.Tensor
-
-
-def _tree_sum(x: Tensor) -> Tensor:
-    """Sum over the last axis in a fixed pairwise order (zero padding to a
-    power of two, then halving by elementwise adds): the same bits on every
-    device."""
-    n = x.shape[-1]
-    width = 1
-    while width < n:
-        width *= 2
-    if width != n:
-        x = torch.nn.functional.pad(x, (0, width - n))
-    while x.shape[-1] > 1:
-        x = x[..., 0::2] + x[..., 1::2]
-    return x[..., 0]
 
 
 def _segment_layout(indexes: Tensor) -> Tuple[Tensor, Tensor, Tensor]:

@@ -21,6 +21,15 @@ from metrics_tpu_torch.ops.qsketch import (  # noqa: F401
     qsketch_sort_bucket_reference,
 )
 from metrics_tpu_torch.ops.row_topk import row_topk, row_topk_f32, row_topk_reference  # noqa: F401
+from metrics_tpu_torch.ops.segment_extremum import (  # noqa: F401
+    segment_extremum_reference,
+    segment_max,
+    segment_max_dispatch,
+    segment_max_f32,
+    segment_min,
+    segment_min_dispatch,
+    segment_min_f32,
+)
 from metrics_tpu_torch.ops.segment_sum import (  # noqa: F401
     bincount_dispatch,
     bincount_i32,
@@ -28,5 +37,6 @@ from metrics_tpu_torch.ops.segment_sum import (  # noqa: F401
     segment_sum,
     segment_sum_dispatch,
     segment_sum_f32,
+    segment_sum_i32,
     segment_sum_reference,
 )

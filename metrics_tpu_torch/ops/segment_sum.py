@@ -8,13 +8,18 @@ kernels live in ``csrc/segment_sum.cu`` (see its header for the design):
 * :func:`bincount_i32` -- int32 counts of int32/int64 ids, out-of-range
   and negative ids dropped in the kernel;
 * :func:`segment_sum_f32` -- ``[B, D] x [B] -> [S, D]`` float32 sums,
-  deterministic, each (segment, column) summed in row order.
+  deterministic, each (segment, column) summed in row order;
+* :func:`segment_sum_i32` -- the same over int32 values, wrapping modulo
+  2**32 as XLA's int32 scatter-add does (the integer leaves of
+  ``SlicedMetric``).
 
 Each wrapper takes CUDA tensors only, launches on the current stream and
 counts its launch (:mod:`metrics_tpu_torch.ops.dispatch`). The plain
 versions, :func:`bincount_reference` and :func:`segment_sum_reference`,
 compute the same functions with ``torch.bincount`` / ``index_add_``; the
-entry points use them for CPU tensors only.
+entry points use them for CPU tensors only. The segment sums share their
+row-order tile with K2's segment max/min (``csrc/segment_fold.cuh``,
+:mod:`metrics_tpu_torch.ops.segment_extremum`).
 """
 import ctypes
 import math
@@ -43,6 +48,8 @@ _SIGNATURES = {
     "bincount_i32_ids64": [_PTR, _LL, _PTR, _LL, _PTR],
     "segment_sum_f32_ids32": [_PTR, _PTR, _LL, _I32, _PTR, _LL, _I32, _I32, _LL, _I32, _PTR],
     "segment_sum_f32_ids64": [_PTR, _PTR, _LL, _I32, _PTR, _LL, _I32, _I32, _LL, _I32, _PTR],
+    "segment_sum_i32_ids32": [_PTR, _PTR, _LL, _I32, _PTR, _LL, _I32, _I32, _LL, _I32, _PTR],
+    "segment_sum_i32_ids64": [_PTR, _PTR, _LL, _I32, _PTR, _LL, _I32, _I32, _LL, _I32, _PTR],
 }
 
 
@@ -91,35 +98,53 @@ def segment_sum_geometry(d: int, num_segments: int) -> Tuple[int, int, int, int]
     return dc, sw, seg_tiles, col_chunks
 
 
-def segment_sum_f32(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
-    """``[B, D]`` (or ``[B]``) float32 rows summed by id into
-    ``[num_segments, D]`` (or ``[num_segments]``) on the card; out-of-range
-    ids drop. Deterministic: each output is summed in row order."""
-    check_cuda("segment_sum_f32", vals, ids)
-    if vals.dtype != torch.float32:
-        raise TypeError(f"segment_sum_f32 takes float32 values, got {vals.dtype}")
+def segment_fold_launch(
+    kernel: str, lib: ctypes.CDLL, dtype: torch.dtype, vals: Tensor, ids: Tensor, num_segments: int, empty_fill: Any
+) -> Tensor:
+    """Launch the row-order segment tile ``kernel`` (``segment_sum_f32``,
+    ``segment_sum_i32``, ``segment_max_f32`` or ``segment_min_f32``: the C
+    launchers ``<kernel>_ids32``/``_ids64`` of ``lib``) on ``[B, D]`` (or
+    ``[B]``) card values of ``dtype``; the output is ``[num_segments, D]``
+    (or ``[num_segments]``). ``empty_fill`` fills an output without columns."""
+    check_cuda(kernel, vals, ids)
+    if vals.dtype != dtype:
+        raise TypeError(f"{kernel} takes {dtype} values, got {vals.dtype}")
     if vals.ndim not in (1, 2):
-        raise ValueError(f"segment_sum_f32 takes [B] or [B, D] values, got shape {tuple(vals.shape)}")
+        raise ValueError(f"{kernel} takes [B] or [B, D] values, got shape {tuple(vals.shape)}")
     squeeze = vals.ndim == 1
     rows = (vals[:, None] if squeeze else vals).contiguous()
     ids = _ids_for_kernel(ids)
     b, d = rows.shape
     if ids.numel() != b:
         raise ValueError(f"expected {b} segment ids, got {ids.numel()}")
-    if d == 0:  # nothing to sum: no launch
-        return torch.zeros((num_segments, 0), dtype=torch.float32, device=vals.device)
+    if d == 0:  # nothing to fold: no launch
+        return torch.full((num_segments, 0), empty_fill, dtype=dtype, device=vals.device)
     dc, sw, seg_tiles, col_chunks = segment_sum_geometry(d, num_segments)
-    lib = load_library()
-    out = torch.empty((num_segments, d), dtype=torch.float32, device=vals.device)
-    fn = lib.segment_sum_f32_ids64 if ids.dtype == torch.int64 else lib.segment_sum_f32_ids32
+    out = torch.empty((num_segments, d), dtype=dtype, device=vals.device)
+    fn = getattr(lib, f"{kernel}_ids64" if ids.dtype == torch.int64 else f"{kernel}_ids32")
     launch(
-        "segment_sum_f32",
+        kernel,
         lib,
         vals.device,
         fn,
         rows.data_ptr(), ids.data_ptr(), b, d, out.data_ptr(), num_segments, dc, sw, seg_tiles, col_chunks,
     )
     return out[:, 0] if squeeze else out
+
+
+def segment_sum_f32(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
+    """``[B, D]`` (or ``[B]``) float32 rows summed by id into
+    ``[num_segments, D]`` (or ``[num_segments]``) on the card; out-of-range
+    ids drop. Deterministic: each output is summed in row order."""
+    check_cuda("segment_sum_f32", vals, ids)
+    return segment_fold_launch("segment_sum_f32", load_library(), torch.float32, vals, ids, num_segments, 0.0)
+
+
+def segment_sum_i32(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
+    """int32 ``[B, D]`` (or ``[B]``) rows summed by id on the card, each
+    output in row order and wrapping modulo 2**32; out-of-range ids drop."""
+    check_cuda("segment_sum_i32", vals, ids)
+    return segment_fold_launch("segment_sum_i32", load_library(), torch.int32, vals, ids, num_segments, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -139,12 +164,18 @@ def bincount_reference(ids: Tensor, minlength: int) -> Tensor:
 def segment_sum_reference(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
     """Plain segment-sum over the leading axis with ``index_add_``, in the
     values' dtype; out-of-range ids go to an extra row (``index_add_``
-    asserts on them), which is then cut off."""
+    asserts on them), which is then cut off. int32 values are summed in
+    int64 and wrapped modulo 2**32, as XLA's int32 scatter-add wraps."""
     ids = ids.reshape(-1).to(torch.int64)
     keep = (ids >= 0) & (ids < num_segments)
-    out = vals.new_zeros((num_segments + 1,) + tuple(vals.shape[1:]))
-    out.index_add_(0, torch.where(keep, ids, num_segments), vals)
-    return out[:num_segments]
+    wide = vals.to(torch.int64) if vals.dtype == torch.int32 else vals
+    out = wide.new_zeros((num_segments + 1,) + tuple(vals.shape[1:]))
+    out.index_add_(0, torch.where(keep, ids, num_segments), wide)
+    out = out[:num_segments]
+    if vals.dtype == torch.int32:
+        low = out & 0xFFFFFFFF
+        out = torch.where(low >= 1 << 31, low - (1 << 32), low).to(torch.int32)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -153,13 +184,16 @@ def segment_sum_reference(vals: Tensor, ids: Tensor, num_segments: int) -> Tenso
 
 
 def segment_sum(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
-    """Segment-sum of ``[B]`` / ``[B, D]`` values: the kernel for CUDA
-    tensors (float32 only; other dtypes raise), the plain version for CPU
-    tensors (any dtype, result in the values' dtype)."""
+    """Segment-sum of ``[B]`` / ``[B, D]`` values: a kernel for CUDA
+    tensors (``segment_sum_f32`` for float32, ``segment_sum_i32`` for int32;
+    other dtypes raise), the plain version for CPU tensors (any dtype,
+    result in the values' dtype)."""
     if not on_card(vals, ids):
         if ids.is_floating_point():
             raise TypeError(f"segment ids must be integer-typed, got dtype {ids.dtype}")
         return segment_sum_reference(vals, ids, num_segments)
+    if vals.dtype == torch.int32:
+        return segment_sum_i32(vals, ids, num_segments)
     return segment_sum_f32(vals, ids, num_segments)
 
 

@@ -1,4 +1,5 @@
-"""Cross-process state synchronisation: single-process only in this slice.
+"""Cross-process state synchronisation (single-process only in this slice)
+and the scalar ``reduce`` helper.
 
 Counterpart of ``metrics_tpu/parallel/distributed.py``. With one process
 the world size is 1 and syncing a state is the identity. A metric computed
@@ -41,3 +42,14 @@ def check_single_process() -> None:
     """Raise where a sync would be needed: more than one process."""
     if distributed_available():
         raise NotImplementedError(_NOT_PORTED)
+
+
+def reduce(x: torch.Tensor, reduction: str) -> torch.Tensor:
+    """Reduce a tensor: ``"elementwise_mean"`` | ``"sum"`` | ``"none"`` (or ``None``)."""
+    if reduction == "elementwise_mean":
+        return torch.mean(x)
+    if reduction == "sum":
+        return torch.sum(x)
+    if reduction in ("none", None):
+        return x
+    raise ValueError("Reduction parameter unknown.")

@@ -1,0 +1,347 @@
+"""``SlicedMetric`` -- one metric, a leading ``[S]`` slice axis on every state.
+
+Counterpart of ``metrics_tpu/sliced/metric.py``. Where an object fan-out
+keeps N metric objects, a sliced metric keeps ONE state whose every leaf
+carries a leading slice dimension, and ``update(slice_ids, *batch)``
+scatters each batch row's contribution into its slice:
+
+* **Per-row contributions** come from the wrapped metric's own pure update
+  (``update_state``) run by ``torch.func.vmap`` over length-1 rows against
+  the default state: no per-slice Python loop. A template whose update
+  cannot be vmapped (it reads values back to the host, say) raises
+  :class:`MetricsUserError`.
+* **One segment reduction per leaf**, through the port's kernels on the
+  card: a ``"sum"`` leaf adds its segment-summed row deltas
+  (``segment_sum_f32`` for float32, ``segment_sum_i32`` for int32);
+  ``"max"``/``"min"`` leaves fold their segment extremum (K2,
+  ``segment_max_f32``/``segment_min_f32``) with the JAX package's NaN and
+  signed-zero semantics. Empty segments hold the fold's identity, so an
+  untouched slice is left bit-identical. Other reducers (``mean``, ``cat``,
+  custom, None) have no exact scatter and are rejected at construction.
+* **Reads** fold only the slices written since their last read. A bool
+  dirty bitmap on the metric's device is set by each update with no host
+  read, and read once per ``compute()``; the per-slice values of earlier
+  folds are kept on the device. ``compute_state(state)`` always folds the
+  state it is given and never serves those values.
+
+Slice ids are a 1-D integer tensor aligned with the batch's leading axis;
+ids outside ``[0, num_slices)`` are dropped. The ``_slice_rows`` counter
+counts rows per slice and drives ``compute(top_k=)`` and ``hot_slices``.
+Left out of this slice (ROADMAP.md, queue A): the partition specs of
+``sliced/sharding.py``, the telemetry and read-event hooks, the
+pre-lowered readers (``ReaderCache``) and the fused path.
+"""
+from copy import deepcopy
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from metrics_tpu_torch.core.metric import _AUTO_COUNT, Metric
+from metrics_tpu_torch.ops.segment_extremum import segment_max_dispatch, segment_min_dispatch
+from metrics_tpu_torch.ops.segment_sum import segment_sum_dispatch
+from metrics_tpu_torch.utils.data import (
+    _as_tensor,
+    _is_integer,
+    dim_zero_max,
+    dim_zero_min,
+    dim_zero_sum,
+    maximum_ieee,
+    minimum_ieee,
+)
+from metrics_tpu_torch.utils.exceptions import MetricsUserError
+
+Tensor = torch.Tensor
+
+#: per-slice row counter: the sum-reduced ``[S]`` int32 state every
+#: SlicedMetric registers beside the wrapped leaves
+SLICE_ROWS = "_slice_rows"
+
+#: reducers with an exact slice-axis scatter
+_SLICEABLE = {dim_zero_sum: "sum", dim_zero_max: "max", dim_zero_min: "min"}
+
+
+def _reducer_name(red: Any) -> str:
+    if red is None:
+        return "None"
+    return _SLICEABLE.get(red) or getattr(red, "__name__", repr(red))
+
+
+def _template_of(metric: Metric) -> Metric:
+    """A reset copy of ``metric``, the wrapper's template. The wrapper runs
+    on the template's device."""
+    template = deepcopy(metric)
+    template.reset()
+    return template
+
+
+class SlicedMetric(Metric):
+    """Track ``metric`` independently across ``num_slices`` slices.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import MeanSquaredError
+        >>> from metrics_tpu_torch.sliced import SlicedMetric
+        >>> per_tenant = SlicedMetric(MeanSquaredError(device="cpu"), num_slices=3)
+        >>> per_tenant.update(torch.tensor([0, 1, 2, 2]),  # slice ids, row-aligned
+        ...                   torch.tensor([1.0, 2.0, 2.0, 4.0]),   # preds
+        ...                   torch.tensor([1.0, 0.0, 0.0, 0.0]))   # target
+        >>> per_tenant.compute()  # [S]-leading: one value per slice
+        tensor([ 0.,  4., 10.])
+
+    ``update(slice_ids, *args, **kwargs)`` forwards ``*args``/``kwargs`` to
+    the wrapped metric row by row; ``compute()`` runs the wrapped compute
+    over the slice axis. ``compute(slice_ids=...)`` evaluates a subset and
+    ``compute(top_k=k)`` returns ``(slice_ids, values)`` for the ``k``
+    slices with the most rows (ties to the lower id). Reset,
+    ``merge_states`` and ``state_dict`` are the ordinary :class:`Metric`
+    ones. The metric runs on the wrapped metric's device.
+    """
+
+    higher_is_better = None
+    is_differentiable = False
+
+    def __init__(self, metric: Metric, num_slices: int) -> None:
+        if not isinstance(metric, Metric):
+            raise MetricsUserError(f"SlicedMetric wraps a Metric instance, got {type(metric).__name__}")
+        if isinstance(metric, SlicedMetric):
+            raise MetricsUserError("SlicedMetric cannot wrap another SlicedMetric")
+        if not isinstance(num_slices, int) or isinstance(num_slices, bool) or num_slices <= 0:
+            raise MetricsUserError(f"`num_slices` must be a positive int, got {num_slices!r}")
+        self._validate_sliceable(metric)
+        super().__init__(device=metric.device)
+        self.num_slices = num_slices
+        # the wrapped metric is a TEMPLATE: its pure update and compute run
+        # per row and per slice; its own states are never accumulated
+        self._template = _template_of(metric)
+        for name, red in self._template._reductions.items():
+            default = self._template._defaults[name]
+            self.add_state(name, default=default.expand((num_slices,) + tuple(default.shape)), dist_reduce_fx=red)
+        self.add_state(SLICE_ROWS, default=torch.zeros(num_slices, dtype=torch.int32), dist_reduce_fx="sum")
+        # dirty bitmap: True where a slice was written since its value was
+        # last folded; entry S is the sink of dropped ids. Starts all-dirty.
+        self._dirty = torch.ones(num_slices + 1, dtype=torch.bool, device=self.device)
+        # per-slice values of earlier folds: ([S, ...] tensors, tree spec),
+        # trusted where the dirty bit is clear
+        self._values: Optional[Tuple[list, Any]] = None
+
+    # ------------------------------------------------------------------
+    # construction-time sliceability validation
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _validate_sliceable(metric: Metric) -> None:
+        """Reject metrics without an exact per-leaf scatter: mis-scattering
+        (segment-summing a running mean, say) would corrupt every touched
+        slice silently."""
+        cls_name = type(metric).__name__
+        if getattr(metric, "__jit_unsafe__", False):
+            raise MetricsUserError(
+                f"`{cls_name}` declares `__jit_unsafe__`: its update cannot be vmapped, so it"
+                " cannot run inside the sliced scatter."
+            )
+        for name, red in metric._reductions.items():
+            if isinstance(metric._defaults[name], list):
+                raise MetricsUserError(
+                    f"`{cls_name}` state `{name}` is a list ('cat') state; unbounded"
+                    " concatenation has no fixed-shape slice axis. Sliceable leaves"
+                    " need a sum/max/min reducer over an array state."
+                )
+            if name == SLICE_ROWS:
+                raise MetricsUserError(
+                    f"`{cls_name}` state `{name}` collides with the reserved sliced row-counter state name"
+                )
+            if red not in _SLICEABLE:
+                hint = " (the auto mean-merge counter has no per-slice scatter)" if name == _AUTO_COUNT else ""
+                raise MetricsUserError(
+                    f"`{cls_name}` state `{name}` has reducer"
+                    f" `{_reducer_name(red)}`; only sum/max/min-reduced array states"
+                    " have an exact slice-axis scatter (segment_sum / scatter-max /"
+                    f" scatter-min){hint}. A mean-style metric should accumulate"
+                    " sum-reduced numerator/denominator leaves."
+                )
+
+    # ------------------------------------------------------------------
+    # update
+    # ------------------------------------------------------------------
+    @property
+    def wrapped(self) -> Metric:
+        """The wrapped template metric (its states are placeholders)."""
+        return self._template
+
+    @property
+    def slice_counts(self) -> Tensor:
+        """Rows ingested per slice, ``[S]`` int32."""
+        return getattr(self, SLICE_ROWS)
+
+    def _row_states(self, args: Tuple, kwargs: Dict[str, Any], n_rows: int) -> Dict[str, Tensor]:
+        """Per-row post-update states ``{leaf: [B, *leaf_shape]}``: the
+        wrapped metric's pure update vmapped over single-row batches against
+        the default state. Tensor arguments whose leading axis matches the
+        slice ids are batched; everything else is closed over."""
+        m = self._template
+        defaults = dict(m._defaults)
+        leaves, spec = tree_flatten((args, kwargs))
+        batched = [
+            i for i, leaf in enumerate(leaves) if isinstance(leaf, Tensor) and leaf.ndim >= 1 and leaf.shape[0] == n_rows
+        ]
+        if not batched:
+            raise MetricsUserError(
+                "SlicedMetric.update: no batch argument shares the slice_ids"
+                f" leading dimension ({n_rows}); slice ids must be row-aligned"
+                " with the update inputs"
+            )
+        # rows keep a length-1 batch axis, so the wrapped update sees an
+        # ordinary (1, ...) batch
+        rows = [leaves[i].unsqueeze(1) for i in batched]
+
+        def one_row(*row_leaves: Tensor) -> Dict[str, Tensor]:
+            full = list(leaves)
+            for i, r in zip(batched, row_leaves):
+                full[i] = r
+            a, kw = tree_unflatten(full, spec)
+            return m.update_state(dict(defaults), *a, **kw)
+
+        try:
+            return torch.func.vmap(one_row)(*rows)
+        except RuntimeError as err:
+            if "vmap" not in str(err):
+                raise
+            raise MetricsUserError(
+                f"`{type(m).__name__}`'s update cannot be vmapped over single-row batches, so it"
+                f" cannot run inside the sliced scatter: {err}"
+            ) from err
+
+    def _update(self, slice_ids: Any, *args: Any, **kwargs: Any) -> None:
+        slice_ids = _as_tensor(slice_ids, self.device)
+        if slice_ids.ndim != 1:
+            raise MetricsUserError(f"`slice_ids` must be a 1-D integer array, got shape {tuple(slice_ids.shape)}")
+        if not _is_integer(slice_ids.dtype):
+            raise MetricsUserError(f"`slice_ids` must be integer-typed, got dtype {slice_ids.dtype}")
+        m = self._template
+        n_rows = int(slice_ids.shape[0])
+        num = self.num_slices
+        row_states = self._row_states(args, m._filter_kwargs(**kwargs), n_rows)
+        for name, red in m._reductions.items():
+            rows = row_states[name]
+            old = getattr(self, name)
+            if red is dim_zero_sum:
+                # per-row delta against the default, segment-summed into the
+                # slice axis: exact for additive accumulation
+                new = old + segment_sum_dispatch(rows - m._defaults[name], slice_ids, num)
+            elif red is dim_zero_max:
+                # empty segments hold -inf, so untouched slices keep their bits
+                new = maximum_ieee(old, segment_max_dispatch(rows, slice_ids, num))
+            else:  # dim_zero_min (validated at construction)
+                new = minimum_ieee(old, segment_min_dispatch(rows, slice_ids, num))
+            setattr(self, name, new)
+        ones = torch.ones(n_rows, dtype=torch.int32, device=slice_ids.device)
+        setattr(self, SLICE_ROWS, getattr(self, SLICE_ROWS) + segment_sum_dispatch(ones, slice_ids, num))
+        # the written slices go dirty on the device, with no host read:
+        # dropped ids land in the sink entry
+        in_range = (slice_ids >= 0) & (slice_ids < num)
+        self._dirty[torch.where(in_range, slice_ids, num).long()] = True
+
+    def _mark_state_written(self) -> None:
+        # out-of-band installs (reset, restore, load, a compute group's
+        # borrow) cannot say which slices changed
+        super()._mark_state_written()
+        dirty = getattr(self, "_dirty", None)
+        if dirty is not None:
+            dirty.fill_(True)
+
+    # ------------------------------------------------------------------
+    # compute
+    # ------------------------------------------------------------------
+    def _fold(self, states: Dict[str, Tensor]) -> Any:
+        """The wrapped compute over the leading axis of ``states``."""
+        return torch.func.vmap(self._template.compute_state)(states)
+
+    def compute_state(self, state: Dict[str, Tensor]) -> Any:
+        """Pure functional compute: the wrapped compute over every slice of
+        ``state``. It folds the state it is given: the values kept for
+        ``compute()`` describe this metric's own states, not ``state``."""
+        return self._fold({name: state[name] for name in self._template._defaults})
+
+    def _fold_slices(self, req: np.ndarray) -> Tuple[Any, int]:
+        """Values of the slices ``req`` (host ids): the dirty ones among them
+        are folded and kept, the others come from the kept values. Returns ``(values, n_folded)``.
+        The dirty bitmap is read to the host once."""
+        m = self._template
+        dirty = self._dirty[: self.num_slices].cpu().numpy()
+        fold = np.unique(req[dirty[req]])
+        if fold.size:
+            folded = torch.as_tensor(fold, device=self.device).long()
+            flat, spec = tree_flatten(self._fold({name: getattr(self, name)[folded] for name in m._defaults}))
+            if self._values is None:
+                cache = [torch.zeros((self.num_slices,) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device) for v in flat]
+                self._values = (cache, spec)
+            for kept, value in zip(self._values[0], flat):
+                kept[folded] = value
+            self._dirty[folded] = False
+        index = torch.as_tensor(req, device=self.device).long()
+        cache, spec = self._values
+        return tree_unflatten([kept[index] for kept in cache], spec), int(fold.size)
+
+    def _compute(self) -> Any:
+        values, _ = self._fold_slices(np.arange(self.num_slices))
+        return values
+
+    def compute(self, *, slice_ids: Optional[Any] = None, top_k: Optional[int] = None) -> Any:
+        """Per-slice values.
+
+        With no arguments: the full ``[S]``-leading result through the
+        ordinary :meth:`Metric.compute` cycle (cached until the next write).
+        ``slice_ids=`` evaluates only those slices; ids out of range raise
+        (a gather would clamp them to a neighbouring slice). ``top_k=k``
+        selects the ``k`` slices with the most ingested rows, ties to the
+        lower id, and returns ``(slice_ids, values)``.
+        """
+        if slice_ids is None and top_k is None:
+            return super().compute()
+        if slice_ids is not None and top_k is not None:
+            raise MetricsUserError("pass either `slice_ids` or `top_k`, not both")
+        if top_k is not None:
+            if not isinstance(top_k, int) or isinstance(top_k, bool) or top_k <= 0:
+                raise MetricsUserError(f"`top_k` must be a positive int, got {top_k!r}")
+            ids = self._top_ids(min(top_k, self.num_slices))
+            host_ids = ids.cpu().numpy()
+        else:
+            ids = _as_tensor(slice_ids, self.device)
+            if ids.ndim != 1 or not _is_integer(ids.dtype):
+                raise MetricsUserError(
+                    f"`slice_ids` must be a 1-D integer array, got shape {tuple(ids.shape)} dtype {ids.dtype}"
+                )
+            host_ids = ids.cpu().numpy()
+            if host_ids.size and (host_ids.min() < 0 or host_ids.max() >= self.num_slices):
+                raise MetricsUserError(
+                    f"`slice_ids` out of range for num_slices={self.num_slices}:"
+                    f" min {int(host_ids.min())}, max {int(host_ids.max())}"
+                )
+        if host_ids.size:
+            values, _ = self._fold_slices(host_ids)
+        else:  # an empty subset: the fold of one slice, cut to none
+            one = self._fold({name: getattr(self, name)[:1] for name in self._template._defaults})
+            flat, spec = tree_flatten(one)
+            values = tree_unflatten([v[:0] for v in flat], spec)
+        return (ids, values) if top_k is not None else values
+
+    def _top_ids(self, k: int) -> Tensor:
+        """Ids (int32) of the ``k`` fullest slices, in descending count with
+        ties to the lower id (``lax.top_k``'s order; ``torch.topk`` promises
+        no order on ties, a stable descending sort does)."""
+        order = torch.sort(self.slice_counts, descending=True, stable=True).indices
+        return order[:k].to(torch.int32)
+
+    def hot_slices(self, k: int = 10) -> Tuple[Tensor, Tensor]:
+        """The ``k`` slices with the most ingested rows and each one's share
+        of all ingested rows."""
+        if not isinstance(k, int) or isinstance(k, bool) or k <= 0:
+            raise MetricsUserError(f"`k` must be a positive int, got {k!r}")
+        counts = self.slice_counts
+        total = torch.clamp(counts.sum(dtype=torch.int32), min=1)
+        ids = self._top_ids(min(k, self.num_slices))
+        return ids, counts[ids.long()].to(torch.float32) / total.to(torch.float32)
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({type(self._template).__name__}(), num_slices={self.num_slices})"

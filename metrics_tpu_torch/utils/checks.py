@@ -1,7 +1,7 @@
 """Input canonicalisation for classification and retrieval metrics.
 
-Counterpart of ``metrics_tpu/utils/checks.py`` (the classification and
-retrieval parts):
+Counterpart of ``metrics_tpu/utils/checks.py`` (the shape check and the
+classification and retrieval parts):
 the shape/dtype case-deduction table, the ``num_classes`` and ``top_k``
 consistency rules, and ``_input_format_classification``, which turns every
 supported input style into canonical int32 binary ``(N, C)`` / ``(N, C, X)``
@@ -22,6 +22,14 @@ from metrics_tpu_torch.utils.data import _is_integer, select_topk, to_onehot
 from metrics_tpu_torch.utils.enums import DataType
 
 Tensor = torch.Tensor
+
+
+def _check_same_shape(preds: Tensor, target: Tensor) -> None:
+    """Raise if predictions and targets have different shapes."""
+    if preds.shape != target.shape:
+        raise RuntimeError(
+            f"Predictions and targets are expected to have the same shape, but got {preds.shape} and {target.shape}."
+        )
 
 
 def _check_for_empty_tensors(preds: Tensor, target: Tensor) -> bool:

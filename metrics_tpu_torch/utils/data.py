@@ -67,11 +67,84 @@ def dim_zero_mean(x: Tensor) -> Tensor:
 
 
 def dim_zero_max(x: Tensor) -> Tensor:
-    return torch.amax(x, dim=0)
+    return amax_ieee(x, 0)
 
 
 def dim_zero_min(x: Tensor) -> Tensor:
-    return torch.amin(x, dim=0)
+    return amin_ieee(x, 0)
+
+
+# ---------------------------------------------------------------------------
+# extremum folds with the JAX package's semantics
+# ---------------------------------------------------------------------------
+# ``jnp.maximum``/``jnp.max`` propagate NaN and rank +0.0 above -0.0 (so
+# max(-0.0, +0.0) is +0.0 in either order, and min is -0.0), while
+# ``torch.maximum``/``torch.amax`` keep whichever zero they meet first. Every
+# extremum the port folds goes through these helpers. A NaN result is the
+# canonical quiet NaN, so the card and the CPU agree bit for bit.
+
+
+def _extremum_ieee(a: Tensor, b: Tensor, is_max: bool) -> Tensor:
+    if not (a.is_floating_point() or b.is_floating_point()):
+        return torch.maximum(a, b) if is_max else torch.minimum(a, b)
+    a, b = torch.broadcast_tensors(a, b)
+    # of two equal values (only the zeros can differ), max keeps the one
+    # without the sign bit and min the one with it
+    pick_a = ((a > b) if is_max else (a < b)) | ((a == b) & (torch.signbit(a) != is_max))
+    out = torch.where(pick_a, a, b)
+    return torch.where(torch.isnan(a) | torch.isnan(b), torch.full_like(out, float("nan")), out)
+
+
+def maximum_ieee(a: Tensor, b: Tensor) -> Tensor:
+    """Elementwise max as ``jnp.maximum``: NaN wins, +0.0 over -0.0."""
+    return _extremum_ieee(a, b, True)
+
+
+def minimum_ieee(a: Tensor, b: Tensor) -> Tensor:
+    """Elementwise min as ``jnp.minimum``: NaN wins, -0.0 over +0.0."""
+    return _extremum_ieee(a, b, False)
+
+
+def _reduce_extremum_ieee(x: Tensor, dim: Optional[int], is_max: bool) -> Tensor:
+    reduce = torch.amax if is_max else torch.amin
+    if not x.is_floating_point():
+        return reduce(x) if dim is None else reduce(x, dim=dim)
+    dims = () if dim is None else (dim,)
+    out = reduce(x, dim=dims) if dims else reduce(x)
+    # a zero result takes the sign the JAX reduction gives: max is +0.0 if
+    # any +0.0 is present, min is -0.0 if any -0.0 is
+    wanted = (x == 0) & (torch.signbit(x) != is_max)
+    any_wanted = wanted.any(dim=dim) if dim is not None else wanted.any()
+    zero = torch.where(any_wanted == is_max, torch.zeros_like(out), torch.full_like(out, -0.0))
+    out = torch.where(out == 0, zero, out)
+    has_nan = torch.isnan(x).any(dim=dim) if dim is not None else torch.isnan(x).any()
+    return torch.where(has_nan, torch.full_like(out, float("nan")), out)
+
+
+def amax_ieee(x: Tensor, dim: Optional[int] = None) -> Tensor:
+    """Max over ``dim`` (all elements for ``None``) as ``jnp.max``."""
+    return _reduce_extremum_ieee(x, dim, True)
+
+
+def amin_ieee(x: Tensor, dim: Optional[int] = None) -> Tensor:
+    """Min over ``dim`` (all elements for ``None``) as ``jnp.min``."""
+    return _reduce_extremum_ieee(x, dim, False)
+
+
+def _tree_sum(x: Tensor) -> Tensor:
+    """Sum over the last axis in a fixed pairwise order (zero padding to a
+    power of two, then halving by elementwise adds): each addition is one
+    IEEE operation, so the sum has the same bits on every device
+    (``torch.sum`` adds in an order that depends on the device)."""
+    n = x.shape[-1]
+    width = 1
+    while width < n:
+        width *= 2
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
 
 
 def _total_order_key(x: Tensor) -> Tensor:

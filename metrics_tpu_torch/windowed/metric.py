@@ -1,0 +1,313 @@
+"""``WindowedMetric`` -- sliding-window or exponential-decay state for a
+metric whose leaves are sum, max or min states.
+
+Counterpart of ``metrics_tpu/windowed/metric.py``, with two state layouts:
+
+* **Ring mode** (default) -- every wrapped state leaf gets a leading
+  ``[R]`` ring axis, one row per *bucket* of ``updates_per_bucket``
+  consecutive updates. Each update folds into its slot, ``(count // k) %
+  R`` from the ``_ring_count`` state, computed on the device (no host read
+  per update); the first update of a bucket starts the slot from the
+  defaults, so an expired bucket evicts itself. ``compute()`` folds the
+  in-window rows oldest first through the wrapped metric's own
+  ``merge_states`` (sum leaves add, max/min leaves fold), then runs the
+  wrapped compute; ``compute(window=w, before=b)`` narrows to the last
+  ``w`` buckets ending ``b`` buckets back, and raises where that reaches
+  past the ring.
+* **Decay mode** (``mode="decay"``) -- every (necessarily sum-reduced)
+  leaf becomes the exponentially decayed sum ``alpha * state + delta``,
+  with the effective weight ``sum_i alpha**i`` beside it.
+
+Per-tenant windows are ``WindowedMetric(SlicedMetric(...))``: the leaves
+become ``[R, S, ...]`` and each update runs the sliced scatter (and its
+kernels) on the live slot. Every read is the cold oldest-first fold of the
+JAX package; its fold memos and pre-lowered fold are not ported. Left out
+(ROADMAP.md, queue A): the pad-and-mask update (``n_valid``) of the fused
+path, the ring of sketch (``merge_like``) leaves, and the telemetry,
+freshness and read-event hooks.
+"""
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from metrics_tpu_torch.core.metric import _AUTO_COUNT, Metric
+from metrics_tpu_torch.sliced.metric import _reducer_name, _template_of
+from metrics_tpu_torch.utils.data import _squeeze_if_scalar, dim_zero_max, dim_zero_min, dim_zero_sum
+from metrics_tpu_torch.utils.exceptions import MetricsUserError
+
+Tensor = torch.Tensor
+
+#: per-bucket update counter, ``[R]`` int32 ("ring"-reduced)
+RING_ROWS = "_ring_rows"
+#: total updates since reset, int32 scalar, the clock the ring slot derives
+#: from ("max"-reduced)
+RING_COUNT = "_ring_count"
+#: decayed effective sample weight ``sum_i alpha**i``, float32 scalar
+DECAY_WEIGHT = "_decay_weight"
+
+_RESERVED = (RING_ROWS, RING_COUNT, DECAY_WEIGHT)
+_MODES = ("ring", "decay")
+
+_N_VALID_NOT_PORTED = (
+    "WindowedMetric's pad-and-mask update (`n_valid`) belongs to the fused path, which is not"
+    " ported yet (ROADMAP.md, queue A.6: 'fused and async update')"
+)
+
+
+class WindowedMetric(Metric):
+    """Track ``metric`` over a sliding window (ring) or with exponential decay.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import MeanSquaredError
+        >>> from metrics_tpu_torch.windowed import WindowedMetric
+        >>> recent = WindowedMetric(MeanSquaredError(device="cpu"), window=3, updates_per_bucket=1)
+        >>> for err in (9.0, 9.0, 0.0, 0.0, 0.0):  # old errors age out
+        ...     recent.update(torch.tensor([err]), torch.tensor([0.0]))
+        >>> float(recent.compute())  # only the last 3 buckets remain
+        0.0
+
+    Ring mode: ``window`` buckets of ``updates_per_bucket`` updates each;
+    ``compute()`` covers the whole ring, ``compute(window=w)`` the last
+    ``w`` buckets. Decay mode: ``WindowedMetric(m, mode="decay",
+    decay=0.99)``. Reset, ``state_dict`` and ``merge_states`` are the
+    ordinary :class:`Metric` ones. The metric runs on the wrapped metric's
+    device.
+    """
+
+    higher_is_better = None
+    is_differentiable = False
+
+    def __init__(
+        self,
+        metric: Metric,
+        *,
+        window: Optional[int] = None,
+        updates_per_bucket: Optional[int] = None,
+        mode: str = "ring",
+        decay: Optional[float] = None,
+    ) -> None:
+        if not isinstance(metric, Metric):
+            raise MetricsUserError(f"WindowedMetric wraps a Metric instance, got {type(metric).__name__}")
+        if isinstance(metric, WindowedMetric):
+            raise MetricsUserError("WindowedMetric cannot wrap another WindowedMetric")
+        if mode not in _MODES:
+            raise MetricsUserError(f"`mode` must be one of {_MODES}, got {mode!r}")
+        if mode == "ring":
+            window = 8 if window is None else window
+            updates_per_bucket = 1 if updates_per_bucket is None else updates_per_bucket
+            if not isinstance(window, int) or window < 2:
+                raise MetricsUserError(f"`window` must be an int >= 2, got {window!r}")
+            if not isinstance(updates_per_bucket, int) or updates_per_bucket < 1:
+                raise MetricsUserError(f"`updates_per_bucket` must be a positive int, got {updates_per_bucket!r}")
+            if decay is not None:
+                raise MetricsUserError("`decay` only applies to mode='decay'")
+        else:
+            if window is not None or updates_per_bucket is not None:
+                raise MetricsUserError("`window`/`updates_per_bucket` only apply to mode='ring'")
+            window, updates_per_bucket = 0, 0
+            decay = 0.99 if decay is None else decay
+            if not isinstance(decay, (int, float)) or not 0.0 < float(decay) < 1.0:
+                raise MetricsUserError(f"`decay` must be a float in (0, 1), got {decay!r}")
+        self._validate_windowable(metric, mode)
+        super().__init__(device=metric.device)
+        self.mode = mode
+        self.window = int(window)
+        self.updates_per_bucket = int(updates_per_bucket)
+        self._alpha = float(decay) if decay is not None else None
+        self._template = _template_of(metric)
+        m = self._template
+        if mode == "ring":
+            for name, red in m._reductions.items():
+                default = m._defaults[name]
+                fx = "ring" if red is dim_zero_sum else ("max" if red is dim_zero_max else "min")
+                self.add_state(name, default=default.expand((self.window,) + tuple(default.shape)), dist_reduce_fx=fx)
+            self.add_state(RING_ROWS, default=torch.zeros(self.window, dtype=torch.int32), dist_reduce_fx="ring")
+            self.add_state(RING_COUNT, default=torch.tensor(0, dtype=torch.int32), dist_reduce_fx="max")
+        else:
+            for name in m._reductions:
+                default = m._defaults[name]
+                # a decayed count is fractional: an integer leaf would
+                # truncate alpha * count
+                self.add_state(name, default=default if default.is_floating_point() else default.to(torch.float32), dist_reduce_fx="decay")
+            self.add_state(DECAY_WEIGHT, default=torch.tensor(0.0), dist_reduce_fx="decay")
+
+    @staticmethod
+    def _validate_windowable(metric: Metric, mode: str) -> None:
+        cls_name = type(metric).__name__
+        if getattr(metric, "__jit_unsafe__", False):
+            raise MetricsUserError(
+                f"`{cls_name}` declares `__jit_unsafe__` — its update cannot trace, so it"
+                " cannot run inside the windowed ring/decay kernel."
+            )
+        for name, red in metric._reductions.items():
+            if isinstance(metric._defaults[name], list):
+                raise MetricsUserError(
+                    f"`{cls_name}` state `{name}` is a list ('cat') state; unbounded"
+                    " concatenation has no fixed-shape ring row. Use the metric's"
+                    " sketched mode (fixed-capacity merge leaves window exactly)."
+                )
+            if name in _RESERVED:
+                raise MetricsUserError(f"`{cls_name}` state `{name}` collides with a reserved windowed state name")
+            merge_like = bool(getattr(red, "merge_like", False))
+            if mode == "decay":
+                if red is not dim_zero_sum:
+                    hint = (
+                        " (extrema cannot forget and sketch weights must not be scaled — use mode='ring')"
+                        if red in (dim_zero_max, dim_zero_min) or merge_like
+                        else ""
+                    )
+                    raise MetricsUserError(
+                        f"`{cls_name}` state `{name}` has reducer"
+                        f" `{_reducer_name(red)}`; exponential decay is only exact for"
+                        f" sum-reduced leaves{hint}. A mean-style metric should"
+                        " accumulate sum-reduced numerator/denominator leaves."
+                    )
+            elif merge_like:
+                raise NotImplementedError(
+                    f"`{cls_name}` state `{name}` is a sketch (merge-like) leaf; the ring of sketches is"
+                    " not ported yet (ROADMAP.md, queue A: 'the rest of the sketches')"
+                )
+            elif red not in (dim_zero_sum, dim_zero_max, dim_zero_min):
+                hint = " (the auto mean-merge counter has no per-bucket fold)" if name == _AUTO_COUNT else ""
+                raise MetricsUserError(
+                    f"`{cls_name}` state `{name}` has reducer"
+                    f" `{_reducer_name(red)}`; only sum/max/min/merge-reduced array"
+                    f" states have an exact per-bucket ring fold{hint}. A mean-style"
+                    " metric should accumulate sum-reduced numerator/denominator"
+                    " leaves."
+                )
+
+    # ------------------------------------------------------------------
+    # update
+    # ------------------------------------------------------------------
+    @property
+    def wrapped(self) -> Metric:
+        """The wrapped template metric (its states are placeholders)."""
+        return self._template
+
+    @property
+    def bucket_counts(self) -> Tensor:
+        """Updates absorbed per ring bucket, ``[R]`` int32 (ring mode)."""
+        if self.mode != "ring":
+            raise MetricsUserError("`bucket_counts` is a ring-mode query")
+        return getattr(self, RING_ROWS)
+
+    @property
+    def decay_weight(self) -> Tensor:
+        """Effective decayed sample weight ``sum_i alpha**i`` (decay mode)."""
+        if self.mode != "decay":
+            raise MetricsUserError("`decay_weight` is a decay-mode query")
+        return getattr(self, DECAY_WEIGHT)
+
+    def _update(self, *args: Any, **kwargs: Any) -> None:
+        if "n_valid" in kwargs:
+            raise NotImplementedError(_N_VALID_NOT_PORTED)
+        m = self._template
+        fkw = m._filter_kwargs(**kwargs)
+        if self.mode == "decay":
+            base = {}
+            for name in m._defaults:
+                leaf = getattr(self, name)
+                base[name] = torch.tensor(self._alpha, dtype=leaf.dtype, device=leaf.device) * leaf
+            new = m.update_state(base, *args, **fkw)
+            for name in m._defaults:
+                # keep the registered (float-promoted) dtype
+                setattr(self, name, new[name].to(self._defaults[name].dtype))
+            w = getattr(self, DECAY_WEIGHT)
+            setattr(self, DECAY_WEIGHT, torch.tensor(self._alpha, dtype=w.dtype, device=w.device) * w + 1.0)
+            return
+
+        count = getattr(self, RING_COUNT)
+        k, r = self.updates_per_bucket, self.window
+        # the slot and the bucket's start, on the device: no host read
+        slot = ((count // k) % r).reshape(1).long()
+        fresh = (count % k) == 0
+        base = {}
+        for name in m._defaults:
+            row = getattr(self, name).index_select(0, slot)[0]
+            # the first update of a bucket starts from the defaults, so a
+            # wrapped (expired) bucket evicts itself
+            base[name] = torch.where(fresh, m._defaults[name], row)
+        new = m.update_state(base, *args, **fkw)
+        for name in m._defaults:
+            leaf = getattr(self, name)
+            setattr(self, name, leaf.index_copy(0, slot, new[name].to(leaf.dtype).unsqueeze(0)))
+        rows = getattr(self, RING_ROWS)
+        filled = torch.where(fresh, torch.zeros_like(rows[:1]), rows.index_select(0, slot)) + 1
+        setattr(self, RING_ROWS, rows.index_copy(0, slot, filled))
+        setattr(self, RING_COUNT, count + 1)
+
+    # ------------------------------------------------------------------
+    # window folds / compute
+    # ------------------------------------------------------------------
+    def _window_rows(self, window: int, before: int) -> List[Dict[str, Tensor]]:
+        """The row states of the last ``window`` buckets ending ``before``
+        buckets back, oldest first (buckets never filled are skipped). Reads
+        the ring clock and bucket counts to the host."""
+        m = self._template
+        count = int(getattr(self, RING_COUNT))
+        k, r = self.updates_per_bucket, self.window
+        cur = (count - 1) // k - before
+        if count == 0 or cur < 0:
+            return []
+        lo = max(cur - window + 1, 0)
+        if (count - 1) // k - lo >= r:
+            raise MetricsUserError(
+                f"window of {window} bucket(s) ending {before} back reaches past the"
+                f" ring span ({r} buckets); those buckets were already evicted"
+            )
+        counts = getattr(self, RING_ROWS).tolist()
+        return [
+            {name: getattr(self, name)[b % r] for name in m._defaults} for b in range(lo, cur + 1) if counts[b % r] > 0
+        ]
+
+    def window_state(self, window: Optional[int] = None, *, before: int = 0) -> Dict[str, Tensor]:
+        """The wrapped metric's state folded over the last ``window`` buckets
+        (default: the whole ring) ending ``before`` buckets back: rows fold
+        oldest first through the wrapped ``merge_states``."""
+        if self.mode != "ring":
+            raise MetricsUserError("window_state() is a ring-mode query; decay mode keeps one decayed state")
+        w = self.window if window is None else window
+        if not isinstance(w, int) or isinstance(w, bool) or w < 1:
+            raise MetricsUserError(f"`window` must be a positive int, got {w!r}")
+        if w > self.window:
+            raise MetricsUserError(
+                f"`window` of {w} bucket(s) exceeds the ring span ({self.window});"
+                " construct the metric with a larger `window` to query it"
+            )
+        if not isinstance(before, int) or isinstance(before, bool) or before < 0:
+            raise MetricsUserError(f"`before` must be a non-negative int, got {before!r}")
+        m = self._template
+        rows = self._window_rows(w, before)
+        if not rows:
+            return m.init_state()
+        state = rows[0]
+        for row in rows[1:]:
+            state = m.merge_states(state, row)
+        return state
+
+    def _compute(self) -> Any:
+        m = self._template
+        if self.mode == "decay":
+            return m.compute_state({name: getattr(self, name) for name in m._defaults})
+        return m.compute_state(self.window_state())
+
+    def compute(self, *, window: Optional[int] = None, before: Optional[int] = None) -> Any:
+        """The wrapped metric over the window.
+
+        With no arguments: the whole ring (or the decayed state) through the
+        ordinary :meth:`Metric.compute` cycle. ``window=w`` evaluates the last
+        ``w`` buckets only, ``before=b`` shifts the window's end ``b`` buckets
+        back (ring mode only; neither is cached)."""
+        if window is None and before is None:
+            return super().compute()
+        if self.mode != "ring":
+            raise MetricsUserError("compute(window=...) is a ring-mode query")
+        return _squeeze_if_scalar(self._template.compute_state(self.window_state(window, before=before or 0)))
+
+    def __repr__(self) -> str:
+        inner = type(self._template).__name__
+        if self.mode == "decay":
+            return f"{type(self).__name__}({inner}(), mode='decay', decay={self._alpha})"
+        return f"{type(self).__name__}({inner}(), window={self.window}, updates_per_bucket={self.updates_per_bucket})"

@@ -225,8 +225,10 @@ def test_metric_lifecycle_errors():
     with pytest.raises(ValueError, match="dist_reduce_fx"):
         _RunningMean(device="cpu").add_state("bad", default=0, dist_reduce_fx="median")
     for reducer in ("ring", "decay"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            _RunningMean(device="cpu").add_state("later", default=0, dist_reduce_fx=reducer)
+        windowed = _RunningMean(device="cpu")
+        windowed.add_state("window", default=torch.zeros(4), dist_reduce_fx=reducer)
+        red = windowed._reductions["window"]
+        assert (red.windowed_kind, red.inner_reduce) == (reducer, "sum")
     sketched = _RunningMean(device="cpu")
     sketched.add_state("sketch", default=torch.zeros((8, 2)), dist_reduce_fx="merge")
     assert getattr(sketched._reductions["sketch"], "merge_like", False)
