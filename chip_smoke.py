@@ -10,13 +10,20 @@ Phases, each printed as one JSON line:
    csrc/qsketch.cu, csrc/box_iou.cu and csrc/row_topk.cu with nvcc, one
    process per source, started together (seconds, ptxas report);
 2. parity  -- each kernel against its plain PyTorch version on the same card
-   tensors: bincount_i32 at the ConfusionMatrix shape (4096 ids, 10**6
+   tensors (run after the retrieval phases, whose input it takes):
+   bincount_i32 at the ConfusionMatrix shape (4096 ids, 10**6
    bins) plus negative and out-of-range ids, bit-exact; segment_sum_f32 at
    [4096,2]->1000 (the rank-AUROC sums), [4096,1]->10**6, [32768,16]->2052
    and [4096,130]->1000, bit-exact on integer-valued data and within the
    float32 summation bound otherwise, bit-identical to the plain version run
    on the CPU (both add each output in row order), and bit-identical across
-   two runs; qsketch_sort_bucket (the sketch compaction's sort, prefix sum
+   two runs; segment_sum_f32 at its skewed inputs too -- the sketch's own
+   compaction input [16384,3]->4100 captured from a sketch-binary update
+   (the pad rows share one bucket), the retrieval insert's own
+   [2048]->8192 counter input, [65536,3]->4100 with 90% of the rows in one
+   segment, [16384,2002]->4100 and [1048576]->64 -- each bit-identical to
+   the plain version on the CPU, across two runs and with int32 against
+   int64 ids, with its ms and device ms; qsketch_sort_bucket (the sketch compaction's sort, prefix sum
    and bucket map) at [1024,3], [16384,3], [32768,16], [12288,2002] and a
    ragged [5001,4] with tied keys and zero-weight rows, on integer weights:
    weighted rows, bucket ids and permutation bit-exact against the plain
@@ -37,12 +44,15 @@ Phases, each printed as one JSON line:
    runs, ms per call for each shape; parity_segment_extremum:
    segment_max_f32 and segment_min_f32 (K2) at [256]->1000 (the sliced
    update), [4096]->1000, [4096]->100000, [8192,256]->128 (the TPU route's
-   width cap), [4096,1000]->64 (past it), [1048576]->64 and [16,3]->5, on
+   width cap), [4096,1000]->64 (past it), [1048576]->64, the same with
+   every row in one segment, and [16,3]->5, on
    ties, NaN of both signs, signed zeros, +-inf, empty segments and ids
    that drop (negative, past S, int64 past int32), and segment_sum_i32 at
-   [4096]->1000 and ->100000 on wrapping int32 sums: bit-exact (NaN by
-   position) against the plain version on the card and on the CPU, int32
-   ids equal to int64 ids; ms, device ms, plain ms, the library call's ms
+   [4096]->1000, ->100000, [1048576]->64 and the same in one segment, on
+   wrapping int32 sums: bit-exact (NaN by
+   position) against the plain version on the card and on the CPU, across
+   two runs, int32 ids equal to int64 ids; ms, device ms (a fold and the
+   combine of its row splits summed), plain ms, the library call's ms
    (scatter_reduce_ / index_add_), host us per call and the byte bound for
    each shape;
 3. flagship -- the main path: 50 pre-stacked 4096x1000 softmax batches
@@ -146,7 +156,9 @@ Phases, each printed as one JSON line:
    time (none computes box IoU) and the byte bound, all at the main paths'
    shapes (K4 at a chunk's own widened [2048,2176] rows and overflow mask,
    and with every row active; K2 and segment_sum_i32 at the sliced
-   update's [256] -> 1000); each device time with the number of
+   update's [256] -> 1000; segment_sum_f32 also at the sketch-binary
+   compaction's and the retrieval insert's own skewed inputs, each with its
+   path's launches); each device time with the number of
    profiler windows it took (a window that saw no launch is taken again,
    at most three in all).
 
@@ -229,8 +241,9 @@ RETRIEVAL_UPDATE_DOCS = 16384
 RETRIEVAL_MAX_QUERIES = 8192
 #: segment max/min (K2): the source, the TPU kernel, the parity cases (name,
 #: rows, columns, segments: the sliced update's shape, a batch over 1000 and
-#: 100,000 tenants, the TPU route's width cap, past it, a long batch, a small
-#: ragged one) and segment_sum_i32's (name, rows, segments)
+#: 100,000 tenants, the TPU route's width cap, past it, a long batch, the
+#: same with every row in one segment, a small ragged one) and
+#: segment_sum_i32's (name, rows, segments)
 SEGEXT_SOURCE = "metrics_tpu_torch/csrc/segment_extremum.cu"
 K2_REPLACES = "metrics_tpu/ops/scatter_pallas.py:218"
 K2_PARITY_CASES = (
@@ -240,9 +253,15 @@ K2_PARITY_CASES = (
     ("[8192,256]->128", 8192, 256, 128),
     ("[4096,1000]->64", 4096, 1000, 64),
     ("[1048576,1]->64", 1 << 20, 1, 64),
+    ("[1048576,1]->64 one segment", 1 << 20, 1, 64),
     ("[16,3]->5", 16, 3, 5),
 )
-I32_PARITY_CASES = (("[4096]->1000", 4096, 1000), ("[4096]->100000", 4096, 100_000))
+I32_PARITY_CASES = (
+    ("[4096]->1000", 4096, 1000),
+    ("[4096]->100000", 4096, 100_000),
+    ("[1048576]->64", 1 << 20, 64),
+    ("[1048576]->64 one segment", 1 << 20, 64),
+)
 #: per-tenant image quality (sliced-psnr, windowed-psnr): tenants, updates,
 #: images per update, image shape, noise scale, rows checked against the CPU,
 #: seeds (one per update)
@@ -507,7 +526,10 @@ def sketch_binary_phase(torch, ops, card, AUROC):
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     for i in range(SKETCH_BATCHES):
-        metric.update(*batch(i))
+        if i == SKETCH_BATCHES // 2:  # record the compaction's K1 input (the wrapper still launches)
+            captured = capture_calls([("metrics_tpu_torch.ops.qsketch", "segment_sum_f32")], lambda: metric.update(*batch(i)))
+        else:
+            metric.update(*batch(i))
     torch.cuda.synchronize()
     update_s = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -562,7 +584,7 @@ def sketch_binary_phase(torch, ops, card, AUROC):
             "device_idle_share": 1 - profile["device_busy_ms_per_step"] / ms_per_update,
         }
     )
-    return launches, score_np, y_np, metric, batch
+    return launches, score_np, y_np, metric, batch, captured["segment_sum_f32"][0]
 
 
 def sketch_window_phase(torch, ops, card, AUROC, score_np, y_np):
@@ -649,8 +671,27 @@ def sketch_multiclass_phase(torch, ops, card, AUROC, preds_all, target_all, pred
     )
 
 
-def parity_phase(torch, ops, card, flagship_ids, rank_vals, auroc_ids):
-    """Kernels against their plain versions on the card; launches here are not counted."""
+def skewed_sum_cases(torch, sketch_k1, retrieval_k1):
+    """segment_sum_f32's skewed parity cases (name, values, ids, S): the
+    sketch's and the retrieval insert's own inputs, captured on their main
+    paths, and three made from seed 3 on the host."""
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    hot = torch.randint(0, 4100, (65536,), generator=gen)
+    hot[torch.rand(65536, generator=gen) < 0.9] = 4097
+    return [
+        ("sketch compaction [16384,3]->4100 (captured)", *sketch_k1),
+        ("retrieval insert [2048]->8192 (captured)", *retrieval_k1),
+        ("[65536,3]->4100, 90% of rows in one segment", torch.randn((65536, 3), generator=gen), hot, 4100),
+        ("[16384,2002]->4100", torch.rand((16384, 2002), generator=gen), torch.randint(-2, 4102, (16384,), generator=gen), 4100),
+        ("[1048576]->64", torch.randn(1 << 20, generator=gen), torch.randint(0, 64, (1 << 20,), generator=gen), 64),
+    ]
+
+
+def parity_phase(torch, ops, card, flagship_ids, rank_vals, auroc_ids, skewed):
+    """Kernels against their plain versions on the card; launches here are
+    not counted. ``skewed`` adds segment_sum_f32 cases (name, values, ids, S)
+    held bit for bit against the plain version on the CPU, run to run and
+    with int32 against int64 ids."""
     results = {}
     # bincount_i32: the ConfusionMatrix ids plus ids the kernel must drop
     extra = torch.tensor([-1, -5, NUM_CLASSES**2, 2**40, NUM_CLASSES**2 - 1, 0], device=flagship_ids.device)
@@ -694,6 +735,29 @@ def parity_phase(torch, ops, card, flagship_ids, rank_vals, auroc_ids):
         row["ms"] = time_ms(torch, lambda: ops.segment_sum_f32(vals, ids, s), launches=20)
         row["card"] = card
         results.setdefault("segment_sum_f32", []).append(row)
+    for name, vals, ids, s in skewed:
+        vals, ids = vals.cuda(), ids.cuda()
+        ids64, ids32 = ids.to(torch.int64), ids.to(torch.int32)
+        got = ops.segment_sum_f32(vals, ids64, s)
+        again = ops.segment_sum_f32(vals, ids64, s)
+        narrow = ops.segment_sum_f32(vals, ids32, s)
+        plain_cpu = ops.segment_sum_reference(vals.cpu(), ids64.cpu(), s)
+        torch.cuda.synchronize()
+        check(same_bits(torch, [got], [again]), f"segment_sum_f32 {name}: two runs differ")
+        check(same_bits(torch, [got], [narrow]), f"segment_sum_f32 {name}: int32 and int64 ids differ")
+        check(same_bits(torch, [got.cpu()], [plain_cpu]), f"segment_sum_f32 {name}: differs from the row-order plain version")
+        live = ids64[(ids64 >= 0) & (ids64 < s)]
+        results["segment_sum_f32"].append(
+            {
+                "case": name,
+                "shape": [list(vals.shape), s],
+                "largest_segment_rows": int(torch.bincount(live, minlength=s).max()) if live.numel() else 0,
+                "max_abs_err": 0.0,
+                "ms": time_ms(torch, lambda: ops.segment_sum_f32(vals, ids64, s), launches=20),
+                **kernel_device_time(torch, lambda: ops.segment_sum_f32(vals, ids64, s), "segment_sum_f32_kernel", launches=20),
+                "card": card,
+            }
+        )
     emit({"phase": "parity", **results})
     # the error at the main path's own inputs (the first case of each kernel)
     return {name: rows[0]["max_abs_err"] for name, rows in results.items()}
@@ -1209,10 +1273,12 @@ def table_rows(torch, table, tret):
     return (qid, *(t[occ, c].numpy() for c in cols))
 
 
-def capture_row_topk_call(torch, tret, stream):
-    """The inputs of the K4 launch with the most overflowing rows among the
-    first update's chunks, replayed on a fresh metric (the wrapper is
-    wrapped for this replay only)."""
+def capture_retrieval_calls(torch, tret, stream):
+    """The main-path inputs of K4 and K1 in the first update's chunks,
+    replayed on a fresh metric (the wrappers are wrapped for this replay
+    only): the row_topk launch with the most overflowing rows, and the
+    segment_sum_dispatch call (a per-query counter, [2048] -> 8192) whose
+    largest segment holds the most rows."""
     module = import_module("metrics_tpu_torch.retrieval.table")
     calls = []
     saved = module.row_topk
@@ -1224,11 +1290,19 @@ def capture_row_topk_call(torch, tret, stream):
     module.row_topk = recording
     try:
         metric = tret.RetrievalMAP(max_queries=RETRIEVAL_MAX_QUERIES)
-        metric.update(*(x[:RETRIEVAL_UPDATE_DOCS] for x in (stream[1], stream[2], stream[0])))
+        sums = capture_calls(
+            [("metrics_tpu_torch.retrieval.table", "segment_sum_dispatch")],
+            lambda: metric.update(*(x[:RETRIEVAL_UPDATE_DOCS] for x in (stream[1], stream[2], stream[0]))),
+        )["segment_sum_dispatch"]
     finally:
         module.row_topk = saved
     args, kwargs = max(calls, key=lambda call: int(call[1]["rows"].sum()))
-    return args, kwargs["rows"]
+
+    def largest_segment(call):
+        vals, ids, s = call
+        return int(torch.bincount(ids[(ids >= 0) & (ids < s)], minlength=s).max())
+
+    return (args, kwargs["rows"]), max(sums, key=largest_segment)
 
 
 def retrieval_phases(torch, ops, card, MetricCollection):
@@ -1446,7 +1520,8 @@ def retrieval_phases(torch, ops, card, MetricCollection):
             "merged_layout_equals_single_stream_max_docs_256": True,
         }
     )
-    return launches, capture_row_topk_call(torch, tret, stream)
+    k4_captured, k1_captured = capture_retrieval_calls(torch, tret, stream)
+    return launches, k4_captured, k1_captured
 
 
 def row_topk_line(torch, ops, launches, captured):
@@ -1501,11 +1576,12 @@ def row_topk_line(torch, ops, launches, captured):
     }
 
 
-def extremum_inputs(torch, gen, b, d, s):
+def extremum_inputs(torch, gen, b, d, s, one_segment=False):
     """K2 parity inputs on the host: ``[b, d]`` float32 values with ties,
-    NaN of both signs, +-0.0 and +-inf; int64 ids over ``[-2, s + 2)`` with
-    a few far past int32's range (all of these drop), segment ``s - 1``
-    always empty; and the same ids as int32, with the far ones set to -1."""
+    NaN of both signs, +-0.0 and +-inf; int64 ids over ``[-2, s + 2)`` (with
+    ``one_segment``, every id but the far ones is ``s // 2``) with a few far
+    past int32's range (all of these drop), segment ``s - 1`` always empty;
+    and the same ids as int32, with the far ones set to -1."""
     vals = torch.randint(-64, 64, (b, d), generator=gen).float() / 8
     pick = torch.rand((b, d), generator=gen)
     vals[pick < 0.01] = float("nan")
@@ -1515,29 +1591,43 @@ def extremum_inputs(torch, gen, b, d, s):
     vals[(pick >= 0.16) & (pick < 0.17)] = -float("inf")
     ids = torch.randint(-2, s + 2, (b,), generator=gen)
     ids[ids == s - 1] = s
+    if one_segment:
+        ids[:] = s // 2
     far = torch.rand(b, generator=gen) < 0.01
     ids[far] = torch.where(torch.rand(b, generator=gen)[far] < 0.5, 2**33 + 1, -(2**33))
     return vals, ids, torch.where(far, -1, ids).to(torch.int32)
 
 
-def int_sum_inputs(torch, gen, b, s):
+def int_sum_inputs(torch, gen, b, s, one_segment=False):
     """segment_sum_i32 parity inputs: int32 values over the whole range (so
     sums wrap), ids as :func:`extremum_inputs` makes them."""
     vals = torch.randint(-(2**31), 2**31 - 1, (b,), generator=gen, dtype=torch.int64).to(torch.int32)
-    _, ids, ids32 = extremum_inputs(torch, gen, b, 1, s)
+    _, ids, ids32 = extremum_inputs(torch, gen, b, 1, s, one_segment)
     return vals, ids, ids32
+
+
+def fold_kernel_names(device_name, vals, s):
+    """The kernels one call of a row-order segment wrapper launches: its
+    fold, and its combine when the geometry splits the rows."""
+    from metrics_tpu_torch.ops.segment_sum import segment_fold_geometry
+
+    d = vals.shape[1] if vals.ndim == 2 else 1
+    order_free = not device_name.startswith("segment_sum_f32")
+    if segment_fold_geometry(vals.shape[0], d, s, order_free).splits > 1:
+        return (device_name, device_name.replace("_kernel", "_combine_kernel"))
+    return device_name
 
 
 def segment_line(torch, kernel_fn, plain_fn, library_fn, vals, ids, s, device_name, plain_launches=20):
     """Times of one segment kernel at one shape: CUDA-event ms, device ms
-    (profiler), the plain version's ms, the library call's ms, the wrapper's
-    host time and the byte bound (values and ids read once, output written
-    once)."""
+    (profiler; a fold and its combine summed), the plain version's ms, the
+    library call's ms, the wrapper's host time and the byte bound (values
+    and ids read once, output written once)."""
     d = vals.shape[1] if vals.ndim == 2 else 1
     bound = (vals.numel() * vals.element_size() + ids.numel() * ids.element_size() + s * d * vals.element_size())
     return {
         "ms": time_ms(torch, lambda: kernel_fn(vals, ids, s)),
-        **kernel_device_time(torch, lambda: kernel_fn(vals, ids, s), device_name),
+        **kernel_device_time(torch, lambda: kernel_fn(vals, ids, s), fold_kernel_names(device_name, vals, s)),
         "plain_ms": time_ms(torch, lambda: plain_fn(vals, ids, s), launches=plain_launches),
         "library_ms": time_ms(torch, library_fn),
         "host_us_per_call": host_us_per_call(torch, lambda: kernel_fn(vals, ids, s)),
@@ -1562,7 +1652,7 @@ def library_extremum(torch, vals, ids, s, is_max):
 def library_index_add(torch, vals, ids, s):
     """One index_add_ call: the plain segment sum (atomics), ids mapped past S beforehand."""
     index = torch.where((ids >= 0) & (ids < s), ids, s)
-    out = torch.zeros(s + 1, dtype=vals.dtype, device=vals.device)
+    out = torch.zeros((s + 1,) + tuple(vals.shape[1:]), dtype=vals.dtype, device=vals.device)
     return lambda: out.zero_().index_add_(0, index, vals)
 
 
@@ -1575,7 +1665,7 @@ def segment_extremum_parity_phase(torch, ops, card):
     gen = torch.Generator(device="cpu").manual_seed(2)
     results = []
     for name, b, d, s in K2_PARITY_CASES:
-        vals, ids, ids32 = extremum_inputs(torch, gen, b, d, s)
+        vals, ids, ids32 = extremum_inputs(torch, gen, b, d, s, "one segment" in name)
         if d == 1:  # [B] values, as the sliced scalar leaves give them
             vals = vals[:, 0]
         vals_c, ids_c, ids32_c = vals.cuda(), ids.cuda(), ids32.cuda()
@@ -1583,11 +1673,13 @@ def segment_extremum_parity_phase(torch, ops, card):
         for is_max, kernel in ((True, ops.segment_max_f32), (False, ops.segment_min_f32)):
             got = kernel(vals_c, ids32_c, s)
             again = kernel(vals_c, ids_c, s)
+            third = kernel(vals_c, ids_c, s)
             plain = ops.segment_extremum_reference(vals_c, ids_c, s, is_max)
             plain_cpu = ops.segment_extremum_reference(vals, ids, s, is_max)
             torch.cuda.synchronize()
             label = f"{kernel.__name__} {name}"
             check(same_bits(torch, [got], [again]), f"{label}: int32 and int64 ids differ")
+            check(same_bits(torch, [again], [third]), f"{label}: two runs differ")
             check(same_bits(torch, [got], [plain]), f"{label}: differs from the plain version")
             check(same_bits(torch, [got], [plain_cpu]), f"{label}: differs from the plain version on the CPU")
             check(bool(torch.isinf(got.reshape(s, -1)[s - 1]).all()), f"{label}: the empty segment is not filled with inf")
@@ -1607,14 +1699,16 @@ def segment_extremum_parity_phase(torch, ops, card):
         results.append(case)
     i32 = []
     for name, b, s in I32_PARITY_CASES:
-        vals, ids, ids32 = int_sum_inputs(torch, gen, b, s)
+        vals, ids, ids32 = int_sum_inputs(torch, gen, b, s, "one segment" in name)
         vals_c, ids_c, ids32_c = vals.cuda(), ids.cuda(), ids32.cuda()
         got = ops.segment_sum_i32(vals_c, ids32_c, s)
         again = ops.segment_sum_i32(vals_c, ids_c, s)
+        third = ops.segment_sum_i32(vals_c, ids_c, s)
         plain = ops.segment_sum_reference(vals_c, ids_c, s)
         plain_cpu = ops.segment_sum_reference(vals, ids, s)
         torch.cuda.synchronize()
         check(torch.equal(got, again), f"segment_sum_i32 {name}: int32 and int64 ids differ")
+        check(torch.equal(again, third), f"segment_sum_i32 {name}: two runs differ")
         check(torch.equal(got, plain), f"segment_sum_i32 {name}: differs from the plain version")
         check(torch.equal(got.cpu(), plain_cpu), f"segment_sum_i32 {name}: differs from the plain version on the CPU")
         i32.append(
@@ -2018,12 +2112,13 @@ def windowed_decay_phase(torch, ops, card, WindowedMetric, MeanSquaredError):
     emit(out)
 
 
-def segment_fold_line(torch, ops, name, source, replaces, launches, args, plain_fn, library_fn, device_name):
+def segment_fold_line(torch, ops, name, source, replaces, launches, args, plain_fn, library_fn, device_name, exact_fn=None):
     """A kernels-line entry of a row-order segment kernel at its main-path
-    input ``args`` (values, ids, S)."""
+    input ``args`` (values, ids, S), held bit for bit against ``exact_fn``
+    (default: the plain version ``plain_fn``)."""
     vals, ids, s = args
     kernel_fn = getattr(ops, name)
-    got, plain = kernel_fn(vals, ids, s), plain_fn(vals, ids, s)
+    got, plain = kernel_fn(vals, ids, s), (exact_fn or plain_fn)(vals, ids, s)
     check(same_bits(torch, [got], [plain]), f"{name} at its main-path input differs from the plain version")
     finite = torch.isfinite(got) if got.is_floating_point() else torch.ones_like(got, dtype=torch.bool)
     return {
@@ -2101,8 +2196,8 @@ def main():
     )
     auroc_ids = target_all[0]
 
-    # 2. kernel parity
-    max_err = parity_phase(torch, ops, card, flagship_ids, rank_vals, auroc_ids)
+    # 2. kernel parity (segment_sum_f32's after the sketch and retrieval
+    # phases, whose inputs it takes)
     qsketch_parity_phase(torch, ops, card)
     box_iou_parity_phase(torch, ops, card)
     row_topk_parity_phase(torch, ops, card)
@@ -2226,14 +2321,18 @@ def main():
 
     # 5-7. the sketched default: binary (the main path of K3), inside its
     # window, and at 1000 classes
-    sketch_launches, score_np, y_np, sketch_metric, sketch_batch = sketch_binary_phase(torch, ops, card, AUROC)
+    sketch_launches, score_np, y_np, sketch_metric, sketch_batch, sketch_k1 = sketch_binary_phase(torch, ops, card, AUROC)
     sketch_window_phase(torch, ops, card, AUROC, score_np, y_np)
     sketch_multiclass_phase(torch, ops, card, AUROC, preds_all, target_all, preds_np, target_np)
 
     # 9-11. COCO mAP: the main path of K6, past capacity, and pycocotools
     map_launches = map_phases(torch, ops, card, MeanAveragePrecision)
     # retrieval: the main path of K4, the window, the sampled default, merges
-    retrieval_launches, k4_captured = retrieval_phases(torch, ops, card, MetricCollection)
+    retrieval_launches, k4_captured, retrieval_k1 = retrieval_phases(torch, ops, card, MetricCollection)
+    # K1's (and bincount's) parity, segment_sum_f32 at the captured skewed inputs too
+    max_err = parity_phase(
+        torch, ops, card, flagship_ids, rank_vals, auroc_ids, skewed_sum_cases(torch, sketch_k1, retrieval_k1)
+    )
     # per-tenant sliced and windowed state: the main path of K2
     sliced_launches, k2_captured = sliced_psnr_phase(torch, ops, card, SlicedMetric, PeakSignalNoiseRatio)
     sliced_mse_phase(torch, ops, card, SlicedMetric, MeanSquaredError)
@@ -2382,6 +2481,20 @@ def main():
             ops.segment_sum_reference, library_index_add(torch, vals, ids, s), "segment_sum_i32_kernel",
         )
     )
+    # segment_sum_f32 at its skewed main-path inputs: the sketch's compaction
+    # (one bucket takes the pad rows) and the retrieval insert's counters
+    for path, launches, (vals, ids, s) in (
+        ("sketch-binary", sketch_launches, sketch_k1),
+        ("retrieval-mslr", retrieval_launches, retrieval_k1),
+    ):
+        # the bits against the plain version on the CPU (row order); the
+        # plain version on the card adds with atomics
+        line = segment_fold_line(
+            torch, ops, "segment_sum_f32", KERNEL_SOURCE, REPLACES, launches, (vals, ids, s),
+            ops.segment_sum_reference, library_index_add(torch, vals, ids, s), "segment_sum_f32_kernel",
+            exact_fn=lambda v, i, n: ops.segment_sum_reference(v.cpu(), i.cpu(), n).to(v.device),
+        )
+        kernels.append({**line, "path": path})
     emit({"phase": "kernel_times", "card": card})
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -23,13 +23,19 @@
 //    the row-order segment tile of segment_fold.cuh (shared with K2 in
 //    segment_extremum.cu): each (segment, column) is summed by one lane in row
 //    order, so the result is deterministic and equal bit for bit to a
-//    sequential index_add_ on the CPU.
+//    sequential index_add_ on the CPU. The values of a block's rows are
+//    staged in shared memory first and a warp folds 32 of them into a
+//    register per step, so a segment of many rows (the sketch's pad bucket
+//    takes about 4k of 16,384) costs an add a row, not a load.
 //  * segment_sum_i32: the same tile over int32 values, for the integer leaves
 //    of SlicedMetric (row counters, PSNR's and MSE's `total`). The JAX package
 //    sends integer payloads to XLA's exact scatter; its int32 adds wrap modulo
-//    2**32, so this kernel adds the bits as uint32.
+//    2**32, so this kernel adds the bits as uint32. Wrapping adds are
+//    associative and commutative, so with few segments its rows split over
+//    blocks into partial tiles, which segment_sum_i32_combine_kernel folds.
 // The kernels launch on the caller's stream and allocate nothing; the Python
-// wrappers allocate outputs and check devices, dtypes and shapes.
+// wrappers allocate outputs (and the partials' scratch) and check devices,
+// dtypes and shapes.
 
 #include <cuda_runtime.h>
 
@@ -50,15 +56,21 @@ __global__ void bincount_i32_kernel(const Id* __restrict__ ids, long long n, int
 template <typename Id>
 __global__ void __launch_bounds__(segfold::kThreads)
     segment_sum_f32_kernel(const float* __restrict__ vals, const Id* __restrict__ ids, long long b, int d,
-                           float* __restrict__ out, long long s, int dc, int sw) {
-  segfold::fold_tile<segfold::SumF32, Id>(vals, ids, b, d, out, s, dc, sw);
+                           float* __restrict__ out, long long s, int dc, int sw, long long rows_per_split) {
+  segfold::fold_tile<segfold::SumF32, Id>(vals, ids, b, d, out, s, dc, sw, rows_per_split);
 }
 
 template <typename Id>
 __global__ void __launch_bounds__(segfold::kThreads)
     segment_sum_i32_kernel(const unsigned* __restrict__ vals, const Id* __restrict__ ids, long long b, int d,
-                           unsigned* __restrict__ out, long long s, int dc, int sw) {
-  segfold::fold_tile<segfold::SumU32, Id>(vals, ids, b, d, out, s, dc, sw);
+                           unsigned* __restrict__ out, long long s, int dc, int sw, long long rows_per_split) {
+  segfold::fold_tile<segfold::SumU32, Id>(vals, ids, b, d, out, s, dc, sw, rows_per_split);
+}
+
+__global__ void __launch_bounds__(segfold::kThreads)
+    segment_sum_i32_combine_kernel(const unsigned* __restrict__ partial, long long cells, int splits,
+                                   int lanes, unsigned* __restrict__ out) {
+  segfold::combine_splits<segfold::SumU32>(partial, cells, splits, lanes, out);
 }
 
 template <typename Id>
@@ -86,27 +98,35 @@ int bincount_i32_ids64(const void* ids, long long n, void* out, long long minlen
 }
 
 int segment_sum_f32_ids32(const void* vals, const void* ids, long long b, int d, void* out, long long s, int dc,
-                          int sw, long long seg_tiles, int col_chunks, void* stream) {
-  return segfold::launch_fold<float, int>(segment_sum_f32_kernel<int>, vals, ids, b, d, out, s, dc, sw, seg_tiles,
-                                          col_chunks, stream);
+                          int sw, long long seg_tiles, int col_chunks, int splits, long long rows_per_split,
+                          void* scratch, void* stream) {
+  return segfold::launch_fold<segfold::SumF32, int, segment_sum_f32_kernel<int>>(
+      nullptr, vals, ids, b, d, out, s, dc, sw, seg_tiles, col_chunks, splits,
+      rows_per_split, scratch, stream);
 }
 
 int segment_sum_f32_ids64(const void* vals, const void* ids, long long b, int d, void* out, long long s, int dc,
-                          int sw, long long seg_tiles, int col_chunks, void* stream) {
-  return segfold::launch_fold<float, long long>(segment_sum_f32_kernel<long long>, vals, ids, b, d, out, s, dc, sw,
-                                                seg_tiles, col_chunks, stream);
+                          int sw, long long seg_tiles, int col_chunks, int splits, long long rows_per_split,
+                          void* scratch, void* stream) {
+  return segfold::launch_fold<segfold::SumF32, long long, segment_sum_f32_kernel<long long>>(
+      nullptr, vals, ids, b, d, out, s, dc, sw, seg_tiles, col_chunks, splits,
+      rows_per_split, scratch, stream);
 }
 
 int segment_sum_i32_ids32(const void* vals, const void* ids, long long b, int d, void* out, long long s, int dc,
-                          int sw, long long seg_tiles, int col_chunks, void* stream) {
-  return segfold::launch_fold<unsigned, int>(segment_sum_i32_kernel<int>, vals, ids, b, d, out, s, dc, sw, seg_tiles,
-                                             col_chunks, stream);
+                          int sw, long long seg_tiles, int col_chunks, int splits, long long rows_per_split,
+                          void* scratch, void* stream) {
+  return segfold::launch_fold<segfold::SumU32, int, segment_sum_i32_kernel<int>>(
+      segment_sum_i32_combine_kernel, vals, ids, b, d, out, s, dc, sw, seg_tiles, col_chunks, splits,
+      rows_per_split, scratch, stream);
 }
 
 int segment_sum_i32_ids64(const void* vals, const void* ids, long long b, int d, void* out, long long s, int dc,
-                          int sw, long long seg_tiles, int col_chunks, void* stream) {
-  return segfold::launch_fold<unsigned, long long>(segment_sum_i32_kernel<long long>, vals, ids, b, d, out, s, dc,
-                                                   sw, seg_tiles, col_chunks, stream);
+                          int sw, long long seg_tiles, int col_chunks, int splits, long long rows_per_split,
+                          void* scratch, void* stream) {
+  return segfold::launch_fold<segfold::SumU32, long long, segment_sum_i32_kernel<long long>>(
+      segment_sum_i32_combine_kernel, vals, ids, b, d, out, s, dc, sw, seg_tiles, col_chunks, splits,
+      rows_per_split, scratch, stream);
 }
 
 const char* cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -5,6 +5,7 @@ error are taken by a fixed pairwise tree (``_tree_sum``), so the card and
 the CPU give the same bits; counts are int32, as in the JAX package with
 x64 off; the data range of an image batch is ``max - min`` with the JAX
 package's extremum semantics (:func:`~metrics_tpu_torch.utils.data.amax_ieee`).
+bfloat16 and float16 inputs are widened to float32 before the difference.
 """
 from typing import Optional, Tuple, Union
 
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.parallel.distributed import reduce
-from metrics_tpu_torch.utils.data import _tree_sum, amax_ieee, amin_ieee
+from metrics_tpu_torch.utils.data import _tree_sum, _widen_half, amax_ieee, amin_ieee
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 Tensor = torch.Tensor
@@ -35,7 +36,7 @@ def _psnr_update(
     target: Tensor,
     dim: Optional[Union[int, Tuple[int, ...]]] = None,
 ) -> Tuple[Tensor, Tensor]:
-    diff = preds - target
+    diff = _widen_half(preds) - _widen_half(target)
     squared = diff * diff
     if dim is None:
         return _tree_sum(squared.reshape(-1)), torch.tensor(target.numel(), dtype=torch.int32, device=target.device)
@@ -74,7 +75,8 @@ def peak_signal_noise_ratio(
     if data_range is None:
         if dim is not None:
             raise ValueError("The `data_range` must be given when `dim` is not None.")
-        data_range_t = amax_ieee(target) - amin_ieee(target)
+        wide = _widen_half(target)
+        data_range_t = amax_ieee(wide) - amin_ieee(wide)
     else:
         data_range_t = torch.tensor(float(data_range), dtype=torch.float32, device=target.device)
     sum_squared_error, n_obs = _psnr_update(preds, target, dim=dim)

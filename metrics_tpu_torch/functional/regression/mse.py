@@ -4,20 +4,21 @@ Counterpart of ``metrics_tpu/functional/regression/mse.py``. The squared
 error is summed by a fixed pairwise tree (``_tree_sum``), so the card and
 the CPU give the same bits; against the JAX package's ``jnp.sum`` it is
 equal where the sum is exact and within float32 rounding otherwise.
+bfloat16 and float16 inputs are widened to float32 before the difference.
 """
 from typing import Tuple
 
 import torch
 
 from metrics_tpu_torch.utils.checks import _check_same_shape
-from metrics_tpu_torch.utils.data import _tree_sum
+from metrics_tpu_torch.utils.data import _tree_sum, _widen_half
 
 Tensor = torch.Tensor
 
 
 def _mean_squared_error_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, int]:
     _check_same_shape(preds, target)
-    diff = preds - target
+    diff = _widen_half(preds) - _widen_half(target)
     return _tree_sum((diff * diff).reshape(-1)), target.numel()
 
 

@@ -12,7 +12,7 @@ import torch
 
 from metrics_tpu_torch.core.metric import Metric
 from metrics_tpu_torch.functional.image.psnr import _psnr_compute, _psnr_update
-from metrics_tpu_torch.utils.data import amax_ieee, amin_ieee, maximum_ieee, minimum_ieee
+from metrics_tpu_torch.utils.data import _widen_half, amax_ieee, amin_ieee, maximum_ieee, minimum_ieee
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 Tensor = torch.Tensor
@@ -69,8 +69,9 @@ class PeakSignalNoiseRatio(Metric):
         sum_squared_error, n_obs = _psnr_update(preds, target, dim=self.dim)
         if self.dim is None:
             if self.data_range is None:
-                self.min_target = minimum_ieee(amin_ieee(target), self.min_target)
-                self.max_target = maximum_ieee(amax_ieee(target), self.max_target)
+                wide = _widen_half(target)  # the values the squared error sees
+                self.min_target = minimum_ieee(amin_ieee(wide), self.min_target)
+                self.max_target = maximum_ieee(amax_ieee(wide), self.max_target)
             self.sum_squared_error = self.sum_squared_error + sum_squared_error
             self.total = self.total + n_obs
         else:

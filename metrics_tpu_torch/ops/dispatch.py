@@ -25,10 +25,9 @@ _LOCK = threading.Lock()
 def on_card(*tensors: torch.Tensor) -> bool:
     """True when every tensor is on one CUDA device, False when every
     tensor is on the CPU; anything else raises."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"expected tensors on one device, got {sorted(map(str, devices))}")
-    device = devices.pop()
+    device = tensors[0].device
+    if any(t.device != device for t in tensors[1:]):
+        raise ValueError(f"expected tensors on one device, got {sorted({str(t.device) for t in tensors})}")
     if device.type == "cuda":
         return True
     if device.type == "cpu":
@@ -44,12 +43,14 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 def launch(kernel: str, lib: ctypes.CDLL, device: torch.device, fn: Any, *args: Any) -> None:
     """Call the C launcher ``fn`` of ``lib`` with ``device``'s current
-    stream, raise on the CUDA error it returns, and count the launch."""
+    stream, raise on the CUDA error it returns, and count the launch. The
+    device and its stream are looked up once."""
+    stream = torch.cuda.current_stream(device).cuda_stream
     if device.index == torch.cuda.current_device():
-        code = fn(*args, torch.cuda.current_stream().cuda_stream)
+        code = fn(*args, stream)
     else:
         with torch.cuda.device(device):
-            code = fn(*args, torch.cuda.current_stream().cuda_stream)
+            code = fn(*args, stream)
     if code != 0:
         reason = lib.cuda_error_string(code).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {code} ({reason})")

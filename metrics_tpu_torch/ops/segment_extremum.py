@@ -5,8 +5,9 @@ Counterpart of ``metrics_tpu/ops/scatter_pallas.py``'s
 ``segment_extremum_tiled`` and its ``segment_max_dispatch`` /
 ``segment_min_dispatch`` entries. The kernel lives in
 ``csrc/segment_extremum.cu`` (see its header for the design); it is the
-row-order segment tile of ``segment_sum_f32`` with an extremum fold, counted
-as two kernels:
+row-order segment tile of ``segment_sum_f32`` with an extremum fold (an
+integer max or min of totalOrder keys, split over blocks and combined when
+S is small), counted as two kernels:
 
 * :func:`segment_max_f32` / :func:`segment_min_f32` -- ``[B, D] x [B] ->
   [S, D]`` float32 max / min with the semantics of ``jax.ops.segment_max``
@@ -26,21 +27,19 @@ import ctypes
 import torch
 
 from metrics_tpu_torch.ops.build import load
-from metrics_tpu_torch.ops.dispatch import check_cuda, on_card
-from metrics_tpu_torch.ops.segment_sum import segment_fold_launch
+from metrics_tpu_torch.ops.dispatch import on_card
+from metrics_tpu_torch.ops.segment_sum import FOLD_ARGS, segment_fold_launch
 from metrics_tpu_torch.utils.data import _is_integer, _total_order_key
 
 Tensor = torch.Tensor
 
 SOURCE = "segment_extremum.cu"
 
-_PTR, _LL, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_FOLD_ARGS = [_PTR, _PTR, _LL, _I32, _PTR, _LL, _I32, _I32, _LL, _I32, _PTR]
 _SIGNATURES = {
-    "segment_max_f32_ids32": _FOLD_ARGS,
-    "segment_max_f32_ids64": _FOLD_ARGS,
-    "segment_min_f32_ids32": _FOLD_ARGS,
-    "segment_min_f32_ids64": _FOLD_ARGS,
+    "segment_max_f32_ids32": FOLD_ARGS,
+    "segment_max_f32_ids64": FOLD_ARGS,
+    "segment_min_f32_ids32": FOLD_ARGS,
+    "segment_min_f32_ids64": FOLD_ARGS,
 }
 
 
@@ -56,14 +55,12 @@ def load_library() -> ctypes.CDLL:
 
 def segment_max_f32(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
     """Float32 ``[B, D]`` (or ``[B]``) rows folded by id into their max on the card."""
-    check_cuda("segment_max_f32", vals, ids)
-    return segment_fold_launch("segment_max_f32", load_library(), torch.float32, vals, ids, num_segments, -torch.inf)
+    return segment_fold_launch("segment_max_f32", load_library, torch.float32, True, vals, ids, num_segments, -torch.inf)
 
 
 def segment_min_f32(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
     """Float32 ``[B, D]`` (or ``[B]``) rows folded by id into their min on the card."""
-    check_cuda("segment_min_f32", vals, ids)
-    return segment_fold_launch("segment_min_f32", load_library(), torch.float32, vals, ids, num_segments, torch.inf)
+    return segment_fold_launch("segment_min_f32", load_library, torch.float32, True, vals, ids, num_segments, torch.inf)
 
 
 # ---------------------------------------------------------------------------

@@ -19,11 +19,17 @@ versions, :func:`bincount_reference` and :func:`segment_sum_reference`,
 compute the same functions with ``torch.bincount`` / ``index_add_``; the
 entry points use them for CPU tensors only. The segment sums share their
 row-order tile with K2's segment max/min (``csrc/segment_fold.cuh``,
-:mod:`metrics_tpu_torch.ops.segment_extremum`).
+:mod:`metrics_tpu_torch.ops.segment_extremum`); :func:`segment_fold_launch`
+launches it for all four, with the geometry of :func:`segment_fold_geometry`
+(cached per shape) and each C launcher bound once. A fold whose rows split
+over blocks (the int32 sum, max and min, when S is small) launches a
+second kernel that combines the partial tiles; the call still counts as
+one launch.
 """
 import ctypes
+import functools
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,20 +42,31 @@ Tensor = torch.Tensor
 
 SOURCE = "segment_sum.cu"
 
-#: launch geometry of ``segment_sum_f32_kernel`` (must match the .cu constants)
+#: launch geometry of the row-order segment tile (must match the constants
+#: of ``csrc/segment_fold.cuh``)
 _WARPS = 8
 _TILE_FLOATS = 10240
 #: blocks to aim for when S is small: about two per SM of an H100 (132 SMs)
 _TARGET_BLOCKS = 264
+#: the float sum's widest column chunk (``kOrderedMaxCols`` of the tile): a
+#: block stages 1024 rows of it at a time in 64 KB
+_ORDERED_MAX_DC = 16
+#: the fewest values (rows x columns of a block) a row split of an
+#: order-free fold takes
+_MIN_SPLIT_VALUES = 4096
 
 _PTR, _LL, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+#: the C launchers of the row-order segment tile (segment_sum.cu and
+#: segment_extremum.cu): vals, ids, B, D, out, S, dc, sw, segment tiles,
+#: column chunks, row splits, rows per split, scratch, stream
+FOLD_ARGS = [_PTR, _PTR, _LL, _I32, _PTR, _LL, _I32, _I32, _LL, _I32, _I32, _LL, _PTR, _PTR]
 _SIGNATURES = {
     "bincount_i32_ids32": [_PTR, _LL, _PTR, _LL, _PTR],
     "bincount_i32_ids64": [_PTR, _LL, _PTR, _LL, _PTR],
-    "segment_sum_f32_ids32": [_PTR, _PTR, _LL, _I32, _PTR, _LL, _I32, _I32, _LL, _I32, _PTR],
-    "segment_sum_f32_ids64": [_PTR, _PTR, _LL, _I32, _PTR, _LL, _I32, _I32, _LL, _I32, _PTR],
-    "segment_sum_i32_ids32": [_PTR, _PTR, _LL, _I32, _PTR, _LL, _I32, _I32, _LL, _I32, _PTR],
-    "segment_sum_i32_ids64": [_PTR, _PTR, _LL, _I32, _PTR, _LL, _I32, _I32, _LL, _I32, _PTR],
+    "segment_sum_f32_ids32": FOLD_ARGS,
+    "segment_sum_f32_ids64": FOLD_ARGS,
+    "segment_sum_i32_ids32": FOLD_ARGS,
+    "segment_sum_i32_ids64": FOLD_ARGS,
 }
 
 
@@ -84,13 +101,14 @@ def bincount_i32(ids: Tensor, minlength: int) -> Tensor:
     return out
 
 
-def segment_sum_geometry(d: int, num_segments: int) -> Tuple[int, int, int, int]:
-    """``(dc, sw, seg_tiles, col_chunks)`` of a ``segment_sum_f32`` launch:
-    ``dc`` columns per block (at most one warp's 32 lanes), ``sw`` segments
-    per warp, and the grid. The tile (8 warps x ``sw`` segments x ``dc``
-    columns) fits the kernel's 40 KB of shared memory; ``sw`` shrinks when
-    S is small so that about ``_TARGET_BLOCKS`` blocks are in flight."""
-    dc = min(d, 32)
+def segment_sum_geometry(d: int, num_segments: int, max_dc: int = 32) -> Tuple[int, int, int, int]:
+    """``(dc, sw, seg_tiles, col_chunks)`` of the row-order segment tile:
+    ``dc`` columns per block (at most ``max_dc``, at most one warp's 32
+    lanes), ``sw`` segments per warp, and the grid's segment tiles and column
+    chunks. The tile (8 warps x ``sw`` segments x ``dc`` columns) fits the
+    kernel's 40 KB of segment tile; ``sw`` shrinks when S is small so that
+    about ``_TARGET_BLOCKS`` blocks are in flight."""
+    dc = min(d, max_dc)
     col_chunks = -(-d // dc)
     sw_max = _TILE_FLOATS // (_WARPS * dc)
     sw = max(1, min(sw_max, math.ceil(num_segments * col_chunks / (_WARPS * _TARGET_BLOCKS))))
@@ -98,53 +116,117 @@ def segment_sum_geometry(d: int, num_segments: int) -> Tuple[int, int, int, int]
     return dc, sw, seg_tiles, col_chunks
 
 
+class FoldGeometry(NamedTuple):
+    """A launch of the row-order segment tile: the grid is ``(seg_tiles,
+    col_chunks, splits)``; block ``(x, y, z)`` folds segments ``[x * 8 * sw,
+    (x + 1) * 8 * sw)``, columns ``[y * dc, (y + 1) * dc)`` and rows ``[z *
+    rows_per_split, (z + 1) * rows_per_split)``, each cut at S, D and B."""
+
+    dc: int
+    sw: int
+    seg_tiles: int
+    col_chunks: int
+    splits: int
+    rows_per_split: int
+
+
+@functools.lru_cache(maxsize=4096)
+def segment_fold_geometry(b: int, d: int, num_segments: int, order_free: bool) -> FoldGeometry:
+    """The launch of a ``[b, d] -> [num_segments, d]`` fold. The float sum
+    (not ``order_free``) keeps one row split, so each output is added in row
+    order, and takes :func:`segment_sum_geometry` at up to 16 columns a
+    block. A fold that is associative and commutative on the bits
+    (``order_free``: the int32 sum, max, min) first splits its rows over
+    blocks, each split folding at least ``_MIN_SPLIT_VALUES`` values in a
+    block, and then cuts the segments into as few tiles as bring the grid to
+    about ``_TARGET_BLOCKS`` blocks: a block reads every id of its split, so
+    fewer tiles read the ids fewer times."""
+    if not order_free:
+        dc, sw, seg_tiles, col_chunks = segment_sum_geometry(d, num_segments, _ORDERED_MAX_DC)
+        return FoldGeometry(dc, sw, seg_tiles, col_chunks, 1, b)
+    dc, sw, seg_tiles, col_chunks = segment_sum_geometry(d, num_segments)
+    splits = max(1, min(b * dc // _MIN_SPLIT_VALUES, -(-_TARGET_BLOCKS // col_chunks)))
+    sw_max = _TILE_FLOATS // (_WARPS * dc)
+    sw = max(1, min(sw_max, math.ceil(num_segments * col_chunks * splits / (_WARPS * _TARGET_BLOCKS))))
+    seg_tiles = -(-num_segments // (_WARPS * sw))
+    return FoldGeometry(dc, sw, seg_tiles, col_chunks, splits, -(-b // splits))
+
+
+#: (kernel, id dtype) -> (library, C launcher), bound at first use
+_LAUNCHERS: Dict[Tuple[str, torch.dtype], Tuple[ctypes.CDLL, Any]] = {}
+
+
+def _bound_launcher(kernel: str, load_library: Callable[[], ctypes.CDLL], ids_dtype: torch.dtype):
+    bound = _LAUNCHERS.get((kernel, ids_dtype))
+    if bound is None:
+        lib = load_library()
+        bound = (lib, getattr(lib, f"{kernel}_ids64" if ids_dtype == torch.int64 else f"{kernel}_ids32"))
+        _LAUNCHERS[(kernel, ids_dtype)] = bound
+    return bound
+
+
 def segment_fold_launch(
-    kernel: str, lib: ctypes.CDLL, dtype: torch.dtype, vals: Tensor, ids: Tensor, num_segments: int, empty_fill: Any
+    kernel: str,
+    load_library: Callable[[], ctypes.CDLL],
+    dtype: torch.dtype,
+    order_free: bool,
+    vals: Tensor,
+    ids: Tensor,
+    num_segments: int,
+    empty_fill: Any,
 ) -> Tensor:
     """Launch the row-order segment tile ``kernel`` (``segment_sum_f32``,
     ``segment_sum_i32``, ``segment_max_f32`` or ``segment_min_f32``: the C
-    launchers ``<kernel>_ids32``/``_ids64`` of ``lib``) on ``[B, D]`` (or
-    ``[B]``) card values of ``dtype``; the output is ``[num_segments, D]``
-    (or ``[num_segments]``). ``empty_fill`` fills an output without columns."""
+    launchers ``<kernel>_ids32``/``_ids64`` of the library ``load_library``
+    gives) on ``[B, D]`` (or ``[B]``) card values of ``dtype``; the output is
+    ``[num_segments, D]`` (or ``[num_segments]``). ``order_free`` folds may
+    split their rows over blocks (a scratch buffer of partials and a combine
+    launch). ``empty_fill`` fills an output without columns."""
     check_cuda(kernel, vals, ids)
     if vals.dtype != dtype:
         raise TypeError(f"{kernel} takes {dtype} values, got {vals.dtype}")
-    if vals.ndim not in (1, 2):
+    ndim = vals.dim()
+    if ndim == 1:
+        b, d = vals.shape[0], 1
+    elif ndim == 2:
+        b, d = vals.shape
+    else:
         raise ValueError(f"{kernel} takes [B] or [B, D] values, got shape {tuple(vals.shape)}")
-    squeeze = vals.ndim == 1
-    rows = (vals[:, None] if squeeze else vals).contiguous()
-    ids = _ids_for_kernel(ids)
-    b, d = rows.shape
-    if ids.numel() != b:
+    if not vals.is_contiguous():
+        vals = vals.contiguous()
+    if ids.dtype not in (torch.int32, torch.int64) or ids.dim() != 1 or not ids.is_contiguous():
+        ids = _ids_for_kernel(ids)
+    if ids.shape[0] != b:
         raise ValueError(f"expected {b} segment ids, got {ids.numel()}")
+    device = vals.device
     if d == 0:  # nothing to fold: no launch
-        return torch.full((num_segments, 0), empty_fill, dtype=dtype, device=vals.device)
-    dc, sw, seg_tiles, col_chunks = segment_sum_geometry(d, num_segments)
-    out = torch.empty((num_segments, d), dtype=dtype, device=vals.device)
-    fn = getattr(lib, f"{kernel}_ids64" if ids.dtype == torch.int64 else f"{kernel}_ids32")
+        return torch.full((num_segments, 0), empty_fill, dtype=dtype, device=device)
+    g = segment_fold_geometry(b, d, num_segments, order_free)
+    out = torch.empty((num_segments, d) if ndim == 2 else (num_segments,), dtype=dtype, device=device)
+    scratch = torch.empty(g.splits * num_segments * d, dtype=dtype, device=device) if g.splits > 1 else None
+    lib, fn = _bound_launcher(kernel, load_library, ids.dtype)
     launch(
         kernel,
         lib,
-        vals.device,
+        device,
         fn,
-        rows.data_ptr(), ids.data_ptr(), b, d, out.data_ptr(), num_segments, dc, sw, seg_tiles, col_chunks,
+        vals.data_ptr(), ids.data_ptr(), b, d, out.data_ptr(), num_segments, g.dc, g.sw, g.seg_tiles, g.col_chunks,
+        g.splits, g.rows_per_split, None if scratch is None else scratch.data_ptr(),
     )
-    return out[:, 0] if squeeze else out
+    return out
 
 
 def segment_sum_f32(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
     """``[B, D]`` (or ``[B]``) float32 rows summed by id into
     ``[num_segments, D]`` (or ``[num_segments]``) on the card; out-of-range
     ids drop. Deterministic: each output is summed in row order."""
-    check_cuda("segment_sum_f32", vals, ids)
-    return segment_fold_launch("segment_sum_f32", load_library(), torch.float32, vals, ids, num_segments, 0.0)
+    return segment_fold_launch("segment_sum_f32", load_library, torch.float32, False, vals, ids, num_segments, 0.0)
 
 
 def segment_sum_i32(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
-    """int32 ``[B, D]`` (or ``[B]``) rows summed by id on the card, each
-    output in row order and wrapping modulo 2**32; out-of-range ids drop."""
-    check_cuda("segment_sum_i32", vals, ids)
-    return segment_fold_launch("segment_sum_i32", load_library(), torch.int32, vals, ids, num_segments, 0)
+    """int32 ``[B, D]`` (or ``[B]``) rows summed by id on the card, wrapping
+    modulo 2**32; out-of-range ids drop."""
+    return segment_fold_launch("segment_sum_i32", load_library, torch.int32, True, vals, ids, num_segments, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -131,6 +131,16 @@ def amin_ieee(x: Tensor, dim: Optional[int] = None) -> Tensor:
     return _reduce_extremum_ieee(x, dim, False)
 
 
+def _widen_half(x: Tensor) -> Tensor:
+    """Floating values narrower than float32 (bfloat16, float16) as float32,
+    anything else unchanged: squared errors are taken and summed in float32,
+    as the JAX package does after turning a torch bfloat16 input into
+    float32 (its ``torch_to_numpy``)."""
+    if x.is_floating_point() and torch.finfo(x.dtype).bits < 32:
+        return x.to(torch.float32)
+    return x
+
+
 def _tree_sum(x: Tensor) -> Tensor:
     """Sum over the last axis in a fixed pairwise order (zero padding to a
     power of two, then halving by elementwise adds): each addition is one

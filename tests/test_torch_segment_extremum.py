@@ -27,6 +27,8 @@ from metrics_tpu.ops import segment_min_dispatch as jax_segment_min_dispatch
 from metrics_tpu.ops.scatter_pallas import segment_extremum_tiled
 from metrics_tpu_torch import ops
 from metrics_tpu_torch.ops import segment_extremum as segment_extremum_module
+from metrics_tpu_torch.ops.segment_sum import segment_fold_geometry
+from metrics_tpu_torch.utils.data import maximum_ieee, minimum_ieee
 
 torch.set_num_threads(2)
 
@@ -204,3 +206,55 @@ def test_ctypes_signatures_match_the_c_launchers():
         c_types = [re.sub(r"\s*\w+$", "", p.strip()) for p in params.split(",")]
         assert [_C_TYPES[t] for t in c_types] == list(argtypes), name
         assert c_types[-1] == "void*"  # the stream
+
+
+@pytest.mark.parametrize("is_max", [True, False])
+@pytest.mark.parametrize("b,d,s", [(5000, 1, 3), (9000, 1, 64), (300, 4, 5), (4096, 2, 1)])
+def test_split_over_rows_combines_to_the_whole(is_max, b, d, s):
+    """K2's row splits (the card's partial tiles) folded with the fold's own
+    combine (maximum_ieee / minimum_ieee, which the combine kernel computes)
+    equal the plain version over all rows, NaN of both signs, +-0.0, +-inf
+    and dropped ids included, in the geometry's own splits and at other
+    split points."""
+    rng = np.random.default_rng(b * d + s + is_max)
+    vals, ids = _values(rng, b, d), rng.integers(-2, s + 2, b).astype(np.int64)
+    ids[rng.random(b) < 0.01] = -(2**33)
+    if d == 1:
+        vals = vals[:, 0]
+    combine = maximum_ieee if is_max else minimum_ieee
+    whole = ops.segment_extremum_reference(torch.from_numpy(vals), torch.from_numpy(ids), s, is_max)
+    g = segment_fold_geometry(b, d, s, True)
+    geometry_cuts = [(min(b, z * g.rows_per_split), min(b, (z + 1) * g.rows_per_split)) for z in range(g.splits)]
+    for cuts in (geometry_cuts, [(0, 1), (1, b)], [(0, b // 2), (b // 2, b // 2), (b // 2, b)], [(0, b - 1), (b - 1, b)]):
+        acc = None
+        for r0, r1 in cuts:
+            part = ops.segment_extremum_reference(torch.from_numpy(vals[r0:r1]), torch.from_numpy(ids[r0:r1]), s, is_max)
+            acc = part if acc is None else combine(acc, part)
+        _assert_same(acc.numpy(), whole.numpy())
+        # the empty parts hold the identity, and the signs of zeros survive
+        np.testing.assert_array_equal(np.signbit(acc.numpy()), np.signbit(whole.numpy()))
+
+
+@pytest.mark.parametrize("is_max", [True, False])
+@pytest.mark.parametrize("case", ["90% of 4096 rows in one segment", "[65536] -> 4", "all rows in one segment"])
+def test_plain_version_matches_jax_at_skewed_shapes(is_max, case):
+    """The plain version against jax.ops.segment_max/min and the
+    interpret-mode kernel where most rows share a segment."""
+    rng = np.random.default_rng(len(case) + is_max)
+    if case.startswith("90%"):
+        b, d, s = 4096, 2, 100
+        vals, ids = _values(rng, b, d), _ids(rng, b, s)
+        ids[rng.random(b) < 0.9] = 3
+    elif case.startswith("[65536]"):
+        b, d, s = 65536, 1, 4
+        vals, ids = _values(rng, b, d)[:, 0], rng.integers(-1, s + 1, b).astype(np.int32)
+    else:
+        b, d, s = 3000, 1, 64
+        vals, ids = _values(rng, b, d)[:, 0], np.full(b, 9, np.int32)
+        vals[np.isnan(vals)] = 1.0  # one segment: keep it NaN-free, so the fold's value shows
+    jax_fn = jax.ops.segment_max if is_max else jax.ops.segment_min
+    want = np.asarray(jax_fn(jnp.asarray(vals), jnp.asarray(ids), num_segments=s))
+    got = ops.segment_extremum_reference(torch.from_numpy(vals), torch.from_numpy(ids), s, is_max).numpy()
+    _assert_same(got, want)
+    kernel = np.asarray(segment_extremum_tiled(jnp.asarray(vals), jnp.asarray(ids), s, is_max, interpret=True))
+    _assert_same(got, kernel)
