@@ -24,11 +24,14 @@ Phases, each printed as one JSON line:
    segment, [16384,2002]->4100 and [1048576]->64 -- each bit-identical to
    the plain version on the CPU, across two runs and with int32 against
    int64 ids, with its ms and device ms; qsketch_sort_bucket (the sketch compaction's sort, prefix sum
-   and bucket map) at [1024,3], [16384,3], [32768,16], [12288,2002] and a
-   ragged [5001,4] with tied keys and zero-weight rows, on integer weights:
+   and bucket map) at [1024,3], [16384,3], [32768,16], [12288,2002], a
+   ragged [5001,4] with tied keys and zero-weight rows, [4096,3] with every
+   key equal, with every weight 0, with NaN keys of both signs and with +-0
+   keys, [1,3] and [131072,3] (four merge passes), on integer weights:
    weighted rows, bucket ids and permutation bit-exact against the plain
-   version on the card and on the CPU and across two runs, and the whole
-   compaction chain bit-exact against its plain version; parity_box_iou:
+   version on the card and on the CPU (NaN by position) and across two
+   runs, and the whole compaction chain bit-exact against its plain
+   version; parity_box_iou:
    box_iou_pairwise (K5) at [1024,1024], [4096,4096] and [1000,3000] and
    box_iou_batched (K6) at [65536,8,8], [4096,128,32], [1024,128,128],
    [16384,64,16] and [1000,100,30], with zero-area, touching, inverted and
@@ -39,9 +42,12 @@ Phases, each printed as one JSON line:
    rows set and with every row, [16384,256] k=128, [64,256] k=16,
    [8192,2048] k=1024, a ragged [1000,3000] k=100 and [16,40000] k=10 (past
    one block's shared memory), on ties, NaN of both signs, signed zeros,
-   +-inf, invalid slots and rows with fewer valid slots than k, bit-exact
-   against the plain version on the card and on the CPU and across two
-   runs, ms per call for each shape; parity_segment_extremum:
+   +-inf, invalid slots and rows with fewer valid slots than k; then rows
+   whose keys tie at the threshold, rows of only NaN and -inf, k=1, k=n,
+   masked rows with fewer valid slots than k and [16,40000] k=20000
+   (survivors sorted in global memory): bit-exact against the plain version
+   on the card and on the CPU and across two runs, ms per call for each
+   shape; parity_segment_extremum:
    segment_max_f32 and segment_min_f32 (K2) at [256]->1000 (the sliced
    update), [4096]->1000, [4096]->100000, [8192,256]->128 (the TPU route's
    width cap), [4096,1000]->64 (past it), [1048576]->64, the same with
@@ -158,9 +164,10 @@ Phases, each printed as one JSON line:
    and with every row active; K2 and segment_sum_i32 at the sliced
    update's [256] -> 1000; segment_sum_f32 also at the sketch-binary
    compaction's and the retrieval insert's own skewed inputs, each with its
-   path's launches); each device time with the number of
-   profiler windows it took (a window that saw no launch is taken again,
-   at most three in all).
+   path's launches); each device time per wrapper call (every CUDA kernel
+   the wrapper issues, merge passes and combines included, summed) with the
+   number of profiler windows it took (a window that saw no launch is taken
+   again, at most three in all).
 
 PERF.md gives the run times measured on an H100 and where they go. Then the card's name
 and power limit as nvidia-smi reports them, and last
@@ -217,21 +224,32 @@ MAP_CLASSES = 91
 MAP_SEED = 3
 MAP_LOSSLESS_CAPACITY = 8192
 #: per-row top-k (K4): the source, the TPU kernel, and the parity cases
-#: (name, rows, columns, k, active rows or None for all): the table insert's
-#: widened rows with the overflow mask of about 7 rows and with all rows, the
-#: merge, bench.py's parity shape, the TPU route's cap, a ragged shape and a
-#: width past one block's 16384 keys
+#: (name, rows, columns, k, active rows or None for all, inputs): the table
+#: insert's widened rows with the overflow mask of about 7 rows and with all
+#: rows, the merge, bench.py's parity shape, the TPU route's cap, a ragged
+#: shape and a width past one block's 16384 keys, on mixed inputs (ties, NaN
+#: of both signs, signed zeros, +-inf, invalid slots); then rows whose keys
+#: tie at the threshold ("tied": three values, every other row one value),
+#: rows of only NaN and -inf ("nan_inf"), k = 1, k = n, masked rows with
+#: fewer valid slots than k ("few_valid"), and survivors past one block's
+#: shared memory (sorted in global memory)
 ROW_TOPK_SOURCE = "metrics_tpu_torch/csrc/row_topk.cu"
 K4_REPLACES = "metrics_tpu/ops/topk_pallas.py:124"
 K4_PARITY_CASES = (
-    ("[2048,2176] masked", 2048, 2176, 64, 8),
-    ("[8192,2176] masked", 8192, 2176, 64, 8),
-    ("[8192,2176]", 8192, 2176, 64, None),
-    ("[16384,256]", 16384, 256, 128, None),
-    ("[64,256]", 64, 256, 16, None),
-    ("[8192,2048]", 8192, 2048, 1024, None),
-    ("[1000,3000]", 1000, 3000, 100, None),
-    ("[16,40000]", 16, 40000, 10, None),
+    ("[2048,2176] masked", 2048, 2176, 64, 8, "mixed"),
+    ("[8192,2176] masked", 8192, 2176, 64, 8, "mixed"),
+    ("[8192,2176]", 8192, 2176, 64, None, "mixed"),
+    ("[16384,256]", 16384, 256, 128, None, "mixed"),
+    ("[64,256]", 64, 256, 16, None, "mixed"),
+    ("[8192,2048]", 8192, 2048, 1024, None, "mixed"),
+    ("[1000,3000]", 1000, 3000, 100, None, "mixed"),
+    ("[16,40000]", 16, 40000, 10, None, "mixed"),
+    ("[256,2176] keys tied at the threshold", 256, 2176, 64, None, "tied"),
+    ("[256,2176] only NaN and -inf keys", 256, 2176, 64, None, "nan_inf"),
+    ("[2048,2176] k=1", 2048, 2176, 1, None, "mixed"),
+    ("[512,2176] k=n", 512, 2176, 2176, None, "mixed"),
+    ("[2048,2176] masked, fewer valid slots than k", 2048, 2176, 64, 8, "few_valid"),
+    ("[16,40000] k=20000 (survivors sorted in global memory)", 16, 40000, 20000, None, "mixed"),
 )
 #: the MSLR-WEB30K-shaped stream of bench.py's config 4: queries, seed,
 #: documents per update, and a query capacity that admits every query
@@ -279,13 +297,22 @@ SLICED_SIZES = (3072, 3584, 4096)
 DECAY_UPDATES = 120
 DECAY_SHAPES = (1536, 2048, 1948)
 DECAY_ALPHA = 0.99
-#: K3 parity cases: (name, rows, columns, share of zero-weight rows, tied keys)
+#: K3 parity cases: (name, rows, columns, share of zero-weight rows, keys:
+#: "randn", "tied" (integers 0..49), "equal", "nan" (NaN of both signs among
+#: normal keys) or "signed_zero" (halves, about half the zeros -0.0)); the
+#: last, [131072, 3], takes four merge passes
 QSKETCH_PARITY_CASES = (
-    ("[1024,3]", 1024, 3, 0.0, False),
-    ("[16384,3]", 16384, 3, 0.0, False),
-    ("[32768,16]", 32768, 16, 0.0, False),
-    ("[12288,2002]", 12288, 2002, 0.0, False),
-    ("[5001,4] tied keys, zero-weight rows", 5001, 4, 0.3, True),
+    ("[1024,3]", 1024, 3, 0.0, "randn"),
+    ("[16384,3]", 16384, 3, 0.0, "randn"),
+    ("[32768,16]", 32768, 16, 0.0, "randn"),
+    ("[12288,2002]", 12288, 2002, 0.0, "randn"),
+    ("[5001,4] tied keys, zero-weight rows", 5001, 4, 0.3, "tied"),
+    ("[4096,3] every key equal", 4096, 3, 0.0, "equal"),
+    ("[4096,3] every weight 0", 4096, 3, 1.0, "randn"),
+    ("[1,3] n = 1", 1, 3, 0.0, "randn"),
+    ("[4096,3] NaN keys of both signs", 4096, 3, 0.1, "nan"),
+    ("[4096,3] +-0 keys", 4096, 3, 0.1, "signed_zero"),
+    ("[131072,3]", 131072, 3, 0.0, "randn"),
 )
 
 
@@ -329,18 +356,21 @@ def time_ms(torch, fn, launches=TIMING_LAUNCHES):
 
 
 def _self_device_us(evt):
-    return getattr(evt, "self_device_time_total", None) or evt.self_cuda_time_total
+    us = getattr(evt, "self_device_time_total", None)
+    return us if us is not None else evt.self_cuda_time_total
 
 
 def kernel_device_time(torch, fn, kernel_names, launches=50):
     """``{"device_ms": ..., "device_windows": ...}``: the device time of one
-    call of ``fn`` spent in the kernels named ``kernel_names`` (a name or a
-    tuple of the names a wrapper launches once each), from torch.profiler,
-    and the profiling windows taken to read it; the wrappers' host work and
-    the output zeroing are not in it."""
+    call of ``fn``, from torch.profiler: every kernel named in
+    ``kernel_names`` (a name or a tuple of the CUDA kernels its wrapper may
+    issue, each any number of times a call: a merge pass, a combine) summed
+    and divided by the ``launches`` calls made; and the profiling windows
+    taken to read it. The wrappers' host work and the output zeroing are not
+    in it."""
     from torch.profiler import ProfilerActivity, profile
 
-    names = (kernel_names,) if isinstance(kernel_names, str) else kernel_names
+    names = (kernel_names,) if isinstance(kernel_names, str) else tuple(kernel_names)
     fn()
     torch.cuda.synchronize()
     # a profiling window now and then records none of a kernel's launches
@@ -351,17 +381,16 @@ def kernel_device_time(torch, fn, kernel_names, launches=50):
             for _ in range(launches):
                 fn()
             torch.cuda.synchronize()
-        averages = prof.key_averages()
-        rows = {name: [evt for evt in averages if name in evt.key] for name in names}
-        if all(sum(evt.count for evt in found) > 0 for found in rows.values()):
+        found = [evt for evt in prof.key_averages() if evt.count > 0 and any(name in evt.key for name in names)]
+        if found:
             break
+    check(bool(found), f"the profiler saw no launch of {names}")
     total_ms = 0.0
-    for kernel_name, found in rows.items():
-        # the profiler may miss an event at the edge of its window: average
-        # over the launches it saw
-        count = sum(evt.count for evt in found)
-        check(count > 0, f"the profiler saw no launch of {kernel_name}")
-        total_ms += sum(_self_device_us(evt) for evt in found) / count / 1e3
+    for evt in found:
+        # the profiler may miss an event at the edge of its window: a
+        # kernel's time per launch it saw, times its launches per call
+        per_call = max(1, round(evt.count / launches))
+        total_ms += _self_device_us(evt) / evt.count * per_call / 1e3
     return {"device_ms": total_ms, "device_windows": windows}
 
 
@@ -460,24 +489,47 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def qsketch_rows(torch, gen, n, cols, zero_share=0.0, tied=False):
+def qsketch_rows(torch, gen, n, cols, zero_share=0.0, keys="randn"):
     """Sketch rows ``[w, key, payload...]``: integer weights 1..4 (0 for about
-    ``zero_share`` of the rows), float keys (integers with many ties when
-    ``tied``), integer payloads."""
+    ``zero_share`` of the rows), keys of the kind ``keys`` (see
+    ``QSKETCH_PARITY_CASES``), integer payloads."""
     rows = torch.zeros(n, cols)
     rows[:, 0] = torch.randint(1, 5, (n,), generator=gen).float()
     rows[:, 0][torch.rand(n, generator=gen) < zero_share] = 0
-    rows[:, 1] = torch.randint(0, 50, (n,), generator=gen).float() if tied else torch.randn(n, generator=gen)
+    if keys == "tied":
+        rows[:, 1] = torch.randint(0, 50, (n,), generator=gen).float()
+    elif keys == "equal":
+        rows[:, 1] = 0.25
+    elif keys == "signed_zero":
+        key = torch.randint(-2, 3, (n,), generator=gen).float() / 2
+        rows[:, 1] = torch.where((key == 0) & (torch.rand(n, generator=gen) < 0.5), -0.0, key)
+    else:
+        rows[:, 1] = torch.randn(n, generator=gen)
+        if keys == "nan":
+            pick = torch.rand(n, generator=gen)
+            rows[:, 1][pick < 0.05] = float("nan")
+            rows[:, 1][(pick >= 0.05) & (pick < 0.1)] = -float("nan")
     rows[:, 2:] = torch.randint(0, 3, (n, cols - 2), generator=gen).float()
     return rows
+
+
+def same_nan_by_position(torch, a, b):
+    """Bit for bit where ``a`` is not NaN, and NaN where it is NaN (a
+    product with a NaN key keeps the NaN's sign and payload on the CPU and
+    not on the card)."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
 
 
 def qsketch_parity_phase(torch, ops, card):
     """qsketch_sort_bucket against its plain version; launches here are not counted."""
     gen = torch.Generator(device="cpu").manual_seed(1)
     results = []
-    for name, n, cols, zero_share, tied in QSKETCH_PARITY_CASES:
-        host = qsketch_rows(torch, gen, n, cols, zero_share, tied)
+    for name, n, cols, zero_share, keys in QSKETCH_PARITY_CASES:
+        host = qsketch_rows(torch, gen, n, cols, zero_share, keys)
         rows = host.cuda()
         got = ops.qsketch_sort_bucket(rows, SKETCH_CAPACITY)
         again = ops.qsketch_sort_bucket(rows, SKETCH_CAPACITY)
@@ -485,21 +537,25 @@ def qsketch_parity_phase(torch, ops, card):
         plain_cpu = ops.qsketch_sort_bucket_reference(host, SKETCH_CAPACITY)
         torch.cuda.synchronize()
         for part, a, b, c, d in zip(("weighted rows", "bucket ids", "permutation"), got, again, plain, plain_cpu):
-            check(torch.equal(a, b), f"qsketch_sort_bucket {name}: two runs differ in the {part}")
-            check(torch.equal(a, c), f"qsketch_sort_bucket {name}: the {part} differ from the plain version")
-            check(torch.equal(a.cpu(), d), f"qsketch_sort_bucket {name}: the {part} differ from the plain version on the CPU")
+            check(same_bits(torch, [a], [b]), f"qsketch_sort_bucket {name}: two runs differ in the {part}")
+            check(same_nan_by_position(torch, a, c), f"qsketch_sort_bucket {name}: the {part} differ from the plain version")
+            check(same_nan_by_position(torch, a, d), f"qsketch_sort_bucket {name}: the {part} differ from the plain version on the CPU")
         # the whole compaction (K3, K1's float form, the epilogue) at a
-        # capacity these rows overflow
+        # capacity these rows overflow, where they fill its centroids
         capacity = min(SKETCH_CAPACITY, n // 16 * 8)
-        compacted = ops.qsketch_compact_dispatch(rows, capacity)
-        check(
-            torch.equal(compacted.cpu(), ops.compact_rows_reference(host, capacity)),
-            f"qsketch compaction {name}: differs from its plain version",
-        )
+        if capacity >= 8:
+            compacted = ops.qsketch_compact_dispatch(rows, capacity)
+            check(
+                same_nan_by_position(torch, compacted, ops.compact_rows_reference(host, capacity)),
+                f"qsketch compaction {name}: differs from its plain version",
+            )
+        else:
+            capacity = None
+        finite = torch.isfinite(got[0]) & torch.isfinite(plain[0])
         results.append(
             {
                 "case": name,
-                "max_abs_err": float((got[0] - plain[0]).abs().max()),
+                "max_abs_err": float((got[0] - plain[0])[finite].abs().max()) if bool(finite.any()) else 0.0,
                 "buckets_differ": int((got[1] != plain[1]).sum()),
                 "compaction_capacity": capacity,
                 "ms": time_ms(torch, lambda: ops.qsketch_sort_bucket(rows, SKETCH_CAPACITY), launches=20),
@@ -1136,20 +1192,35 @@ PYCOCO_EXPECTED = {
 PYCOCO_ATOL = 1e-1
 
 
-def row_topk_inputs(torch, gen, r, n, nan_share=0.02):
-    """``[r, n]`` float32 preds, payload and valid on the host: quantized
-    scores (ties), NaN of both signs, signed zeros, +-inf, about 30% invalid
-    slots, and rows with fewer valid slots than any k here (every 7th row
-    keeps three)."""
-    preds = torch.randint(-64, 64, (r, n), generator=gen).float() / 8
-    pick = torch.rand((r, n), generator=gen)
-    preds[pick < nan_share] = float("nan")
-    preds[(pick >= nan_share) & (pick < 2 * nan_share)] = -float("nan")
-    preds[(pick >= 0.1) & (pick < 0.12)] = -0.0
-    preds[(pick >= 0.12) & (pick < 0.13)] = float("inf")
-    preds[(pick >= 0.13) & (pick < 0.14)] = -float("inf")
-    valid = (torch.rand((r, n), generator=gen) < 0.7).float()
-    valid[::7, 3:] = 0
+def row_topk_inputs(torch, gen, r, n, nan_share=0.02, kind="mixed"):
+    """``[r, n]`` float32 preds, payload and valid on the host. "mixed":
+    quantized scores (ties), NaN of both signs, signed zeros, +-inf, about
+    30% invalid slots, and rows with fewer valid slots than any k here
+    (every 7th row keeps three); "tied": every slot valid, scores of three
+    values and every other row of one; "nan_inf": NaN of both signs and
+    -inf, some slots invalid; "few_valid": mixed, with 3 to 40 valid slots
+    a row."""
+    if kind == "tied":
+        preds = torch.randint(0, 3, (r, n), generator=gen).float() / 2
+        preds[::2] = 0.5
+        valid = torch.ones((r, n))
+    elif kind == "nan_inf":
+        pick = torch.rand((r, n), generator=gen)
+        preds = torch.where(pick < 0.3, float("nan"), torch.where(pick < 0.6, -float("nan"), -float("inf")))
+        valid = (torch.rand((r, n), generator=gen) < 0.7).float()
+    else:
+        preds = torch.randint(-64, 64, (r, n), generator=gen).float() / 8
+        pick = torch.rand((r, n), generator=gen)
+        preds[pick < nan_share] = float("nan")
+        preds[(pick >= nan_share) & (pick < 2 * nan_share)] = -float("nan")
+        preds[(pick >= 0.1) & (pick < 0.12)] = -0.0
+        preds[(pick >= 0.12) & (pick < 0.13)] = float("inf")
+        preds[(pick >= 0.13) & (pick < 0.14)] = -float("inf")
+        valid = (torch.rand((r, n), generator=gen) < 0.7).float()
+        valid[::7, 3:] = 0
+        if kind == "few_valid":
+            keep = torch.randint(3, 41, (r, 1), generator=gen)
+            valid = torch.where(torch.arange(n)[None, :] < keep, valid.clamp(min=1.0), 0.0)
     payload = torch.randint(0, 1000, (r, n), generator=gen).float()
     return preds, payload, valid
 
@@ -1170,8 +1241,8 @@ def row_topk_parity_phase(torch, ops, card):
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cpu").manual_seed(4)
     results = []
-    for name, r, n, k, active in K4_PARITY_CASES:
-        host = row_topk_inputs(torch, gen, r, n)
+    for name, r, n, k, active, kind in K4_PARITY_CASES:
+        host = row_topk_inputs(torch, gen, r, n, kind=kind)
         rows_host = None
         if active is not None:
             rows_host = torch.zeros(r, dtype=torch.bool)
@@ -1529,6 +1600,7 @@ def row_topk_line(torch, ops, launches, captured):
     chunk's [2048, 2176] widened rows with the overflow mask it had, and the
     same rows all active."""
     (preds, payload, valid, k), rows = captured
+    kernel_names = import_module("metrics_tpu_torch.ops.row_topk").CUDA_KERNELS
     active = rows.nonzero()[:, 0]
     r, n = preds.shape
     got = ops.row_topk_f32(preds, payload, valid, k, rows=rows)
@@ -1565,10 +1637,10 @@ def row_topk_line(torch, ops, launches, captured):
         "library_ms": time_ms(torch, lambda: library(active)),
         "library_note": "torch.sort(descending=True, stable=True) of the active rows' keys and two gathers (torch.topk is not tie-stable)",
         "host_us_per_call": host_us_per_call(torch, lambda: ops.row_topk_f32(preds, payload, valid, k, rows=rows)),
-        **kernel_device_time(torch, lambda: ops.row_topk_f32(preds, payload, valid, k, rows=rows), "topk_block_kernel"),
+        **kernel_device_time(torch, lambda: ops.row_topk_f32(preds, payload, valid, k, rows=rows), kernel_names),
         "all_rows": {
             "ms": time_ms(torch, lambda: ops.row_topk_f32(preds, payload, valid, k), launches=20),
-            **kernel_device_time(torch, lambda: ops.row_topk_f32(preds, payload, valid, k), "topk_block_kernel", launches=10),
+            **kernel_device_time(torch, lambda: ops.row_topk_f32(preds, payload, valid, k), kernel_names, launches=10),
             "plain_ms": time_ms(torch, lambda: ops.row_topk_reference(preds, payload, valid, k), launches=10),
             "library_ms": time_ms(torch, lambda: library(all_rows), launches=20),
             "bound_ms": bound_ms(r, 0),
@@ -2427,9 +2499,7 @@ def main():
             "bound_by": "bytes",
             "library_ms": time_ms(torch, lambda: torch.sort(k3_keys, stable=True)),
             "host_us_per_call": host_us_per_call(torch, qsketch_call),
-            **kernel_device_time(
-                torch, qsketch_call, ("sort_runs_kernel", "scan_bucket_kernel", "gather_rows_kernel")
-            ),
+            **kernel_device_time(torch, qsketch_call, import_module("metrics_tpu_torch.ops.qsketch").CUDA_KERNELS),
         },
     ]
     k5_b1, k5_b2 = (iou_boxes(torch, gen, n).cuda() for n in K5_LINE_SHAPE)

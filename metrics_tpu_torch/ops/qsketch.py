@@ -16,7 +16,11 @@ key, the rest payload) is three steps, as in the JAX package:
 3. :func:`finalize_compact`: weighted means, embedded in a rows-shaped
    buffer and packed occupied-first.
 
-Every shape takes the kernel on the card: there is no row or column limit
+On the card the sort runs across the card: blocks sort tiles of 1024
+packed keys in shared memory, then 4-way merge passes place every key by
+its rank in the other runs, and the prefix sum and bucket map run over
+scan tiles of sorted rows (:func:`qsketch_plan` gives the launch, cached
+per shape). Every shape takes the kernel: there is no row or column limit
 and no route to the plain version for a CUDA tensor. The plain version,
 :func:`qsketch_sort_bucket_reference`, repeats the kernel's arithmetic in
 the same order with ``torch.sort`` on the same composite key; CPU tensors
@@ -27,8 +31,9 @@ buckets. With integer weights (a sketch's weights are counts, exact in
 float32 below 2**24) the kernel and the plain version agree bit for bit.
 """
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,9 +45,23 @@ Tensor = torch.Tensor
 
 SOURCE = "qsketch.cu"
 
+#: the kernel's plan constants (must match ``csrc/bitonic.cuh`` and
+#: ``csrc/qsketch.cu``): keys a block sorts in shared memory, runs a merge
+#: pass merges, rows and tiles of the scan, rows weighted by the scan
+TILE = 1024
+MAX_WAY = 4
+SCAN_ROWS = 256
+MAX_SCAN_TILES = 1024
+NARROW_COLS = 16
+
+#: the CUDA kernels one call may launch (a profiler sums them per call)
+CUDA_KERNELS = ("sort_tiles_kernel", "merge_pass_kernel", "tile_sums_kernel", "scan_bucket_kernel", "gather_rows_kernel")
+
 _PTR, _LL, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+#: rows, n, cols, n_pad, capacity, scale, tile, way, scan tile, scratch,
+#: perm, wvals, bucket, stream
 _SIGNATURES = {
-    "qsketch_sort_bucket_f32": [_PTR, _LL, _I32, _LL, _I32, ctypes.c_float, _PTR, _PTR, _PTR, _PTR, _PTR],
+    "qsketch_sort_bucket_f32": [_PTR, _LL, _I32, _LL, _I32, ctypes.c_float, _I32, _I32, _LL, _PTR, _PTR, _PTR, _PTR, _PTR],
 }
 
 #: the ordered (uint32) forms of +inf and of every NaN key
@@ -55,11 +74,60 @@ def load_library() -> ctypes.CDLL:
     return load(SOURCE, _SIGNATURES)
 
 
+@functools.lru_cache(maxsize=None)
+def _launcher() -> Tuple[ctypes.CDLL, Any]:
+    """The library and its C launcher, bound at first use."""
+    lib = load_library()
+    return lib, lib.qsketch_sort_bucket_f32
+
+
 def next_pow2(n: int) -> int:
     p = 1
     while p < n:
         p *= 2
     return p
+
+
+def merge_passes(length: int, tile: int) -> Tuple[Tuple[int, int], ...]:
+    """``(run, way)`` of each merge-by-rank pass that turns sorted tiles of
+    ``tile`` keys into one sorted run of ``length`` keys (both powers of
+    two): every ``way`` consecutive runs of ``run`` keys become one, at most
+    ``MAX_WAY`` a pass (``bitonic::merge_runs``)."""
+    passes = []
+    run = tile
+    while run < length:
+        way = min(MAX_WAY, length // run)
+        passes.append((run, way))
+        run *= way
+    return tuple(passes)
+
+
+class SortBucketPlan(NamedTuple):
+    """A launch of :func:`qsketch_sort_bucket`: ``n_pad`` rows sorted in
+    tiles of ``tile`` keys (one block each), merged by ``merges``; the scan
+    in ``scan_tiles`` blocks of ``scan_tile`` sorted rows; ``scratch_words``
+    int64 of scratch (two key buffers, then the float32 tile sums);
+    ``gather`` when the rows are too wide for the scan to weight them."""
+
+    n_pad: int
+    tile: int
+    merges: Tuple[Tuple[int, int], ...]
+    scan_tile: int
+    scan_tiles: int
+    scratch_words: int
+    gather: bool
+
+
+@functools.lru_cache(maxsize=1024)
+def qsketch_plan(n: int, cols: int) -> SortBucketPlan:
+    """The plan of ``[n, cols]`` rows (what ``csrc/qsketch.cu`` checks)."""
+    n_pad = next_pow2(max(n, 2))
+    tile = min(n_pad, TILE)
+    scan_tile = n_pad if n_pad < SCAN_ROWS else max(SCAN_ROWS, n_pad // MAX_SCAN_TILES)
+    scan_tiles = n_pad // scan_tile
+    return SortBucketPlan(
+        n_pad, tile, merge_passes(n_pad, tile), scan_tile, scan_tiles, 2 * n_pad + -(-scan_tiles // 2), cols > NARROW_COLS
+    )
 
 
 def num_segments(capacity: int) -> int:
@@ -93,24 +161,25 @@ def qsketch_sort_bucket(rows: Tensor, capacity: int) -> Tuple[Tensor, Tensor, Te
     if rows.dtype != torch.float32:
         raise TypeError(f"qsketch_sort_bucket takes float32 rows, got {rows.dtype}")
     _check_args(rows, capacity)
-    rows = rows.contiguous()
+    if not rows.is_contiguous():
+        rows = rows.contiguous()
     n, cols = rows.shape
-    n_pad = next_pow2(max(n, 2))
-    if n_pad > 2**31:
+    plan = qsketch_plan(n, cols)
+    if plan.n_pad > 2**31:
         raise ValueError(f"qsketch_sort_bucket sorts at most 2**31 rows, got {n}")
-    lib = load_library()
     device = rows.device
-    keys = torch.empty(n_pad, dtype=torch.int64, device=device)  # scratch: the packed sort keys
-    perm = torch.empty(n_pad, dtype=torch.int32, device=device)
-    wvals = torch.empty((n_pad, cols), dtype=torch.float32, device=device)
-    bucket = torch.empty(n_pad, dtype=torch.int32, device=device)
+    scratch = torch.empty(plan.scratch_words, dtype=torch.int64, device=device)
+    perm = torch.empty(plan.n_pad, dtype=torch.int32, device=device)
+    wvals = torch.empty((plan.n_pad, cols), dtype=torch.float32, device=device)
+    bucket = torch.empty(plan.n_pad, dtype=torch.int32, device=device)
+    lib, fn = _launcher()
     launch(
         "qsketch_sort_bucket",
         lib,
         device,
-        lib.qsketch_sort_bucket_f32,
-        rows.data_ptr(), n, cols, n_pad, capacity, _scale(capacity),
-        keys.data_ptr(), perm.data_ptr(), wvals.data_ptr(), bucket.data_ptr(),
+        fn,
+        rows.data_ptr(), n, cols, plan.n_pad, capacity, _scale(capacity), plan.tile, MAX_WAY, plan.scan_tile,
+        scratch.data_ptr(), perm.data_ptr(), wvals.data_ptr(), bucket.data_ptr(),
     )
     return wvals, bucket, perm
 

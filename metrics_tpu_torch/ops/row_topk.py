@@ -22,8 +22,10 @@ the others come back as ``(-inf, 0, 0)``. The retrieval table passes its
 overflowing rows, so that one launch per insert chunk sorts only those,
 with no host read to find them.
 
-* :func:`row_topk_f32` -- the kernel (``csrc/row_topk.cu``), CUDA tensors
-  only, launches counted under ``row_topk``;
+* :func:`row_topk_f32` -- the kernel (``csrc/row_topk.cu``: a radix select
+  of each active row's k-th key, then an ordering of only the k survivors;
+  :func:`row_topk_plan` gives the launch, cached per shape), CUDA tensors
+  only, one launch counted under ``row_topk`` per call;
 * :func:`row_topk_reference` -- the plain version: a stable sort of an
   integer key that orders as above (the same permutation as
   ``stable_sort_with_payloads(key, ..., descending=True)`` on the CPU,
@@ -34,31 +36,101 @@ with no host read to find them.
   any width).
 """
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
 from metrics_tpu_torch.ops.build import load
 from metrics_tpu_torch.ops.dispatch import check_cuda, launch, on_card
-from metrics_tpu_torch.ops.qsketch import next_pow2
+from metrics_tpu_torch.ops.qsketch import TILE, merge_passes, next_pow2
 
 Tensor = torch.Tensor
 
 SOURCE = "row_topk.cu"
 
-#: keys one block sorts in shared memory (must match kRun in csrc/bitonic.cuh)
-_RUN = 16384
+#: the kernel's plan constants (must match ``csrc/row_topk.cu``): threads of
+#: a select block (NARROW_THREADS for rows up to NARROW_COLS wide), the
+#: widest row whose keys stay in shared memory, the most survivors (padded)
+#: sorted in shared memory
+THREADS = 256
+NARROW_THREADS = 64
+NARROW_COLS = 1024
+CACHE_KEYS = 16384
+SHARED_SORT = 8192
+#: the most keys ranked by counting, each against all: the threshold's
+#: candidates, and the survivors (more sort in shared memory)
+RANK_MAX = 64
+RANK_OUT = 128
+#: an H100 SM's shared memory, threads and resident blocks, and the select
+#: kernel's static shared memory: they bound the select grid
+_SMEM_PER_SM = 228 * 1024
+_THREADS_PER_SM = 2048
+_MAX_BLOCKS_PER_SM = 32
+_STATIC_SMEM = 6 * 1024
 
-_PTR, _LL = ctypes.c_void_p, ctypes.c_longlong
-#: (preds, payload, valid, rows, r, n, k, n_pad, scratch, out_k, out_p, out_v, stream)
+#: the CUDA kernels one call may launch (a profiler sums them per call)
+CUDA_KERNELS = ("topk_select_kernel", "sort_survivor_tiles_kernel", "merge_pass_kernel", "gather_kernel")
+
+_PTR, _LL, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+#: (preds, payload, valid, rows, r, n, k, k_pad, blocks, threads, cache,
+#: scratch, out_k, out_p, out_v, stream)
 _SIGNATURES = {
-    "row_topk_f32": [_PTR, _PTR, _PTR, _PTR, _LL, _LL, _LL, _LL, _PTR, _PTR, _PTR, _PTR, _PTR],
+    "row_topk_f32": [_PTR, _PTR, _PTR, _PTR, _LL, _LL, _LL, _LL, _I32, _I32, _I32, _PTR, _PTR, _PTR, _PTR, _PTR],
 }
 
 
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's shared library."""
     return load(SOURCE, _SIGNATURES)
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher() -> Tuple[ctypes.CDLL, Any]:
+    """The library and its C launcher, bound at first use."""
+    lib = load_library()
+    return lib, lib.row_topk_f32
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+class RowTopkPlan(NamedTuple):
+    """A launch of :func:`row_topk_f32` over ``[r, n]`` rows: ``blocks``
+    select blocks of ``threads`` (block ``b`` takes rows ``b``, ``b +
+    blocks``, ...); ``k`` survivors a row, padded to ``k_pad``; ``cache`` when
+    the row's keys stay in shared memory; ``global_sort`` when the
+    survivors sort in ``scratch_words`` int64 of scratch by tiles of
+    ``TILE`` and ``merges`` instead of in shared memory; ``smem_bytes`` the
+    select block's dynamic shared memory."""
+
+    k: int
+    k_pad: int
+    cache: bool
+    global_sort: bool
+    blocks: int
+    threads: int
+    smem_bytes: int
+    merges: Tuple[Tuple[int, int], ...]
+    scratch_words: int
+
+
+@functools.lru_cache(maxsize=1024)
+def row_topk_plan(r: int, n: int, k: int, sms: int) -> RowTopkPlan:
+    """The plan of a top-``k`` over ``[r, n]`` rows (``1 <= k <= n``) on a
+    card of ``sms`` SMs (what ``csrc/row_topk.cu`` checks)."""
+    k_pad = next_pow2(k)
+    cache = n <= CACHE_KEYS
+    global_sort = k_pad > SHARED_SORT
+    threads = NARROW_THREADS if n <= NARROW_COLS else THREADS
+    smem = (0 if global_sort else 8 * k_pad) + (4 * n if cache else 0)
+    per_sm = max(1, min(_MAX_BLOCKS_PER_SM, _THREADS_PER_SM // threads, _SMEM_PER_SM // (smem + _STATIC_SMEM + 1024)))
+    merges = merge_passes(k_pad, TILE) if global_sort else ()
+    return RowTopkPlan(
+        k, k_pad, cache, global_sort, min(r, sms * per_sm), threads, smem, merges, 2 * r * k_pad if global_sort else 0
+    )
 
 
 def _check_args(preds: Tensor, payload: Tensor, valid: Tensor, k: int, rows: Optional[Tensor]) -> None:
@@ -100,31 +172,27 @@ def row_topk_f32(
             raise TypeError(f"row_topk_f32 takes float32 `{name}`, got {x.dtype}")
     r, n = preds.shape
     kk = min(k, n)
-    out_k, out_p, out_v = (torch.empty((r, kk), dtype=torch.float32, device=preds.device) for _ in range(3))
+    device = preds.device
+    out_k, out_p, out_v = (torch.empty((r, kk), dtype=torch.float32, device=device) for _ in range(3))
     if r == 0 or kk == 0:  # nothing to select: no launch
         return out_k, out_p, out_v
-    preds, payload, valid = preds.contiguous(), payload.contiguous(), valid.contiguous()
-    mask = None if rows is None else rows.contiguous()
-    n_pad = next_pow2(max(n, 2))
-    scratch = torch.empty((r, n_pad), dtype=torch.int64, device=preds.device) if n_pad > _RUN else None
-    lib = load_library()
+    if not (preds.is_contiguous() and payload.is_contiguous() and valid.is_contiguous()):
+        preds, payload, valid = preds.contiguous(), payload.contiguous(), valid.contiguous()
+    if rows is not None and not rows.is_contiguous():
+        rows = rows.contiguous()
+    plan = row_topk_plan(r, n, kk, _sm_count(device))
+    if plan.global_sort and r > 65535:
+        raise ValueError(f"row_topk_f32 sorts more than {SHARED_SORT} survivors a row for at most 65535 rows, got {r}")
+    scratch = torch.empty(plan.scratch_words, dtype=torch.int64, device=device) if plan.global_sort else None
+    lib, fn = _launcher()
     launch(
         "row_topk",
         lib,
-        preds.device,
-        lib.row_topk_f32,
-        preds.data_ptr(),
-        payload.data_ptr(),
-        valid.data_ptr(),
-        None if mask is None else mask.data_ptr(),
-        r,
-        n,
-        kk,
-        n_pad,
-        None if scratch is None else scratch.data_ptr(),
-        out_k.data_ptr(),
-        out_p.data_ptr(),
-        out_v.data_ptr(),
+        device,
+        fn,
+        preds.data_ptr(), payload.data_ptr(), valid.data_ptr(), None if rows is None else rows.data_ptr(),
+        r, n, kk, plan.k_pad, plan.blocks, plan.threads, int(plan.cache), None if scratch is None else scratch.data_ptr(),
+        out_k.data_ptr(), out_p.data_ptr(), out_v.data_ptr(),
     )
     return out_k, out_p, out_v
 

@@ -25,6 +25,11 @@ seeded data below that never happens, and the float-stream checks hold the
 JAX package's float32 ``arcsin`` and the port's float64 one to identical
 sketches (``test_float_stream_matches_jax_bitwise``).
 """
+import ctypes
+import importlib
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +40,9 @@ from metrics_tpu.ops.qsketch_pallas import _qsketch_compact_pallas, qsketch_sort
 from metrics_tpu.sketches import quantile as jq
 from metrics_tpu_torch import ops
 from metrics_tpu_torch.sketches import quantile as tq
+
+# the module (the package's `qsketch_sort_bucket` attribute is the wrapper)
+qsketch_module = importlib.import_module("metrics_tpu_torch.ops.qsketch")
 
 torch.set_num_threads(2)
 
@@ -301,3 +309,223 @@ def test_xla_float32_arcsin_is_not_correctly_rounded():
     share = float(np.mean(xla.view(np.int32) != rounded.view(np.int32)))
     assert 0.2 < share < 0.5
     np.testing.assert_allclose(xla, rounded, rtol=2.4e-7, atol=0)  # one ulp at most
+
+
+# ---------------------------------------------------------------------------
+# the kernel's launch plan and its sorting arithmetic, emulated in numpy
+# ---------------------------------------------------------------------------
+
+_QSKETCH_C_TYPES = {
+    "const void*": ctypes.c_void_p,
+    "void*": ctypes.c_void_p,
+    "long long": ctypes.c_longlong,
+    "int": ctypes.c_int,
+    "float": ctypes.c_float,
+}
+
+
+def test_ctypes_signature_matches_the_c_launcher():
+    """The launcher's parameters (the stream last) match the ctypes argtypes
+    its wrapper declares, the plan's constants are the kernel's, and every
+    kernel the wrapper names for profilers is a kernel of its sources."""
+    csrc = Path(qsketch_module.__file__).parent.parent / "csrc"
+    source = (csrc / qsketch_module.SOURCE).read_text()
+    header = (csrc / "bitonic.cuh").read_text()
+    extern = source[source.index('extern "C" {') :]
+    for name, argtypes in qsketch_module._SIGNATURES.items():
+        params = re.search(rf"int {name}\(([^)]*)\)", extern).group(1)
+        c_types = [re.sub(r"\s*\w+$", "", p.strip()) for p in params.split(",")]
+        assert [_QSKETCH_C_TYPES[t] for t in c_types] == list(argtypes), name
+        assert c_types[-1] == "void*"  # the stream
+    assert '#include "bitonic.cuh"' in source
+    assert f"kTile = {qsketch_module.TILE};" in header and f"kMaxWay = {qsketch_module.MAX_WAY};" in header
+    assert f"kScanThreads = {qsketch_module.SCAN_ROWS};" in source
+    assert f"kMaxScanTiles = {qsketch_module.MAX_SCAN_TILES};" in source
+    assert f"kNarrowCols = {qsketch_module.NARROW_COLS};" in source
+    for kernel in qsketch_module.CUDA_KERNELS:
+        assert re.search(rf"__global__ void(\s+__launch_bounds__\(\w+\))?\s+{kernel}\(", source + header), kernel
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 33, 255, 256, 1000, 1024, 1025, 5001, 16384, 131072, 2**20, 2**22])
+@pytest.mark.parametrize("cols", [3, 2002])
+def test_sort_plan_covers_every_key_once(n, cols):
+    """Tiles, merge groups and scan tiles of the plan each cover the n_pad
+    sorted keys exactly once; the merges end in one run; at most 1024 scan
+    tiles (one block sums their sums); scratch holds both key buffers and
+    the tile sums; rows past 16 columns take the gather."""
+    plan = qsketch_module.qsketch_plan(n, cols)
+    assert plan.n_pad == qsketch_module.next_pow2(max(n, 2)) and plan.n_pad >= max(n, 2)
+    assert plan.tile == min(plan.n_pad, qsketch_module.TILE) and plan.n_pad % plan.tile == 0
+    covered = np.zeros(plan.n_pad, np.int64)
+    for start in range(0, plan.n_pad, plan.tile):
+        covered[start : start + plan.tile] += 1
+    assert (covered == 1).all()
+    run = plan.tile
+    for pass_run, way in plan.merges:
+        assert pass_run == run and 2 <= way <= qsketch_module.MAX_WAY and plan.n_pad % (run * way) == 0
+        groups = np.arange(plan.n_pad) // (run * way)
+        assert np.bincount(groups).tolist() == [run * way] * (plan.n_pad // (run * way))
+        run *= way
+    assert run == plan.n_pad
+    assert plan.scan_tile * plan.scan_tiles == plan.n_pad and 1 <= plan.scan_tiles <= qsketch_module.MAX_SCAN_TILES
+    assert plan.scan_tile == plan.n_pad or plan.scan_tile % qsketch_module.SCAN_ROWS == 0
+    assert plan.scratch_words * 8 >= 2 * plan.n_pad * 8 + plan.scan_tiles * 4
+    assert plan.gather == (cols > qsketch_module.NARROW_COLS)
+    if plan.n_pad == 16384:
+        assert plan.merges == ((1024, 4), (4096, 4))  # the binary default: 16 tiles, two 4-way passes
+    if plan.n_pad == 131072:
+        assert plan.merges == ((1024, 4), (4096, 4), (16384, 4), (65536, 2))
+
+
+def _order_pairs(a, b, up):
+    swap = (a > b) == up
+    return np.where(swap, b, a), np.where(swap, a, b)
+
+
+def sort_shared_emulated(keys):
+    """``bitonic::sort_shared`` step for step: strides >= 32 as shared passes
+    of two strides (one when 32 is left alone), strides < 32 as warp passes
+    over 32-key chunks (all of stages 2 .. 32 in the first, a chunk past a
+    short sequence padded with keys above every key)."""
+    s = np.array(keys, np.uint64)
+    n = s.size
+
+    def warp_pass(first, k):
+        width = max(n, 32)
+        v = np.concatenate([s, np.full(width - n, np.uint64(2**64 - 1))])
+        i = np.arange(width)
+        steps = [(kk, j) for kk in (2, 4, 8, 16, 32) for j in (16, 8, 4, 2, 1) if j < kk] if first else [(k, j) for j in (16, 8, 4, 2, 1)]
+        for kk, j in steps:
+            other = v[i ^ j]
+            keep_min = ((i & j) == 0) == ((i & kk) == 0)
+            v = np.where((other < v) == keep_min, other, v)
+        s[:] = v[:n]
+
+    def pass2(k, j):
+        h = j // 2
+        t = np.arange(n // 4)
+        i = ((t & ~(h - 1)) << 2) | (t & (h - 1))
+        up = (i & k) == 0
+        a, b, c, d = s[i], s[i + h], s[i + j], s[i + j + h]
+        a, c = _order_pairs(a, c, up)
+        b, d = _order_pairs(b, d, up)
+        a, b = _order_pairs(a, b, up)
+        c, d = _order_pairs(c, d, up)
+        s[i], s[i + h], s[i + j], s[i + j + h] = a, b, c, d
+
+    def pass1(k, j):
+        t = np.arange(n // 2)
+        i = ((t & ~(j - 1)) << 1) | (t & (j - 1))
+        a, b = _order_pairs(s[i], s[i + j], (i & k) == 0)
+        s[i], s[i + j] = a, b
+
+    warp_pass(True, 0)
+    k = 64
+    while k <= n:
+        j = k // 2
+        while j >= 64:
+            pass2(k, j)
+            j //= 4
+        if j == 32:
+            pass1(k, 32)
+        warp_pass(False, k)
+        k *= 2
+    return s
+
+
+def merge_pass_emulated(keys, run, way):
+    """``bitonic::merge_pass_kernel`` over one row: each key's place is its
+    index in its run plus its rank in every other run of its group, found by
+    the kernel's lockstep binary search (equal keys of earlier runs count)."""
+    n = keys.size
+    i = np.arange(n)
+    r = i // run
+    first = r - r % way
+    own = r - first
+    place = first * run + (i - r * run)
+    for u in range(way):
+        other = (first + u) * run
+        earlier = u < own
+        at = np.zeros(n, np.int64)
+        step = run // 2
+        while step > 0:
+            probe = keys[other + at + step - 1]
+            at += step * ((probe < keys) | (earlier & (probe == keys)))
+            step //= 2
+        probe = keys[other + at]
+        at += (probe < keys) | (earlier & (probe == keys))
+        place += np.where(u == own, 0, at)
+    out = np.empty_like(keys)
+    out[place] = keys
+    assert np.array_equal(np.sort(place), i)  # a permutation
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 16, 32, 64, 128, 1024, 4096, 8192])
+@pytest.mark.parametrize("dups", [False, True])
+def test_shared_sort_schedule_sorts(n, dups):
+    rng = np.random.default_rng(n)
+    keys = rng.integers(0, 7 if dups else 2**63, n, dtype=np.uint64)
+    assert np.array_equal(sort_shared_emulated(keys), np.sort(keys))
+
+
+@pytest.mark.parametrize("n", [1, 64, 5001, 16384, 131072])
+def test_tiles_and_rank_merges_sort_the_kernel_keys(n):
+    """The plan's tile sorts and merge passes, emulated on the plain
+    version's packed keys (NaN of both signs, signed zeros, ties, zero
+    weights), give exactly the plain version's order."""
+    rng = np.random.default_rng(n)
+    rows = np.zeros((n, 3), np.float32)
+    rows[:, 0] = rng.integers(0, 3, n)
+    rows[:, 1] = rng.integers(-20, 20, n) / 4
+    pick = rng.random(n)
+    rows[pick < 0.05, 1] = np.nan
+    rows[(pick >= 0.05) & (pick < 0.08), 1] = -np.nan
+    rows[(pick >= 0.1) & (pick < 0.2), 1] = -0.0
+    plan = qsketch_module.qsketch_plan(n, 3)
+    data = np.zeros((plan.n_pad, 3), np.float32)
+    data[:n] = rows
+    keys = qsketch_module._sort_key(_t(data[:, 1]), _t(data[:, 0] > 0)).numpy().astype(np.uint64)
+    tiles = [sort_shared_emulated(keys[lo : lo + plan.tile]) for lo in range(0, plan.n_pad, plan.tile)]
+    merged = np.concatenate(tiles)
+    for run, way in plan.merges:
+        merged = merge_pass_emulated(merged, run, way)
+    _, _, perm = ops.qsketch_sort_bucket_reference(_t(rows), 64)
+    np.testing.assert_array_equal((merged & np.uint64(2**31 - 1)).astype(np.int64), perm.numpy())
+
+
+def test_rank_merge_is_stable_on_repeated_keys():
+    keys = np.sort(np.random.default_rng(0).integers(0, 5, (16, 64)), axis=1).astype(np.uint64).reshape(-1)
+    for way in (2, 4, 8, 16):
+        np.testing.assert_array_equal(merge_pass_emulated(keys, 64, way)[: 64 * way], np.sort(keys[: 64 * way]))
+
+
+def test_launch_counter_and_plan(monkeypatch):
+    """With the card faked (the launch recorded instead of made), one call
+    counts one launch under ``qsketch_sort_bucket`` however many kernels it
+    issues, and passes the plan: n_pad, the tile, the merge's way and the
+    scan tile, with scratch for both key buffers and the tile sums."""
+    calls = []
+
+    def fake_launch(kernel, lib, device, fn, *args):
+        calls.append((kernel, args[1:9]))
+        ops.count_launch(kernel)
+
+    monkeypatch.setattr(qsketch_module, "check_cuda", lambda *args: None)
+    monkeypatch.setattr(qsketch_module, "_launcher", lambda: (None, "qsketch_sort_bucket_f32"))
+    monkeypatch.setattr(qsketch_module, "launch", fake_launch)
+    ops.reset_launch_counts()
+    for n, cols in ((16384, 3), (12288, 2002), (1, 3)):
+        wvals, bucket, perm = ops.qsketch_sort_bucket(torch.zeros(n, cols), 8192)
+        plan = qsketch_module.qsketch_plan(n, cols)
+        assert wvals.shape == (plan.n_pad, cols) and bucket.shape == perm.shape == (plan.n_pad,)
+    assert ops.launch_counts()["qsketch_sort_bucket"] == 3
+    scale = 8192 / (2 * np.pi)
+    assert [c[0] for c in calls] == ["qsketch_sort_bucket"] * 3
+    # (n, cols, n_pad, capacity, tile, way, scan tile), the scale apart
+    assert [c[1][:4] + c[1][5:] for c in calls] == [
+        (16384, 3, 16384, 8192, 1024, 4, 256),
+        (12288, 2002, 16384, 8192, 1024, 4, 256),
+        (1, 3, 2, 8192, 2, 4, 2),
+    ]
+    assert all(abs(c[1][4] - scale) < 1e-9 for c in calls)
