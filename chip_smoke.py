@@ -35,8 +35,15 @@ Phases, each printed as one JSON line:
    box_iou_pairwise (K5) at [1024,1024], [4096,4096] and [1000,3000] and
    box_iou_batched (K6) at [65536,8,8], [4096,128,32], [1024,128,128],
    [16384,64,16] and [1000,100,30], with zero-area, touching, inverted and
-   zero-padded boxes, bit-exact against the plain version on the card and
-   on the CPU and across two runs, ms per call for each shape;
+   zero-padded boxes; widths 1, 2 and 3 mod 4 (K5 [1000,3001], [999,3002],
+   [1001,3003]; K6 [1000,100,30], [4096,16,5], [4096,16,7]), one-box rows
+   and units (K5 [1,4096], [4096,1]; K6 [65536,1,8], [65536,8,1],
+   [65536,1,1]); float64 at [4096,4096] and [65536,8,8]; and boxes of NaN
+   of both signs, +-0, +-inf, a subnormal and a huge value (K5 [2048,2047],
+   K6 [8192,8,6], float32 and float64): bit-exact against the plain version
+   on the card and on the CPU and a second call against the first, ms per
+   call for each case; and K5 at [32768,65540], past 2**31 outputs (64-bit
+   offsets), against the plain version on the card and run to run;
    parity_row_topk: row_topk (K4) at [2048,2176] k=64 (an insert chunk's
    widened rows) with 8 rows of the row mask set, [8192,2176] k=64 with 8
    rows set and with every row, [16384,256] k=128, [64,256] k=16,
@@ -212,10 +219,22 @@ COMPUTE_REPEATS = 5
 BOX_IOU_SOURCE = "metrics_tpu_torch/csrc/box_iou.cu"
 K5_REPLACES = "metrics_tpu/ops/box_iou_pallas.py:54"
 K6_REPLACES = "metrics_tpu/ops/box_iou_pallas.py:104"
-K5_PARITY_SHAPES = ((1024, 1024), (4096, 4096), (1000, 3000))
-K6_PARITY_SHAPES = ((65536, 8, 8), (4096, 128, 32), (1024, 128, 128), (16384, 64, 16), (1000, 100, 30))
+#: the edge shapes: widths 1, 2, 3 mod 4 (runs of 1 or 2 columns), one-box
+#: rows and units
+K5_PARITY_SHAPES = (
+    (1024, 1024), (4096, 4096), (1000, 3000), (1000, 3001), (999, 3002), (1001, 3003), (1, 4096), (4096, 1),
+)
+K6_PARITY_SHAPES = (
+    (65536, 8, 8), (4096, 128, 32), (1024, 128, 128), (16384, 64, 16), (1000, 100, 30),
+    (4096, 16, 5), (4096, 16, 7), (65536, 1, 8), (65536, 8, 1), (65536, 1, 1),
+)
 K5_LINE_SHAPE = (4096, 4096)
 K6_LINE_SHAPE = (65536, 8, 8)
+#: past 2**31 outputs (8.6 GB): the kernel's 64-bit offsets
+K5_WIDE_SHAPE = (32768, 65540)
+#: the coordinates of the edge-value boxes: NaN of both signs, +-0, +-inf, a
+#: subnormal and a huge value, beside small integers
+IOU_EDGE_VALUES = (0.0, -0.0, 1.0, -1.0, 2.0, 3.0, 7.5, 1e-40, 3e38, float("inf"), float("-inf"), float("nan"), float("-nan"))
 #: the COCO-val-sized detection stream: images, images per update, classes,
 #: seed, and a table capacity that holds them all
 MAP_IMAGES = 5000
@@ -834,21 +853,42 @@ def iou_boxes(torch, gen, n, scale=500.0):
     return boxes
 
 
+def iou_edge_boxes(torch, gen, n, dtype):
+    """``[n, 4]`` boxes whose coordinates come from :data:`IOU_EDGE_VALUES`
+    (half of them ordered pairs over those values), in ``dtype``."""
+    values = torch.tensor(IOU_EDGE_VALUES, dtype=torch.float64)
+    boxes = values[torch.randint(0, len(IOU_EDGE_VALUES), (n, 4), generator=gen)]
+    boxes[: n // 2, 2:] += boxes[: n // 2, :2]
+    return boxes.to(dtype)
+
+
 def box_iou_parity_phase(torch, ops, card):
     """K5 and K6 against their plain version, on card tensors and on the CPU,
-    bit for bit; launches here are not counted."""
+    bit for bit, and a second call against the first; launches here are not
+    counted."""
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cpu").manual_seed(2)
     results = {"box_iou_pairwise": [], "box_iou_batched": []}
-    cases = [("box_iou_pairwise", f"[{n},{m}]", (n,), (m,)) for n, m in K5_PARITY_SHAPES]
-    cases += [("box_iou_batched", f"[{u},{d},{g}]", (u, d), (u, g)) for u, d, g in K6_PARITY_SHAPES]
-    for kernel, name, lead1, lead2 in cases:
-        host1 = iou_boxes(torch, gen, int(np.prod(lead1))).reshape(*lead1, 4)
-        host2 = iou_boxes(torch, gen, int(np.prod(lead2))).reshape(*lead2, 4)
-        if kernel == "box_iou_batched":
+    cases = [("box_iou_pairwise", (n,), (m,), torch.float32, False) for n, m in K5_PARITY_SHAPES]
+    cases += [("box_iou_batched", (u, d), (u, g), torch.float32, False) for u, d, g in K6_PARITY_SHAPES]
+    # float64 at the line shapes, and the edge values in both dtypes
+    cases += [("box_iou_pairwise", K5_LINE_SHAPE[:1], K5_LINE_SHAPE[1:], torch.float64, False)]
+    cases += [("box_iou_batched", K6_LINE_SHAPE[:2], K6_LINE_SHAPE[::2], torch.float64, False)]
+    for dtype in (torch.float32, torch.float64):
+        cases += [("box_iou_pairwise", (2048,), (2047,), dtype, True), ("box_iou_batched", (8192, 8), (8192, 6), dtype, True)]
+    for kernel, lead1, lead2, dtype, edge in cases:
+        n1, n2 = int(np.prod(lead1)), int(np.prod(lead2))
+        if edge:
+            host1, host2 = iou_edge_boxes(torch, gen, n1, dtype), iou_edge_boxes(torch, gen, n2, dtype)
+        else:
+            host1, host2 = iou_boxes(torch, gen, n1).to(dtype), iou_boxes(torch, gen, n2).to(dtype)
+        host1, host2 = host1.reshape(*lead1, 4), host2.reshape(*lead2, 4)
+        if kernel == "box_iou_batched" and not edge:
             # each unit's ground truths zero-padded past a random count, as the mAP packing leaves them
             live = torch.arange(lead2[1])[None, :] < torch.randint(1, lead2[1] + 1, (lead2[0], 1), generator=gen)
             host2 = host2 * live[:, :, None]
+        name = f"[{','.join(map(str, lead1 + lead2[-1:]))}]"
+        view = torch.int64 if dtype == torch.float64 else torch.int32
         b1, b2 = host1.cuda(), host2.cuda()
         fn = getattr(ops, kernel)
         got = fn(b1, b2)
@@ -856,23 +896,34 @@ def box_iou_parity_phase(torch, ops, card):
         plain = ops.box_iou_reference(b1, b2)
         plain_cpu = ops.box_iou_reference(host1, host2)
         torch.cuda.synchronize()
-        check(torch.equal(got.view(torch.int32), again.view(torch.int32)), f"{kernel} {name}: two runs differ")
-        check(torch.equal(got.view(torch.int32), plain.view(torch.int32)), f"{kernel} {name}: differs from the plain version")
-        check(
-            torch.equal(got.cpu().view(torch.int32), plain_cpu.view(torch.int32)),
-            f"{kernel} {name}: differs from the plain version on the CPU",
-        )
+        what = f"{kernel} {name} {str(dtype)[6:]}{' edge values' if edge else ''}"
+        check(got.dtype == dtype and got.shape == plain_cpu.shape, f"{what}: dtype or shape differs")
+        check(torch.equal(got.view(view), again.view(view)), f"{what}: two runs differ")
+        check(torch.equal(got.view(view), plain.view(view)), f"{what}: differs from the plain version")
+        check(torch.equal(got.cpu().view(view), plain_cpu.view(view)), f"{what}: differs from the plain version on the CPU")
         results[kernel].append(
             {
                 "case": name,
+                "dtype": str(dtype)[6:],
+                "edge_values": edge,
                 "max_abs_err": float((got - plain).abs().max()),
                 "ms": time_ms(torch, lambda: fn(b1, b2), launches=20),
                 "card": card,
             }
         )
-    # float64 keeps float64 through the same kernel
-    b1, b2 = (iou_boxes(torch, gen, 256).double().reshape(16, 16, 4).cuda() for _ in range(2))
-    check(torch.equal(ops.box_iou_batched(b1, b2), ops.box_iou_reference(b1, b2)), "box_iou_batched float64 differs")
+    # past 2**31 outputs the wrapper takes 64-bit offsets: held against the
+    # plain version on the card, 1024 rows at a time, and run to run
+    b1, b2 = (iou_boxes(torch, gen, n).cuda() for n in K5_WIDE_SHAPE)
+    check(import_module("metrics_tpu_torch.ops.box_iou").box_iou_geometry(1, *K5_WIDE_SHAPE)[2], "no 64-bit offsets")
+    got = ops.box_iou_pairwise(b1, b2)
+    check(torch.equal(got.view(torch.int32), ops.box_iou_pairwise(b1, b2).view(torch.int32)), "box_iou_pairwise wide: two runs differ")
+    for i in range(0, K5_WIDE_SHAPE[0], 1024):
+        plain = ops.box_iou_reference(b1[i : i + 1024], b2)
+        check(torch.equal(got[i : i + 1024].view(torch.int32), plain.view(torch.int32)), f"box_iou_pairwise wide: rows {i}+ differ")
+    wide_ms = time_ms(torch, lambda: ops.box_iou_pairwise(b1, b2), launches=5)
+    del got, plain
+    wide_case = f"[{K5_WIDE_SHAPE[0]},{K5_WIDE_SHAPE[1]}]"
+    results["box_iou_pairwise"].append({"case": wide_case, "dtype": "float32", "max_abs_err": 0.0, "ms": wide_ms, "card": card})
     emit({"phase": "parity_box_iou", "seconds": time.perf_counter() - t_phase, **results})
 
 
@@ -2531,7 +2582,7 @@ def main():
                 "library_ms": None,
                 "library_note": iou_note,
                 "host_us_per_call": host_us_per_call(torch, lambda: fn(b1, b2)),
-                **kernel_device_time(torch, lambda: fn(b1, b2), "box_iou_kernel"),
+                **kernel_device_time(torch, lambda: fn(b1, b2), import_module("metrics_tpu_torch.ops.box_iou").CUDA_KERNELS),
             }
         )
     kernels.append(row_topk_line(torch, ops, retrieval_launches, k4_captured))

@@ -3,8 +3,8 @@ entry point.
 
 Counterpart of ``metrics_tpu/ops/box_iou_pallas.py`` (``box_iou_tiled``,
 ``box_iou_batched_tiled`` and their ``box_iou_dispatch`` entry). Both kernels
-are one CUDA kernel in ``csrc/box_iou.cu`` (see its header for the design),
-counted under two names:
+are one CUDA kernel template in ``csrc/box_iou.cu`` (see its header for the
+design), counted under two names:
 
 * :func:`box_iou_pairwise` -- ``[N, 4] x [M, 4] -> [N, M]`` (K5);
 * :func:`box_iou_batched` -- ``[U, D, 4] x [U, G, 4] -> [U, D, G]``, one
@@ -20,6 +20,8 @@ boxes in float64 on both routes, so the result's dtype and values never
 depend on the route.
 """
 import ctypes
+import functools
+from typing import Tuple
 
 import torch
 
@@ -30,11 +32,23 @@ Tensor = torch.Tensor
 
 SOURCE = "box_iou.cu"
 
+#: the CUDA kernels one call may launch (a profiler sums them per call):
+#: one template, instantiated per dtype, run width and offset width
+CUDA_KERNELS = ("box_iou_kernel",)
+
+#: rows of its unit a thread walks at most; while the walk lengthens, the
+#: threads a launch keeps at least (a wave of 1024 threads an SM on 132 SMs)
+#: and the lanes a unit keeps per row step (a float32 warp's stores then
+#: stay runs of whole 128-byte lines)
+MAX_ROWS = 8
+MIN_THREADS = 1 << 17
+MIN_UNIT_LANES = 8
+
 _PTR, _LL, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-#: (boxes1, boxes2, out, units, d, g, lanes, stream)
+#: (boxes1, boxes2, out, units, d, g, vec, row_threads, wide, stream)
 _SIGNATURES = {
-    "box_iou_f32": [_PTR, _PTR, _PTR, _LL, _LL, _LL, _I32, _PTR],
-    "box_iou_f64": [_PTR, _PTR, _PTR, _LL, _LL, _LL, _I32, _PTR],
+    "box_iou_f32": [_PTR, _PTR, _PTR, _LL, _LL, _LL, _I32, _LL, _I32, _PTR],
+    "box_iou_f64": [_PTR, _PTR, _PTR, _LL, _LL, _LL, _I32, _LL, _I32, _PTR],
 }
 
 
@@ -60,12 +74,40 @@ def _check_boxes(name: str, boxes1: Tensor, boxes2: Tensor, ndim: int) -> None:
         raise ValueError(f"{name}: the leading (unit) dims differ, {boxes1.shape[0]} and {boxes2.shape[0]}")
 
 
-def _lanes(g: int) -> int:
-    """Threads of a block along the G axis: G rounded up to a power of two, at most 32."""
-    lanes = 1
-    while lanes < min(g, 32):
-        lanes *= 2
-    return lanes
+@functools.lru_cache(maxsize=1024)
+def box_iou_geometry(units: int, d: int, g: int, dtype: torch.dtype = torch.float32) -> Tuple[int, int, bool]:
+    """The kernel's launch geometry for ``[units, d, 4] x [units, g, 4]``
+    in ``dtype``: ``(vec, row_threads, wide)``.
+
+    ``vec`` columns a thread owns: in float32 the widest of 4 and 2 that
+    divides ``g`` and leaves the launch :data:`MIN_THREADS` threads, else 1,
+    so each run is one aligned vector store; in float64 1 (its FP64 pipe
+    binds, and more threads beat fewer loads).
+    ``row_threads`` threads per unit along ``d``, each walking every
+    ``row_threads``-th row: the walk doubles up to :data:`MAX_ROWS` rows
+    while the launch keeps :data:`MIN_THREADS` threads and each unit
+    :data:`MIN_UNIT_LANES` lanes a row step. ``wide``: 64-bit offsets, once
+    the output or the boxes hold ``2**31`` elements or more.
+    """
+    vec = 1
+    if dtype != torch.float64:
+        vec = next((v for v in (4, 2) if g % v == 0 and units * d * (g // v) >= MIN_THREADS), 1)
+    runs = g // vec
+    rows = 1
+    while rows < MAX_ROWS and 2 * rows <= d:
+        row_threads = -(-d // (2 * rows))
+        if units * row_threads * runs < MIN_THREADS or row_threads * runs < MIN_UNIT_LANES:
+            break
+        rows *= 2
+    wide = max(units * d * g, 4 * units * max(d, g)) >= 2**31
+    return vec, -(-d // rows), wide
+
+
+def _aligned(boxes: Tensor, dtype: torch.dtype) -> Tensor:
+    """``boxes`` in ``dtype``, contiguous and 16-byte aligned (the kernel
+    reads a box with 16-byte loads; a view may start mid-box)."""
+    boxes = boxes.to(dtype).contiguous()
+    return boxes if boxes.data_ptr() % 16 == 0 else boxes.clone()
 
 
 def _launch(kernel: str, boxes1: Tensor, boxes2: Tensor, units: int, d: int, g: int) -> Tensor:
@@ -73,11 +115,11 @@ def _launch(kernel: str, boxes1: Tensor, boxes2: Tensor, units: int, d: int, g: 
     out = torch.empty((units, d, g), dtype=dtype, device=boxes1.device)
     if out.numel() == 0:  # nothing to compute: no launch
         return out
-    b1 = boxes1.to(dtype).contiguous()
-    b2 = boxes2.to(dtype).contiguous()
+    b1, b2 = _aligned(boxes1, dtype), _aligned(boxes2, dtype)
     lib = load_library()
     fn = lib.box_iou_f64 if dtype == torch.float64 else lib.box_iou_f32
-    launch(kernel, lib, b1.device, fn, b1.data_ptr(), b2.data_ptr(), out.data_ptr(), units, d, g, _lanes(g))
+    vec, row_threads, wide = box_iou_geometry(units, d, g, dtype)
+    launch(kernel, lib, b1.device, fn, b1.data_ptr(), b2.data_ptr(), out.data_ptr(), units, d, g, vec, row_threads, int(wide))
     return out
 
 
