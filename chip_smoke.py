@@ -78,6 +78,27 @@ Phases, each printed as one JSON line:
 4. stateful -- MetricCollection(ConfusionMatrix, AUROC(capacity=65536)) over
    12 batches (49,152 rows), launch counters reset and read likewise,
    computed values checked against the same numpy references;
+4b. classification-collection -- bench.py's bench_fused data (seed 7, 10
+   classes, softmax rows in batches of 1900/2000/2048 cycled ten times: 30
+   updates) through the port's eager MetricCollection of Accuracy, macro
+   Precision, Recall and F1Score, ConfusionMatrix, CohenKappa,
+   MatthewsCorrCoef and JaccardIndex (three compute groups); the first
+   update forms the groups, then the launch counters are reset and the
+   other 29 timed (one bincount_i32 launch each); gates: every state bit
+   for bit against the same run on the CPU and against a second card run,
+   every value within rtol 1e-6 / atol 1e-7 of the CPU (kappa and MCC
+   atol 1e-5), top-1 accuracy equal to numpy's count and the confusion
+   matrix to np.bincount; updates/s, ms per update, compute ms, host syncs
+   per update (warnings of torch.cuda.set_sync_debug_mode("warn") over
+   three updates), device ms per update, idle share and top device ops
+   (three updates under torch.profiler), the compute groups;
+4c. classification-flagship -- 12 flagship batches through eleven metrics
+   (Accuracy, Accuracy(top_k=5), macro Precision, Recall and F1Score,
+   weighted Specificity, HammingDistance, StatScores(reduce="macro"),
+   MatthewsCorrCoef, quadratic CohenKappa, JaccardIndex, all at 1000
+   classes), the same gates (top-1 and top-5 counts against numpy's argmax
+   and stable argsort, every group's confusion matrix against np.bincount)
+   and the same fields;
 5. sketch-binary -- the sketched default AUROC() (capacity 8192) streams
    800 batches of 8192 (6,553,600 samples, seed 42: y = rand < 0.26, score
    = sigmoid(randn + 1.2 y)); launch counters reset and read likewise (every
@@ -171,7 +192,9 @@ Phases, each printed as one JSON line:
    and with every row active; K2 and segment_sum_i32 at the sliced
    update's [256] -> 1000; segment_sum_f32 also at the sketch-binary
    compaction's and the retrieval insert's own skewed inputs, each with its
-   path's launches); each device time per wrapper call (every CUDA kernel
+   path's launches; bincount_i32 also at the classification phases' own
+   ids, [2048] -> 100 bins and [4096] -> 10**6, with each phase's
+   launches); each device time per wrapper call (every CUDA kernel
    the wrapper issues, merge passes and combines included, summed) with the
    number of profiler windows it took (a window that saw no launch is taken
    again, at most three in all).
@@ -198,6 +221,12 @@ ITERS = 50
 WARMUP = 1
 CAPACITY = 65536
 STATEFUL_BATCHES = 12
+#: classification-collection: bench.py's bench_fused data (10 classes, three
+#: ragged batch shapes cycled ten times); classification-flagship: 12 batches
+CLS_CLASSES = 10
+CLS_SHAPES = (1900, 2000, 2048)
+CLS_REPEATS = 10
+CLS_FLAGSHIP_BATCHES = 12
 #: H100 SXM HBM3 bandwidth (NVIDIA data sheet), for the byte bounds
 HBM_BYTES_PER_S = 3.35e12
 KERNEL_SOURCE = "metrics_tpu_torch/csrc/segment_sum.cu"
@@ -2256,6 +2285,260 @@ def segment_fold_line(torch, ops, name, source, replaces, launches, args, plain_
     }
 
 
+def fused_batches():
+    """bench.py's ``bench_fused`` data: ``RandomState(7)``, one batch of each
+    ragged shape over 10 classes (rows of ``rand`` normalised, then the labels)."""
+    rng = np.random.RandomState(7)
+    batches = []
+    for n in CLS_SHAPES:
+        p = rng.rand(n, CLS_CLASSES).astype(np.float32)
+        p /= p.sum(-1, keepdims=True)
+        batches.append((p, rng.randint(0, CLS_CLASSES, n)))
+    return batches
+
+
+def fused_collection(tm, device):
+    """bench_fused's six metrics plus MatthewsCorrCoef and JaccardIndex."""
+    c = CLS_CLASSES
+    return tm.MetricCollection(
+        [
+            tm.Accuracy(device=device),
+            tm.Precision(num_classes=c, average="macro", device=device),
+            tm.Recall(num_classes=c, average="macro", device=device),
+            tm.F1Score(num_classes=c, average="macro", device=device),
+            tm.ConfusionMatrix(num_classes=c, device=device),
+            tm.CohenKappa(num_classes=c, device=device),
+            tm.MatthewsCorrCoef(num_classes=c, device=device),
+            tm.JaccardIndex(num_classes=c, device=device),
+        ]
+    )
+
+
+def flagship_collection(tm, device):
+    """Eleven metrics over the flagship's 1000 classes."""
+    c = NUM_CLASSES
+    return tm.MetricCollection(
+        {
+            "Accuracy": tm.Accuracy(device=device),
+            "AccuracyTop5": tm.Accuracy(top_k=5, device=device),
+            "Precision": tm.Precision(num_classes=c, average="macro", device=device),
+            "Recall": tm.Recall(num_classes=c, average="macro", device=device),
+            "F1Score": tm.F1Score(num_classes=c, average="macro", device=device),
+            "Specificity": tm.Specificity(num_classes=c, average="weighted", device=device),
+            "HammingDistance": tm.HammingDistance(device=device),
+            "StatScores": tm.StatScores(reduce="macro", num_classes=c, device=device),
+            "MatthewsCorrCoef": tm.MatthewsCorrCoef(c, device=device),
+            "CohenKappa": tm.CohenKappa(c, weights="quadratic", device=device),
+            "JaccardIndex": tm.JaccardIndex(c, device=device),
+        }
+    )
+
+
+def cls_tolerance(key):
+    """(rtol, atol) of a value, card against CPU: kappa and MCC by an
+    absolute bound (float32 cancellation near 0), the rest as the tests."""
+    return (0.0, 1e-5) if key in ("CohenKappa", "MatthewsCorrCoef") else (1e-6, 1e-7)
+
+
+def collection_states(torch, collection):
+    """Every metric's states, on the host."""
+    return {
+        f"{key}.{name}": getattr(metric, name).detach().cpu()
+        for key, metric in collection.items(keep_base=True)
+        for name in metric._defaults
+    }
+
+
+def run_collection(torch, ops, make, batches):
+    """One run: a fresh collection, its first update (which forms the compute
+    groups), the launch counters reset, the other updates timed, then a cold
+    compute(). Returns the collection, values, states and timings."""
+    collection = make()
+    sync = torch.cuda.synchronize if batches[0][0].is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    collection.update(*batches[0])
+    sync()
+    first_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for preds, target in batches[1:]:
+        collection.update(preds, target)
+    sync()
+    update_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    t0 = time.perf_counter()
+    values = collection.compute()
+    sync()
+    compute_s = time.perf_counter() - t0
+    return {
+        "collection": collection,
+        "values": {k: v.detach().cpu() for k, v in values.items()},
+        "states": collection_states(torch, collection),
+        "launches": launches,
+        "first_update_s": first_s,
+        "update_s": update_s,
+        "compute_s": compute_s,
+    }
+
+
+def host_syncs_per_update(torch, collection, batches):
+    """Host synchronisations per update (steady state), counted as the
+    warnings of ``torch.cuda.set_sync_debug_mode("warn")`` (the mode's own
+    one-time notice that it is a prototype is not one)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for preds, target in batches:
+                collection.update(preds, target)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    return len(syncs) / len(batches)
+
+
+def classification_phase(torch, ops, card, name, make, card_batches, cpu_batches, numpy_checks):
+    """The port's eager MetricCollection.update on the card over
+    ``card_batches``, against the same run on the CPU (every state bit for
+    bit, every value within its tolerance) and a second card run (bit for
+    bit), with ``numpy_checks(values, states)``; then host syncs per
+    update and three updates under torch.profiler."""
+    run = run_collection(torch, ops, lambda: make("cuda"), card_batches)
+    again = run_collection(torch, ops, lambda: make("cuda"), card_batches)
+    cpu = run_collection(torch, ops, lambda: make("cpu"), cpu_batches)
+    groups = {str(k): v for k, v in run["collection"].compute_groups.items()}
+    check(groups == {str(k): v for k, v in cpu["collection"].compute_groups.items()}, f"{name}: card and CPU groups differ")
+    for key, state in run["states"].items():
+        check(state.dtype == cpu["states"][key].dtype, f"{name}: {key} dtype {state.dtype}")
+        check(torch.equal(state, cpu["states"][key]), f"{name}: state {key} differs between the card and the CPU")
+        check(torch.equal(state, again["states"][key]), f"{name}: state {key} differs between two card runs")
+    errors = {}
+    for key, value in run["values"].items():
+        want = cpu["values"][key]
+        check(torch.equal(value, again["values"][key]), f"{name}: {key} differs between two card runs")
+        rtol, atol = cls_tolerance(key)
+        err = float((value.double() - want.double()).abs().max())
+        check(bool(torch.isfinite(value).all()), f"{name}: {key} is not finite: {value}")
+        check(err <= atol + rtol * float(want.double().abs().max()), f"{name}: {key} off the CPU by {err}")
+        errors[key] = err
+    numpy_checks(run["values"], run["states"])
+    steady = len(card_batches) - 1
+    check(run["launches"].get("bincount_i32") == steady, f"{name}: bincount_i32 launches {run['launches']}")
+
+    collection = make("cuda")
+    collection.update(*card_batches[0])
+    syncs = host_syncs_per_update(torch, collection, card_batches[1:4])
+    ms_per_update = run["update_s"] / steady * 1e3
+    profile = device_profile(torch, lambda i: collection.update(*card_batches[1 + i]), 3)
+    emit(
+        {
+            "phase": name,
+            "card": card,
+            "updates": len(card_batches),
+            "rows": sum(int(p.shape[0]) for p, _ in card_batches),
+            "updates_per_s": steady / run["update_s"],
+            "ms_per_update": ms_per_update,
+            "ms_per_update_second_run": again["update_s"] / steady * 1e3,
+            "first_update_ms": run["first_update_s"] * 1e3,
+            "compute_ms": run["compute_s"] * 1e3,
+            "cpu_ms_per_update": cpu["update_s"] / steady * 1e3,
+            **profile,
+            "device_idle_share": 1 - profile["device_busy_ms_per_step"] / ms_per_update,
+            "host_syncs_per_update": syncs,
+            "compute_groups": groups,
+            "launches": run["launches"],
+            "values": {k: v.tolist() for k, v in run["values"].items() if v.numel() <= 8},
+            "max_abs_err_vs_cpu": errors,
+        }
+    )
+    return run
+
+
+def classification_phases(torch, ops, card, tm, preds_all, target_all, preds_np, target_np):
+    """classification-collection (bench_fused's data and collection plus
+    MCC and Jaccard) and classification-flagship (12 flagship batches
+    through eleven metrics). Returns each phase's bincount_i32 launches and
+    its ids, for the kernels line."""
+    fused = fused_batches()
+    epoch = [fused[i % len(fused)] for i in range(len(fused) * CLS_REPEATS)]
+    card_epoch = [(torch.from_numpy(p).cuda(), torch.from_numpy(t).cuda()) for p, t in epoch]
+    cpu_epoch = [(torch.from_numpy(p), torch.from_numpy(t)) for p, t in epoch]
+    fused_preds = np.concatenate([p for p, _ in epoch])
+    fused_target = np.concatenate([t for _, t in epoch])
+
+    def fused_numpy(values, states):
+        labels = fused_preds.argmax(axis=1)
+        count = int((labels == fused_target).sum())
+        check(int(states["Accuracy.tp"]) == count, f"classification-collection: top-1 count {int(states['Accuracy.tp'])} != {count}")
+        want = np.float32(count) / np.float32(fused_target.size)
+        check(float(values["Accuracy"]) == float(want), f"classification-collection: accuracy {float(values['Accuracy'])} != {want}")
+        cm = np.bincount(fused_target * CLS_CLASSES + labels, minlength=CLS_CLASSES**2).reshape(CLS_CLASSES, CLS_CLASSES)
+        check(np.array_equal(values["ConfusionMatrix"].numpy(), cm), "classification-collection: confusion matrix differs from np.bincount")
+
+    collection_run = classification_phase(
+        torch, ops, card, "classification-collection", lambda d: fused_collection(tm, d), card_epoch, cpu_epoch, fused_numpy
+    )
+
+    n = CLS_FLAGSHIP_BATCHES
+    card_batches = [(preds_all[i], target_all[i]) for i in range(n)]
+    cpu_batches = [(p.cpu(), t.cpu()) for p, t in card_batches]
+    flat_preds = preds_np[:n].reshape(n * BATCH, NUM_CLASSES)
+    flat_target = target_np[:n].reshape(-1)
+
+    def flagship_numpy(values, states):
+        rows = np.float32(flat_target.size)
+        labels = flat_preds.argmax(axis=1)
+        top5 = np.argsort(-flat_preds, axis=1, kind="stable")[:, :5]
+        for key, count in (
+            ("Accuracy", int((labels == flat_target).sum())),
+            ("AccuracyTop5", int((top5 == flat_target[:, None]).any(axis=1).sum())),
+        ):
+            check(int(states[f"{key}.tp"]) == count, f"classification-flagship: {key} count {int(states[f'{key}.tp'])} != {count}")
+            check(float(values[key]) == float(np.float32(count) / rows), f"classification-flagship: {key} {float(values[key])}")
+        cm = np.bincount(flat_target * NUM_CLASSES + labels, minlength=NUM_CLASSES**2).reshape(NUM_CLASSES, NUM_CLASSES)
+        for key in ("MatthewsCorrCoef", "CohenKappa", "JaccardIndex"):
+            check(np.array_equal(states[f"{key}.confmat"].numpy(), cm), f"classification-flagship: {key} confmat differs from np.bincount")
+
+    flagship_run = classification_phase(
+        torch, ops, card, "classification-flagship", lambda d: flagship_collection(tm, d), card_batches, cpu_batches, flagship_numpy
+    )
+    collection_ids = card_epoch[2][1] * CLS_CLASSES + card_epoch[2][0].argmax(dim=1)
+    return {
+        "classification-collection": (collection_run["launches"], collection_ids, CLS_CLASSES**2),
+        "classification-flagship": (flagship_run["launches"], target_all[0] * NUM_CLASSES + preds_all[0].argmax(dim=1), NUM_CLASSES**2),
+    }
+
+
+def bincount_line(torch, ops, path, launches, ids, bins):
+    """A kernels-line entry of ``bincount_i32`` at a path's own ids."""
+    got, plain = ops.bincount_i32(ids, bins), ops.bincount_reference(ids, bins)
+    check(torch.equal(got, plain), f"bincount_i32 at the {path} ids differs from the plain version")
+
+    def call():
+        return ops.bincount_i32(ids, bins)
+
+    return {
+        "name": "bincount_i32",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": REPLACES,
+        "path": path,
+        "shape": [list(ids.shape), bins],
+        "launches": launches.get("bincount_i32", 0),
+        "max_abs_err": float((got - plain).abs().max()),
+        "ms": time_ms(torch, call),
+        "plain_ms": time_ms(torch, lambda: ops.bincount_reference(ids, bins)),
+        # ids read once, counts written once
+        "bound_ms": (ids.numel() * ids.element_size() + bins * 4) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": time_ms(torch, lambda: torch.bincount(ids, minlength=bins)),
+        "host_us_per_call": host_us_per_call(torch, call),
+        **kernel_device_time(torch, call, "bincount_i32_kernel"),
+    }
+
+
 def main():
     import torch
 
@@ -2442,6 +2725,12 @@ def main():
         }
     )
 
+    # the stat-scores and confusion-matrix family: bench_fused's collection
+    # and eleven metrics over flagship batches (K1's bincount_i32)
+    cls_k1 = classification_phases(
+        torch, ops, card, import_module("metrics_tpu_torch"), preds_all, target_all, preds_np, target_np
+    )
+
     # 5-7. the sketched default: binary (the main path of K3), inside its
     # window, and at 1000 classes
     sketch_launches, score_np, y_np, sketch_metric, sketch_batch, sketch_k1 = sketch_binary_phase(torch, ops, card, AUROC)
@@ -2616,6 +2905,9 @@ def main():
             exact_fn=lambda v, i, n: ops.segment_sum_reference(v.cpu(), i.cpu(), n).to(v.device),
         )
         kernels.append({**line, "path": path})
+    # bincount_i32 at the classification phases' own ids, with their launches
+    for path, (launches, ids, bins) in cls_k1.items():
+        kernels.append(bincount_line(torch, ops, path, launches, ids, bins))
     emit({"phase": "kernel_times", "card": card})
     emit({"kernels": kernels})
     print(card, flush=True)

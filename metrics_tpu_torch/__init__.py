@@ -3,8 +3,11 @@
 It imports ``torch`` and ``numpy``, never ``jax`` and nothing of
 ``metrics_tpu``. Metrics run on the card unless ``device="cpu"`` is passed;
 their kernels are hand-written CUDA, built from ``csrc/`` at first use (see
-:mod:`metrics_tpu_torch.ops`). Ported so far: ``ConfusionMatrix``, the
-exact rank AUROC and the curve AUROC (functional), ``AUROC`` in its
+:mod:`metrics_tpu_torch.ops`). Ported so far: the stat-scores family
+(``StatScores``, ``Accuracy``, ``Precision``, ``Recall``, ``FBetaScore``,
+``F1Score``, ``Specificity``, ``HammingDistance``), the confusion-matrix
+family (``ConfusionMatrix``, ``CohenKappa``, ``JaccardIndex``,
+``MatthewsCorrCoef``) and their functionals, the exact rank AUROC and the curve AUROC (functional), ``AUROC`` in its
 sketched streaming default (binary, one-vs-rest, multilabel) and its
 capacity modes, ``MeanAveragePrecision`` (COCO mAP/mAR, its reservoir
 table and its exact mode), the eight retrieval metrics (their per-query
@@ -15,7 +18,21 @@ table and their exact mode), ``MeanSquaredError`` and
 reservoir and the streaming moments (:mod:`metrics_tpu_torch.sketches`)
 and ``MetricCollection``.
 """
-from metrics_tpu_torch.classification import AUROC, ConfusionMatrix  # noqa: F401
+from metrics_tpu_torch.classification import (  # noqa: F401
+    AUROC,
+    Accuracy,
+    CohenKappa,
+    ConfusionMatrix,
+    F1Score,
+    FBetaScore,
+    HammingDistance,
+    JaccardIndex,
+    MatthewsCorrCoef,
+    Precision,
+    Recall,
+    Specificity,
+    StatScores,
+)
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
 from metrics_tpu_torch.core.metric import Metric  # noqa: F401
 from metrics_tpu_torch.detection import MeanAveragePrecision  # noqa: F401

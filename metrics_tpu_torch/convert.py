@@ -2,10 +2,11 @@
 
 A metric of the JAX package has no weights: what it has accumulated is its
 state dict, the output of ``update_state``. :func:`state_from_jax` takes
-that dict with each leaf turned into a numpy array (``np.asarray``) and
-returns the port's state dict for the same metric, which ``compute_state``
-and ``update_state`` of the port's metric accept, so an epoch started in
-JAX can be continued and computed here.
+that dict with each leaf turned into a numpy array (``np.asarray``; a list
+state, such as ``StatScores(reduce="samples")`` keeps, as a list of them)
+and returns the port's state dict for the same metric, which
+``compute_state`` and ``update_state`` of the port's metric accept, so an
+epoch started in JAX can be continued and computed here.
 
 Some metrics also keep host-side attributes that their states need to be
 read: a sketched ``AUROC`` fixes its input mode (binary, multiclass,
@@ -19,16 +20,18 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.core.metric import Metric, StateValue
 from metrics_tpu_torch.utils.data import _resolve_device
 
 
 def state_from_jax(
     state: Mapping[str, np.ndarray], metric: Metric, device: Optional[Any] = None, host_from: Optional[Any] = None
-) -> Dict[str, torch.Tensor]:
+) -> Dict[str, StateValue]:
     """Tensors on ``device`` (default: the metric's) with the same dtypes as
     the numpy leaves (int32 stays int32). The names, shapes and dtypes must
-    match ``metric.init_state()``; a mismatch raises ``ValueError``.
+    match ``metric.init_state()``; a mismatch raises ``ValueError``. A list
+    state becomes a list of tensors, one per element, in order; it must be
+    a list state of ``metric`` too.
 
     ``host_from`` (the JAX metric that accumulated ``state``) first sets
     ``metric``'s host-side attributes (``metric._host_state``) to its own;
@@ -39,14 +42,16 @@ def state_from_jax(
     template = metric.init_state()
     if set(state) != set(template):
         raise ValueError(f"state names {sorted(state)} do not match {type(metric).__name__}'s {sorted(template)}")
-    out: Dict[str, torch.Tensor] = {}
+    out: Dict[str, StateValue] = {}
     for name, value in state.items():
-        # a writable C-ordered copy (numpy views of JAX arrays are read-only);
-        # np.ascontiguousarray would turn a 0-d leaf into shape (1,)
-        tensor = torch.from_numpy(np.array(value, order="C")).to(device)
         expected = template[name]
+        if isinstance(expected, list) != isinstance(value, (list, tuple)):
+            kind = "a list" if isinstance(expected, list) else "a tensor"
+            raise ValueError(f"state {name!r} is {kind} state of {type(metric).__name__}")
         if isinstance(expected, list):
-            raise ValueError(f"list state {name!r} cannot be carried over; this slice carries tensor states")
+            out[name] = [_leaf(v, device) for v in value]
+            continue
+        tensor = _leaf(value, device)
         if tuple(tensor.shape) != tuple(expected.shape) or tensor.dtype != expected.dtype:
             raise ValueError(
                 f"state {name!r}: got {tuple(tensor.shape)} {tensor.dtype},"
@@ -54,6 +59,12 @@ def state_from_jax(
             )
         out[name] = tensor
     return out
+
+
+def _leaf(value: np.ndarray, device: torch.device) -> torch.Tensor:
+    # a writable C-ordered copy (numpy views of JAX arrays are read-only);
+    # np.ascontiguousarray would turn a 0-d leaf into shape (1,)
+    return torch.from_numpy(np.array(value, order="C")).to(device)
 
 
 def _host_value(value: Any) -> Any:

@@ -56,8 +56,10 @@ def _basic_input_validation(
     threshold: float,
     multiclass: Optional[bool],
     ignore_index: Optional[int],
+    stats: Optional[Dict[str, int]] = None,
 ) -> Dict[str, int]:
-    """Case-independent validation; returns the value stats it read."""
+    """Case-independent validation; returns the value stats it read, or
+    ``stats`` when the caller already read them from the same values."""
     if _check_for_empty_tensors(preds, target):
         return {}
     if target.is_floating_point():
@@ -69,7 +71,8 @@ def _basic_input_validation(
     if preds.shape[0] != target.shape[0]:
         raise ValueError("The `preds` and `target` should have the same first dimension.")
 
-    stats = _value_stats(preds, target)
+    if stats is None:
+        stats = _value_stats(preds, target)
     tmin = stats.get("tmin", 0)
     if ignore_index is None and tmin < 0:
         raise ValueError("The `target` has to be a non-negative tensor.")
@@ -208,10 +211,12 @@ def _check_inputs_with_stats(
     multiclass: Optional[bool],
     top_k: Optional[int],
     ignore_index: Optional[int] = None,
+    stats: Optional[Dict[str, int]] = None,
 ) -> Tuple[DataType, Dict[str, int]]:
     """:func:`_check_classification_inputs`, also returning the value stats
-    it read so that a caller needs no second host read."""
-    stats = _basic_input_validation(preds, target, threshold, multiclass, ignore_index)
+    it read so that a caller needs no second host read. Given ``stats``
+    (read from the same values, squeezed or not), it reads nothing."""
+    stats = _basic_input_validation(preds, target, threshold, multiclass, ignore_index, stats)
     case, implied_classes = _check_shape_and_type_consistency(preds, target, stats)
 
     if preds.shape != target.shape:
@@ -286,11 +291,14 @@ def _input_format_classification(
     num_classes: Optional[int] = None,
     multiclass: Optional[bool] = None,
     ignore_index: Optional[int] = None,
+    stats: Optional[Dict[str, int]] = None,
 ) -> Tuple[Tensor, Tensor, DataType]:
     """Convert every supported input style to canonical int32 binary tensors.
 
     Returns ``(preds, target, case)`` with preds/target of shape ``(N, C)``
     or ``(N, C, X)``, as ``metrics_tpu``'s function of the same name does.
+    ``stats`` are value stats a caller already read from these inputs
+    (:func:`_check_inputs_with_stats`); the checks then read nothing.
     """
     preds, target = _input_squeeze(preds, target)
 
@@ -305,6 +313,7 @@ def _input_format_classification(
         multiclass=multiclass,
         top_k=top_k,
         ignore_index=ignore_index,
+        stats=stats,
     )
 
     if case in (DataType.BINARY, DataType.MULTILABEL) and not top_k:

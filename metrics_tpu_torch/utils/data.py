@@ -1,6 +1,6 @@
 """Tensor helpers: device placement, dim-zero reducers, one-hot, top-k
-selection, collection mapping, query grouping, the routed bincount and the
-payload sort.
+selection, collection mapping, query grouping, the safe division, the
+routed bincount and the payload sort.
 
 Counterpart of ``metrics_tpu/utils/data.py``. The JAX package runs with
 x64 off, so its integer states are int32 and its host floats become
@@ -234,6 +234,11 @@ def get_group_indexes(indexes: Tensor) -> List[Tensor]:
     order = np.argsort(ids, kind="stable")
     boundaries = np.nonzero(np.diff(ids[order]))[0] + 1
     return [torch.as_tensor(g.astype(np.int32), device=indexes.device) for g in np.split(order, boundaries)]
+
+
+def _safe_divide(num: Tensor, denom: Tensor) -> Tensor:
+    """``num / denom`` with ``denom`` taken as 1 where it is 0."""
+    return num / torch.where(denom == 0, 1, denom)
 
 
 def _bincount(x: Any, minlength: int) -> Tensor:

@@ -1,7 +1,7 @@
 """String-valued enums for metric configuration.
 
 The port's own copy of ``metrics_tpu/utils/enums.py`` (the case-deduction
-``DataType`` and averaging enums). All enums compare case-insensitively
+``DataType`` and the two averaging enums). All enums compare case-insensitively
 against strings.
 """
 from enum import Enum
@@ -37,3 +37,9 @@ class AverageMethod(EnumStr):
     NONE = "none"
     SAMPLES = "samples"
 
+
+class MDMCAverageMethod(EnumStr):
+    """Handling of the extra dimension of multi-dim multi-class inputs."""
+
+    GLOBAL = "global"
+    SAMPLEWISE = "samplewise"

@@ -50,7 +50,7 @@ _MODES = ("ring", "decay")
 
 _N_VALID_NOT_PORTED = (
     "WindowedMetric's pad-and-mask update (`n_valid`) belongs to the fused path, which is not"
-    " ported yet (ROADMAP.md, queue A.6: 'fused and async update')"
+    " ported yet (ROADMAP.md, queue A.2: 'fused and async update')"
 )
 
 

@@ -188,9 +188,16 @@ def test_state_from_jax_continues_the_epoch():
     carried.load_state_dict(state)
     _feed_lists((jm, carried), IMAGES[12:])
     _assert_results_equal(jm.compute(), carried.compute())
+    # the exact mode's list states carry over element by element
+    jex, first_half = _pair(**CONFIGS["exact"])
+    _feed_lists((jex, first_half), IMAGES[:12])
+    exact = _pair(**CONFIGS["exact"])[1]
+    state = state_from_jax({k: [np.asarray(x) for x in v] for k, v in jex.state_dict().items()}, exact)
+    exact.load_state_dict(state)
+    _feed_lists((jex, exact), IMAGES[12:])
+    _assert_results_equal(jex.compute(), exact.compute())
     with pytest.raises(ValueError, match="list state"):
-        exact = _pair(**CONFIGS["exact"])[1]
-        state_from_jax({k: [] for k in exact.init_state()}, exact)
+        state_from_jax({k: np.zeros(3) for k in exact.init_state()}, exact)
 
 
 def test_exact_mode_warns_and_keeps_no_table():

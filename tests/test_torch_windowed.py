@@ -224,7 +224,7 @@ def test_construction_and_mode_errors():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         WindowedMetric(AUROC(device="cpu"))
     ring = WindowedMetric(mse)
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(NotImplementedError, match="A.2"):
         ring.update(torch.ones(3), torch.zeros(3), n_valid=2)
     with pytest.raises(MetricsUserError, match="ring-mode query"):
         WindowedMetric(mse, mode="decay").compute(window=2)
