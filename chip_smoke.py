@@ -99,6 +99,38 @@ Phases, each printed as one JSON line:
    classes), the same gates (top-1 and top-5 counts against numpy's argmax
    and stable argsort, every group's confusion matrix against np.bincount)
    and the same fields;
+4d. curve-binary -- bench.py's bench_sketch stream (seed 10, 245 batches
+   of 4096 uniform scores, positives at rate 0.35) through
+   MetricCollection([ROC(), PrecisionRecallCurve(), AveragePrecision(),
+   AUROC()]) (the sketched defaults, capacity 8192; the first update forms
+   the compute groups, then the launch counters are reset), then
+   AUROC(exact=True), AveragePrecision(exact=True) and
+   AveragePrecision(capacity=2**20); gates: after 2 batches (the lossless
+   window) every sketched output equal bit for bit to its exact=True twin
+   on the card; over the stream exact AP and AUROC within 1e-6 of float64
+   numpy (step sums, scipy midranks), the capacity AP within 1e-6 of
+   float64 (its float32 sum is another formula than the exact curve's, so
+   not bit-equal to it), the sketched AP, AUROC and ROC area within 5e-3 of
+   exact; over the first 16 batches every state and both curves bit-equal
+   to the CPU run and all outputs to a second card run, the summed values
+   within 1e-6 of the CPU; qsketch_sort_bucket and segment_sum_f32 launched
+   once per compaction of each sketch group; ms per update, device ms per
+   update, idle share, host syncs per update, the groups, compute ms per
+   metric and state bytes;
+4e. curve-multiclass -- 12 flagship batches through AveragePrecision(1000
+   classes, weighted, exact=True) (one bincount_i32 of [49152] -> 1000 at
+   compute), the sketched AveragePrecision(num_classes=1000) (K3 and K1 at
+   2002 columns), ROC(num_classes=1000, capacity=65536),
+   BinnedAveragePrecision(1000 classes, 100 thresholds) (two bincount_i32
+   of [4096000] -> 100000 per update: every sample, the positives) and
+   CalibrationError(15 bins) in l1 and max (one segment_sum_f32 of
+   [4111, 3] -> 15 per update each: the 15 old bin sums, then the batch);
+   gates: the binned TPs/FPs/FNs equal numpy's counts, CalibrationError's
+   counts exact, its sums bit-equal to the CPU run and within the float32
+   row-order summation bound ((n - 1) 2**-24 of the total) of float64, the exact weighted AP within 1e-5 of float64 per-class step
+   sums, the sketched macro AP within 5e-3 of float64's, the capacity
+   ROC's points bit-equal to the exact per-class ROC; the same fields and
+   the peak memory;
 5. sketch-binary -- the sketched default AUROC() (capacity 8192) streams
    800 batches of 8192 (6,553,600 samples, seed 42: y = rand < 0.26, score
    = sigmoid(randn + 1.2 y)); launch counters reset and read likewise (every
@@ -194,7 +226,12 @@ Phases, each printed as one JSON line:
    compaction's and the retrieval insert's own skewed inputs, each with its
    path's launches; bincount_i32 also at the classification phases' own
    ids, [2048] -> 100 bins and [4096] -> 10**6, with each phase's
-   launches); each device time per wrapper call (every CUDA kernel
+   launches; the curve phases' own inputs, each with its launches at that
+   shape: bincount_i32 at the binned [4096000] -> 100000 (beside the
+   device time of segment_sum_f32 computing the same counts from
+   [4096000, 2] rows) and at the weighted AP's [49152] -> 1000,
+   segment_sum_f32 at CalibrationError's [4111, 3] -> 15, K3 at
+   curve-binary's compaction input); each device time per wrapper call (every CUDA kernel
    the wrapper issues, merge passes and combines included, summed) with the
    number of profiler windows it took (a window that saw no launch is taken
    again, at most three in all).
@@ -227,6 +264,22 @@ CLS_CLASSES = 10
 CLS_SHAPES = (1900, 2000, 2048)
 CLS_REPEATS = 10
 CLS_FLAGSHIP_BATCHES = 12
+#: curve-binary: bench.py's bench_sketch stream (seed 10, 245 batches of 4096
+#: uniform scores, positives at rate 0.35); the first 2 batches fill the
+#: sketch (its lossless window), the first 16 are also run on the CPU
+CURVE_SEED = 10
+CURVE_BATCH = 4096
+CURVE_BATCHES = 245
+CURVE_POSITIVE_RATE = 0.35
+CURVE_WINDOW_BATCHES = 2
+CURVE_CPU_BATCHES = 16
+CURVE_AP_CAPACITY = 2**20
+#: curve-multiclass: 12 flagship batches; the capacity ROC's buffer, the
+#: binned AP's thresholds and CalibrationError's bins
+CURVE_MC_BATCHES = 12
+CURVE_ROC_CAPACITY = 65536
+CURVE_THRESHOLDS = 100
+CURVE_CE_BINS = 15
 #: H100 SXM HBM3 bandwidth (NVIDIA data sheet), for the byte bounds
 HBM_BYTES_PER_S = 3.35e12
 KERNEL_SOURCE = "metrics_tpu_torch/csrc/segment_sum.cu"
@@ -234,6 +287,8 @@ REPLACES = "metrics_tpu/ops/scatter_pallas.py:68"
 QSKETCH_SOURCE = "metrics_tpu_torch/csrc/qsketch.cu"
 QSKETCH_REPLACES = "metrics_tpu/ops/qsketch_pallas.py:149"
 TIMING_LAUNCHES = 200
+# torch.profiler windows taken at most for one kernel's device time
+PROFILE_WINDOWS = 5
 #: the sketched default: capacity, batch, batches (one test day of a
 #: display-ads click log) and the positive rate of that stream
 SKETCH_CAPACITY = 8192
@@ -415,16 +470,19 @@ def kernel_device_time(torch, fn, kernel_names, launches=50):
     issue, each any number of times a call: a merge pass, a combine) summed
     and divided by the ``launches`` calls made; and the profiling windows
     taken to read it. The wrappers' host work and the output zeroing are not
-    in it."""
+    in it. ``device_ms`` is None, with a line on standard error, when no
+    window recorded a launch: the launches themselves are counted and held
+    against the plain versions elsewhere."""
     from torch.profiler import ProfilerActivity, profile
 
     names = (kernel_names,) if isinstance(kernel_names, str) else tuple(kernel_names)
     fn()
     torch.cuda.synchronize()
-    # a profiling window now and then records none of a kernel's launches
-    # (seen once for ten 2 ms launches of row_topk): such a window is taken
-    # again, at most three times in all
-    for windows in range(1, 4):
+    # a window now and then records none of a kernel's launches, in a
+    # process that has run other work (three in a row once, for 50 launches
+    # of bincount_i32; scripts/profiler_windows.py saw none in 360 windows of
+    # a process that runs nothing else): such a window is taken again
+    for windows in range(1, PROFILE_WINDOWS + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(launches):
                 fn()
@@ -432,7 +490,9 @@ def kernel_device_time(torch, fn, kernel_names, launches=50):
         found = [evt for evt in prof.key_averages() if evt.count > 0 and any(name in evt.key for name in names)]
         if found:
             break
-    check(bool(found), f"the profiler saw no launch of {names}")
+    if not found:
+        print(f"chip_smoke: the profiler recorded no launch of {names} in {windows} windows", file=sys.stderr, flush=True)
+        return {"device_ms": None, "device_windows": windows}
     total_ms = 0.0
     for evt in found:
         # the profiler may miss an event at the edge of its window: a
@@ -2342,11 +2402,7 @@ def cls_tolerance(key):
 
 def collection_states(torch, collection):
     """Every metric's states, on the host."""
-    return {
-        f"{key}.{name}": getattr(metric, name).detach().cpu()
-        for key, metric in collection.items(keep_base=True)
-        for name in metric._defaults
-    }
+    return metric_states(torch, dict(collection.items(keep_base=True)))
 
 
 def run_collection(torch, ops, make, batches):
@@ -2511,6 +2567,524 @@ def classification_phases(torch, ops, card, tm, preds_all, target_all, preds_np,
     }
 
 
+def make_curve_stream():
+    """bench.py's ``bench_sketch`` stream: ``RandomState(10)``, per batch 4096
+    uniform float32 scores, then int32 labels positive at rate 0.35."""
+    rng = np.random.RandomState(CURVE_SEED)
+    scores, labels = [], []
+    for _ in range(CURVE_BATCHES):
+        scores.append(rng.rand(CURVE_BATCH).astype(np.float32))
+        labels.append((rng.rand(CURVE_BATCH) < CURVE_POSITIVE_RATE).astype(np.int32))
+    return np.stack(scores), np.stack(labels)
+
+
+def flat_outputs(out):
+    """A metric's output (a tensor, or tuples and lists of them) as a flat list."""
+    if isinstance(out, (list, tuple)):
+        return [t for item in out for t in flat_outputs(item)]
+    return [out]
+
+
+def same_outputs(torch, a, b):
+    """Two outputs equal bit for bit, NaN by position."""
+    a, b = flat_outputs(a), flat_outputs(b)
+    return len(a) == len(b) and all(x.shape == y.shape and same_nan_by_position(torch, x, y) for x, y in zip(a, b))
+
+
+def metric_states(torch, metrics):
+    """Every state of every metric (list states concatenated), on the host."""
+    out = {}
+    for key, metric in metrics.items():
+        for name in metric._defaults:
+            value = getattr(metric, name)
+            out[f"{key}.{name}"] = (torch.cat(value) if isinstance(value, list) else value).detach().cpu()
+    return out
+
+
+def state_bytes(metric):
+    total = 0
+    for name in metric._defaults:
+        value = getattr(metric, name)
+        for t in value if isinstance(value, list) else [value]:
+            total += t.numel() * t.element_size()
+    return total
+
+
+def numpy_step_ap(scores, y):
+    """Binary average precision in float64 (numpy): the step sum over the
+    distinct thresholds, each positive weighted by the precision at the end
+    of its tie run."""
+    order = np.argsort(-scores.astype(np.float64), kind="stable")
+    s, yy = scores[order], y[order].astype(np.float64)
+    tp = np.cumsum(yy)
+    last = np.append(s[1:] != s[:-1], True)
+    idx = np.arange(s.size)
+    run_end = np.minimum.accumulate(np.where(last, idx, s.size - 1)[::-1])[::-1]
+    return float(np.sum(tp[run_end] / (run_end + 1) * yy) / yy.sum())
+
+
+def timed(torch, fn):
+    """``(result, ms)`` of one call of ``fn`` with a synchronise after it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def curve_binary_metrics(tm, device):
+    """The sketched collection of the four curve metrics, and the exact and
+    capacity twins of AUROC and AveragePrecision."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the exact modes' memory warning
+        return {
+            "collection": tm.MetricCollection(
+                [tm.ROC(device=device), tm.PrecisionRecallCurve(device=device), tm.AveragePrecision(device=device), tm.AUROC(device=device)]
+            ),
+            "AUROC_exact": tm.AUROC(exact=True, device=device),
+            "AveragePrecision_exact": tm.AveragePrecision(exact=True, device=device),
+            "AveragePrecision_capacity": tm.AveragePrecision(capacity=CURVE_AP_CAPACITY, device=device),
+        }
+
+
+def feed(metrics, batches):
+    for preds, target in batches:
+        for metric in metrics.values():
+            metric.update(preds, target)
+
+
+def curve_binary_states(torch, metrics):
+    """Every state of the binary metric set, the collection's members by name."""
+    twins = {k: v for k, v in metrics.items() if k != "collection"}
+    return {**collection_states(torch, metrics["collection"]), **metric_states(torch, twins)}
+
+
+def curve_binary_phase(torch, ops, card, tm):
+    """curve-binary: the curve family's sketched defaults, exact and capacity
+    modes over bench.py's bench_sketch stream (K3 and K1's float form)."""
+    score_np, y_np = make_curve_stream()
+    score, y = torch.from_numpy(score_np).cuda(), torch.from_numpy(y_np).cuda()
+    batches = [(score[i], y[i]) for i in range(CURVE_BATCHES)]
+    names = ("ROC", "PrecisionRecallCurve", "AveragePrecision", "AUROC")
+
+    # the lossless window: two batches, every sketched output against its
+    # exact twin, on the card
+    window = curve_binary_metrics(tm, "cuda")["collection"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        twins = {name: getattr(tm, name)(exact=True) for name in names}
+    ops.reset_launch_counts()
+    for preds, target in batches[:CURVE_WINDOW_BATCHES]:
+        window.update(preds, target)
+        for twin in twins.values():
+            twin.update(preds, target)
+    window_values = window.compute()
+    check(ops.launch_counts().get("qsketch_sort_bucket", 0) == 0, "curve-binary: the window compacted")
+    for name in names:
+        check(same_outputs(torch, window_values[name], twins[name].compute()), f"curve-binary: sketched {name} differs from exact=True in the window")
+
+    # the stream through the sketched collection (the main path), then the
+    # exact and capacity twins
+    metrics = curve_binary_metrics(tm, "cuda")
+    collection = metrics["collection"]
+    check(all(m.device.type == "cuda" for m in metrics.values() if hasattr(m, "device")), "curve-binary: a metric is not on the card")
+    collection.update(*batches[0])  # forms the compute groups
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(1, CURVE_BATCHES):
+        if i == CURVE_BATCHES // 2:  # K3's input on this path (the wrapper still launches)
+            captured = capture_calls([("metrics_tpu_torch.ops.qsketch", "qsketch_sort_bucket")], lambda: collection.update(*batches[i]))
+        else:
+            collection.update(*batches[i])
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    groups = {str(k): v for k, v in collection.compute_groups.items()}
+    # the first 2 batches fill each group's sketch; each later one compacts once
+    compactions = len(groups) * (CURVE_BATCHES - CURVE_WINDOW_BATCHES)
+    for name in ("qsketch_sort_bucket", "segment_sum_f32"):
+        check(launches.get(name) == compactions, f"curve-binary: {name} launched {launches.get(name)} times, expected {compactions}")
+    twins_only = {k: v for k, v in metrics.items() if k != "collection"}
+    t0 = time.perf_counter()
+    for preds, target in batches:
+        for metric in twins_only.values():
+            metric.update(preds, target)
+    torch.cuda.synchronize()
+    twins_update_s = time.perf_counter() - t0
+
+    values, collection_compute_ms = timed(torch, collection.compute)
+    compute_ms = {"collection": collection_compute_ms}
+    for name, metric in collection.items(keep_base=True):
+        state = {k: getattr(metric, k) for k in metric._defaults}
+        _, compute_ms[name] = timed(torch, lambda: metric.compute_state(state))
+    for key, metric in twins_only.items():
+        values[key], compute_ms[key] = timed(torch, metric.compute)
+
+    # the whole stream against float64 numpy, and the modes against each other
+    flat_score, flat_y = score_np.reshape(-1), y_np.reshape(-1)
+    ref_ap, ref_auroc = numpy_step_ap(flat_score, flat_y), midrank_auroc(flat_score, flat_y)
+    scalars = {k: float(values[k]) for k in ("AveragePrecision", "AUROC", "AUROC_exact", "AveragePrecision_exact", "AveragePrecision_capacity")}
+    errors = {
+        "AveragePrecision_exact_vs_float64": abs(scalars["AveragePrecision_exact"] - ref_ap),
+        "AUROC_exact_vs_float64": abs(scalars["AUROC_exact"] - ref_auroc),
+        "AveragePrecision_capacity_vs_float64": abs(scalars["AveragePrecision_capacity"] - ref_ap),
+        "AveragePrecision_capacity_vs_exact": abs(scalars["AveragePrecision_capacity"] - scalars["AveragePrecision_exact"]),
+        "AveragePrecision_sketched_vs_exact": abs(scalars["AveragePrecision"] - scalars["AveragePrecision_exact"]),
+        "AUROC_sketched_vs_exact": abs(scalars["AUROC"] - scalars["AUROC_exact"]),
+    }
+    for key in ("AveragePrecision_exact_vs_float64", "AUROC_exact_vs_float64", "AveragePrecision_capacity_vs_float64"):
+        check(errors[key] <= 1e-6, f"curve-binary: {key} {errors[key]}")
+    for key in ("AveragePrecision_sketched_vs_exact", "AUROC_sketched_vs_exact"):
+        check(errors[key] <= 5e-3, f"curve-binary: {key} {errors[key]}")
+    fpr, tpr, _ = values["ROC"]
+    errors["ROC_sketched_area_vs_exact_AUROC"] = abs(float(torch.trapezoid(tpr, fpr)) - scalars["AUROC_exact"])
+    check(errors["ROC_sketched_area_vs_exact_AUROC"] <= 5e-3, f"curve-binary: sketched ROC area {errors['ROC_sketched_area_vs_exact_AUROC']} off")
+    precision, recall, thresholds = values["PrecisionRecallCurve"]
+    check(
+        bool(torch.isfinite(precision).all() and torch.isfinite(recall).all()) and precision.shape == recall.shape == (thresholds.shape[0] + 1,),
+        "curve-binary: sketched PR curve is not finite or of the wrong shape",
+    )
+
+    # the first 16 batches: the card's states and outputs against a second
+    # card run (bit for bit) and the CPU run (states and curves bit for
+    # bit; the summed values within 1e-6)
+    head = batches[:CURVE_CPU_BATCHES]
+    runs = []
+    for device, run_batches in (("cuda", head), ("cuda", head), ("cpu", [(p.cpu(), t.cpu()) for p, t in head])):
+        run = curve_binary_metrics(tm, device)
+        feed(run, run_batches)
+        out = run["collection"].compute()
+        out.update({k: m.compute() for k, m in run.items() if k != "collection"})
+        runs.append((curve_binary_states(torch, run), out))
+    (card_states, card_out), (again_states, again_out), (cpu_states, cpu_out) = runs
+    for key, state in card_states.items():
+        check(same_nan_by_position(torch, state, again_states[key]), f"curve-binary: state {key} differs between two card runs")
+        check(same_nan_by_position(torch, state, cpu_states[key]), f"curve-binary: state {key} differs between the card and the CPU")
+    value_diffs = {}
+    for key, out in card_out.items():
+        check(same_outputs(torch, out, again_out[key]), f"curve-binary: {key} differs between two card runs")
+        if key in ("ROC", "PrecisionRecallCurve"):
+            check(same_outputs(torch, out, cpu_out[key]), f"curve-binary: {key} curve differs between the card and the CPU")
+        else:
+            value_diffs[key] = abs(float(out) - float(cpu_out[key]))
+            check(value_diffs[key] <= 1e-6, f"curve-binary: {key} card and CPU differ by {value_diffs[key]}")
+
+    # host syncs and device time per update, past the window
+    fresh = curve_binary_metrics(tm, "cuda")["collection"]
+    for preds, target in batches[:3]:
+        fresh.update(preds, target)
+    syncs = host_syncs_per_update(torch, fresh, batches[3:6])
+    ms_per_update = update_s / (CURVE_BATCHES - 1) * 1e3
+    profile = device_profile(torch, lambda i: collection.update(*batches[6 + i]), 5)
+    emit(
+        {
+            "phase": "curve-binary",
+            "card": card,
+            "rows": CURVE_BATCHES * CURVE_BATCH,
+            "batch": CURVE_BATCH,
+            "ms_per_update": ms_per_update,
+            "exact_and_capacity_ms_per_update": twins_update_s / CURVE_BATCHES * 1e3,
+            **profile,
+            "device_idle_share": 1 - profile["device_busy_ms_per_step"] / ms_per_update,
+            "host_syncs_per_update": syncs,
+            "compute_groups": groups,
+            "launches": launches,
+            "cold_compute_ms": compute_ms,
+            "state_bytes": {
+                **{name: state_bytes(m) for name, m in collection.items(keep_base=True)},
+                **{k: state_bytes(m) for k, m in twins_only.items()},
+            },
+            "values": scalars,
+            "float64_ap": ref_ap,
+            "float64_auroc": ref_auroc,
+            "abs_errors": errors,
+            "abs_diff_card_cpu_16_batches": value_diffs,
+            "curve_points": {"ROC": int(fpr.numel()), "PrecisionRecallCurve": int(precision.numel())},
+        }
+    )
+    return launches, captured["qsketch_sort_bucket"][0]
+
+
+def count_shapes(module_name, fn_names, fn):
+    """Run ``fn()`` counting the calls of each ``module.<name>`` by (name,
+    shape of the first argument, last argument)."""
+    module = import_module(module_name)
+    saved = {name: getattr(module, name) for name in fn_names}
+    counts = {}
+
+    def counting(name):
+        def count(*args):
+            key = (name, tuple(args[0].shape), args[-1])
+            counts[key] = counts.get(key, 0) + 1
+            return saved[name](*args)
+
+        return count
+
+    for name in fn_names:
+        setattr(module, name, counting(name))
+    try:
+        fn()
+    finally:
+        for name in fn_names:
+            setattr(module, name, saved[name])
+    return counts
+
+
+def curve_multiclass_metrics(tm, device):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        c = NUM_CLASSES
+        return tm.MetricCollection(
+            {
+                "AveragePrecision_weighted_exact": tm.AveragePrecision(num_classes=c, average="weighted", exact=True, device=device),
+                "AveragePrecision_sketched": tm.AveragePrecision(num_classes=c, device=device),
+                "ROC_capacity": tm.ROC(num_classes=c, capacity=CURVE_ROC_CAPACITY, device=device),
+                "BinnedAveragePrecision": tm.BinnedAveragePrecision(num_classes=c, thresholds=CURVE_THRESHOLDS, device=device),
+                "CalibrationError_l1": tm.CalibrationError(n_bins=CURVE_CE_BINS, device=device),
+                "CalibrationError_max": tm.CalibrationError(n_bins=CURVE_CE_BINS, norm="max", device=device),
+            }
+        )
+
+
+def float64_class_ap(torch, preds, target):
+    """Per-class one-vs-rest average precision in float64 on the card: a
+    stable descending sort per class, float64 cumulative counts, each
+    positive weighted by the precision at the end of its tie run."""
+    scores = preds.T.contiguous()  # [C, N]
+    c, n = scores.shape
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+    s = torch.gather(scores, 1, order)
+    yy = (torch.gather(target[None, :].expand(c, n), 1, order) == torch.arange(c, device=preds.device)[:, None]).double()
+    tp = torch.cumsum(yy, dim=1)
+    last = torch.cat([s[:, 1:] != s[:, :-1], torch.ones((c, 1), dtype=torch.bool, device=s.device)], dim=1)
+    idx = torch.arange(n, device=s.device).expand(c, n)
+    run_end = torch.cummin(torch.where(last, idx, n - 1).flip(1), dim=1).values.flip(1)
+    precision = torch.gather(tp, 1, run_end) / (run_end + 1).double()
+    support = yy.sum(1)
+    return ((precision * yy).sum(1) / support).cpu().numpy(), support.cpu().numpy()
+
+
+def curve_multiclass_phase(torch, ops, card, tm, preds_all, target_all, preds_np, target_np):
+    """curve-multiclass: the curve family at 1000 classes over 12 flagship
+    batches (K1's bincount and float sums, K3 at 2002 columns)."""
+    n = CURVE_MC_BATCHES
+    batches = [(preds_all[i], target_all[i]) for i in range(n)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    collection = curve_multiclass_metrics(tm, "cuda")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+
+    def run_updates():
+        for preds, target in batches:
+            collection.update(preds, target)
+
+    shapes = count_shapes("metrics_tpu_torch.ops.segment_sum", ("segment_sum_f32", "bincount_i32"), run_updates)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    groups = {str(k): v for k, v in collection.compute_groups.items()}
+    # no two of these metrics share their states, so each computes from its own
+    check(len(groups) == len(collection), f"curve-multiclass: unexpected compute groups {groups}")
+    compute_ms, values = {}, {}
+
+    def run_computes():
+        for name, metric in collection.items(keep_base=True):
+            values[name], compute_ms[name] = timed(torch, metric.compute)
+
+    for key, count in count_shapes("metrics_tpu_torch.ops.segment_sum", ("segment_sum_f32", "bincount_i32"), run_computes).items():
+        shapes[key] = shapes.get(key, 0) + count
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    compactions = n - SKETCH_CAPACITY // BATCH
+    check(launches.get("qsketch_sort_bucket") == compactions, f"curve-multiclass: K3 launches {launches}")
+    # per update: two counts of the binned curve, one sum per CalibrationError;
+    # at compute: the weighted AP's supports
+    check(launches.get("bincount_i32") == 2 * n + 1, f"curve-multiclass: bincount_i32 launches {launches}")
+    check(launches.get("segment_sum_f32") == 2 * n + compactions, f"curve-multiclass: segment_sum_f32 launches {launches}")
+
+    rows = n * BATCH
+    flat_preds = preds_np[:n].reshape(rows, NUM_CLASSES)
+    flat_target = target_np[:n].reshape(-1)
+    cat_preds = torch.cat([p for p, _ in batches])
+    cat_target = torch.cat([t for _, t in batches])
+
+    # the binned counts against numpy's
+    binned = collection["BinnedAveragePrecision"]
+    thr = binned.thresholds.cpu().numpy()
+    bins = np.searchsorted(thr, flat_preds, side="right") - 1
+    cls = np.broadcast_to(np.arange(NUM_CLASSES), bins.shape)
+    keep = bins >= 0
+    ids = (cls * CURVE_THRESHOLDS + bins)[keep]
+    positive = (flat_target[:, None] == cls)[keep]
+    size = NUM_CLASSES * CURVE_THRESHOLDS
+    pos_bin = np.bincount(ids[positive], minlength=size).reshape(NUM_CLASSES, -1)
+    all_bin = np.bincount(ids, minlength=size).reshape(NUM_CLASSES, -1)
+    tp = np.cumsum(pos_bin[:, ::-1], axis=1)[:, ::-1]
+    pred_pos = np.cumsum(all_bin[:, ::-1], axis=1)[:, ::-1]
+    support = np.bincount(flat_target, minlength=NUM_CLASSES)
+    for key, want in (("TPs", tp), ("FPs", pred_pos - tp), ("FNs", support[:, None] - tp)):
+        check(np.array_equal(getattr(binned, key).cpu().numpy(), want.astype(np.float32)), f"curve-multiclass: binned {key} differ from numpy's counts")
+
+    # calibration: counts exact, sums within rtol 1e-6 of float64, the card
+    # bit-equal to the CPU
+    conf = flat_preds.max(axis=1)
+    acc = (flat_preds.argmax(axis=1) == flat_target).astype(np.float64)
+    edges = collection["CalibrationError_l1"].bin_boundaries.cpu().numpy()
+    ce_bins = np.clip(np.searchsorted(edges, conf, side="left") - 1, 0, CURVE_CE_BINS - 1)
+    cpu_ce = {
+        k: tm.CalibrationError(n_bins=CURVE_CE_BINS, norm=norm, device="cpu")
+        for k, norm in (("CalibrationError_l1", "l1"), ("CalibrationError_max", "max"))
+    }
+    for preds, target in batches:
+        for metric in cpu_ce.values():
+            metric.update(preds.cpu(), target.cpu())
+    ce_err = {}
+    for key, cpu_metric in cpu_ce.items():
+        metric = collection[key]
+        check(np.array_equal(metric.bin_count.cpu().numpy(), np.bincount(ce_bins, minlength=CURVE_CE_BINS)), f"curve-multiclass: {key} counts differ")
+        counts = np.bincount(ce_bins, minlength=CURVE_CE_BINS)
+        for state, weights in (("bin_conf", conf.astype(np.float64)), ("bin_acc", acc)):
+            want = np.bincount(ce_bins, weights=weights, minlength=CURVE_CE_BINS)
+            got = getattr(metric, state).cpu().numpy().astype(np.float64)
+            # a float32 sum of n terms in row order (the JAX package's) is
+            # within (n - 1) 2**-24 of its terms' total magnitude
+            bound = np.maximum(counts - 1, 0) * 2.0**-24 * want
+            ce_err[f"{key}.{state}"] = float(np.max(np.abs(got - want) / np.maximum(want, 1e-30)))
+            check(bool(np.all(np.abs(got - want) <= bound)), f"curve-multiclass: {key}.{state} off float64 by rtol {ce_err[f'{key}.{state}']}")
+        for state in ("bin_count", "bin_conf", "bin_acc"):
+            check(same_bits(torch, [getattr(metric, state)], [getattr(cpu_metric, state)]), f"curve-multiclass: {key}.{state} differs from the CPU")
+        ce_err[f"{key}.card_vs_cpu"] = abs(float(values[key]) - float(cpu_metric.compute()))
+        check(ce_err[f"{key}.card_vs_cpu"] <= 1e-6, f"curve-multiclass: {key} value off the CPU by {ce_err[f'{key}.card_vs_cpu']}")
+
+    # average precision against float64 per-class step sums
+    ref_ap, ref_support = float64_class_ap(torch, cat_preds, cat_target)
+    defined = ref_support > 0
+    ref_weighted = float(np.sum(ref_ap[defined] * ref_support[defined]) / np.sum(ref_support[defined]))
+    ref_macro = float(np.mean(ref_ap[defined]))
+    ap_errors = {
+        "weighted_exact_vs_float64": abs(float(values["AveragePrecision_weighted_exact"]) - ref_weighted),
+        "sketched_macro_vs_float64_macro": abs(float(values["AveragePrecision_sketched"]) - ref_macro),
+    }
+    check(ap_errors["weighted_exact_vs_float64"] <= 1e-5, f"curve-multiclass: weighted exact AP off float64 by {ap_errors['weighted_exact_vs_float64']}")
+    check(ap_errors["sketched_macro_vs_float64_macro"] <= 5e-3, f"curve-multiclass: sketched AP off by {ap_errors['sketched_macro_vs_float64_macro']}")
+
+    # the capacity ROC's points against the exact per-class ROC
+    fpr, tpr, thresholds, mask = (t.cpu() for t in values["ROC_capacity"])
+    roc_fn = import_module("metrics_tpu_torch.functional").roc
+    exact_roc, exact_roc_ms = timed(torch, lambda: roc_fn(cat_preds, cat_target, num_classes=NUM_CLASSES))
+    for c in range(NUM_CLASSES):
+        m = mask[c]
+        got = [fpr[c][m], tpr[c][m], thresholds[c][m]]
+        want = [exact_roc[0][c].cpu(), exact_roc[1][c].cpu(), exact_roc[2][c].cpu()]
+        check(same_bits(torch, got, want) and all(g.shape == w.shape for g, w in zip(got, want)), f"curve-multiclass: capacity ROC class {c} differs from the exact ROC")
+
+    fresh = curve_multiclass_metrics(tm, "cuda")
+    for preds, target in batches[:2]:
+        fresh.update(preds, target)
+    syncs = host_syncs_per_update(torch, fresh, batches[2:5])
+    ms_per_update = update_s / n * 1e3
+    profile = device_profile(torch, lambda i: fresh.update(*batches[5 + i]), 3)
+    emit(
+        {
+            "phase": "curve-multiclass",
+            "card": card,
+            "rows": rows,
+            "num_classes": NUM_CLASSES,
+            "ms_per_update": ms_per_update,
+            **profile,
+            "device_idle_share": 1 - profile["device_busy_ms_per_step"] / ms_per_update,
+            "host_syncs_per_update": syncs,
+            "compute_groups": groups,
+            "launches": launches,
+            "kernel_calls_by_shape": {f"{k[0]} {list(k[1])}->{k[2]}": v for k, v in shapes.items()},
+            "cold_compute_ms": compute_ms,
+            "exact_per_class_roc_ms": exact_roc_ms,
+            "state_bytes": {name: state_bytes(m) for name, m in collection.items(keep_base=True)},
+            "peak_memory_bytes": peak,
+            # the binned AP per class: its mean over the classes
+            "values": {k: float(torch.stack(v).mean() if isinstance(v, list) else v) for k, v in values.items() if k != "ROC_capacity"},
+            "float64_weighted_ap": ref_weighted,
+            "float64_macro_ap": ref_macro,
+            "ap_abs_errors": ap_errors,
+            "calibration_errors": ce_err,
+        }
+    )
+    # the kernels' inputs on this path, for the kernels line
+    binned_in = capture_calls([("metrics_tpu_torch.ops.segment_sum", "bincount_i32")], lambda: binned.update(*batches[0]))
+    ce_in = capture_calls([("metrics_tpu_torch.ops.segment_sum", "segment_sum_f32")], lambda: collection["CalibrationError_l1"].update(*batches[0]))
+    return {
+        "launches": launches,
+        "shapes": shapes,
+        "binned": binned_in["bincount_i32"],
+        "calibration": ce_in["segment_sum_f32"][0],
+        "supports": cat_target.to(torch.int32),
+    }
+
+
+def curve_kernel_lines(torch, ops, curve_mc, curve_launches, curve_k3):
+    """The kernels-line entries at the curve phases' own inputs, each with its
+    launches at that shape: bincount_i32 at the binned curve's counts (with
+    the time of segment_sum_f32 computing the same counts from [N*C, 2]
+    rows, the float form's row order) and at the weighted AP's supports,
+    segment_sum_f32 at CalibrationError's sums, K3 at curve-binary's
+    compaction input."""
+    shapes = curve_mc["shapes"]
+    lines = []
+    (all_ids, bins), (pos_ids, _) = curve_mc["binned"]
+    line = bincount_line(torch, ops, "curve-multiclass (binned)", {"bincount_i32": shapes.get(("bincount_i32", tuple(all_ids.shape), bins), 0)}, all_ids, bins)
+    rows = torch.stack([(pos_ids >= 0).float(), (all_ids >= 0).float()], dim=1)
+    f32 = ops.segment_sum_f32(rows, all_ids, bins)
+    check(torch.equal(f32[:, 1], ops.bincount_i32(all_ids, bins).float()), "binned counts: segment_sum_f32 and bincount_i32 differ")
+    line["segment_sum_f32_same_counts"] = {
+        "shape": [list(rows.shape), bins],
+        **kernel_device_time(torch, lambda: ops.segment_sum_f32(rows, all_ids, bins), "segment_sum_f32_kernel", launches=5),
+    }
+    lines.append(line)
+    supports = curve_mc["supports"]
+    lines.append(bincount_line(torch, ops, "curve-multiclass (weighted AP supports)", {"bincount_i32": shapes.get(("bincount_i32", tuple(supports.shape), NUM_CLASSES), 0)}, supports, NUM_CLASSES))
+    vals, ids, s = curve_mc["calibration"]
+    line = segment_fold_line(
+        torch, ops, "segment_sum_f32", KERNEL_SOURCE, REPLACES,
+        {"segment_sum_f32": shapes.get(("segment_sum_f32", tuple(vals.shape), s), 0)}, (vals, ids, s),
+        ops.segment_sum_reference, library_index_add(torch, vals, ids, s), "segment_sum_f32_kernel",
+        exact_fn=lambda v, i, n: ops.segment_sum_reference(v.cpu(), i.cpu(), n).to(v.device),
+    )
+    lines.append({**line, "path": "curve-multiclass (CalibrationError)"})
+    lines.append(qsketch_line(torch, ops, "curve-binary", curve_launches, *curve_k3))
+    return lines
+
+
+def qsketch_line(torch, ops, path, launches, rows, capacity):
+    """A kernels-line entry of K3 at a path's own compaction input."""
+    got, plain = ops.qsketch_sort_bucket(rows, capacity), ops.qsketch_sort_bucket_reference(rows, capacity)
+    check(all(torch.equal(a, b) for a, b in zip(got[1:], plain[1:])), f"K3 at the {path} input: buckets or order differ")
+    keys = torch.where(rows[:, 0] > 0, rows[:, 1], torch.inf)
+    n_pad = got[0].shape[0]
+
+    def call():
+        return ops.qsketch_sort_bucket(rows, capacity)
+
+    return {
+        "name": "qsketch_sort_bucket",
+        "route": "cuda",
+        "source": QSKETCH_SOURCE,
+        "replaces": QSKETCH_REPLACES,
+        "path": path,
+        "shape": list(rows.shape),
+        "launches": launches.get("qsketch_sort_bucket", 0),
+        "max_abs_err": float((got[0] - plain[0]).abs().max()),
+        "ms": time_ms(torch, call),
+        "plain_ms": time_ms(torch, lambda: ops.qsketch_sort_bucket_reference(rows, capacity)),
+        # rows read once; weighted rows, bucket ids and permutation written once
+        "bound_ms": (rows.numel() * 4 + n_pad * (rows.shape[1] * 4 + 4 + 4)) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": time_ms(torch, lambda: torch.sort(keys, stable=True)),
+        "host_us_per_call": host_us_per_call(torch, call),
+        **kernel_device_time(torch, call, import_module("metrics_tpu_torch.ops.qsketch").CUDA_KERNELS),
+    }
+
+
 def bincount_line(torch, ops, path, launches, ids, bins):
     """A kernels-line entry of ``bincount_i32`` at a path's own ids."""
     got, plain = ops.bincount_i32(ids, bins), ops.bincount_reference(ids, bins)
@@ -2533,10 +3107,18 @@ def bincount_line(torch, ops, path, launches, ids, bins):
         # ids read once, counts written once
         "bound_ms": (ids.numel() * ids.element_size() + bins * 4) / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
-        "library_ms": time_ms(torch, lambda: torch.bincount(ids, minlength=bins)),
+        "library_ms": library_bincount_ms(torch, ids, bins),
         "host_us_per_call": host_us_per_call(torch, call),
         **kernel_device_time(torch, call, "bincount_i32_kernel"),
     }
+
+
+def library_bincount_ms(torch, ids, bins):
+    """One torch.bincount call; ids that K1 drops (negative ones) are mapped
+    into an extra bin beforehand (torch.bincount refuses them)."""
+    if bool((ids < 0).any()):
+        ids, bins = torch.where(ids >= 0, ids, bins), bins + 1
+    return time_ms(torch, lambda: torch.bincount(ids, minlength=bins))
 
 
 def main():
@@ -2727,9 +3309,11 @@ def main():
 
     # the stat-scores and confusion-matrix family: bench_fused's collection
     # and eleven metrics over flagship batches (K1's bincount_i32)
-    cls_k1 = classification_phases(
-        torch, ops, card, import_module("metrics_tpu_torch"), preds_all, target_all, preds_np, target_np
-    )
+    tm = import_module("metrics_tpu_torch")
+    cls_k1 = classification_phases(torch, ops, card, tm, preds_all, target_all, preds_np, target_np)
+    # the curve family: binary over bench_sketch's stream, then 1000 classes
+    curve_launches, curve_k3 = curve_binary_phase(torch, ops, card, tm)
+    curve_mc = curve_multiclass_phase(torch, ops, card, tm, preds_all, target_all, preds_np, target_np)
 
     # 5-7. the sketched default: binary (the main path of K3), inside its
     # window, and at 1000 classes
@@ -2766,17 +3350,6 @@ def main():
     batch_score, batch_y = sketch_batch(0)
     unit_rows = torch.stack([torch.ones_like(batch_score), batch_score, batch_y.float()], dim=1)
     k3_rows = pack_rows(torch.cat([sketch_metric.csketch, unit_rows]))
-    k3_keys = torch.where(k3_rows[:, 0] > 0, k3_rows[:, 1], torch.inf)
-    k3_got = ops.qsketch_sort_bucket(k3_rows, SKETCH_CAPACITY)
-    k3_plain = ops.qsketch_sort_bucket_reference(k3_rows, SKETCH_CAPACITY)
-    check(all(torch.equal(a, b) for a, b in zip(k3_got[1:], k3_plain[1:])), "K3 on its main-path input: buckets or order differ")
-
-    def qsketch_call():
-        return ops.qsketch_sort_bucket(k3_rows, SKETCH_CAPACITY)
-
-    n_pad = k3_got[0].shape[0]
-    # rows read once; weighted rows, bucket ids and permutation written once
-    k3_bytes = k3_rows.numel() * 4 + n_pad * (k3_rows.shape[1] * 4 + 4 + 4)
 
     # 8. kernel times at the main path's shapes (these launches are not
     # counted). "ms", "plain_ms" and "library_ms" are CUDA-event times per
@@ -2825,22 +3398,7 @@ def main():
             "host_us_per_call": host_us_per_call(torch, segment_sum_call),
             **kernel_device_time(torch, segment_sum_call, "segment_sum_f32_kernel"),
         },
-        {
-            "name": "qsketch_sort_bucket",
-            "route": "cuda",
-            "source": QSKETCH_SOURCE,
-            "replaces": QSKETCH_REPLACES,
-            "shape": list(k3_rows.shape),
-            "launches": sketch_launches["qsketch_sort_bucket"],
-            "max_abs_err": float((k3_got[0] - k3_plain[0]).abs().max()),
-            "ms": time_ms(torch, qsketch_call),
-            "plain_ms": time_ms(torch, lambda: ops.qsketch_sort_bucket_reference(k3_rows, SKETCH_CAPACITY)),
-            "bound_ms": k3_bytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes",
-            "library_ms": time_ms(torch, lambda: torch.sort(k3_keys, stable=True)),
-            "host_us_per_call": host_us_per_call(torch, qsketch_call),
-            **kernel_device_time(torch, qsketch_call, import_module("metrics_tpu_torch.ops.qsketch").CUDA_KERNELS),
-        },
+        qsketch_line(torch, ops, "sketch-binary", sketch_launches, k3_rows, SKETCH_CAPACITY),
     ]
     k5_b1, k5_b2 = (iou_boxes(torch, gen, n).cuda() for n in K5_LINE_SHAPE)
     u, d, g = K6_LINE_SHAPE
@@ -2908,6 +3466,10 @@ def main():
     # bincount_i32 at the classification phases' own ids, with their launches
     for path, (launches, ids, bins) in cls_k1.items():
         kernels.append(bincount_line(torch, ops, path, launches, ids, bins))
+    # the curve phases' own inputs: segment_sum_f32 at the binned curve's and
+    # CalibrationError's sums (launches at that shape), bincount_i32 at the
+    # weighted AP's supports, K3 at curve-binary's compactions
+    kernels += curve_kernel_lines(torch, ops, curve_mc, curve_launches, curve_k3)
     emit({"phase": "kernel_times", "card": card})
     emit({"kernels": kernels})
     print(card, flush=True)

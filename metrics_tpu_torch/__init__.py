@@ -7,9 +7,12 @@ their kernels are hand-written CUDA, built from ``csrc/`` at first use (see
 (``StatScores``, ``Accuracy``, ``Precision``, ``Recall``, ``FBetaScore``,
 ``F1Score``, ``Specificity``, ``HammingDistance``), the confusion-matrix
 family (``ConfusionMatrix``, ``CohenKappa``, ``JaccardIndex``,
-``MatthewsCorrCoef``) and their functionals, the exact rank AUROC and the curve AUROC (functional), ``AUROC`` in its
-sketched streaming default (binary, one-vs-rest, multilabel) and its
-capacity modes, ``MeanAveragePrecision`` (COCO mAP/mAR, its reservoir
+``MatthewsCorrCoef``) and their functionals, the exact rank AUROC, the
+curve family (``AUROC``, ``ROC``, ``PrecisionRecallCurve``,
+``AveragePrecision``: the sketched streaming default for binary,
+one-vs-rest and multilabel inputs, ``exact=True`` and the capacity modes;
+``AUC``; the binned curves; ``CalibrationError``) and its functionals,
+``MeanAveragePrecision`` (COCO mAP/mAR, its reservoir
 table and its exact mode), the eight retrieval metrics (their per-query
 table and their exact mode), ``MeanSquaredError`` and
 ``PeakSignalNoiseRatio``, the per-slice and windowed wrappers
@@ -19,8 +22,15 @@ reservoir and the streaming moments (:mod:`metrics_tpu_torch.sketches`)
 and ``MetricCollection``.
 """
 from metrics_tpu_torch.classification import (  # noqa: F401
+    AUC,
     AUROC,
+    ROC,
     Accuracy,
+    AveragePrecision,
+    BinnedAveragePrecision,
+    BinnedPrecisionRecallCurve,
+    BinnedRecallAtFixedPrecision,
+    CalibrationError,
     CohenKappa,
     ConfusionMatrix,
     F1Score,
@@ -29,6 +39,7 @@ from metrics_tpu_torch.classification import (  # noqa: F401
     JaccardIndex,
     MatthewsCorrCoef,
     Precision,
+    PrecisionRecallCurve,
     Recall,
     Specificity,
     StatScores,

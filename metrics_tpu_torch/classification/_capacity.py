@@ -3,9 +3,10 @@
 Counterpart of ``metrics_tpu/classification/_capacity.py``: ``capacity=N``
 replaces the unbounded list states with a static buffer triple (preds,
 target, valid) plus an overflow tally, in the binary layout (``[N]``
-scores, 0/1 targets) or the multiclass one (``[N, C]`` score rows with
-integer labels); the multilabel layout's buffers are here, its compute
-waits for its slice.
+scores, 0/1 targets), the multiclass one (``[N, C]`` score rows with
+integer labels) or the multilabel one (``[N, C]`` score rows with ``[N, C]``
+0/1 indicators). ``_init_capacity_case`` picks the layout for the curve
+classes (``ROC``, ``PrecisionRecallCurve``, ``AveragePrecision``).
 
 Each update reads the batch's label range and the buffer's fill count in
 one host read, raises on a label out of range or on overflow, and writes
@@ -50,6 +51,22 @@ class CapacityCurveMixin:
         self.add_state("valid", default=torch.zeros((capacity,), dtype=torch.bool, device=device), dist_reduce_fx="cat")
         # samples dropped past capacity; compute raises when it is non-zero
         self.add_state("overflow", default=torch.zeros((), dtype=torch.int32, device=device), dist_reduce_fx="sum")
+
+    def _init_capacity_case(self, capacity: Optional[int], num_classes: Optional[int], multilabel: bool) -> None:
+        """The curve classes' shared constructor step: binary buffers by
+        default, ``[capacity, C]`` rows when ``num_classes >= 2``, indicator
+        targets with ``multilabel``. Registers nothing when ``capacity`` is
+        None (the caller keeps its sketched or list states)."""
+        if capacity is None:
+            if multilabel:
+                raise ValueError("`multilabel` is a capacity-mode argument; pass `capacity` as well")
+            return
+        if num_classes is not None and num_classes >= 2:
+            self._init_capacity(capacity, num_cols=num_classes, multilabel=multilabel)
+        elif multilabel:
+            raise ValueError("`multilabel` capacity mode requires `num_classes >= 2`")
+        else:
+            self._init_capacity(capacity)
 
     def _capacity_update(self, preds: Tensor, target: Tensor, pos_label: Optional[int] = None) -> None:
         num_cols = self._capacity_cols

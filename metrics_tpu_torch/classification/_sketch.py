@@ -1,7 +1,10 @@
 """Sketch-backed streaming mode for the curve metric classes.
 
 Counterpart of ``metrics_tpu/classification/_sketch.py``: the DEFAULT mode
-of ``AUROC``. Canonicalised batches stream into one packed quantile-sketch
+of ``AUROC``, ``ROC``, ``PrecisionRecallCurve`` and ``AveragePrecision``
+(the last three share their constructor and update through
+``CurveModesMixin``, which also routes ``exact=True`` and ``capacity=N``).
+Canonicalised batches stream into one packed quantile-sketch
 state (:mod:`metrics_tpu_torch.sketches.quantile`): O(capacity) memory, a
 fixed-shape update, and a ``merge`` reducer. Row layouts (column 0 is the
 weight):
@@ -22,8 +25,11 @@ from typing import Any, Mapping, Optional, Tuple
 
 import torch
 
+from metrics_tpu_torch.classification._capacity import CapacityCurveMixin
 from metrics_tpu_torch.core.readers import round_up_bucket
+from metrics_tpu_torch.sketches.compat import register_exact_list_states, warn_exact_buffer
 from metrics_tpu_torch.sketches.quantile import qsketch_fill, qsketch_init, qsketch_insert, sketch_merge_fx
+from metrics_tpu_torch.utils.data import dim_zero_cat
 
 Tensor = torch.Tensor
 
@@ -161,3 +167,66 @@ class SketchCurveMixin:
             return key, payload[:, 0], w
         c = self._sketch_cols
         return payload[:, :c], payload[:, c:], w
+
+
+class CurveModesMixin(SketchCurveMixin, CapacityCurveMixin):
+    """The constructor and update shared by ``ROC``,
+    ``PrecisionRecallCurve`` and ``AveragePrecision``: pick the state mode,
+    canonicalise each batch with ``_curve_update`` and route it."""
+
+    _exact: bool = False
+    # what a first update fixes (carried by ``state_from_jax``)
+    _host_state = ("num_classes", "pos_label", "_sketch_cols", "_sketch_tgt_kind", "_sketch_case_locked")
+
+    def _init_curve_modes(
+        self,
+        name: str,
+        num_classes: Optional[int],
+        capacity: Optional[int],
+        multilabel: bool,
+        exact: bool,
+        sketch_capacity: int,
+        shape_stable_reads: bool,
+    ) -> None:
+        if exact and capacity is not None:
+            raise ValueError("`exact=True` and `capacity` are mutually exclusive state modes")
+        self._exact = bool(exact)
+        self._init_capacity_case(capacity, num_classes, multilabel)
+        if capacity is None:
+            if self._exact:
+                register_exact_list_states(self, ("preds", "target"))
+                warn_exact_buffer(name)
+            else:
+                self._init_sketch_curve(sketch_capacity, num_classes, shape_stable_reads=shape_stable_reads)
+
+    def _curve_update(self, preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor, int, Optional[int]]:
+        raise NotImplementedError
+
+    def _update(self, preds: Tensor, target: Tensor, n_valid: Optional[Any] = None) -> None:
+        if self._capacity is not None:
+            self._capacity_update(preds, target, pos_label=self.pos_label)
+            return
+        preds, target, num_classes, pos_label = self._curve_update(preds, target)
+        if self._exact:
+            self.preds.append(preds)
+            self.target.append(target)
+        else:
+            self._sketch_insert_canonical(preds, target, pos_label if preds.ndim == 1 else 1, n_valid=n_valid)
+        self.num_classes = num_classes
+        self.pos_label = pos_label
+
+    def _curve_arrays(self) -> Tuple[bool, Tuple[Tensor, Tensor, Any]]:
+        """``(True, (preds, target, pos_label))`` for the exact compute, from
+        the list states or, inside the lossless window, from the sketch; past
+        the window ``(False, (scores, y, w))``, the sketch's weighted rows
+        class-major (``[C, n]``, weights expanded) for the one-vs-rest
+        kernels. Reads the sketch's fill once."""
+        if self._exact:
+            return True, (dim_zero_cat(self.preds), dim_zero_cat(self.target), self.pos_label)
+        fill, seen = self._sketch_fill_and_seen()
+        if self._sketch_reads_exact(fill, seen):
+            return True, self._sketch_exact_arrays(fill)
+        scores, y, w = self._sketch_weighted_arrays(fill)
+        if self._sketch_cols is None:
+            return False, (scores, y, w)
+        return False, (scores.T, y.T, w[None, :].expand(scores.shape[1], -1))

@@ -9,10 +9,10 @@ modes, mode locking and errors:
   lossless window); past it, weighted kernels within the sketch's
   rank-error bound. Once the stream may overflow, every update compacts on
   the card (the sort/bucket and segment-sum kernels).
+* ``exact=True``: the reference's unbounded list states (and its
+  memory-footprint warning), computed by the exact curve on ``compute()``.
 * ``capacity=N``: fixed exact buffers, binary (``[N]`` scores) or, with
   ``num_classes >= 2``, ``[N, C]`` score rows and the masked rank AUROC.
-* ``exact=True`` (unbounded list states) is not ported yet and raises
-  ``NotImplementedError`` (ROADMAP.md, queue A: 'regression and breadth').
 """
 from typing import Any, Mapping, Optional
 
@@ -33,6 +33,8 @@ from metrics_tpu_torch.functional.classification.sketch_curve import (
     binary_auroc_weighted,
     weighted_class_supports,
 )
+from metrics_tpu_torch.sketches.compat import register_exact_list_states, warn_exact_buffer
+from metrics_tpu_torch.utils.data import dim_zero_cat
 from metrics_tpu_torch.utils.enums import AverageMethod, DataType
 
 Tensor = torch.Tensor
@@ -87,13 +89,9 @@ class AUROC(SketchCurveMixin, CapacityCurveMixin, Metric):
             raise ValueError(f"`max_fpr` should be a float in range (0, 1], got: {max_fpr}")
         if exact and capacity is not None:
             raise ValueError("`exact=True` and `capacity` are mutually exclusive state modes")
-        if exact:
-            raise NotImplementedError(
-                "AUROC(exact=True) is not ported yet (ROADMAP.md, queue A: 'regression and breadth');"
-                " the default sketched mode is exact while the stream fits `sketch_capacity`"
-            )
 
         self.mode: Optional[DataType] = None
+        self._exact = bool(exact)
         self._multiclass_capacity = False
         if capacity is not None:
             if max_fpr is not None:
@@ -108,6 +106,9 @@ class AUROC(SketchCurveMixin, CapacityCurveMixin, Metric):
                 self._multiclass_capacity = True
             else:
                 self._init_capacity(capacity)
+        elif self._exact:
+            register_exact_list_states(self, ("preds", "target"))
+            warn_exact_buffer("AUROC")
         else:
             self._init_sketch_curve(sketch_capacity, num_classes, shape_stable_reads=shape_stable_reads)
 
@@ -127,9 +128,13 @@ class AUROC(SketchCurveMixin, CapacityCurveMixin, Metric):
                 "The mode of data (binary, multi-label, multi-class) should be constant, but changed"
                 f" between batches from {self.mode} to {mode}"
             )
-        self._sketch_insert_canonical(
-            preds, target, self.pos_label if mode == DataType.BINARY else 1, n_valid=n_valid
-        )
+        if self._exact:
+            self.preds.append(preds)
+            self.target.append(target)
+        else:
+            self._sketch_insert_canonical(
+                preds, target, self.pos_label if mode == DataType.BINARY else 1, n_valid=n_valid
+            )
         self.mode = mode
 
     def _compute(self) -> Tensor:
@@ -140,6 +145,9 @@ class AUROC(SketchCurveMixin, CapacityCurveMixin, Metric):
             return binary_auroc_fixed(*self._capacity_buffers())
         if not self.mode:
             raise RuntimeError("You have to have determined mode.")
+        if self._exact:
+            preds, target = dim_zero_cat(self.preds), dim_zero_cat(self.target)
+            return _auroc_compute(preds, target, self.mode, self.num_classes, self.pos_label, self.average, self.max_fpr)
         fill, seen = self._sketch_fill_and_seen()
         if self._sketch_reads_exact(fill, seen):
             preds, target, pos_label = self._sketch_exact_arrays(fill)

@@ -10,9 +10,13 @@ epoch started in JAX can be continued and computed here.
 
 Some metrics also keep host-side attributes that their states need to be
 read: a sketched ``AUROC`` fixes its input mode (binary, multiclass,
-multilabel) and its sketch's row layout at its first update. Pass the JAX
-metric as ``host_from`` to carry those too (they are read from it by
-attribute; nothing of JAX is imported).
+multilabel) and its sketch's row layout at its first update, and ``ROC``,
+``PrecisionRecallCurve`` and ``AveragePrecision`` fix their
+``num_classes`` and ``pos_label`` there. Pass the JAX metric as
+``host_from`` to carry those too (they are read from it by attribute;
+nothing of JAX is imported). The capacity buffers (``overflow`` included),
+the binned ``TPs``/``FPs``/``FNs`` and CalibrationError's bin sums carry as
+they are.
 """
 from enum import Enum
 from typing import Any, Dict, Mapping, Optional

@@ -1,18 +1,19 @@
-"""The sorted-curve kernel shared by the exact curve family.
+"""Precision-recall curve, and the sorted-curve kernel of the exact curve family.
 
-Counterpart of the part of
-``metrics_tpu/functional/classification/precision_recall_curve.py`` that
-ROC and AUROC need: ``_binary_clf_curve`` (sort by descending score,
-dedupe thresholds, cumulate) and ``_precision_recall_curve_update`` (the
-input canonicalisation). The outputs have data-dependent shapes (one point
-per distinct score), so these run eagerly; finding the distinct scores
-reads the card once. ``precision_recall_curve`` itself waits for its slice
-(ROADMAP.md, queue A: 'regression and breadth').
+Counterpart of ``metrics_tpu/functional/classification/
+precision_recall_curve.py``: ``_binary_clf_curve`` (sort by descending
+score, dedupe thresholds, cumulate), ``_precision_recall_curve_update``
+(the input canonicalisation) and ``precision_recall_curve``. The outputs
+have data-dependent shapes (one point per distinct score), so these run
+eagerly: each binary curve reads the card twice, once for its distinct
+scores and once for the point where it reaches full recall. A multiclass
+or multilabel curve is one binary curve per class, as in the JAX package.
 """
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from metrics_tpu_torch.utils.data import _as_tensor
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 Tensor = torch.Tensor
@@ -94,3 +95,87 @@ def _precision_recall_curve_update(
         raise ValueError("preds and target must have same number of dimensions, or one additional dimension for preds")
 
     return preds, target, num_classes, pos_label
+
+
+def _precision_recall_curve_compute_single_class(
+    preds: Tensor,
+    target: Tensor,
+    pos_label: int,
+    sample_weights: Optional[Sequence] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    fps, tps, thresholds = _binary_clf_curve(
+        preds=preds, target=target, sample_weights=sample_weights, pos_label=pos_label
+    )
+    precision = tps / (tps + fps)
+    recall = tps / tps[-1]
+
+    # stop when full recall is attained (one host read); reverse so that
+    # recall decreases
+    last_ind = int(torch.argmax((tps == tps[-1]).to(torch.uint8)))
+    precision = torch.cat([precision[: last_ind + 1].flip(0), precision.new_ones(1)])
+    recall = torch.cat([recall[: last_ind + 1].flip(0), recall.new_zeros(1)])
+    thresholds = thresholds[: last_ind + 1].flip(0)
+    return precision, recall, thresholds
+
+
+def _precision_recall_curve_compute_multi_class(
+    preds: Tensor,
+    target: Tensor,
+    num_classes: int,
+    sample_weights: Optional[Sequence] = None,
+) -> Tuple[List[Tensor], List[Tensor], List[Tensor]]:
+    precision, recall, thresholds = [], [], []
+    for cls in range(num_classes):
+        if target.ndim > 1:
+            target_cls, pos_label = target[:, cls], 1
+        else:
+            target_cls, pos_label = target, cls
+        res = precision_recall_curve(
+            preds=preds[:, cls], target=target_cls, num_classes=1, pos_label=pos_label, sample_weights=sample_weights
+        )
+        precision.append(res[0])
+        recall.append(res[1])
+        thresholds.append(res[2])
+    return precision, recall, thresholds
+
+
+def _precision_recall_curve_compute(
+    preds: Tensor,
+    target: Tensor,
+    num_classes: int,
+    pos_label: Optional[int] = None,
+    sample_weights: Optional[Sequence] = None,
+) -> Union[Tuple[Tensor, Tensor, Tensor], Tuple[List[Tensor], List[Tensor], List[Tensor]]]:
+    if num_classes == 1:
+        if pos_label is None:
+            pos_label = 1
+        return _precision_recall_curve_compute_single_class(preds, target, pos_label, sample_weights)
+    return _precision_recall_curve_compute_multi_class(preds, target, num_classes, sample_weights)
+
+
+def precision_recall_curve(
+    preds: Any,
+    target: Any,
+    num_classes: Optional[int] = None,
+    pos_label: Optional[int] = None,
+    sample_weights: Optional[Sequence] = None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Union[Tuple[Tensor, Tensor, Tensor], Tuple[List[Tensor], List[Tensor], List[Tensor]]]:
+    """Precision-recall pairs at every distinct threshold. Host inputs go
+    to ``device`` (the card unless ``"cpu"``); tensors stay where they are.
+
+    Example:
+        >>> import torch
+        >>> pred = torch.tensor([0., 1., 2., 3.])
+        >>> target = torch.tensor([0, 1, 1, 0])
+        >>> precision, recall, thresholds = precision_recall_curve(pred, target, pos_label=1)
+        >>> precision
+        tensor([0.6667, 0.5000, 0.0000, 1.0000])
+        >>> recall
+        tensor([1.0000, 0.5000, 0.0000, 0.0000])
+        >>> thresholds
+        tensor([1., 2., 3.])
+    """
+    preds, target = _as_tensor(preds, device), _as_tensor(target, device)
+    preds, target, num_classes, pos_label = _precision_recall_curve_update(preds, target, num_classes, pos_label)
+    return _precision_recall_curve_compute(preds, target, num_classes, pos_label, sample_weights)

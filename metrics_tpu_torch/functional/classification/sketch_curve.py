@@ -1,13 +1,15 @@
 """Weighted curve kernels for the sketched curve metrics.
 
-Counterpart of the AUROC part of ``metrics_tpu/functional/classification/
-sketch_curve.py``. Past its lossless window a sketched metric holds
+Counterpart of ``metrics_tpu/functional/classification/sketch_curve.py``. Past its lossless window a sketched metric holds
 WEIGHTED rows ``(score, y, w)`` where ``y`` may be fractional (a compaction
 averages the indicator payloads and keeps their first moments exactly).
 These kernels generalise the exact-curve cumulants (``exact_curve.py``)
 from counts to masses: ``tps = cumsum(w * y)``, ``fps = cumsum(w * (1 - y))``,
 with the same descending sort, tie runs and endpoint conventions; at unit
-weights and crisp labels they give the unweighted kernels' values.
+weights and crisp labels they give the unweighted kernels' values. The
+masses are fractional, so their prefix sums take a fixed order
+(``utils/data._scan_fixed``): the curves are the same bits on the card and
+on the CPU.
 
 They work along the last axis and batch over any leading axes, which takes
 the place of the JAX package's ``vmap`` over class columns.
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.functional.classification.exact_curve import _run_ends
-from metrics_tpu_torch.utils.data import stable_sort_with_payloads
+from metrics_tpu_torch.utils.data import _scan_fixed, stable_sort_with_payloads
 
 Tensor = torch.Tensor
 
@@ -86,8 +88,10 @@ def _weighted_sorted_cumulants(
     sorted_key, sorted_wy, sorted_w = stable_sort_with_payloads(
         key, (w * y).to(torch.float32), torch.where(valid, w, 0.0).to(torch.float32), descending=True
     )
-    tps = torch.cumsum(sorted_wy, dim=-1)
-    fps = torch.cumsum(sorted_w - sorted_wy, dim=-1)
+    # fractional masses: a fixed-order scan, so the card and the CPU agree
+    # bit for bit
+    tps = _scan_fixed(sorted_wy)
+    fps = _scan_fixed(sorted_w - sorted_wy)
     run_end, run_start = _run_ends(sorted_key)
     return sorted_key, sorted_w > 0, tps, fps, run_end, run_start
 
@@ -134,6 +138,51 @@ def binary_auroc_max_fpr_weighted(scores: Tensor, y: Tensor, w: Tensor, max_fpr:
     max_area = max_fpr
     pauc = 0.5 * (1.0 + (area - min_area) / max(max_area - min_area, 1e-12))
     return torch.where((total_pos > 0) & (total_neg > 0), pauc, torch.nan)
+
+
+def binary_roc_weighted(scores: Tensor, y: Tensor, w: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Weighted ROC points ``(fpr, tpr, thresholds, point_mask)`` in the
+    fixed-kernel layout (a leading (0, 0) point at ``thresholds[0] + 1``),
+    along the last axis."""
+    sorted_key, valid, tps, fps, run_end, _ = _weighted_sorted_cumulants(scores, y, w)
+    total_pos, total_neg = tps[..., -1:], fps[..., -1:]
+    idx = torch.arange(sorted_key.shape[-1], device=sorted_key.device)
+    is_threshold = (run_end == idx) & valid
+    zero = tps.new_zeros(tps.shape[:-1] + (1,))
+    tpr = torch.cat([zero, tps / torch.clamp(total_pos, min=1e-12)], dim=-1)
+    fpr = torch.cat([zero, fps / torch.clamp(total_neg, min=1e-12)], dim=-1)
+    thresholds = torch.cat([sorted_key[..., :1] + 1.0, sorted_key], dim=-1)
+    point_mask = torch.cat([valid.any(dim=-1, keepdim=True), is_threshold], dim=-1)
+    return fpr, tpr, thresholds, point_mask
+
+
+def binary_prc_weighted(scores: Tensor, y: Tensor, w: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Weighted precision-recall points ``(precision, recall, thresholds,
+    point_mask)`` in descending score order, cut where full recall is
+    reached; callers reverse them and append ``(1, 0)``."""
+    sorted_key, valid, tps, fps, run_end, run_start = _weighted_sorted_cumulants(scores, y, w)
+    total_pos = tps[..., -1:]
+    idx = torch.arange(sorted_key.shape[-1], device=sorted_key.device)
+    is_threshold = (run_end == idx) & valid
+    prev_end_tps = torch.where(run_start > 0, tps.gather(-1, torch.clamp(run_start - 1, min=0)), 0.0)
+    # the strict comparison needs a tolerance under weighted (inexact) masses
+    reached = prev_end_tps < total_pos - 1e-6 * torch.clamp(total_pos, min=1.0)
+    is_threshold = is_threshold & (reached | (run_start == 0))
+    precision = tps / torch.clamp(tps + fps, min=1e-12)
+    recall = torch.where(total_pos > 0, tps / torch.clamp(total_pos, min=1e-12), torch.nan)
+    return precision, recall, sorted_key, is_threshold
+
+
+def binary_average_precision_weighted(scores: Tensor, y: Tensor, w: Tensor) -> Tensor:
+    """Weighted average precision (the step sum over deduplicated
+    thresholds) along the last axis; NaN where no positive mass."""
+    _, valid, tps, fps, run_end, _ = _weighted_sorted_cumulants(scores, y, w)
+    total_pos = tps[..., -1]
+    precision = tps / torch.clamp(tps + fps, min=1e-12)
+    step = torch.diff(tps, dim=-1, prepend=tps.new_zeros(tps.shape[:-1] + (1,)))
+    contributions = step * precision.gather(-1, run_end) * valid
+    ap = torch.sum(contributions, dim=-1) / torch.clamp(total_pos, min=1e-12)
+    return torch.where(total_pos > 0, ap, torch.nan)
 
 
 def weighted_class_supports(y_cols: Tensor, w: Tensor) -> Tensor:

@@ -2,10 +2,11 @@
 
 Ported so far: the weighted quantile sketch that backs the sketched curve
 metrics (``AUROC()``'s default mode), the keyed reservoir behind the mAP
-metric's per-image table, the exact streaming moments, and the exact-mode
-helpers.
+metric's per-image table, the exact streaming moments, the fixed-edge
+histogram behind ``CalibrationError``, and the exact-mode helpers.
 """
 from metrics_tpu_torch.sketches.compat import register_exact_list_states, warn_exact_buffer  # noqa: F401
+from metrics_tpu_torch.sketches.histogram import hist_bin_index, hist_init, hist_insert, hist_merge  # noqa: F401
 from metrics_tpu_torch.sketches.moments import (  # noqa: F401
     mean_cov_from_moments,
     moments_init,

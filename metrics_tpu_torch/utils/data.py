@@ -1,6 +1,7 @@
 """Tensor helpers: device placement, dim-zero reducers, one-hot, top-k
-selection, collection mapping, query grouping, the safe division, the
-routed bincount and the payload sort.
+selection, collection mapping, query grouping, the float32 ``linspace``
+of the JAX package, the safe division, the routed bincount and the payload
+sort.
 
 Counterpart of ``metrics_tpu/utils/data.py``. The JAX package runs with
 x64 off, so its integer states are int32 and its host floats become
@@ -157,6 +158,19 @@ def _tree_sum(x: Tensor) -> Tensor:
     return x[..., 0]
 
 
+def _scan_fixed(x: Tensor) -> Tensor:
+    """Inclusive prefix sums along the last axis in a fixed order (doubling
+    steps: ``x[i] += x[i - 2**k]`` for k = 0, 1, ...): each addition is one
+    IEEE operation, so the sums have the same bits on every device
+    (``torch.cumsum`` scans in an order that depends on the device)."""
+    n = x.shape[-1]
+    shift = 1
+    while shift < n:
+        x = torch.cat([x[..., :shift], x[..., shift:] + x[..., :-shift]], dim=-1)
+        shift *= 2
+    return x
+
+
 def _total_order_key(x: Tensor) -> Tensor:
     """Integer key whose signed order is IEEE totalOrder of the floats in
     ``x`` (-NaN < -inf < ... < -0.0 < +0.0 < ... < +inf < +NaN): the order
@@ -234,6 +248,21 @@ def get_group_indexes(indexes: Tensor) -> List[Tensor]:
     order = np.argsort(ids, kind="stable")
     boundaries = np.nonzero(np.diff(ids[order]))[0] + 1
     return [torch.as_tensor(g.astype(np.int32), device=indexes.device) for g in np.split(order, boundaries)]
+
+
+def linspace_f32(num: int, device: Optional[Union[str, torch.device]] = None) -> Tensor:
+    """``num`` evenly spaced float32 values from 0 to 1 (both included), bit
+    for bit as the JAX package's ``jnp.linspace(0, 1, num)`` with float32
+    gives them: ``i * float32(1 / (num - 1))``, the last value set to 1.
+    ``torch.linspace`` rounds otherwise (at ``num = 16`` six of the values
+    differ), which would put samples on a bin edge into another bin."""
+    if not isinstance(num, int) or num < 1:
+        raise ValueError(f"`num` must be a positive int, got {num!r}")
+    device = _resolve_device(device)
+    if num == 1:
+        return torch.zeros(1, dtype=torch.float32, device=device)
+    steps = torch.arange(num - 1, dtype=torch.float32, device=device) * np.float32(1.0 / (num - 1))
+    return torch.cat([steps, torch.ones(1, dtype=torch.float32, device=device)])
 
 
 def _safe_divide(num: Tensor, denom: Tensor) -> Tensor:

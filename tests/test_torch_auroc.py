@@ -151,13 +151,9 @@ def test_carried_overflow_tally_raises_at_compute():
     [{"num_classes": C}, {"num_classes": C, "exact": True}, {"capacity": 10}, {"num_classes": 1, "capacity": 10}],
 )
 def test_modes_of_later_slices_raise_naming_the_roadmap(kwargs):
-    """Only ``exact=True`` is left to a later slice; the sketched default
-    and the binary capacity mode construct and compute like the JAX
-    package's."""
-    if kwargs.get("exact"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            AUROC(device="cpu", **kwargs)
-        return
+    """No mode is left to a later slice: the sketched default,
+    ``exact=True`` and the capacity modes construct and compute like the
+    JAX package's."""
     rng = np.random.RandomState(3)
     if kwargs.get("num_classes", 1) >= 2:
         preds, target = _scores(rng, 8), rng.randint(0, C, 8)

@@ -136,8 +136,10 @@ def test_mode_changes_raise():
 
 
 def test_constructor_errors():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        AUROC(exact=True, device="cpu")
+    # exact=True is a state mode now (unbounded list states), with the
+    # reference's memory warning
+    with pytest.warns(UserWarning, match="memory footprint"):
+        assert AUROC(exact=True, device="cpu").preds == []
     with pytest.raises(ValueError, match="mutually exclusive"):
         AUROC(exact=True, capacity=8, device="cpu")
     with pytest.raises(ValueError, match="sketch_capacity"):
