@@ -214,6 +214,34 @@ Phases, each printed as one JSON line:
    decay=0.99) and the ring WindowedMetric(MSE(), window=8,
    updates_per_bucket=4): card and CPU states bit for bit, decay within
    1e-5 of a float64 recurrence, the ring equal to its window's batches;
+18b. the fused update on CUDA graphs (``compile_update``), each phase an
+   eager leg against a fused leg over the same batches (each leg's first
+   update eager: it forms the compute groups), every state and value bit
+   for bit, ms per update, device ms per update and idle share (three
+   updates under torch.profiler), host syncs per update, launches, captures,
+   each graph's launches per replay and the members on the eager leg:
+   fused-classification -- classification-collection's 30 updates with
+   buckets=(2048,): one capture, 0 host syncs per fused update, and
+   bincount_i32 launched as the graph recorded it times its replays (2 per
+   replay: the batch and the pad row's delta); fused-flagship --
+   ConfusionMatrix(1000) and AUROC(1000, capacity=65536) over 12 flagship
+   batches (no buckets: the capacity buffers are "cat" states), launches
+   equal on both legs; fused-sketch -- bench_sketch's fused collection,
+   Accuracy() and AUROC(), over 64 batches of curve-binary's stream with
+   buckets=(4096,): one K3 and one K1 launch per replay (a captured absorb
+   always compacts), and the extra device time of a replay inside the
+   lossless window; fused-sliced -- SlicedMetric(PSNR(), 1000) over
+   sliced-psnr's 16 updates, K1 and K2 inside the graph; fused-windowed --
+   windowed-decay's stream through the ring and the decay
+   WindowedMetric(MSE()) with buckets=(2048,) (n_valid, the pads corrected
+   in the live slot); fused-retrieval -- 12 of retrieval-mslr's updates
+   (the last one short and padded) with buckets=(16384,), or the member the
+   probe declined and why;
+18c. async -- bench_async's serving loop on classification-collection's
+   metrics: a sleep of about one blocking update, then the batch through
+   compile_update() or compile_update_async(queue_depth=2); steps per second
+   of each (best of 3 epochs of 100), enqueue µs, 0 dropped, final states
+   bit for bit;
 19. the kernels line: per kernel its launches on its main path (flagship for
    K1, sketch-binary for K3, map-coco for K6, the entry point ops.box_iou
    on 2-D boxes for K5, retrieval-mslr for K4, sliced-psnr for K2 and
@@ -234,7 +262,8 @@ Phases, each printed as one JSON line:
    curve-binary's compaction input); each device time per wrapper call (every CUDA kernel
    the wrapper issues, merge passes and combines included, summed) with the
    number of profiler windows it took (a window that saw no launch is taken
-   again, at most three in all).
+   again, at most five in all; when all miss, the CUDA-event time of the
+   back-to-back calls, and ``device_ms_source`` says which).
 
 PERF.md gives the run times measured on an H100 and where they go. Then the card's name
 and power limit as nvidia-smi reports them, and last
@@ -243,6 +272,7 @@ raises, so the script exits non-zero and prints no result line; it does the
 same without CUDA, or without the metrics_tpu_torch package beside it.
 """
 import json
+import re
 import subprocess
 import sys
 import time
@@ -289,6 +319,17 @@ QSKETCH_REPLACES = "metrics_tpu/ops/qsketch_pallas.py:149"
 TIMING_LAUNCHES = 200
 # torch.profiler windows taken at most for one kernel's device time
 PROFILE_WINDOWS = 5
+#: the CUDA kernel that each wrapper of a fused phase launches once per call
+#: (a merge, scan or combine pass may follow it)
+WRAPPER_KERNEL = {
+    "bincount_i32": "bincount_i32_kernel",
+    "segment_sum_f32": "segment_sum_f32_kernel",
+    "segment_sum_i32": "segment_sum_i32_kernel",
+    "segment_max_f32": "segment_max_f32_kernel",
+    "segment_min_f32": "segment_min_f32_kernel",
+    "qsketch_sort_bucket": "sort_tiles_kernel",
+    "row_topk": "topk_select_kernel",
+}
 #: the sketched default: capacity, batch, batches (one test day of a
 #: display-ads click log) and the positive rate of that stream
 SKETCH_CAPACITY = 8192
@@ -400,6 +441,15 @@ SLICED_SIZES = (3072, 3584, 4096)
 DECAY_UPDATES = 120
 DECAY_SHAPES = (1536, 2048, 1948)
 DECAY_ALPHA = 0.99
+
+# the fused update and the async pipeline
+FUSED_BUCKET = 2048
+FUSED_SKETCH_BATCHES = 64
+ASYNC_BATCH = 2048
+ASYNC_POOL = 8
+ASYNC_STEPS = 100
+ASYNC_EPOCHS = 3
+FUSED_RETRIEVAL_UPDATES = 12
 #: K3 parity cases: (name, rows, columns, share of zero-weight rows, keys:
 #: "randn", "tied" (integers 0..49), "equal", "nan" (NaN of both signs among
 #: normal keys) or "signed_zero" (halves, about half the zeros -0.0)); the
@@ -469,10 +519,12 @@ def kernel_device_time(torch, fn, kernel_names, launches=50):
     ``kernel_names`` (a name or a tuple of the CUDA kernels its wrapper may
     issue, each any number of times a call: a merge pass, a combine) summed
     and divided by the ``launches`` calls made; and the profiling windows
-    taken to read it. The wrappers' host work and the output zeroing are not
-    in it. ``device_ms`` is None, with a line on standard error, when no
-    window recorded a launch: the launches themselves are counted and held
-    against the plain versions elsewhere."""
+    taken to read it, with ``device_ms_source`` "profiler". The wrappers'
+    host work and the output zeroing are not in it. When no window recorded
+    a launch, ``device_ms`` is the CUDA-event time of ``launches``
+    back-to-back calls instead (source "cuda_events": the wrappers' issue
+    gaps are in it, so it bounds the kernel's time from above), with a
+    line on standard error."""
     from torch.profiler import ProfilerActivity, profile
 
     names = (kernel_names,) if isinstance(kernel_names, str) else tuple(kernel_names)
@@ -491,15 +543,19 @@ def kernel_device_time(torch, fn, kernel_names, launches=50):
         if found:
             break
     if not found:
-        print(f"chip_smoke: the profiler recorded no launch of {names} in {windows} windows", file=sys.stderr, flush=True)
-        return {"device_ms": None, "device_windows": windows}
+        print(
+            f"chip_smoke: the profiler recorded no launch of {names} in {windows} windows; timing {launches} calls with CUDA events",
+            file=sys.stderr,
+            flush=True,
+        )
+        return {"device_ms": time_ms(torch, fn, launches=launches), "device_windows": windows, "device_ms_source": "cuda_events"}
     total_ms = 0.0
     for evt in found:
         # the profiler may miss an event at the edge of its window: a
         # kernel's time per launch it saw, times its launches per call
         per_call = max(1, round(evt.count / launches))
         total_ms += _self_device_us(evt) / evt.count * per_call / 1e3
-    return {"device_ms": total_ms, "device_windows": windows}
+    return {"device_ms": total_ms, "device_windows": windows, "device_ms_source": "profiler"}
 
 
 def device_profile(torch, step, steps):
@@ -522,7 +578,20 @@ def device_profile(torch, step, steps):
         "profiled_wall_ms_per_step": wall_s / steps * 1e3,
         "device_busy_ms_per_step": device_us / steps / 1e3,
         "device_us_per_step_by_kernel": {evt.key[:80]: _self_device_us(evt) / steps for evt in top},
+        "kernel_calls": {evt.key: evt.count for evt in device},
     }
+
+
+def device_launches(kernel_calls):
+    """Each wrapper's launches as the device ran them: the calls of its
+    first kernel (``WRAPPER_KERNEL``) in a profile, graph replays included."""
+    out = {}
+    for wrapper, kernel in WRAPPER_KERNEL.items():
+        pattern = re.compile(rf"(?<!\w){kernel}(?!\w)")
+        n = sum(count for key, count in kernel_calls.items() if pattern.search(key))
+        if n:
+            out[wrapper] = n
+    return out
 
 
 def host_us_per_call(torch, fn, calls=200):
@@ -2324,6 +2393,415 @@ def windowed_decay_phase(torch, ops, card, WindowedMetric, MeanSquaredError):
     emit(out)
 
 
+# ---------------------------------------------------------------------------
+# the fused update on CUDA graphs, and the async pipeline
+# ---------------------------------------------------------------------------
+
+
+def syncs_per_update(torch, update, batches):
+    """Host synchronisations per ``update(batch)`` (steady state), counted
+    as the warnings of ``torch.cuda.set_sync_debug_mode("warn")``."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for batch in batches:
+                update(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    return len(syncs) / len(batches)
+
+
+def update_args(collection, batch):
+    collection.update(*batch)
+
+
+def fused_legs(torch, ops, name, make, batches, compile_kw, update=update_args):
+    """The eager and the fused leg of one phase over the same batches. Each
+    leg is a fresh collection whose first update runs eagerly (it forms the
+    compute groups); the fused leg then calls ``compile_update(**compile_kw)``.
+    The launch counters are reset before the second update, whose time (on
+    the fused leg: the probe, the capture and one replay) is kept apart from
+    the steady updates after it. Every state of the two legs is held bit for
+    bit, and every computed value. Returns ``{leg: record}``."""
+    legs = {}
+    for leg in ("eager", "fused"):
+        collection = make()
+        update(collection, batches[0])
+        handle = collection.compile_update(**compile_kw) if leg == "fused" else None
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        update(collection, batches[1])
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for batch in batches[2:]:
+            update(collection, batch)
+        torch.cuda.synchronize()
+        steady_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        values = collection.compute()
+        legs[leg] = {
+            "label": f"{name} {leg}",
+            "collection": collection,
+            "handle": handle,
+            "first_update_ms": first_ms,
+            "ms_per_update": steady_s / (len(batches) - 2) * 1e3,
+            "launches": launches,
+            "updates": len(batches) - 1,
+            "values": values,
+            "states": collection_states(torch, collection),
+        }
+    eager, fused = legs["eager"], legs["fused"]
+    differ = state_bits_differ(torch, eager["states"], fused["states"])
+    check(not differ, f"{name}: the fused leg's states differ from the eager leg's in {differ}")
+    check(eager["states"].keys() == fused["states"].keys(), f"{name}: the legs hold different states")
+    for key, value in eager["values"].items():
+        check(same_outputs(torch, value, fused["values"][key]), f"{name}: fused {key} differs from eager")
+    return legs
+
+
+def leg_report(torch, ops, leg, update, batches, profiled=3):
+    """ms per update, device ms per update and idle share (``profiled``
+    updates under torch.profiler), host syncs per update (three more) and
+    the launches of one leg. In the profiled window the launches that the
+    device ran (``device_launches``) must equal the launch counters, and on
+    the fused leg each graph's launches recorded at capture times its
+    replays there: so the counters stand for kernels that ran inside the
+    graphs. A window that missed launches is taken again (up to
+    ``PROFILE_WINDOWS``), each from a reset collection."""
+    collection = leg["collection"]
+    handle = leg["handle"]
+    entries = list(handle._cache.values()) if handle is not None else []
+    for windows in range(1, PROFILE_WINDOWS + 1):
+        collection.reset()  # keeps the fused handle; the capacity buffers refill
+        calls0 = [entry.calls for entry in entries]
+        ops.reset_launch_counts()
+        profile = device_profile(torch, lambda i: update(collection, batches[i]), profiled)
+        counted = {k: n for k, n in ops.launch_counts().items() if n}
+        seen = device_launches(profile["kernel_calls"])
+        if seen == counted:
+            break
+    check(seen == counted, f"{leg['label']}: the device ran {seen} launches in {windows} profiled windows, the counters say {counted}")
+    replayed = {}
+    for entry, c0 in zip(entries, calls0):
+        for kernel, n in entry.launches.items():
+            replayed[kernel] = replayed.get(kernel, 0) + n * (entry.calls - c0)
+    if handle is not None:
+        replayed = {k: n for k, n in replayed.items() if n}
+        check(seen == replayed, f"{leg['label']}: the device ran {seen} launches, the graphs' replays hold {replayed}")
+    out = {
+        "ms_per_update": leg["ms_per_update"],
+        "first_update_ms": leg["first_update_ms"],
+        "device_ms_per_update": profile["device_busy_ms_per_step"],
+        "profiled_wall_ms_per_update": profile["profiled_wall_ms_per_step"],
+        "device_idle_share": 1 - profile["device_busy_ms_per_step"] / leg["ms_per_update"],
+        "host_syncs_per_update": syncs_per_update(torch, lambda b: update(collection, b), batches[3:6]),
+        "launches": leg["launches"],
+        "device_launches_profiled": seen,
+        "profiled_windows": windows,
+        "top_device_us": profile["device_us_per_step_by_kernel"],
+    }
+    if handle is not None:
+        out.update(
+            cache_size=handle.cache_size,
+            captures=handle.n_compiles,
+            launches_per_replay=[dict(entry.launches) for entry in entries],
+            replays=sum(entry.calls for entry in entries),
+            eager_leg=sorted(handle._eager_names),
+            declined=dict(handle.declined),
+        )
+    return out
+
+
+def check_replay_launches(name, legs, kernel, eager_expected):
+    """Launches of ``kernel`` over each leg's run (the fused leg's replays
+    counted): some on the fused leg, and ``eager_expected`` on the eager
+    leg. That they ran inside the graphs is ``leg_report``'s gate."""
+    updates = legs["fused"]["updates"]
+    eager_n = legs["eager"]["launches"].get(kernel, 0)
+    fused_n = legs["fused"]["launches"].get(kernel, 0)
+    check(fused_n > 0, f"{name}: {kernel} launched no time on the fused leg")
+    check(eager_n == eager_expected, f"{name}: {kernel} launched {eager_n} times on the eager leg, expected {eager_expected}")
+    return {"eager": eager_n, "fused": fused_n, "fused_per_replay": fused_n / updates, "updates": updates}
+
+
+def check_kept_values(torch, name, compute, update, batches, collection):
+    """A value that ``compute()`` returned does not change under later
+    updates: a donating handle's replays overwrite the states in place, so
+    compute hands out copies of any result that shares a state buffer. The
+    kept values are read once while the updates may still run (on the async
+    worker's stream) and once after ``collection.compute()`` has waited for
+    them."""
+    kept = compute()
+    frozen = {key: [t.clone() for t in flat_outputs(v)] for key, v in kept.items()}
+    held = {
+        getattr(m, k).untyped_storage().data_ptr()
+        for m in collection.values()
+        for k in m._defaults
+        if isinstance(getattr(m, k), torch.Tensor)
+    }
+    shared = [key for key, v in kept.items() if any(t.untyped_storage().data_ptr() in held for t in flat_outputs(v))]
+    for batch in batches:
+        update(batch)
+    changed = {}
+    for when in ("during", "after"):
+        if when == "after":
+            collection.compute()
+            torch.cuda.synchronize()
+        changed[when] = [
+            key for key, v in kept.items() if not all(torch.equal(a, b) for a, b in zip(flat_outputs(v), frozen[key]))
+        ]
+    check(not shared and not any(changed.values()), f"{name}: kept compute() values share state buffers {shared} or changed {changed}")
+    return sorted(kept)
+
+
+def fused_classification_phase(torch, ops, card, tm):
+    """fused-classification: bench_fused's 30 updates (1900/2000/2048 rows
+    cycled) through classification-collection's eight metrics, eager
+    against compile_update(buckets=(2048,))."""
+    t_phase = time.perf_counter()
+    fused = fused_batches()
+    epoch = [fused[i % len(fused)] for i in range(len(fused) * CLS_REPEATS)]
+    batches = [(torch.from_numpy(p).cuda(), torch.from_numpy(t).cuda()) for p, t in epoch]
+    legs = fused_legs(torch, ops, "fused-classification", lambda: fused_collection(tm, "cuda"), batches, {"buckets": (FUSED_BUCKET,)})
+    report = {leg: leg_report(torch, ops, legs[leg], update_args, batches) for leg in legs}
+    fused_r = report["fused"]
+    check(fused_r["cache_size"] == 1 and fused_r["captures"] == 1, f"fused-classification: {fused_r['captures']} captures, cache {fused_r['cache_size']}")
+    check(not fused_r["eager_leg"], f"fused-classification: members on the eager leg {fused_r['declined']}")
+    check(fused_r["host_syncs_per_update"] == 0, f"fused-classification: {fused_r['host_syncs_per_update']} host syncs per fused update")
+    # each replay counts the batch's bincount and the pad row's (the
+    # k * delta(last_row) correction runs the update on one row)
+    k1 = check_replay_launches("fused-classification", legs, "bincount_i32", len(batches) - 1)
+    check(fused_r["launches_per_replay"][0].get("bincount_i32") == 2, f"fused-classification: graph launches {fused_r['launches_per_replay']}")
+    emit({"phase": "fused-classification", "card": card, "updates": len(batches), "bucket": FUSED_BUCKET,
+          "bincount_i32": k1, "compute_groups": {str(k): v for k, v in legs["fused"]["collection"].compute_groups.items()},
+          **report, "seconds": time.perf_counter() - t_phase})
+    return legs
+
+
+def fused_flagship_phase(torch, ops, card, tm, preds_all, target_all):
+    """fused-flagship: MetricCollection([ConfusionMatrix(1000),
+    AUROC(num_classes=1000, capacity=65536)]) over the 12 flagship batches,
+    eager against compile_update() (the capacity buffers are "cat" states,
+    so no buckets: one graph for the one shape)."""
+    t_phase = time.perf_counter()
+    batches = [(preds_all[i], target_all[i]) for i in range(STATEFUL_BATCHES)]
+
+    def make():
+        return tm.MetricCollection([tm.ConfusionMatrix(num_classes=NUM_CLASSES), tm.AUROC(num_classes=NUM_CLASSES, capacity=CAPACITY)])
+
+    legs = fused_legs(torch, ops, "fused-flagship", make, batches, {})
+    report = {leg: leg_report(torch, ops, legs[leg], update_args, batches) for leg in legs}
+    fused_r = report["fused"]
+    check(fused_r["cache_size"] == 1 and fused_r["captures"] == 1, f"fused-flagship: {fused_r['captures']} captures")
+    check(not fused_r["eager_leg"], f"fused-flagship: members on the eager leg {fused_r['declined']}")
+    check(fused_r["host_syncs_per_update"] == 0, f"fused-flagship: {fused_r['host_syncs_per_update']} host syncs per fused update")
+    k1 = check_replay_launches("fused-flagship", legs, "bincount_i32", len(batches) - 1)
+    check(k1["eager"] == k1["fused"], f"fused-flagship: bincount_i32 launches {k1}")
+    overflow = int(legs["fused"]["collection"]["AUROC"].overflow)
+    check(overflow == 0, f"fused-flagship: {overflow} samples overflowed the capacity")
+    col = legs["fused"]["collection"]
+    kept = check_kept_values(torch, "fused-flagship", col.compute,
+                             lambda b: col.update(*b), batches[:2], col)
+    emit({"phase": "fused-flagship", "card": card, "updates": len(batches), "bincount_i32": k1, **report,
+          "kept_values_unchanged": kept, "seconds": time.perf_counter() - t_phase})
+
+
+def fused_sketch_phase(torch, ops, card, tm):
+    """fused-sketch: bench_sketch's fused collection,
+    MetricCollection([Accuracy(), AUROC()]), over curve-binary's stream,
+    eager against compile_update(buckets=(4096,)). A captured absorb always
+    compacts (K3, then K1's float sum) and selects on the device, so the
+    extra cost inside the lossless window is measured too."""
+    t_phase = time.perf_counter()
+    score_np, y_np = make_curve_stream()
+    score, y = torch.from_numpy(score_np).cuda(), torch.from_numpy(y_np).cuda()
+    batches = [(score[i], y[i]) for i in range(FUSED_SKETCH_BATCHES)]
+
+    def make():
+        return tm.MetricCollection([tm.Accuracy(), tm.AUROC()])
+
+    legs = fused_legs(torch, ops, "fused-sketch", make, batches, {"buckets": (CURVE_BATCH,)})
+    report = {leg: leg_report(torch, ops, legs[leg], update_args, batches) for leg in legs}
+    fused_r = report["fused"]
+    check(fused_r["cache_size"] == 1 and not fused_r["eager_leg"], f"fused-sketch: cache {fused_r['cache_size']}, eager {fused_r['declined']}")
+    per_replay = fused_r["launches_per_replay"][0]
+    check(per_replay.get("qsketch_sort_bucket") == 1 and per_replay.get("segment_sum_f32") == 1, f"fused-sketch: graph launches {per_replay}")
+    # the eager leg compacts once the stream may pass the capacity: from the
+    # third batch on (two batches fill the lossless window)
+    k3 = check_replay_launches("fused-sketch", legs, "qsketch_sort_bucket", len(batches) - 2)
+    # inside the lossless window: one update of an empty sketch, eager (no
+    # compaction) against a replay (a compaction whose result is not kept)
+    window = {}
+    for leg in ("eager", "fused"):
+        collection = legs[leg]["collection"]
+        collection.reset()  # keeps the fused handle and its graph
+        window[leg] = device_profile(torch, lambda i: collection.update(*batches[i]), 1)["device_busy_ms_per_step"]
+        check(int(collection["AUROC"].n_seen) == CURVE_BATCH, f"fused-sketch: {leg} window update saw {int(collection['AUROC'].n_seen)} rows")
+    emit({"phase": "fused-sketch", "card": card, "updates": len(batches), "bucket": CURVE_BATCH,
+          "qsketch_sort_bucket": k3, "k3_k1_per_replay": per_replay,
+          "window_device_ms": window, "window_extra_device_ms": window["fused"] - window["eager"],
+          **report, "seconds": time.perf_counter() - t_phase})
+
+
+def fused_sliced_windowed_phase(torch, ops, card, tm, SlicedMetric, WindowedMetric):
+    """fused-sliced: SlicedMetric(PSNR(), 1000) over sliced-psnr's 16
+    updates, eager against compile_update() (K1 and K2 inside the graph);
+    fused-windowed: windowed-decay's stream (1536/2048/1948 rows) through
+    the ring and the decay WindowedMetric(MSE()) with buckets=(2048,), the
+    pad rows corrected in the live slot through n_valid."""
+    t_phase = time.perf_counter()
+    batches = [psnr_batch(torch, PSNR_SEED + i) for i in range(PSNR_UPDATES)]
+
+    def make_sliced():
+        return tm.MetricCollection([SlicedMetric(tm.PeakSignalNoiseRatio(), num_slices=PSNR_TENANTS)])
+
+    legs = fused_legs(torch, ops, "fused-sliced", make_sliced, batches, {})
+    report = {leg: leg_report(torch, ops, legs[leg], update_args, batches) for leg in legs}
+    check(report["fused"]["cache_size"] == 1 and not report["fused"]["eager_leg"], f"fused-sliced: {report['fused']['declined']}")
+    kernels = {name: check_replay_launches("fused-sliced", legs, name, n * (len(batches) - 1)) for name, n in (
+        ("segment_max_f32", 1), ("segment_min_f32", 1), ("segment_sum_f32", 1), ("segment_sum_i32", 2))}
+    emit({"phase": "fused-sliced", "card": card, "updates": len(batches), "launches_by_kernel": kernels, **report,
+          "seconds": time.perf_counter() - t_phase})
+    del legs, batches
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(12)
+    stream = []
+    for i in range(DECAY_UPDATES):
+        n = DECAY_SHAPES[i % len(DECAY_SHAPES)]
+        stream.append(tuple(torch.from_numpy(rng.randint(0, 2, n).astype(np.int32)).cuda() for _ in range(2)))
+    out = {"phase": "fused-windowed", "card": card, "updates": DECAY_UPDATES, "bucket": FUSED_BUCKET}
+    makers = {
+        "ring": lambda: tm.MetricCollection([WindowedMetric(tm.MeanSquaredError(), window=8, updates_per_bucket=4)]),
+        "decay": lambda: tm.MetricCollection([WindowedMetric(tm.MeanSquaredError(), mode="decay", decay=DECAY_ALPHA)]),
+    }
+    for mode, make in makers.items():
+        legs = fused_legs(torch, ops, f"fused-windowed {mode}", make, stream, {"buckets": (FUSED_BUCKET,)})
+        handle = legs["fused"]["handle"]
+        check(handle.cache_size == 1 and not handle._eager_names, f"fused-windowed {mode}: cache {handle.cache_size}, {handle.declined}")
+        out[mode] = {leg: {"ms_per_update": legs[leg]["ms_per_update"], "first_update_ms": legs[leg]["first_update_ms"]} for leg in legs}
+        out[mode]["captures"] = handle.n_compiles
+        out[mode]["value"] = float(legs["fused"]["values"]["WindowedMetric"])
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+
+def fused_retrieval_phase(torch, ops, card, MetricCollection):
+    """fused-retrieval: retrieval-mslr's updates of 16,384 documents (the
+    first FUSED_RETRIEVAL_UPDATES - 1 and the last, shorter one, which pads
+    to the bucket: the insert masks rows past n_valid), eager against
+    compile_update(buckets=(16384,)), every table bit for bit. Where the
+    probe declines the insert, the phase prints the member and the reason
+    and does not fail."""
+    t_phase = time.perf_counter()
+    tret = import_module("metrics_tpu_torch.retrieval")
+    idx, preds, target = stream_on(torch, make_mslr_stream(), "cuda")
+    batches = [
+        (preds[lo : lo + RETRIEVAL_UPDATE_DOCS], target[lo : lo + RETRIEVAL_UPDATE_DOCS], idx[lo : lo + RETRIEVAL_UPDATE_DOCS])
+        for lo in range(0, idx.shape[0], RETRIEVAL_UPDATE_DOCS)
+    ]
+    batches = batches[: FUSED_RETRIEVAL_UPDATES - 1] + batches[-1:]
+
+    def update(collection, batch):
+        collection.update(batch[0], batch[1], indexes=batch[2])
+
+    def make():
+        return retrieval_collection(torch, tret, MetricCollection, max_queries=RETRIEVAL_MAX_QUERIES)
+
+    legs = fused_legs(torch, ops, "fused-retrieval", make, batches, {"buckets": (RETRIEVAL_UPDATE_DOCS,)}, update)
+    handle = legs["fused"]["handle"]
+    if handle._eager_names:  # the probe declined the insert: eager on both legs
+        emit({"phase": "fused-retrieval", "card": card, "captured": False, "declined": dict(handle.declined),
+              "seconds": time.perf_counter() - t_phase})
+        return
+    # one profiled update: an eager one issues about 5000 kernels
+    report = {leg: leg_report(torch, ops, legs[leg], update, batches, profiled=1) for leg in legs}
+    tables = len(legs["eager"]["collection"].compute_groups)
+    chunks = sum(-(-batch[0].shape[0] // 2048) for batch in batches[1:])
+    k4 = check_replay_launches("fused-retrieval", legs, "row_topk", tables * chunks)
+    emit({"phase": "fused-retrieval", "card": card, "captured": True, "updates": len(batches), "row_topk": k4, **report,
+          "seconds": time.perf_counter() - t_phase})
+
+
+def async_phase(torch, ops, card, tm):
+    """async: bench_async's serving loop on the fused-classification
+    collection (2048-row batches from a pool of 8, seed 7): each step waits
+    for a request (a sleep calibrated to about 1x the blocking update), then
+    accounts the batch, blocking through compile_update() or enqueued
+    through compile_update_async(queue_depth=2). Steps per second of each
+    side (best of the alternating epochs); the final states bit for bit."""
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(7)
+    pool = []
+    for _ in range(ASYNC_POOL):
+        p = rng.rand(ASYNC_BATCH, CLS_CLASSES).astype(np.float32)
+        p /= p.sum(-1, keepdims=True)
+        pool.append((torch.from_numpy(p).cuda(), torch.from_numpy(rng.randint(0, CLS_CLASSES, ASYNC_BATCH)).cuda()))
+    epoch = [pool[i % len(pool)] for i in range(ASYNC_STEPS)]
+
+    blocking = fused_collection(tm, "cuda")
+    blocking.update(*pool[0])
+    blocking.compile_update()
+    for batch in pool[:4]:
+        blocking.update(*batch)
+    torch.cuda.synchronize()
+    per_group = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for batch in pool[:4]:
+            blocking.update(*batch)
+        torch.cuda.synchronize()
+        per_group.append((time.perf_counter() - t0) / 4)
+    wait_s = min(per_group)
+
+    asynchronous = fused_collection(tm, "cuda")
+    asynchronous.update(*pool[0])
+    handle = asynchronous.compile_update_async(queue_depth=2)
+    # while the worker probes and captures, this thread synchronises (an
+    # eager collection's value checks): the probe must not forbid it
+    eager = fused_collection(tm, "cuda")
+    for batch in pool[:4] * 4:  # the blocking side's warm-up and calibration
+        handle.update_async(*batch)
+        eager.update(*batch)
+    handle.flush()
+    best = {"blocking": 0.0, "async": 0.0}
+    enqueue_us = []
+    for _ in range(ASYNC_EPOCHS):
+        t0 = time.perf_counter()
+        for batch in epoch:
+            time.sleep(wait_s)
+            blocking.update(*batch)
+        torch.cuda.synchronize()
+        best["blocking"] = max(best["blocking"], ASYNC_STEPS / (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        for batch in epoch:
+            time.sleep(wait_s)
+            t_call = time.perf_counter()
+            handle.update_async(*batch)
+            enqueue_us.append((time.perf_counter() - t_call) * 1e6)
+        handle.flush()
+        torch.cuda.synchronize()
+        best["async"] = max(best["async"], ASYNC_STEPS / (time.perf_counter() - t0))
+    check(handle.dropped == 0, f"async: {handle.dropped} batches dropped under the block policy")
+    check(handle.applied == handle.enqueued, f"async: {handle.applied} of {handle.enqueued} batches applied")
+    blocking.compute()
+    asynchronous.compute()
+    differ = state_bits_differ(torch, collection_states(torch, blocking), collection_states(torch, asynchronous))
+    check(not differ, f"async: the async side's states differ from the blocking side's in {differ}")
+    kept = check_kept_values(torch, "async", handle.compute, lambda b: handle.update_async(*b), pool[:4], asynchronous)
+    handle.close()
+    emit({"phase": "async", "card": card, "kept_values_unchanged": kept, "steps": ASYNC_STEPS, "epochs": ASYNC_EPOCHS, "batch": ASYNC_BATCH,
+          "request_wait_ms": wait_s * 1e3, "blocking_steps_per_s": best["blocking"], "async_steps_per_s": best["async"],
+          "async_vs_blocking": best["async"] / best["blocking"], "dropped": handle.dropped,
+          "enqueue_us_p50": float(np.percentile(enqueue_us, 50)), "enqueue_us_p99": float(np.percentile(enqueue_us, 99)),
+          "seconds": time.perf_counter() - t_phase})
+
+
 def segment_fold_line(torch, ops, name, source, replaces, launches, args, plain_fn, library_fn, device_name, exact_fn=None):
     """A kernels-line entry of a row-order segment kernel at its main-path
     input ``args`` (values, ids, S), held bit for bit against ``exact_fn``
@@ -2438,23 +2916,6 @@ def run_collection(torch, ops, make, batches):
     }
 
 
-def host_syncs_per_update(torch, collection, batches):
-    """Host synchronisations per update (steady state), counted as the
-    warnings of ``torch.cuda.set_sync_debug_mode("warn")`` (the mode's own
-    one-time notice that it is a prototype is not one)."""
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            for preds, target in batches:
-                collection.update(preds, target)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
-    return len(syncs) / len(batches)
-
-
 def classification_phase(torch, ops, card, name, make, card_batches, cpu_batches, numpy_checks):
     """The port's eager MetricCollection.update on the card over
     ``card_batches``, against the same run on the CPU (every state bit for
@@ -2485,7 +2946,7 @@ def classification_phase(torch, ops, card, name, make, card_batches, cpu_batches
 
     collection = make("cuda")
     collection.update(*card_batches[0])
-    syncs = host_syncs_per_update(torch, collection, card_batches[1:4])
+    syncs = syncs_per_update(torch, lambda b: collection.update(*b), card_batches[1:4])
     ms_per_update = run["update_s"] / steady * 1e3
     profile = device_profile(torch, lambda i: collection.update(*card_batches[1 + i]), 3)
     emit(
@@ -2774,7 +3235,7 @@ def curve_binary_phase(torch, ops, card, tm):
     fresh = curve_binary_metrics(tm, "cuda")["collection"]
     for preds, target in batches[:3]:
         fresh.update(preds, target)
-    syncs = host_syncs_per_update(torch, fresh, batches[3:6])
+    syncs = syncs_per_update(torch, lambda b: fresh.update(*b), batches[3:6])
     ms_per_update = update_s / (CURVE_BATCHES - 1) * 1e3
     profile = device_profile(torch, lambda i: collection.update(*batches[6 + i]), 5)
     emit(
@@ -2982,7 +3443,7 @@ def curve_multiclass_phase(torch, ops, card, tm, preds_all, target_all, preds_np
     fresh = curve_multiclass_metrics(tm, "cuda")
     for preds, target in batches[:2]:
         fresh.update(preds, target)
-    syncs = host_syncs_per_update(torch, fresh, batches[2:5])
+    syncs = syncs_per_update(torch, lambda b: fresh.update(*b), batches[2:5])
     ms_per_update = update_s / n * 1e3
     profile = device_profile(torch, lambda i: fresh.update(*batches[5 + i]), 3)
     emit(
@@ -3334,6 +3795,14 @@ def main():
     sliced_mse_phase(torch, ops, card, SlicedMetric, MeanSquaredError)
     windowed_psnr_phase(torch, ops, card, SlicedMetric, WindowedMetric, PeakSignalNoiseRatio)
     windowed_decay_phase(torch, ops, card, WindowedMetric, MeanSquaredError)
+    # the fused update on CUDA graphs against the eager update, and the
+    # async pipeline against the blocking fused update
+    fused_classification_phase(torch, ops, card, tm)
+    fused_flagship_phase(torch, ops, card, tm, preds_all, target_all)
+    fused_sketch_phase(torch, ops, card, tm)
+    fused_sliced_windowed_phase(torch, ops, card, tm, SlicedMetric, WindowedMetric)
+    fused_retrieval_phase(torch, ops, card, MetricCollection)
+    async_phase(torch, ops, card, tm)
     # K5 is reached by 2-D boxes through the entry point ops.box_iou
     gen = torch.Generator(device="cpu").manual_seed(5)
     k5_inputs = [(iou_boxes(torch, gen, n).cuda(), iou_boxes(torch, gen, m).cuda()) for n, m in K5_PARITY_SHAPES]

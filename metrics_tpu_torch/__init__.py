@@ -12,6 +12,7 @@ curve family (``AUROC``, ``ROC``, ``PrecisionRecallCurve``,
 ``AveragePrecision``: the sketched streaming default for binary,
 one-vs-rest and multilabel inputs, ``exact=True`` and the capacity modes;
 ``AUC``; the binned curves; ``CalibrationError``) and its functionals,
+the losses ``HingeLoss`` and ``KLDivergence`` and ``dice_score``,
 ``MeanAveragePrecision`` (COCO mAP/mAR, its reservoir
 table and its exact mode), the eight retrieval metrics (their per-query
 table and their exact mode), ``MeanSquaredError`` and
@@ -19,7 +20,9 @@ table and their exact mode), ``MeanSquaredError`` and
 ``SlicedMetric`` (:mod:`metrics_tpu_torch.sliced`) and ``WindowedMetric``
 (:mod:`metrics_tpu_torch.windowed`), the quantile sketch, the keyed
 reservoir and the streaming moments (:mod:`metrics_tpu_torch.sketches`)
-and ``MetricCollection``.
+and ``MetricCollection`` with its fused update on CUDA graphs
+(``compile_update``) and the async update pipeline
+(``compile_update_async``).
 """
 from metrics_tpu_torch.classification import (  # noqa: F401
     AUC,
@@ -36,7 +39,9 @@ from metrics_tpu_torch.classification import (  # noqa: F401
     F1Score,
     FBetaScore,
     HammingDistance,
+    HingeLoss,
     JaccardIndex,
+    KLDivergence,
     MatthewsCorrCoef,
     Precision,
     PrecisionRecallCurve,

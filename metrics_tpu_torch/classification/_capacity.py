@@ -12,12 +12,16 @@ Each update reads the batch's label range and the buffer's fill count in
 one host read, raises on a label out of range or on overflow, and writes
 the batch into the first free slots (a merged or restored buffer may have
 holes). The buffers are replaced, not written in place, so the pure-state
-API never modifies a state it was given.
+API never modifies a state it was given. Under the capture rule of
+``utils/checks.py`` (a fused update) the update reads nothing, as the JAX
+package's traced update: samples past the capacity drop and count in the
+``overflow`` tally, which ``compute`` raises on.
 """
 from typing import Optional, Tuple
 
 import torch
 
+from metrics_tpu_torch.utils.checks import checks_read_nothing
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 
 Tensor = torch.Tensor
@@ -51,6 +55,9 @@ class CapacityCurveMixin:
         self.add_state("valid", default=torch.zeros((capacity,), dtype=torch.bool, device=device), dist_reduce_fx="cat")
         # samples dropped past capacity; compute raises when it is non-zero
         self.add_state("overflow", default=torch.zeros((), dtype=torch.int32, device=device), dist_reduce_fx="sum")
+        # fixed-shape states: the update fuses (an exact=True instance's
+        # list states make it jit-unsafe)
+        self.__dict__["__jit_unsafe__"] = False
 
     def _init_capacity_case(self, capacity: Optional[int], num_classes: Optional[int], multilabel: bool) -> None:
         """The curve classes' shared constructor step: binary buffers by
@@ -98,6 +105,9 @@ class CapacityCurveMixin:
         check_range = pos_label is None or num_cols is not None
         if pos_label is not None and num_cols is None:
             target = (target == pos_label).to(torch.int32)
+        if checks_read_nothing():
+            self._capacity_write_dropping(preds, target, count_t.to(torch.int32))
+            return
         if check_range and target.numel():
             tmin, tmax, count = torch.stack([target.min().to(torch.int64), target.max().to(torch.int64), count_t]).tolist()
             upper = 1 if (num_cols is None or multilabel) else num_cols - 1
@@ -122,6 +132,26 @@ class CapacityCurveMixin:
         self.preds = self.preds.index_copy(0, idx, preds.to(torch.float32))
         self.target = self.target.index_copy(0, idx, target.to(torch.int32))
         self.valid = self.valid.index_fill(0, idx, True)
+
+    def _capacity_write_dropping(self, preds: Tensor, target: Tensor, count: Tensor) -> None:
+        """The update without a host read: the batch fills the first free
+        slots (a permutation, so no slot twice); a sample whose slot is
+        already occupied is dropped, as by the JAX package's ``mode="drop"``
+        scatter (it writes the slot's own value back), and counts in
+        ``overflow``."""
+        cap, b = self._capacity, preds.shape[0]
+        n = min(b, cap)
+        idx = torch.argsort(self.valid.to(torch.uint8), stable=True)[:n]
+        taken = self.valid[idx]
+
+        def write(buf: Tensor, rows: Tensor) -> Tensor:
+            keep = taken.reshape((n,) + (1,) * (buf.ndim - 1))
+            return buf.index_copy(0, idx, torch.where(keep, buf[idx], rows[:n].to(buf.dtype)))
+
+        self.preds = write(self.preds, preds)
+        self.target = write(self.target, target)
+        self.valid = self.valid.index_fill(0, idx, True)
+        self.overflow = self.overflow + torch.clamp(count + b - cap, min=0).to(torch.int32)
 
     def _capacity_guard(self) -> Tensor:
         """Overflow-checked flat valid mask: a non-zero overflow tally raises."""

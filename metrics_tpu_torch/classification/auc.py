@@ -25,6 +25,7 @@ class AUC(Metric):
     """
 
     is_differentiable = False
+    __jit_unsafe__ = True  # list states of any length
 
     def __init__(self, reorder: bool = False, **kwargs: Any) -> None:
         super().__init__(**kwargs)

@@ -60,6 +60,8 @@ class AUROC(SketchCurveMixin, CapacityCurveMixin, Metric):
 
     is_differentiable = False
     higher_is_better = True
+    __jit_unsafe__ = False  # sketch default: fixed-shape update, fusible
+    __fused_mask_valid__ = True  # bucketed pads mask out via n_valid
     _host_state = ("mode", "_sketch_cols", "_sketch_tgt_kind", "_sketch_case_locked")
 
     def __init__(

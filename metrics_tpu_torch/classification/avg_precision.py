@@ -49,6 +49,8 @@ class AveragePrecision(CurveModesMixin, Metric):
 
     is_differentiable = False
     higher_is_better = True
+    __jit_unsafe__ = False  # sketch default: fixed-shape update, fusible
+    __fused_mask_valid__ = True  # bucketed pads mask out via n_valid
 
     def __init__(
         self,

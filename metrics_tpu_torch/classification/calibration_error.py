@@ -44,6 +44,7 @@ class CalibrationError(Metric):
 
     DISTANCES = {"l1", "l2", "max"}
     is_differentiable = False
+    __jit_unsafe__ = False  # binned default: fixed-shape update, fusible
 
     def __init__(self, n_bins: int = 15, norm: str = "l1", exact: bool = False, **kwargs: Any) -> None:
         super().__init__(**kwargs)

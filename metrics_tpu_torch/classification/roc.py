@@ -37,6 +37,8 @@ class ROC(CurveModesMixin, Metric):
     """
 
     is_differentiable = False
+    __jit_unsafe__ = False  # sketch default: fixed-shape update, fusible
+    __fused_mask_valid__ = True  # bucketed pads mask out via n_valid
 
     def __init__(
         self,

@@ -70,6 +70,12 @@ class StatScores(Metric):
 
         for s in ("tp", "fp", "tn", "fn"):
             self.add_state(s, default=default(), dist_reduce_fx=reduce_fn)
+        if ignore_index is not None and ignore_index >= 0 and reduce == "macro":
+            # every update writes the ignored class's counts as a -1
+            # sentinel, not a sum of row contributions: a bucketed fused
+            # update's pad correction would move it (the JAX package's does,
+            # and its bucketed value then differs from its eager one)
+            self.__dict__["__fused_bucket_unsafe__"] = True
 
     def _update(self, preds: Tensor, target: Tensor) -> None:
         tp, fp, tn, fn = _stat_scores_update(

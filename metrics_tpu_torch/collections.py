@@ -5,8 +5,9 @@ Counterpart of ``metrics_tpu/collections.py``: dict behaviour, per-metric
 kwarg filtering, prefix/postfix, clone, ``state_dict``, and compute groups
 (every metric starts as its own group; after the first update, groups whose
 states and shared hyperparameters are equal merge, and later updates touch
-only each group's leader). The fused and async update paths are a later
-slice: ``compile_update``/``compile_update_async`` raise.
+only each group's leader), the fused update (``compile_update``: one CUDA
+graph per batch signature, ``core/fused.py``) and the async update pipeline
+(``compile_update_async``, ``core/pipeline.py``).
 """
 from collections import OrderedDict
 from copy import deepcopy
@@ -16,11 +17,9 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.observability.freshness import FreshnessStamp, merge_stamps
+from metrics_tpu_torch.utils.exceptions import MetricsUserError
 from metrics_tpu_torch.utils.prints import rank_zero_warn
-
-_FUSED_NOT_PORTED = (
-    "the fused and async collection updates are not ported yet (ROADMAP.md, queue A: 'fused and async update')"
-)
 
 
 def _flatten_dict(x: Dict) -> Dict:
@@ -77,6 +76,8 @@ class MetricCollection:
         self._enable_compute_groups = compute_groups
         self._groups: Dict[int, List[str]] = {}
         self._groups_checked: bool = False
+        self._fused = None  # FusedUpdate handle once compile_update() is called
+        self._async = None  # AsyncUpdateHandle once compile_update_async() is called
         self._bulk_insert = False
         self.add_metrics(metrics, *additional_metrics)
 
@@ -92,12 +93,22 @@ class MetricCollection:
             self._on_membership_change()
 
     def _on_membership_change(self) -> None:
-        """A membership change reseeds the compute groups."""
+        """A membership change drops the fused and async handles (their
+        member set is stale) and reseeds the compute groups."""
         self._groups_checked = False
+        self._invalidate_compiled()
         if self._enable_compute_groups:
             self._init_compute_groups()
         else:
             self._groups = {}
+
+    def _invalidate_compiled(self) -> None:
+        """Drop the fused handle and close an open async handle, discarding
+        its queued batches; ``compile_update[_async]()`` resumes."""
+        self._fused = None
+        if self._async is not None:
+            self._async.close(drain=False)
+            self._async = None
 
     def __contains__(self, key: str) -> bool:
         return key in self._metrics
@@ -125,7 +136,10 @@ class MetricCollection:
     # lifecycle
     # ------------------------------------------------------------------
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
-        """Call forward for each metric; kwargs are filtered per metric."""
+        """Call forward for each metric; kwargs are filtered per metric. An
+        open async handle is drained first: forward reads and restores
+        every state."""
+        self._drain_async()
         res = {k: m(*args, **m._filter_kwargs(**kwargs)) for k, m in self.items(keep_base=True)}
         res = _flatten_dict(res)
         return {self._set_name(k): v for k, v in res.items()}
@@ -134,7 +148,15 @@ class MetricCollection:
         return self.forward(*args, **kwargs)
 
     def update(self, *args: Any, **kwargs: Any) -> None:
-        """Call update for each metric (only group leaders once groups are known)."""
+        """Call update for each metric (only group leaders once groups are
+        known); through the open async handle (FIFO with its queued
+        batches) or the fused handle when there is one."""
+        if self._async is not None and not self._async.closed:
+            self._async.update_blocking(*args, **kwargs)
+            return
+        if self._fused is not None:
+            self._fused(*args, **kwargs)
+            return
         if self._groups_checked:
             for cg in self._groups.values():
                 m0 = self._metrics[cg[0]]
@@ -226,7 +248,33 @@ class MetricCollection:
         return True
 
     def compute(self) -> Dict[str, Any]:
-        """Compute each metric; group members borrow the leader's state."""
+        """Compute each metric; group members borrow the leader's state.
+        With an async handle open, a bounded-staleness snapshot: wait until
+        at most ``max_staleness`` accepted batches are unapplied, then read
+        between whole batches."""
+        handle = self._async if self._async is not None and not self._async.closed else None
+        if handle is None:
+            return self._compute_metrics()
+        handle._before_compute()
+        applied_mark = handle.applied
+        try:
+            with handle.snapshot():
+                return self._compute_metrics()
+        finally:
+            if handle.applied != applied_mark:
+                # batches landed while computing: a value cached now is stale
+                for m in self._metrics.values():
+                    m._computed = None
+
+    def freshness(self, now: Optional[float] = None) -> FreshnessStamp:
+        """The collection's freshness stamp: the async handle's (applied
+        span and in-flight age) when one is open; the members' own stamps
+        and the collection's ingest span come with the telemetry plane
+        (ROADMAP.md, queue A)."""
+        stamps = [self._async.freshness(now)] if self._async is not None and not self._async.closed else []
+        return merge_stamps(stamps)
+
+    def _compute_metrics(self) -> Dict[str, Any]:
         if self._enable_compute_groups and self._groups_checked:
             for cg in self._groups.values():
                 m0 = self._metrics[cg[0]]
@@ -235,6 +283,7 @@ class MetricCollection:
                     for state in m0._defaults:
                         object.__setattr__(mi, state, getattr(m0, state))
                     mi._update_called = m0._update_called
+                    mi._states_donated = m0._states_donated
                     # installing the leader's states is an out-of-band write
                     # only when the leader advanced since the last borrow
                     src_epoch = (cg[0], m0._write_epoch)
@@ -245,18 +294,123 @@ class MetricCollection:
         res = _flatten_dict(res)
         return {self._set_name(k): v for k, v in res.items()}
 
-    def compile_update(self, *args: Any, **kwargs: Any) -> None:
-        raise NotImplementedError(_FUSED_NOT_PORTED)
+    def compile_update(
+        self,
+        buckets: Optional[Sequence[int]] = None,
+        donate: Optional[bool] = None,
+        use_manifest: Optional[bool] = None,
+    ) -> Any:
+        """Fuse the whole collection's update: returns a
+        :class:`~metrics_tpu_torch.core.fused.FusedUpdate` and routes later
+        :meth:`update` calls through it. Every fusible member's update (one
+        per compute group) runs in one function, captured on the card as one
+        CUDA graph per batch signature; members flagged ``__jit_unsafe__``,
+        list-state members and members that fail the probe run eagerly in
+        the same call.
 
-    def compile_update_async(self, *args: Any, **kwargs: Any) -> None:
-        raise NotImplementedError(_FUSED_NOT_PORTED)
+        ``buckets`` -- ascending batch sizes for pad-and-mask bucketing:
+        ragged batches pad to the nearest bucket and share its graph.
+        ``donate`` -- install the graphs' static state buffers as the states
+        (default on the card): callers must not hold state tensors across an
+        update. ``use_manifest`` has no effect until the port has a
+        fusibility manifest.
+
+        A matching handle is kept (warm reuse after ``reset()``);
+        ``forward`` keeps the eager semantics; ``clone()`` and
+        ``add_metrics()`` drop the handle.
+        """
+        from metrics_tpu_torch.core.fused import FusedUpdate
+
+        matches = self._fused is not None and self._fused.config_matches(
+            buckets=buckets, donate=donate, use_manifest=use_manifest
+        )
+        if matches:
+            return self._fused
+        if self._async is not None and not self._async.closed:
+            raise MetricsUserError(
+                "compile_update() with a different config while an async handle is open; close() the"
+                " handle (or reset(), or call compile_update_async() with the new config) first"
+            )
+        self._fused = FusedUpdate(self, buckets=buckets, donate=donate, use_manifest=use_manifest)
+        return self._fused
+
+    @property
+    def fused_update(self) -> Any:
+        """The active :class:`~metrics_tpu_torch.core.fused.FusedUpdate`, or None (eager)."""
+        return self._fused
+
+    def compile_update_async(
+        self,
+        buckets: Optional[Sequence[int]] = None,
+        donate: Optional[bool] = None,
+        use_manifest: Optional[bool] = None,
+        *,
+        queue_depth: int = 2,
+        policy: str = "block",
+        max_staleness: int = 0,
+    ) -> Any:
+        """The fused update with the async pipeline in front of it: returns
+        an :class:`~metrics_tpu_torch.core.pipeline.AsyncUpdateHandle` whose
+        ``update_async(batch)`` enqueues into a bounded queue (depth
+        ``queue_depth``) and returns; a worker thread drains it through the
+        fused update, on its own CUDA stream on the card.
+
+        ``buckets``/``donate``/``use_manifest`` go to :meth:`compile_update`.
+        ``policy`` is the full-queue behaviour (``"block"``, ``"drop"``,
+        ``"error"``); ``max_staleness`` the default ``compute()`` bound in
+        unapplied batches (0: drain, then compute). While the handle is
+        open, ``update()`` routes through it, ``compute`` honours the bound
+        and ``forward`` drains first; ``reset()`` and ``add_metrics()``
+        close it, ``clone()`` drops it.
+        """
+        from metrics_tpu_torch.core.pipeline import AsyncUpdateHandle
+
+        if self._async is not None:
+            # a poisoned handle raises its error here rather than vanish
+            self._async._raise_pending_error()
+            self._async.close(drain=True)
+        fused = self.compile_update(buckets=buckets, donate=donate, use_manifest=use_manifest)
+        self._async = AsyncUpdateHandle(
+            self, fused, queue_depth=queue_depth, policy=policy, max_staleness=max_staleness
+        )
+        return self._async
+
+    @property
+    def async_update(self) -> Any:
+        """The active :class:`~metrics_tpu_torch.core.pipeline.AsyncUpdateHandle`, or None."""
+        return self._async
+
+    def update_async(self, *args: Any, **kwargs: Any) -> bool:
+        """Enqueue one batch into the async pipeline and return: True if
+        accepted, False if the ``drop`` policy discarded it."""
+        if self._async is None or self._async.closed:
+            raise MetricsUserError("update_async() requires an open async handle; call compile_update_async() first")
+        return self._async.update_async(*args, **kwargs)
+
+    def state_reductions(self) -> Dict[str, Dict[str, Any]]:
+        """Per-metric reducer specs (name -> ``Metric.state_reductions()``)."""
+        return {name: m.state_reductions() for name, m in self._metrics.items()}
 
     def reset(self) -> None:
-        """Reset all metrics; discovered compute groups are kept."""
+        """Reset all metrics; discovered compute groups and a fused handle
+        are kept. An open async handle is closed (its queued batches
+        discarded: the states are being wiped)."""
+        if self._async is not None:
+            self._async.close(drain=False)
+            self._async = None
         for m in self._metrics.values():
             m.reset()
 
+    def _drain_async(self) -> None:
+        """Apply the open async handle's queued batches before the states
+        are read, copied or replaced (raises a kept worker error)."""
+        if self._async is not None and not self._async.closed:
+            self._async._wait_drained()
+
     def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
+        """A deep copy; the fused and async handles are not copied (the
+        clone compiles its own)."""
+        self._drain_async()
         mc = deepcopy(self)
         if prefix:
             mc.prefix = self._check_arg(prefix, "prefix")
@@ -264,13 +418,28 @@ class MetricCollection:
             mc.postfix = self._check_arg(postfix, "postfix")
         return mc
 
+    def persistent(self, mode: bool = True) -> None:
+        for m in self._metrics.values():
+            m.persistent(mode)
+
+    def to_device(self, device: Any) -> "MetricCollection":
+        """Move every member to ``device``. The fused and async handles are
+        dropped: their graphs and buffers live on the old device."""
+        self._drain_async()
+        self._invalidate_compiled()
+        for m in self._metrics.values():
+            m.to_device(device)
+        return self
+
     def state_dict(self) -> Dict[str, Any]:
+        self._drain_async()
         destination: Dict[str, Any] = {}
         for name, m in self._metrics.items():
             m.state_dict(destination, prefix=f"{name}.")
         return destination
 
     def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
+        self._drain_async()
         for name, m in self._metrics.items():
             m.load_state_dict(state_dict, prefix=f"{name}.")
 

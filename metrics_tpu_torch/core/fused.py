@@ -1,0 +1,678 @@
+"""Fused ``MetricCollection`` updates: one CUDA graph per batch signature.
+
+Counterpart of ``metrics_tpu/core/fused.py``. A collection of N metrics
+updated eagerly issues every member's kernels from Python, with the host
+in the loop between each (and its value checks read back per update).
+:class:`FusedUpdate` stitches every fusible member's update into ONE
+``(states, batch) -> states`` function and, on the card, captures it once
+per batch signature as a ``torch.cuda.CUDAGraph``; each later batch is a
+few copies and one replay:
+
+* **Static state buffers** -- the fused members' states live in buffers
+  that the graph reads and ends by writing (``copy_``) the new states into.
+  This plays the part of the JAX package's donation: callers must not hold
+  references to state tensors across a fused update. ``compute()`` copies
+  any result that would share a buffer (``Metric._undonated``), so a value
+  it returned never changes under a later replay.
+* **Signature-keyed cache** -- one entry per batch (shape, dtype, device)
+  signature, static arguments, fused member set and state signature.
+  Python floats are copied into static 0-d tensors (the JAX package traces
+  them); ints, bools and strings stay static and key the cache. A one-time
+  warning fires at 16 entries.
+* **Pad-and-mask shape bucketing** -- with ``buckets=(...)`` a batch is
+  edge-padded along its leading axis to the nearest bucket, so ragged
+  batches share one graph. The pad rows replicate the last real row, so
+  their contribution to a sum state, ``k_pad * delta(last_row)``, is
+  subtracted inside the program (one more single-row update per member); a
+  member flagged ``__fused_mask_valid__`` takes ``n_valid`` instead and
+  masks its merge-like (sketch) and windowed leaves itself. Members with
+  mean, custom or None-reduced states, bool sums, or the
+  ``__fused_bucket_unsafe__`` flag decline bucketing.
+* **Compute-group dedup** -- once groups are known, only group leaders run.
+* **The eager leg** -- members flagged ``__jit_unsafe__``, wrappers, list
+  ("cat") states and members that fail the probe run their ordinary update
+  in the same call, on the same card with the same kernels.
+* **The probe** stands in for ``jax.eval_shape``: a member's update runs
+  once per batch signature, on a copy of its state, under the capture rule
+  of ``utils/checks.py`` and a function mode that raises on every call that
+  reads a tensor's values on the host or makes a shape of them
+  (``tolist``, ``item``, ``bool``/``int``/``float`` of a tensor,
+  ``nonzero``, ``unique``, boolean-mask indexing); on the card it is then
+  captured once more on a throwaway graph, which any other synchronisation
+  fails. Both are local to the probing thread (``capture_error_mode=
+  "thread_local"``), so other threads may synchronise meanwhile, which a
+  process-wide ``set_sync_debug_mode("error")`` would forbid them. A member
+  that passes the probe but then fails to capture raises; it is not moved
+  to the eager leg.
+
+The ``_n_updates`` mean-merge counter is bumped inside the program. A graph
+replays device work only, so the handle does each replay's host
+bookkeeping: the installs and write epochs (``Metric._mark_fused_written``),
+the buffers' in-place write counters (bumped, so host-side facts and memos
+keyed on them lapse) and the launch counters (each graph's launches,
+recorded at capture, are added to ``ops.launch_counts()`` per replay). A quantile sketch's host-side
+occupancy bound is dropped from the state buffers, so a captured absorb
+always takes the compact-then-select branch: the JAX package's
+``lax.cond``, decided on the device, at the price of the compaction kernels
+on every replay.
+
+Capture runs on a side stream after warm-up runs there, which work on
+scratch copies of the states (never the live ones), with
+``capture_error_mode="thread_local"`` so the async worker
+(``core/pipeline.py``) can capture; capture executes nothing, so the first
+batch of a signature is one replay after its capture. The entries of a
+handle share one memory pool. On the CPU there is no graph: the handle runs
+the same fused function directly, its plain version.
+
+Sliced metrics ride this path unchanged: their update is a fixed-shape
+segment scatter, and an edge-padded row repeats the last row's slice id,
+so the ``k * delta(last_row)`` correction lands in the slice the pad rows
+polluted. Windowed metrics correct their pad rows in the live ring slot
+themselves (``windowed/metric.py``), through ``n_valid``.
+"""
+import contextlib
+import traceback
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+
+import torch
+from torch.overrides import TorchFunctionMode
+from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from metrics_tpu_torch.core.metric import _AUTO_COUNT, Metric, _to_device_inputs
+from metrics_tpu_torch.ops.dispatch import add_launches, recording_launches
+from metrics_tpu_torch.utils.checks import capturing_checks
+from metrics_tpu_torch.utils.data import dim_zero_max, dim_zero_min, dim_zero_sum
+from metrics_tpu_torch.utils.prints import rank_zero_warn
+
+Tensor = torch.Tensor
+
+#: one-time warning threshold for cache growth: an un-bucketed ragged
+#: stream (or a per-batch static int) captures a graph per batch
+_CACHE_WARN_ENTRIES = 16
+
+#: runs of the fused function on the side stream, on scratch states, before
+#: a capture (lazy library and allocator set-up happens outside the graph)
+_WARMUP_RUNS = 2
+
+
+class _HostReadError(RuntimeError):
+    """A probed update read a tensor's values on the host."""
+
+
+def _is_bool_index(index: Any) -> bool:
+    items = index if isinstance(index, tuple) else (index,)
+    return any(isinstance(i, Tensor) and i.dtype == torch.bool for i in items)
+
+
+class _NoHostReads(TorchFunctionMode):
+    """The probe's mode: raise on every call that would read a card
+    tensor's values on the host or give an output shape that depends on
+    them (the CPU has no synchronisation to catch)."""
+
+    _READS = {
+        "tolist",
+        "item",
+        "numpy",
+        "__bool__",
+        "__int__",
+        "__float__",
+        "__index__",
+        "nonzero",
+        "unique",
+        "unique_consecutive",
+        "masked_select",
+        "argwhere",
+    }
+
+    def __torch_function__(self, func: Any, types: Any, args: Tuple = (), kwargs: Optional[Dict] = None) -> Any:
+        name = getattr(func, "__name__", "")
+        if name in self._READS or (name == "__getitem__" and len(args) > 1 and _is_bool_index(args[1])):
+            raise _HostReadError(f"the update reads tensor values on the host ({name})")
+        return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def _capturing(graph: Any, stream: Any, pool: Optional[Any] = None) -> Iterator[None]:
+    """Capture the block into ``graph`` on ``stream``, for this thread only
+    (other threads may run and synchronise meanwhile). The caller's current
+    stream is restored whether the capture succeeds or not."""
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            yield
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass  # the error being raised invalidated the capture
+            raise
+        graph.capture_end()
+
+
+def _reason(err: BaseException) -> str:
+    """An error and the innermost line of this package that raised it."""
+    frames = [f for f in traceback.extract_tb(err.__traceback__) if "metrics_tpu_torch" in f.filename]
+    if not frames:
+        return f"{type(err).__name__}: {err}"
+    path = frames[-1].filename.rsplit("metrics_tpu_torch", 1)[-1].lstrip("/")
+    return f"{type(err).__name__}: {err} ({path}:{frames[-1].lineno})"
+
+
+def _pure_update(metric: Metric, state: Dict[str, Any], args: Tuple, kwargs: Dict[str, Any]) -> Dict[str, Tensor]:
+    """``(state, batch) -> state`` through the metric's ``_update``, without
+    the counter bump (the fused program owns it)."""
+    old = metric._bind(state)
+    try:
+        metric._update(*args, **kwargs)
+        return {k: getattr(metric, k) for k in metric._defaults}
+    finally:
+        for k, v in old.items():
+            object.__setattr__(metric, k, v)
+
+
+def pad_correct(
+    metric: Metric, new: Dict[str, Tensor], args: Tuple, kwargs: Dict[str, Any], k_pad: Tensor
+) -> Dict[str, Tensor]:
+    """``new`` without the edge-pad rows' share of its sum leaves. The pads
+    replicate the last real row, so that share is ``k_pad * delta(last_row)``,
+    the delta being the update of the defaults by that row; max/min leaves
+    need nothing. ``kwargs`` are the metric's filtered keyword arguments."""
+    leaves, spec = tree_flatten((args, kwargs))
+    pad_args, pad_kwargs = tree_unflatten(
+        [x[-1:] if isinstance(x, Tensor) and x.ndim >= 1 else x for x in leaves], spec
+    )
+    init = dict(metric._defaults)
+    d = _pure_update(metric, dict(init), pad_args, pad_kwargs)
+    out = dict(new)
+    for s, v in new.items():
+        if s != _AUTO_COUNT and metric._reductions[s] is dim_zero_sum:
+            delta = d[s] - init[s]
+            out[s] = v - delta * k_pad.to(delta.dtype)
+    return out
+
+
+def _state_tensor(metric: Metric, name: str) -> Tensor:
+    """A state as a tensor (the eager counter's Python int becomes int32)."""
+    val = getattr(metric, name)
+    if isinstance(val, int):
+        return torch.full((), val, dtype=torch.int32, device=metric.device)
+    return val
+
+
+def _state_sig(metric: Metric, name: str) -> Tuple:
+    """(shape, dtype, device) of a state, read without materialising it."""
+    val = getattr(metric, name)
+    if isinstance(val, int):
+        return ((), torch.int32, metric.device)
+    return (tuple(val.shape), val.dtype, val.device)
+
+
+def _bare(x: Tensor) -> Tensor:
+    """``x`` without host-side facts attached (a sketch's occupancy bound):
+    a view, so no copy."""
+    return x.view_as(x)
+
+
+def _states_of(metric: Metric) -> Dict[str, Tensor]:
+    return {name: _bare(_state_tensor(metric, name)) for name in metric._defaults}
+
+
+def _scratch(metric: Metric) -> Dict[str, Tensor]:
+    """Copies of the metric's states, for runs whose result is dropped."""
+    return {name: v.clone() for name, v in _states_of(metric).items()}
+
+
+def _pad(x: Tensor, rows: int) -> Tensor:
+    """Edge-pad ``x`` along its leading axis to ``rows``."""
+    n = x.shape[0]
+    if n == rows:
+        return x
+    return torch.cat([x, x[n - 1 :].expand((rows - n,) + tuple(x.shape[1:]))])
+
+
+class _Entry:
+    """One cache entry: the fused function and, on the card, its graph with
+    the static buffers it reads and writes."""
+
+    __slots__ = ("fn", "graph", "inputs", "n_valid", "states", "launches", "calls")
+
+    def __init__(self, fn: Any) -> None:
+        self.fn = fn
+        self.graph: Optional[Any] = None
+        self.inputs: List[Tensor] = []
+        self.n_valid: Optional[Tensor] = None
+        self.states: Dict[str, Dict[str, Tensor]] = {}
+        self.launches: Dict[str, int] = {}
+        self.calls = 0
+
+
+class FusedUpdate:
+    """Handle returned by :meth:`MetricCollection.compile_update`.
+
+    Calling the handle (or ``collection.update(...)`` once compiled) runs
+    the fused update. ``buckets`` enables pad-and-mask shape bucketing along
+    axis 0. ``donate`` (default: on the card) installs the static state
+    buffers themselves as the members' states; ``donate=False`` installs
+    copies, so a caller may keep references across updates.
+    ``use_manifest`` is kept for the JAX package's signature and has no
+    effect until the port has a fusibility manifest (ROADMAP.md, queue A):
+    the probe decides alone.
+    """
+
+    def __init__(
+        self,
+        collection: Any,
+        buckets: Optional[Sequence[int]] = None,
+        donate: Optional[bool] = None,
+        use_manifest: Optional[bool] = None,
+    ) -> None:
+        self._collection = collection
+        self._buckets: Tuple[int, ...] = tuple(sorted(int(b) for b in buckets)) if buckets else ()
+        if any(b <= 0 for b in self._buckets):
+            raise ValueError(f"bucket sizes must be positive, got {self._buckets}")
+        self._device = next(iter(collection.values())).device if len(collection) else torch.device("cpu")
+        self._donate = self._device.type == "cuda" if donate is None else bool(donate)
+        self._cache: Dict[Tuple, _Entry] = {}
+        self._fusible: Dict[Tuple, bool] = {}
+        self._bucket_ok: Dict[Tuple[str, ...], bool] = {}
+        self._bucket_warned = False
+        #: static state buffers, shared by the entries of one member set and
+        #: state signature
+        self._state_bufs: Dict[Tuple, Dict[str, Dict[str, Tensor]]] = {}
+        self._pool: Optional[Any] = None
+        self._capture_stream: Optional[Any] = None
+        self.n_compiles = 0
+        #: members the probe routed to the eager leg for some signature
+        self._eager_names: set = set()
+        #: why the probe declined each of them (the first error it met)
+        self.declined: Dict[str, str] = {}
+
+    # graphs, buffers and the collection back-reference are not copied:
+    # MetricCollection.clone() drops the handle and the clone captures anew
+    def __deepcopy__(self, memo: Dict) -> None:
+        return None
+
+    @property
+    def cache_size(self) -> int:
+        return len(self._cache)
+
+    @property
+    def donating(self) -> bool:
+        """Whether the members' states ARE the graphs' static buffers, which
+        each replay overwrites in place (the JAX package's donation)."""
+        return self._donate
+
+    def config_matches(
+        self,
+        buckets: Optional[Sequence[int]] = None,
+        donate: Optional[bool] = None,
+        use_manifest: Optional[bool] = None,
+    ) -> bool:
+        """True when a ``compile_update(...)`` request resolves to this
+        handle's config: the warm reuse that keeps the captured graphs.
+        ``use_manifest`` has no effect yet, so it never breaks a match."""
+        want_buckets = tuple(sorted(int(b) for b in buckets)) if buckets else ()
+        want_donate = self._device.type == "cuda" if donate is None else bool(donate)
+        return self._buckets == want_buckets and self._donate == want_donate
+
+    def donated_state_bytes(self) -> int:
+        """State bytes a donating update owns: the group leaders that can
+        reach the fused program (eager members keep their own buffers)."""
+        if not self._donate:
+            return 0
+        col = self._collection
+        names = [cg[0] for cg in col._groups.values()] if col._groups_checked else list(col._metrics)
+        total = 0
+        for name in names:
+            if self._never_fused(name):
+                continue
+            m = col._metrics[name]
+            for k in m._defaults:
+                v = getattr(m, k)
+                total += v.numel() * v.element_size() if isinstance(v, Tensor) else 4
+        return total
+
+    @staticmethod
+    def _static_unfusible(m: Metric) -> bool:
+        """``__jit_unsafe__``, a wrapper's child metrics, list states."""
+        if getattr(m, "__jit_unsafe__", False) or getattr(m, "_children", None):
+            return True
+        return any(isinstance(v, list) for v in m._defaults.values()) or any(
+            isinstance(getattr(m, k), list) for k in m._defaults
+        )
+
+    def _never_fused(self, name: str) -> bool:
+        return self._static_unfusible(self._collection._metrics[name]) or name in self._eager_names
+
+    # ------------------------------------------------------------------
+    # fusibility / bucket eligibility
+    # ------------------------------------------------------------------
+    def _is_fusible(self, name: str, args: Tuple, kwargs: Dict[str, Any], sig: Tuple) -> bool:
+        m = self._collection._metrics[name]
+        if self._static_unfusible(m):
+            return False
+        key = (name, sig)
+        cached = self._fusible.get(key)
+        if cached is not None:
+            return cached
+        # one probe run on a copy of the state: host-dependent updates
+        # (value reads, data-dependent shapes) surface here
+        try:
+            fkw = m._filter_kwargs(**kwargs)
+            with recording_launches(), capturing_checks():
+                with _NoHostReads():
+                    _pure_update(m, _scratch(m), args, fkw)
+                if m.device.type == "cuda":
+                    state = _scratch(m)
+                    self._side_stream().wait_stream(torch.cuda.current_stream(m.device))
+                    with _capturing(torch.cuda.CUDAGraph(), self._side_stream()):
+                        _pure_update(m, state, args, fkw)
+            ok = True
+        except Exception as e:
+            ok = False
+            self.declined.setdefault(name, _reason(e))
+        self._fusible[key] = ok
+        if not ok:
+            self._eager_names.add(name)
+        return ok
+
+    def _bucket_eligible(self, names: List[str]) -> bool:
+        key = tuple(names)
+        if key not in self._bucket_ok:
+            self._bucket_ok[key] = self._bucket_eligible_uncached(names)
+        return self._bucket_ok[key]
+
+    def _bucket_eligible_uncached(self, names: List[str]) -> bool:
+        for name in names:
+            m = self._collection._metrics[name]
+            if getattr(m, "__fused_bucket_unsafe__", False):
+                return False
+            mask_valid = bool(getattr(m, "__fused_mask_valid__", False))
+            for sname, red in m._reductions.items():
+                if sname == _AUTO_COUNT:
+                    continue  # bumped once per batch; padding cannot skew it
+                if mask_valid and (getattr(red, "merge_like", False) or getattr(red, "windowed_kind", None)):
+                    # sketch leaves insert the pad rows with weight 0, and a
+                    # windowed wrapper corrects its own slot: both via n_valid
+                    continue
+                if red not in (dim_zero_sum, dim_zero_max, dim_zero_min):
+                    return False
+                default = m._defaults[sname]
+                if red is dim_zero_sum and default.dtype == torch.bool:
+                    return False
+        return True
+
+    # ------------------------------------------------------------------
+    # call path
+    # ------------------------------------------------------------------
+    def __call__(self, *args: Any, **kwargs: Any) -> None:
+        self.dispatch(args, kwargs)
+
+    def dispatch(self, args: Tuple, kwargs: Dict[str, Any]) -> None:
+        """One fused update of a packed ``(args, kwargs)`` batch (the entry
+        point of the async worker). On the card it issues copies and a graph
+        replay on the current stream and reads nothing back; host work that
+        synchronises is one-time (the probe, a capture, the first call's
+        compute-group discovery) or belongs to the eager leg."""
+        col = self._collection
+        args = _to_device_inputs(args, self._device)
+        kwargs = _to_device_inputs(kwargs, self._device)
+        leaders = [cg[0] for cg in col._groups.values()] if col._groups_checked else list(col._metrics)
+
+        leaves, spec = tree_flatten((args, kwargs))
+        # floats are dynamic (a per-batch weight must not key the cache by
+        # value); ints, bools and strings stay static
+        dynamic = [isinstance(leaf, Tensor) or type(leaf) is float for leaf in leaves]
+        dyn_idx = [i for i, d in enumerate(dynamic) if d]
+        dyn = [leaves[i] for i in dyn_idx]
+        static = tuple((i, leaf) for i, (leaf, d) in enumerate(zip(leaves, dynamic)) if not d)
+        sig = tuple(_leaf_sig(x, self._device) for x in dyn)
+
+        fused_names = [n for n in leaders if self._is_fusible(n, args, kwargs, sig)]
+        for name in leaders:
+            if name not in fused_names:
+                m = col._metrics[name]
+                m.update(*args, **m._filter_kwargs(**kwargs))
+        if fused_names:
+            self._run_fused(fused_names, spec, dyn_idx, dyn, static, sig)
+
+        if not col._groups_checked and col._enable_compute_groups:
+            # first-call group discovery on the concrete states (the eager
+            # path's semantics); the next call fuses the leaders only
+            col._merge_compute_groups()
+            col._groups_checked = True
+
+    def _pick_bucket(self, dyn: List[Any], names: List[str]) -> Optional[int]:
+        if not self._buckets:
+            return None
+        batched = [x for x in dyn if isinstance(x, Tensor) and x.ndim >= 1]
+        if not batched:
+            return None
+        n = int(batched[0].shape[0])
+        if n == 0 or any(int(x.shape[0]) != n for x in batched):
+            return None
+        if not self._bucket_eligible(names):
+            if not self._bucket_warned:
+                self._bucket_warned = True
+                rank_zero_warn(
+                    "compile_update: shape bucketing is disabled for this collection -- a fused metric carries"
+                    " a mean/custom/None-reduced (or `__fused_bucket_unsafe__`) state with no exact pad"
+                    " correction. Batches capture per exact shape instead.",
+                    UserWarning,
+                )
+            return None
+        return next((b for b in self._buckets if b >= n), None)
+
+    def _run_fused(
+        self, names: List[str], spec: Any, dyn_idx: List[int], dyn: List[Any], static: Tuple, sig: Tuple
+    ) -> None:
+        col = self._collection
+        bucket = self._pick_bucket(dyn, names)
+        n_rows = None
+        if bucket is not None:
+            n_rows = next(int(x.shape[0]) for x in dyn if isinstance(x, Tensor) and x.ndim >= 1)
+            sig = tuple(_leaf_sig(x, self._device, bucket) for x in dyn)
+        state_sig = tuple(
+            (name, k) + _state_sig(col._metrics[name], k) for name in names for k in col._metrics[name]._defaults
+        )
+        static_sig = tuple((i, repr(v)) for i, v in static)
+        key = (tuple(names), spec, sig, static_sig, state_sig, bucket)
+
+        entry = self._cache.get(key)
+        if entry is None:
+            entry = _Entry(self._build(names, spec, dyn_idx, static, bucket))
+            if self._device.type == "cuda":
+                # a member that passed the probe but cannot be captured
+                # raises here; it is not moved to the eager leg
+                self._capture(entry, names, state_sig, dyn, bucket, n_rows)
+            self._cache[key] = entry
+            self.n_compiles += 1
+            if len(self._cache) == _CACHE_WARN_ENTRIES:
+                rank_zero_warn(
+                    f"compile_update: the fused cache now holds {_CACHE_WARN_ENTRIES} entries -- shape-varying"
+                    " batches (or a per-batch static argument such as a Python int) are capturing the fused"
+                    " update repeatedly. Pass `compile_update(buckets=...)` to collapse ragged batch sizes,"
+                    " and pass per-batch scalars as floats or 0-d tensors.",
+                    UserWarning,
+                )
+        entry.calls += 1
+        if entry.graph is not None:
+            new_states = self._replay(entry, names, dyn, n_rows)
+        else:
+            states = {name: _states_of(col._metrics[name]) for name in names}
+            padded = [_pad(x, bucket) if isinstance(x, Tensor) and x.ndim >= 1 and bucket else x for x in dyn]
+            padded = [
+                torch.tensor(x, dtype=torch.float32, device=self._device) if type(x) is float else x for x in padded
+            ]
+            n_valid = None if bucket is None else torch.tensor(n_rows, dtype=torch.int32, device=self._device)
+            # the plain version decides as the captured program does
+            with capturing_checks():
+                new_states = entry.fn(states, padded, n_valid)
+
+        member_of = {cg[0]: cg for cg in col._groups.values()} if col._groups_checked else {}
+        for name in names:
+            for mname in member_of.get(name, [name]):
+                # group members get the leader's new states too, as the
+                # JAX package installs them
+                m = col._metrics[mname]
+                for k, v in new_states[name].items():
+                    object.__setattr__(m, k, v)
+                m._mark_fused_written(self._donate)
+
+    def _build(self, names: List[str], spec: Any, dyn_idx: List[int], static: Tuple, bucket: Optional[int]) -> Any:
+        """The fused ``(states, dyn leaves, n_valid) -> states`` function."""
+        col_metrics = self._collection._metrics
+        static_map = dict(static)
+        n_leaves = len(static) + len(dyn_idx)
+
+        def rebuild(dyn_leaves: List[Any]) -> Tuple[Tuple, Dict[str, Any]]:
+            leaves: List[Any] = [None] * n_leaves
+            for i, v in static_map.items():
+                leaves[i] = v
+            for pos, v in zip(dyn_idx, dyn_leaves):
+                leaves[pos] = v
+            return tree_unflatten(leaves, spec)
+
+        def one_metric(
+            name: str, state: Dict[str, Tensor], dyn_leaves: List[Tensor], k_pad: Optional[Tensor]
+        ) -> Dict[str, Tensor]:
+            m = col_metrics[name]
+            args, kwargs = rebuild(dyn_leaves)
+            fkw = m._filter_kwargs(**kwargs)
+            call_kw = fkw
+            if k_pad is not None and getattr(m, "__fused_mask_valid__", False):
+                # merge-like (sketch) and windowed leaves mask the pad rows
+                # themselves; the sum leaves still take the correction below
+                call_kw = {**fkw, "n_valid": bucket - k_pad}
+            new = _pure_update(m, state, args, call_kw)
+            if k_pad is not None:
+                new = pad_correct(m, new, args, fkw, k_pad)
+            if _AUTO_COUNT in new:
+                c = new[_AUTO_COUNT]
+                new[_AUTO_COUNT] = torch.where(c < 0, c, c + 1)
+            return new
+
+        def fused(
+            states: Dict[str, Dict[str, Tensor]], dyn_leaves: List[Tensor], n_valid: Optional[Tensor]
+        ) -> Dict[str, Dict[str, Tensor]]:
+            k_pad = None if n_valid is None else bucket - n_valid
+            return {n: one_metric(n, states[n], dyn_leaves, k_pad) for n in names}
+
+        return fused
+
+    # ------------------------------------------------------------------
+    # the card: capture and replay
+    # ------------------------------------------------------------------
+    def _side_stream(self) -> Any:
+        """The handle's capture stream (warm-ups, probes and captures)."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self._device)
+        return self._capture_stream
+
+    def _capture(
+        self,
+        entry: _Entry,
+        names: List[str],
+        state_sig: Tuple,
+        dyn: List[Any],
+        bucket: Optional[int],
+        n_rows: Optional[int],
+    ) -> None:
+        col = self._collection
+        device = self._device
+        buf_key = (tuple(names), state_sig)
+        bufs = self._state_bufs.get(buf_key)
+        if bufs is None:
+            bufs = self._state_bufs[buf_key] = {
+                name: {k: v.clone() for k, v in _states_of(col._metrics[name]).items()} for name in names
+            }
+        entry.states = bufs
+        entry.inputs = [
+            torch.empty(
+                (bucket,) + tuple(x.shape[1:]) if bucket and x.ndim >= 1 else x.shape, dtype=x.dtype, device=device
+            )
+            if isinstance(x, Tensor)
+            else torch.empty((), dtype=torch.float32, device=device)
+            for x in dyn
+        ]
+        entry.n_valid = None if bucket is None else torch.empty((), dtype=torch.int32, device=device)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        side = self._side_stream()
+        caller = torch.cuda.current_stream(device)
+        self._fill_inputs(entry, dyn, n_rows)
+        side.wait_stream(caller)
+        with torch.cuda.stream(side), capturing_checks():
+            with recording_launches():
+                for _ in range(_WARMUP_RUNS):
+                    scratch = {n: {k: v.clone() for k, v in s.items()} for n, s in bufs.items()}
+                    entry.fn(scratch, entry.inputs, entry.n_valid)
+            del scratch
+            side.synchronize()  # the warm-ups' memory is free before the capture
+            graph = torch.cuda.CUDAGraph()
+            with recording_launches() as launches:
+                with _capturing(graph, side, pool=self._pool):
+                    new = entry.fn(bufs, entry.inputs, entry.n_valid)
+                    for n in names:
+                        for k, v in new[n].items():
+                            buf = bufs[n][k]
+                            if v.shape != buf.shape or v.dtype != buf.dtype:
+                                raise RuntimeError(
+                                    f"fused update: {n}.{k} changed from {tuple(buf.shape)} {buf.dtype} to"
+                                    f" {tuple(v.shape)} {v.dtype} in one update; a captured graph needs fixed states"
+                                )
+                            if v is not buf:
+                                buf.copy_(v)
+                del new
+        caller.wait_stream(side)
+        entry.graph = graph
+        entry.launches = dict(launches)
+
+    def _fill_inputs(self, entry: _Entry, dyn: List[Any], n_rows: Optional[int]) -> None:
+        """Copy a batch into the entry's static inputs (edge-padded)."""
+        for buf, x in zip(entry.inputs, dyn):
+            if not isinstance(x, Tensor):
+                buf.fill_(x)
+            elif x.ndim >= 1 and buf.shape[0] != x.shape[0]:
+                n = x.shape[0]
+                buf[:n].copy_(x)
+                buf[n:].copy_(x[n - 1 :].expand((buf.shape[0] - n,) + tuple(x.shape[1:])))
+            else:
+                buf.copy_(x)
+        if entry.n_valid is not None:
+            entry.n_valid.fill_(n_rows)
+
+    def _replay(
+        self, entry: _Entry, names: List[str], dyn: List[Any], n_rows: Optional[int]
+    ) -> Dict[str, Dict[str, Tensor]]:
+        col = self._collection
+        for name in names:
+            m = col._metrics[name]
+            for k, buf in entry.states[name].items():
+                live = getattr(m, k)
+                # a state replaced since the last replay (reset, an eager
+                # update, a restore) is copied into the static buffer
+                if isinstance(live, int):
+                    buf.fill_(live)
+                elif live is not buf:
+                    buf.copy_(live)
+        self._fill_inputs(entry, dyn, n_rows)
+        entry.graph.replay()
+        add_launches(entry.launches)
+        if self._donate:
+            # the replay wrote the buffers in place: their write counters
+            # say so to host-side facts and memos keyed on them
+            for states in entry.states.values():
+                for buf in states.values():
+                    torch.autograd.graph.increment_version(buf)
+            return entry.states
+        return {n: {k: v.clone() for k, v in s.items()} for n, s in entry.states.items()}
+
+
+def _leaf_sig(x: Any, device: torch.device, bucket: Optional[int] = None) -> Tuple:
+    if not isinstance(x, Tensor):
+        return ((), torch.float32, device)
+    shape = tuple(x.shape)
+    if bucket is not None and x.ndim >= 1:
+        shape = (bucket,) + shape[1:]
+    return (shape, x.dtype, x.device)

@@ -9,7 +9,9 @@ and ``state_dict`` / ``load_state_dict``.
 States are tensors on the metric's device (or lists of tensors), held as
 plain attributes. Every update replaces a state with a new tensor and never
 writes into the old one, so the pure-state API stays functional: a state
-dict handed to ``update_state`` is never modified.
+dict handed to ``update_state`` is never modified. The one exception is a
+donating fused update, whose replays overwrite its static buffers in place:
+``compute`` then copies every result that shares storage with a state.
 
 Sketch states (``dist_reduce_fx="merge"`` or a ``merge_like`` reducer:
 :func:`~metrics_tpu_torch.sketches.sketch_merge_fx`,
@@ -18,15 +20,20 @@ Sketch states (``dist_reduce_fx="merge"`` or a ``merge_like`` reducer:
 own reducer; windowed ring and decay states (``"ring"``/``"decay"``) add
 like sums. Max and min states fold with the JAX package's semantics (NaN
 wins, +0.0 over -0.0 for max): :func:`~metrics_tpu_torch.utils.data.maximum_ieee`.
-Not in this slice: the observability hooks, the fused plumbing,
-``CompositionalMetric`` and cross-process sync (see ``ROADMAP.md``).
+``clone``, ``persistent``, ``to_device`` and ``state_reductions`` are the
+JAX package's; a fused update (``core/fused.py``) installs its states
+through ``_mark_fused_written``. Not in this slice: ``dtype``/``set_dtype``,
+the observability hooks, ``CompositionalMetric`` and cross-process sync (see
+``ROADMAP.md``).
 """
 from abc import ABC, abstractmethod
+from copy import deepcopy
 import inspect
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from metrics_tpu_torch.parallel.distributed import check_single_process
 from metrics_tpu_torch.sketches.quantile import sketch_merge_fx
@@ -120,6 +127,9 @@ class Metric(ABC):
 
     is_differentiable: Optional[bool] = None
     higher_is_better: Optional[bool] = None
+    #: True on metrics whose update cannot run inside a fused (captured)
+    #: update; they take the fused update's eager leg
+    __jit_unsafe__: bool = False
     #: host-side attributes that the states need to be read (such as the
     #: input mode a first update fixed); carried with the states by
     #: :func:`metrics_tpu_torch.convert.state_from_jax`
@@ -134,7 +144,11 @@ class Metric(ABC):
         # `_computed` is served only while it was folded at the current epoch
         self._write_epoch: int = 0
         self._computed_epoch: int = -1
+        # set while the states may be a donating fused update's static
+        # buffers, which its next replay overwrites in place
+        self._states_donated = False
         self._defaults: Dict[str, StateValue] = {}
+        self._persistent: Dict[str, bool] = {}
         self._reductions: Dict[str, Optional[Callable]] = {}
         self._cat_states: Dict[str, bool] = {}
 
@@ -154,8 +168,8 @@ class Metric(ABC):
         dim-zero functions, ``"merge"`` to the quantile-sketch reducer,
         ``"ring"``/``"decay"`` to the windowed sum reducers; the
         reservoir and moments reducers are passed as their ``*_merge_fx()``
-        callables. ``persistent`` is accepted as in the JAX package;
-        ``state_dict`` saves every state."""
+        callables. ``persistent`` is recorded as in the JAX package
+        (:meth:`persistent` flips it); ``state_dict`` saves every state."""
         if isinstance(default, list):
             if default:
                 raise ValueError("state variable must be an array or an empty list (where you can append arrays)")
@@ -182,6 +196,7 @@ class Metric(ABC):
 
         object.__setattr__(self, name, [] if isinstance(default, list) else _clone_state(default))
         self._defaults[name] = default
+        self._persistent[name] = persistent
         self._reductions[name] = dist_reduce_fx
         self._cat_states[name] = dist_reduce_fx is dim_zero_cat
         # mean-reduced states need each side's update count to merge; the
@@ -221,6 +236,30 @@ class Metric(ABC):
         self._write_epoch += 1
         self._computed = None
 
+    def _mark_fused_written(self, donated: bool) -> None:
+        """Install hook of the fused update (``core/fused.py``): its program
+        just wrote this metric's states, so the update is observed and the
+        write epoch advances, as an out-of-band write's does. ``donated``:
+        the states are buffers that the next update overwrites in place."""
+        self._update_called = True
+        self._states_donated = donated
+        self._mark_state_written()
+
+    def _undonated(self, value: Any) -> Any:
+        """``value`` with every tensor that shares storage with a donated
+        state copied: a result handed out must not change under the next
+        fused update (the JAX package deletes a donated array instead)."""
+        if not self._states_donated:
+            return value
+        held = {
+            v.untyped_storage().data_ptr() for k in self._defaults if isinstance(v := getattr(self, k), Tensor)
+        }
+        leaves, spec = tree_flatten(value)
+        return tree_unflatten(
+            [x.clone() if isinstance(x, Tensor) and x.untyped_storage().data_ptr() in held else x for x in leaves],
+            spec,
+        )
+
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Accumulate a batch into the states. numpy inputs go to the metric's device."""
         self._write_epoch += 1
@@ -241,7 +280,7 @@ class Metric(ABC):
             return self._computed
         check_single_process()
         epoch0 = self._write_epoch
-        self._computed = _squeeze_if_scalar(self._compute())
+        self._computed = self._undonated(_squeeze_if_scalar(self._compute()))
         self._computed_epoch = epoch0
         return self._computed
 
@@ -266,6 +305,7 @@ class Metric(ABC):
     def reset(self) -> None:
         """Restore every state to its default."""
         self._update_called = False
+        self._states_donated = False
         self._forward_cache = None
         self._mark_state_written()
         for attr, default in self._defaults.items():
@@ -274,6 +314,18 @@ class Metric(ABC):
     # ------------------------------------------------------------------
     # pure-state API
     # ------------------------------------------------------------------
+    def state_reductions(self) -> Dict[str, Union[str, Callable, None]]:
+        """Reducer spec per state: ``"sum"``/``"mean"``/``"max"``/``"min"``/
+        ``"cat"``, the callable of any other reducer, or None."""
+        names = {
+            dim_zero_sum: "sum",
+            dim_zero_mean: "mean",
+            dim_zero_max: "max",
+            dim_zero_min: "min",
+            dim_zero_cat: "cat",
+        }
+        return {k: names.get(fn, fn) for k, fn in self._reductions.items()}
+
     def init_state(self) -> Dict[str, StateValue]:
         """Fresh state dict (copies of the defaults)."""
         return {k: ([] if isinstance(v, list) else _clone_state(v)) for k, v in self._defaults.items()}
@@ -371,6 +423,11 @@ class Metric(ABC):
     # ------------------------------------------------------------------
     # persistence
     # ------------------------------------------------------------------
+    def persistent(self, mode: bool = False) -> None:
+        """Set every state's ``persistent`` flag to ``mode``."""
+        for name in self._persistent:
+            self._persistent[name] = mode
+
     def state_dict(self, destination: Optional[Dict] = None, prefix: str = "") -> Dict[str, Any]:
         """Flat dict of copies of all states."""
         destination = {} if destination is None else destination
@@ -418,6 +475,31 @@ class Metric(ABC):
     @property
     def device(self) -> torch.device:
         return self._device
+
+    def to_device(self, device: Union[str, torch.device]) -> "Metric":
+        """Move every state (list states too), the defaults and a wrapped
+        template metric to ``device``; later host inputs go there as well.
+        A fused update keys its graphs on the states' devices, so a moved
+        metric never replays a graph captured on the old one."""
+        device = _resolve_device(device)
+        for name, default in self._defaults.items():
+            val = getattr(self, name)
+            if isinstance(val, list):
+                object.__setattr__(self, name, [v.to(device) for v in val])
+            elif isinstance(val, Tensor):
+                object.__setattr__(self, name, _clone_state(val, device))
+            if isinstance(default, Tensor):
+                self._defaults[name] = _clone_state(default, device)
+        self._device = device
+        template = getattr(self, "_template", None)
+        if isinstance(template, Metric):
+            template.to_device(device)
+        self._mark_state_written()
+        return self
+
+    def clone(self) -> "Metric":
+        """A deep copy of the metric."""
+        return deepcopy(self)
 
     def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
         """Keep the kwargs that ``self._update`` accepts."""

@@ -186,6 +186,7 @@ class MeanAveragePrecision(Metric):
 
     is_differentiable = False
     higher_is_better = True
+    __fused_mask_valid__ = True
 
     def __init__(
         self,

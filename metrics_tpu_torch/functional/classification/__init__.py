@@ -9,9 +9,12 @@ from metrics_tpu_torch.functional.classification.average_precision import averag
 from metrics_tpu_torch.functional.classification.calibration_error import calibration_error  # noqa: F401
 from metrics_tpu_torch.functional.classification.cohen_kappa import cohen_kappa  # noqa: F401
 from metrics_tpu_torch.functional.classification.confusion_matrix import confusion_matrix  # noqa: F401
+from metrics_tpu_torch.functional.classification.dice import dice_score  # noqa: F401
 from metrics_tpu_torch.functional.classification.f_beta import f1_score, fbeta_score  # noqa: F401
 from metrics_tpu_torch.functional.classification.hamming import hamming_distance  # noqa: F401
+from metrics_tpu_torch.functional.classification.hinge import hinge_loss  # noqa: F401
 from metrics_tpu_torch.functional.classification.jaccard import jaccard_index  # noqa: F401
+from metrics_tpu_torch.functional.classification.kl_divergence import kl_divergence  # noqa: F401
 from metrics_tpu_torch.functional.classification.matthews_corrcoef import matthews_corrcoef  # noqa: F401
 from metrics_tpu_torch.functional.classification.precision_recall import (  # noqa: F401
     precision,

@@ -135,16 +135,16 @@ def _subset_accuracy_update(
     device = preds.device
     if mode == DataType.MULTILABEL:
         correct = torch.sum(torch.all(preds == target, dim=1), dtype=torch.int32)
-        total = torch.tensor(target.shape[0], dtype=torch.int32, device=device)
+        total = torch.full((), target.shape[0], dtype=torch.int32, device=device)
     elif mode == DataType.MULTICLASS:
         correct = torch.sum(preds * target, dtype=torch.int32)
         total = torch.sum(target, dtype=torch.int32)
     elif mode == DataType.MULTIDIM_MULTICLASS:
         sample_correct = torch.sum(preds * target, dim=(1, 2), dtype=torch.int32)
         correct = torch.sum(sample_correct == target.shape[2], dtype=torch.int32)
-        total = torch.tensor(target.shape[0], dtype=torch.int32, device=device)
+        total = torch.full((), target.shape[0], dtype=torch.int32, device=device)
     else:
-        correct = total = torch.tensor(0, dtype=torch.int32, device=device)
+        correct = total = torch.zeros((), dtype=torch.int32, device=device)
 
     return correct, total
 

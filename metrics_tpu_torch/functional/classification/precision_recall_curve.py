@@ -27,7 +27,12 @@ def _binary_clf_curve(
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Cumulative false and true positives at each distinct threshold, and
     the thresholds, in descending score order (sklearn's construction). The
-    sort is stable, as ``jnp.argsort`` is: tied scores keep their order."""
+    sort is stable, as ``jnp.argsort`` is: tied scores keep their order.
+    float64 scores are rounded to float32 first, as the JAX package's are
+    (x64 off), so every output of the curve family has its dtypes whatever
+    the targets hold; half-precision scores keep their dtype."""
+    if preds.dtype == torch.float64:
+        preds = preds.to(torch.float32)
     if sample_weights is not None and not isinstance(sample_weights, Tensor):
         sample_weights = torch.as_tensor(sample_weights, dtype=torch.float32, device=preds.device)
 

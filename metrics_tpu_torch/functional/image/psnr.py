@@ -39,11 +39,11 @@ def _psnr_update(
     diff = _widen_half(preds) - _widen_half(target)
     squared = diff * diff
     if dim is None:
-        return _tree_sum(squared.reshape(-1)), torch.tensor(target.numel(), dtype=torch.int32, device=target.device)
+        return _tree_sum(squared.reshape(-1)), torch.full((), target.numel(), dtype=torch.int32, device=target.device)
 
     dim_list = [dim] if isinstance(dim, int) else list(dim)
     if not dim_list:  # a sum over no axis leaves every element
-        return squared, torch.tensor(target.numel(), dtype=torch.int32, device=target.device)
+        return squared, torch.full((), target.numel(), dtype=torch.int32, device=target.device)
     dims = [d % squared.ndim for d in dim_list]
     kept = [d for d in range(squared.ndim) if d not in dims]
     moved = squared.permute(kept + dims)

@@ -32,6 +32,7 @@ class PeakSignalNoiseRatio(Metric):
 
     is_differentiable = True
     higher_is_better = True
+    __jit_unsafe__ = False
 
     def __init__(
         self,

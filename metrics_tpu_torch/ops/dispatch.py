@@ -9,17 +9,35 @@ no shape-based route: either would be a fallback that hides the kernel.
 Every kernel wrapper adds one to its launch counter each time it launches
 its kernel (and nowhere else), so a run can show that a path really went
 through the kernels: reset the counters, drive the path, read them.
+
+A CUDA graph replays kernels without calling their wrappers. The fused
+update (``core/fused.py``) therefore records the launches of each capture
+(:func:`recording_launches`: this thread's launches go to a dict instead of
+the counters) and adds them to the counters at every replay
+(:func:`add_launches`); the launches of its warm-up and probe runs are
+recorded and dropped.
 """
+import contextlib
 import ctypes
 import threading
-from typing import Any, Dict
+from typing import Any, Dict, Iterator
 
 import torch
 
-__all__ = ["on_card", "check_cuda", "launch", "count_launch", "launch_counts", "reset_launch_counts"]
+__all__ = [
+    "on_card",
+    "check_cuda",
+    "launch",
+    "count_launch",
+    "launch_counts",
+    "reset_launch_counts",
+    "recording_launches",
+    "add_launches",
+]
 
 _LAUNCHES: Dict[str, int] = {}
 _LOCK = threading.Lock()
+_RECORDING = threading.local()
 
 
 def on_card(*tensors: torch.Tensor) -> bool:
@@ -58,8 +76,32 @@ def launch(kernel: str, lib: ctypes.CDLL, device: torch.device, fn: Any, *args: 
 
 
 def count_launch(name: str) -> None:
+    recording = getattr(_RECORDING, "counts", None)
+    if recording is not None:
+        recording[name] = recording.get(name, 0) + 1
+        return
     with _LOCK:
         _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[Dict[str, int]]:
+    """Within this context, this thread's launches are counted in the
+    yielded dict and not in :func:`launch_counts`."""
+    prev = getattr(_RECORDING, "counts", None)
+    counts: Dict[str, int] = {}
+    _RECORDING.counts = counts
+    try:
+        yield counts
+    finally:
+        _RECORDING.counts = prev
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` to the launch counters (a graph replay's launches)."""
+    with _LOCK:
+        for name, n in counts.items():
+            _LAUNCHES[name] = _LAUNCHES.get(name, 0) + n
 
 
 def launch_counts() -> Dict[str, int]:

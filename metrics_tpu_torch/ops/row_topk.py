@@ -44,6 +44,7 @@ import torch
 from metrics_tpu_torch.ops.build import load
 from metrics_tpu_torch.ops.dispatch import check_cuda, launch, on_card
 from metrics_tpu_torch.ops.qsketch import TILE, merge_passes, next_pow2
+from metrics_tpu_torch.utils.checks import checks_read_nothing
 
 Tensor = torch.Tensor
 
@@ -218,11 +219,17 @@ def row_topk_reference(
     row's :func:`descending_order_key` carries keys, payload and validity,
     then the first ``min(k, N)`` columns. With ``rows``, only the rows it
     sets are sorted (gathered, sorted, scattered back; this reads the mask
-    on the host) and the others give ``(-inf, 0, 0)``."""
+    on the host) and the others give ``(-inf, 0, 0)``. Under the capture
+    rule of ``utils/checks.py`` every row is sorted and the mask selects,
+    with no host read."""
     _check_args(preds, payload, valid, k, rows)
     preds, payload, valid = (x.to(torch.float32) for x in (preds, payload, valid))
     r, n = preds.shape
     kk = min(k, n)
+    if rows is not None and checks_read_nothing():
+        empty = _empty_outputs(r, kk, preds.device)
+        top = row_topk_reference(preds, payload, valid, kk)
+        return tuple(torch.where(rows[:, None], part, whole) for whole, part in zip(empty, top))
     if rows is not None:
         out = _empty_outputs(r, kk, preds.device)
         active = rows.nonzero()[:, 0]

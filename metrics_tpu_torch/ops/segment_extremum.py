@@ -95,8 +95,8 @@ def segment_extremum_reference(vals: Tensor, ids: Tensor, num_segments: int, is_
     if not vals.is_floating_point():
         raise TypeError(f"segment max/min takes integer or floating values, got {vals.dtype}")
     keys = _total_order_key(vals)
-    fill = _total_order_key(torch.tensor(-torch.inf if is_max else torch.inf, dtype=vals.dtype))
-    out = torch.full(shape, int(fill), dtype=keys.dtype, device=vals.device)
+    # the empty segment's identity, made on the device (no host read)
+    out = _total_order_key(torch.full(shape, -torch.inf if is_max else torch.inf, dtype=vals.dtype, device=vals.device))
     out.scatter_reduce_(0, index, keys, mode, include_self=True)
     nan_seen = torch.zeros(shape, dtype=torch.int32, device=vals.device)
     nan_seen.scatter_reduce_(0, index, torch.isnan(vals).to(torch.int32), "amax", include_self=True)

@@ -29,8 +29,10 @@ Not in this slice (``ROADMAP.md``): the JAX package's read telemetry
 (read events, the layout memo's cache-plane report and ``_read_extras``)
 and its pre-lowered subset readers (``ReaderCache``), which belong to the
 observability plane; there are no calls to them here, and
-``table_rows_layout`` is a plain row gather. The fused and async update
-and cross-process sync of the table are later slices too.
+``table_rows_layout`` is a plain row gather. Cross-process sync of the
+table is a later slice too. The table default runs inside the fused update
+(``core/fused.py``): its insert has fixed shapes and reads nothing under
+the capture rule of ``utils/checks.py``.
 """
 import weakref
 from abc import ABC, abstractmethod
@@ -65,9 +67,11 @@ Tensor = torch.Tensor
 #: metrics over one or two tables, so entries past this are leaks
 _LAYOUT_CACHE_MAX = 8
 
-#: (owner id, write epoch) -> (table id, unpacked layout, weakref finalizer).
-#: The epoch key makes repeated reads of an unwritten metric hits; the table
-#: id guards the entry. A compute group's members borrow ONE qtable tensor,
+#: (owner id, write epoch) -> (table id and write counter, unpacked layout,
+#: weakref finalizer). The epoch key makes repeated reads of an unwritten
+#: metric hits; the table's id and in-place write counter guard the entry
+#: (a fused update's replay rewrites the same table tensor and bumps the
+#: counter). A compute group's members borrow ONE qtable tensor,
 #: so a sibling's entry for the same table is aliased instead of unpacked
 #: again, and, being the same tensors, shares one row sort through
 #: sorted_row_layout's identity memo. Entries die with their table
@@ -85,16 +89,20 @@ def _layout_cache_store(key: tuple, qtable: Tensor, layout: tuple) -> None:
     old = _LAYOUT_CACHE.pop(key, None)
     if old is not None:
         old[2].detach()
-    _LAYOUT_CACHE[key] = (id(qtable), layout, weakref.finalize(qtable, _layout_cache_evict, key))
+    _LAYOUT_CACHE[key] = (_table_id(qtable), layout, weakref.finalize(qtable, _layout_cache_evict, key))
     while len(_LAYOUT_CACHE) > _LAYOUT_CACHE_MAX:
         _layout_cache_evict(next(iter(_LAYOUT_CACHE)))
+
+
+def _table_id(qtable: Tensor) -> tuple:
+    return (id(qtable), qtable._version)
 
 
 def _table_layout_cached(qtable: Tensor, epoch_key: tuple):
     """The memoized padded unpack of ``qtable``: reused when the owner's
     epoch key matches (same write clock, same table) or a sibling's entry
     holds the same table, unpacked otherwise."""
-    tid = id(qtable)
+    tid = _table_id(qtable)
     hit = _LAYOUT_CACHE.get(epoch_key)
     if hit is not None and hit[0] == tid:
         _LAYOUT_CACHE.move_to_end(epoch_key)
@@ -114,6 +122,9 @@ class RetrievalMetric(Metric, ABC):
     triples. ``device=None`` means the card (see :class:`Metric`)."""
 
     higher_is_better = True
+    __jit_unsafe__ = False  # table-state default: fixed-shape update, fusible
+    # bucketed pads: the insert masks rows past n_valid out of the table
+    __fused_mask_valid__ = True
 
     def __init__(
         self,

@@ -49,6 +49,7 @@ import torch
 from metrics_tpu_torch.ops.row_topk import row_topk
 from metrics_tpu_torch.ops.segment_sum import segment_sum_dispatch
 from metrics_tpu_torch.sketches.reservoir import _U32, reservoir_key
+from metrics_tpu_torch.utils.checks import checks_read_nothing
 from metrics_tpu_torch.utils.data import _resolve_device
 
 Tensor = torch.Tensor
@@ -173,8 +174,10 @@ def _rows_to_widen(over: Tensor, n_docs: int) -> Tensor:
     """The rows an insert chunk widens for its compaction, a superset of the
     overflowing ones: on the card a fixed :func:`_overflow_candidates` list,
     of which the top-k kernel's row mask sorts only the overflowing rows; on
-    the CPU, where reading ``over`` is free, only those."""
-    if over.is_cuda:
+    the CPU, where reading ``over`` is free, only those (but the fixed list
+    under the capture rule of ``utils/checks.py``, as a fused update on the
+    card takes it)."""
+    if over.is_cuda or checks_read_nothing():
         return _overflow_candidates(over, n_docs)
     return over.nonzero()[:, 0]
 

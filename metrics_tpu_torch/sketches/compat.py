@@ -11,9 +11,12 @@ from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 
 def register_exact_list_states(metric: Any, names: Sequence[str], dist_reduce_fx: Optional[str] = "cat") -> None:
-    """Register the exact mode's unbounded list states on ``metric``."""
+    """Register the exact mode's unbounded list states on ``metric`` and
+    mark the instance ``__jit_unsafe__`` (list growth keeps it on the fused
+    update's eager leg whatever its class declares)."""
     for name in names:
         metric.add_state(name, default=[], dist_reduce_fx=dist_reduce_fx)
+    metric.__dict__["__jit_unsafe__"] = True
 
 
 def warn_exact_buffer(cls_name: str, what: str = "targets and predictions") -> None:

@@ -27,9 +27,10 @@ scatters each batch row's contribution into its slice:
 Slice ids are a 1-D integer tensor aligned with the batch's leading axis;
 ids outside ``[0, num_slices)`` are dropped. The ``_slice_rows`` counter
 counts rows per slice and drives ``compute(top_k=)`` and ``hot_slices``.
-Left out of this slice (ROADMAP.md, queue A): the partition specs of
-``sliced/sharding.py``, the telemetry and read-event hooks, the
-pre-lowered readers (``ReaderCache``) and the fused path.
+A sliced metric runs inside the fused update (``core/fused.py``)
+unchanged. Left out of this slice (ROADMAP.md, queue A): the partition
+specs of ``sliced/sharding.py``, the telemetry and read-event hooks and
+the pre-lowered readers (``ReaderCache``).
 """
 from copy import deepcopy
 from typing import Any, Dict, Optional, Tuple
@@ -41,9 +42,11 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from metrics_tpu_torch.core.metric import _AUTO_COUNT, Metric
 from metrics_tpu_torch.ops.segment_extremum import segment_max_dispatch, segment_min_dispatch
 from metrics_tpu_torch.ops.segment_sum import segment_sum_dispatch
+from metrics_tpu_torch.utils.checks import capturing_checks
 from metrics_tpu_torch.utils.data import (
     _as_tensor,
     _is_integer,
+    _resolve_device,
     dim_zero_max,
     dim_zero_min,
     dim_zero_sum,
@@ -203,7 +206,11 @@ class SlicedMetric(Metric):
             return m.update_state(dict(defaults), *a, **kw)
 
         try:
-            return torch.func.vmap(one_row)(*rows)
+            # no value of a vmapped row can be read on the host: the value
+            # checks read nothing (the capture rule of utils/checks.py), as
+            # the JAX package's checks skip vmap's tracers
+            with capturing_checks():
+                return torch.func.vmap(one_row)(*rows)
         except RuntimeError as err:
             if "vmap" not in str(err):
                 raise
@@ -240,7 +247,7 @@ class SlicedMetric(Metric):
         # the written slices go dirty on the device, with no host read:
         # dropped ids land in the sink entry
         in_range = (slice_ids >= 0) & (slice_ids < num)
-        self._dirty[torch.where(in_range, slice_ids, num).long()] = True
+        self._dirty.index_fill_(0, torch.where(in_range, slice_ids, num).long(), True)
 
     def _mark_state_written(self) -> None:
         # out-of-band installs (reset, restore, load, a compute group's
@@ -249,6 +256,12 @@ class SlicedMetric(Metric):
         dirty = getattr(self, "_dirty", None)
         if dirty is not None:
             dirty.fill_(True)
+
+    def to_device(self, device: Any) -> "SlicedMetric":
+        # the dirty bitmap moves with the states, and every slice refolds
+        self._dirty = self._dirty.to(_resolve_device(device))
+        self._values = None
+        return super().to_device(device)
 
     # ------------------------------------------------------------------
     # compute
@@ -324,7 +337,7 @@ class SlicedMetric(Metric):
             one = self._fold({name: getattr(self, name)[:1] for name in self._template._defaults})
             flat, spec = tree_flatten(one)
             values = tree_unflatten([v[:0] for v in flat], spec)
-        return (ids, values) if top_k is not None else values
+        return self._undonated((ids, values) if top_k is not None else values)
 
     def _top_ids(self, k: int) -> Tensor:
         """Ids (int32) of the ``k`` fullest slices, in descending count with

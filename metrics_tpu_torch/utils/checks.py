@@ -13,8 +13,18 @@ are taken from one small tensor of minima and maxima, read in one
 ``.tolist()`` call per formatted batch (:func:`_value_stats`); a
 retrieval table update likewise reads its binary-target and ``ignore_index``
 checks in one call (:func:`_read_retrieval_values`).
+
+**The capture rule.** The JAX package skips its value checks on tracers,
+so a jitted update reads nothing back. Here the same holds while
+:func:`capturing_checks` is on (the fused update turns it on around its
+probe and its captures) or the current CUDA stream is capturing a graph:
+both readers then return no values and read nothing, and every decision is
+taken from shapes, dtypes and static arguments, as under the JAX trace.
+Outside capture nothing changes.
 """
-from typing import Dict, Optional, Tuple
+import contextlib
+import threading
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -36,9 +46,36 @@ def _check_for_empty_tensors(preds: Tensor, target: Tensor) -> bool:
     return preds.numel() == 0 and target.numel() == 0
 
 
+_CAPTURE = threading.local()
+
+
+@contextlib.contextmanager
+def capturing_checks() -> Iterator[None]:
+    """Within this context (this thread only) the value checks read
+    nothing: :func:`_value_stats` and :func:`_read_retrieval_values` return
+    no values, as the JAX package's checks skip tracers."""
+    prev = getattr(_CAPTURE, "on", False)
+    _CAPTURE.on = True
+    try:
+        yield
+    finally:
+        _CAPTURE.on = prev
+
+
+def checks_read_nothing() -> bool:
+    """True under :func:`capturing_checks` or while the current CUDA stream
+    captures a graph."""
+    if getattr(_CAPTURE, "on", False):
+        return True
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
 def _value_stats(preds: Tensor, target: Tensor) -> Dict[str, int]:
     """``tmin``/``tmax`` of the target and, for integer predictions,
-    ``pmin``/``pmax``: every value a check below reads, in ONE host read."""
+    ``pmin``/``pmax``: every value a check below reads, in ONE host read;
+    none under the capture rule (the checks that need them are skipped)."""
+    if checks_read_nothing():
+        return {}
     parts: Dict[str, Tensor] = {}
     if target.numel():
         parts["tmin"], parts["tmax"] = target.min(), target.max()
@@ -99,7 +136,7 @@ def _check_shape_and_type_consistency(
                 "The `preds` and `target` should have the same shape,"
                 f" got `preds` with shape={tuple(preds.shape)} and `target` with shape={tuple(target.shape)}."
             )
-        if preds_float and target.numel() > 0 and stats["tmax"] > 1:
+        if preds_float and target.numel() > 0 and stats.get("tmax", 0) > 1:
             raise ValueError(
                 "If `preds` and `target` are of shape (N, ...) and `preds` are floats, `target` should be binary."
             )
@@ -168,7 +205,7 @@ def _check_num_classes_mc(
                 "You have set `multiclass=False`, but the implied number of classes "
                 " (from shape of inputs) does not match `num_classes`."
             )
-        if target.numel() > 0 and num_classes <= stats["tmax"]:
+        if target.numel() > 0 and "tmax" in stats and num_classes <= stats["tmax"]:
             raise ValueError("The highest label in `target` should be smaller than `num_classes`.")
         if preds.shape != target.shape and num_classes != implied_classes:
             raise ValueError("The size of C dimension of `preds` does not match `num_classes`.")
@@ -225,7 +262,7 @@ def _check_inputs_with_stats(
                 "You have set `multiclass=False`, but have more than 2 classes in your data,"
                 " based on the C dimension of `preds`."
             )
-        if target.numel() > 0 and stats["tmax"] >= implied_classes:
+        if target.numel() > 0 and "tmax" in stats and stats["tmax"] >= implied_classes:
             raise ValueError(
                 "The highest label in `target` should be smaller than the size of the `C` dimension of `preds`."
             )
@@ -329,6 +366,10 @@ def _input_format_classification(
             preds = select_topk(preds, top_k or 1)
         else:
             if num_classes is None:
+                if "pmax" not in stats:
+                    raise ValueError(
+                        "`num_classes` must be given explicitly when formatting label inputs under capture"
+                    )
                 # integer predictions reaching here are the caller's own, so
                 # the stats read above still describe them
                 num_classes = max(stats["pmax"], stats["tmax"]) + 1
@@ -376,7 +417,10 @@ def _check_retrieval_target_dtypes(preds: Tensor, target: Tensor) -> None:
 
 def _read_retrieval_values(checkable: Optional[Tensor], valid: Optional[Tensor]) -> Dict[str, float]:
     """``tmax``/``tmin`` of ``checkable`` and ``any_valid`` of ``valid``
-    (each part only when given), in ONE host read."""
+    (each part only when given), in ONE host read; none under the capture
+    rule."""
+    if checks_read_nothing():
+        return {}
     parts: Dict[str, Tensor] = {}
     if checkable is not None:
         parts["tmax"], parts["tmin"] = checkable.max(), checkable.min()
@@ -401,7 +445,9 @@ def _check_retrieval_target_and_prediction_types(
     targets) or int32 targets, flattened."""
     _check_retrieval_target_dtypes(preds, target)
     if not allow_non_binary_target:
-        _check_binary(_read_retrieval_values(target, None))
+        stats = _read_retrieval_values(target, None)
+        if stats:
+            _check_binary(stats)
     target = _flat(target, torch.float32 if target.is_floating_point() else torch.int32)
     return _flat(preds, torch.float32), target
 
@@ -470,9 +516,9 @@ def _check_retrieval_inputs_static(
     if not allow_non_binary_target:
         checkable = target if ignore_index is None else torch.where(valid, target, torch.zeros_like(target))
     stats = _read_retrieval_values(checkable, None if ignore_index is None else valid)
-    if checkable is not None:
+    if checkable is not None and stats:
         _check_binary(stats)
-    if ignore_index is not None and not stats["any_valid"]:
+    if ignore_index is not None and not stats.get("any_valid", True):
         raise ValueError("`indexes`, `preds` and `target` must be non-empty and non-scalar tensors")
     target = _flat(target, torch.float32 if target.is_floating_point() else torch.int32)
     return _flat(indexes, torch.int32), _flat(preds, torch.float32), target, valid

@@ -15,6 +15,10 @@ import torch
 
 Tensor = torch.Tensor
 
+#: the floor of a normalised probability in the KL divergence, as the JAX
+#: package's
+METRIC_EPS = 1e-6
+
 _INT_DTYPES = (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64)
 _SIGNED_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64)
 

@@ -21,15 +21,23 @@ Counterpart of ``metrics_tpu/windowed/metric.py``, with two state layouts:
 Per-tenant windows are ``WindowedMetric(SlicedMetric(...))``: the leaves
 become ``[R, S, ...]`` and each update runs the sliced scatter (and its
 kernels) on the live slot. Every read is the cold oldest-first fold of the
-JAX package; its fold memos and pre-lowered fold are not ported. Left out
-(ROADMAP.md, queue A): the pad-and-mask update (``n_valid``) of the fused
-path, the ring of sketch (``merge_like``) leaves, and the telemetry,
+JAX package; its fold memos and pre-lowered fold are not ported.
+
+**The pad-and-mask contract** of a bucketed fused update
+(``core/fused.py``): the wrapper declares ``__fused_mask_valid__``, takes
+``n_valid`` and removes the edge-pad rows' contribution itself, as
+``k_pad * delta(last_row)`` subtracted from the template's sum leaves in
+the live ring slot (the fused update's generic correction would probe from
+the default state, whose slot is another). Left out (ROADMAP.md, queue
+A): the ring of sketch (``merge_like``) leaves, and the telemetry,
 freshness and read-event hooks.
 """
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils._pytree import tree_flatten
 
+from metrics_tpu_torch.core.fused import pad_correct
 from metrics_tpu_torch.core.metric import _AUTO_COUNT, Metric
 from metrics_tpu_torch.sliced.metric import _reducer_name, _template_of
 from metrics_tpu_torch.utils.data import _squeeze_if_scalar, dim_zero_max, dim_zero_min, dim_zero_sum
@@ -47,12 +55,6 @@ DECAY_WEIGHT = "_decay_weight"
 
 _RESERVED = (RING_ROWS, RING_COUNT, DECAY_WEIGHT)
 _MODES = ("ring", "decay")
-
-_N_VALID_NOT_PORTED = (
-    "WindowedMetric's pad-and-mask update (`n_valid`) belongs to the fused path, which is not"
-    " ported yet (ROADMAP.md, queue A.2: 'fused and async update')"
-)
-
 
 class WindowedMetric(Metric):
     """Track ``metric`` over a sliding window (ring) or with exponential decay.
@@ -131,6 +133,9 @@ class WindowedMetric(Metric):
                 # truncate alpha * count
                 self.add_state(name, default=default if default.is_floating_point() else default.to(torch.float32), dist_reduce_fx="decay")
             self.add_state(DECAY_WEIGHT, default=torch.tensor(0.0), dist_reduce_fx="decay")
+        # the pad-and-mask contract: this wrapper takes `n_valid` and
+        # corrects the pad rows in the live slot itself (_pad_correct)
+        self.__fused_mask_valid__ = True
 
     @staticmethod
     def _validate_windowable(metric: Metric, mode: str) -> None:
@@ -200,22 +205,43 @@ class WindowedMetric(Metric):
             raise MetricsUserError("`decay_weight` is a decay-mode query")
         return getattr(self, DECAY_WEIGHT)
 
+    @staticmethod
+    def _pad_correct(
+        new: Dict[str, Tensor], args: Any, fkw: Dict[str, Any], n_valid: Optional[Any], m: Metric
+    ) -> Dict[str, Tensor]:
+        """Remove the edge-pad rows' contribution from the template's sum
+        leaves (the fused bucketing contract, :func:`~metrics_tpu_torch.core.fused.pad_correct`),
+        here where the live slot is known."""
+        if n_valid is None:
+            return new
+        b = next((int(x.shape[0]) for x in tree_flatten((args, fkw))[0] if isinstance(x, Tensor) and x.ndim >= 1), None)
+        if b is None:
+            return new
+        device = next(iter(new.values())).device
+        n_valid = torch.as_tensor(n_valid, dtype=torch.int32, device=device)
+        k_pad = torch.full((), b, dtype=torch.int32, device=device) - n_valid
+        return pad_correct(m, new, args, fkw, k_pad)
+
     def _update(self, *args: Any, **kwargs: Any) -> None:
-        if "n_valid" in kwargs:
-            raise NotImplementedError(_N_VALID_NOT_PORTED)
         m = self._template
+        n_valid = kwargs.pop("n_valid", None)
         fkw = m._filter_kwargs(**kwargs)
+        call_kw = fkw
+        if n_valid is not None and getattr(m, "__fused_mask_valid__", False):
+            # a masking template takes n_valid itself; its sum leaves still
+            # count the padded batch, so the correction below applies too
+            call_kw = {**fkw, "n_valid": n_valid}
         if self.mode == "decay":
             base = {}
             for name in m._defaults:
                 leaf = getattr(self, name)
-                base[name] = torch.tensor(self._alpha, dtype=leaf.dtype, device=leaf.device) * leaf
-            new = m.update_state(base, *args, **fkw)
+                base[name] = torch.full((), self._alpha, dtype=leaf.dtype, device=leaf.device) * leaf
+            new = self._pad_correct(m.update_state(base, *args, **call_kw), args, fkw, n_valid, m)
             for name in m._defaults:
                 # keep the registered (float-promoted) dtype
                 setattr(self, name, new[name].to(self._defaults[name].dtype))
             w = getattr(self, DECAY_WEIGHT)
-            setattr(self, DECAY_WEIGHT, torch.tensor(self._alpha, dtype=w.dtype, device=w.device) * w + 1.0)
+            setattr(self, DECAY_WEIGHT, torch.full((), self._alpha, dtype=w.dtype, device=w.device) * w + 1.0)
             return
 
         count = getattr(self, RING_COUNT)
@@ -229,7 +255,7 @@ class WindowedMetric(Metric):
             # the first update of a bucket starts from the defaults, so a
             # wrapped (expired) bucket evicts itself
             base[name] = torch.where(fresh, m._defaults[name], row)
-        new = m.update_state(base, *args, **fkw)
+        new = self._pad_correct(m.update_state(base, *args, **call_kw), args, fkw, n_valid, m)
         for name in m._defaults:
             leaf = getattr(self, name)
             setattr(self, name, leaf.index_copy(0, slot, new[name].to(leaf.dtype).unsqueeze(0)))
@@ -304,7 +330,9 @@ class WindowedMetric(Metric):
             return super().compute()
         if self.mode != "ring":
             raise MetricsUserError("compute(window=...) is a ring-mode query")
-        return _squeeze_if_scalar(self._template.compute_state(self.window_state(window, before=before or 0)))
+        return self._undonated(
+            _squeeze_if_scalar(self._template.compute_state(self.window_state(window, before=before or 0)))
+        )
 
     def __repr__(self) -> str:
         inner = type(self._template).__name__

@@ -20,6 +20,9 @@ import metrics_tpu_torch.retrieval
 names = [m.name for m in pkgutil.walk_packages(metrics_tpu_torch.__path__, "metrics_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("core.fused", "core.pipeline", "observability.freshness", "classification.hinge",
+             "classification.kl_divergence", "functional.classification.dice"):
+    assert "metrics_tpu_torch." + name in names, name
 import chip_smoke
 assert not any(k == "jax" or k.startswith(("jax.", "metrics_tpu.")) for k, v in sys.modules.items() if v is not None)
 print(len(names))

@@ -100,8 +100,13 @@ def test_collection_compute_groups_match_jax():
     np.testing.assert_array_equal(restored_values["cm"].numpy(), got_values["val_cm"].numpy())
     got.reset()
     assert int(got["cm"].confmat.sum()) == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        got.compile_update()
+    # the fused update (its plain version on the CPU) after the reset
+    handle = got.compile_update()
+    got.update(torch.from_numpy(preds[0]), torch.from_numpy(target[0]))
+    want.reset()
+    want.update(jnp.asarray(preds[0]), jnp.asarray(target[0]))
+    assert got.fused_update is handle and handle.cache_size == 1
+    np.testing.assert_array_equal(got["cm"].confmat.numpy(), np.asarray(want["cm"].confmat))
 
 
 def test_forward_returns_the_batch_value():

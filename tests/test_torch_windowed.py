@@ -224,8 +224,9 @@ def test_construction_and_mode_errors():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         WindowedMetric(AUROC(device="cpu"))
     ring = WindowedMetric(mse)
-    with pytest.raises(NotImplementedError, match="A.2"):
-        ring.update(torch.ones(3), torch.zeros(3), n_valid=2)
+    # the fused update's pad-and-mask contract: the third row is an edge pad
+    ring.update(torch.ones(3), torch.zeros(3), n_valid=2)
+    assert int(ring.window_state()["total"]) == 2 and float(ring.compute()) == 1.0
     with pytest.raises(MetricsUserError, match="ring-mode query"):
         WindowedMetric(mse, mode="decay").compute(window=2)
     with pytest.raises(MetricsUserError, match="decay-mode query"):
