@@ -242,6 +242,39 @@ Phases, each printed as one JSON line:
    compile_update() or compile_update_async(queue_depth=2); steps per second
    of each (best of 3 epochs of 100), enqueue µs, 0 dropped, final states
    bit for bit;
+18d. regression-depth -- per-pixel depth evaluation as a monocular-depth
+   training loop logs it on NYU-Depth v2's test split (640 x 480 frames,
+   depth 0.5-10 m; 654 images cut to 128): 16 updates of 8 images made on
+   the card from a seed (2,457,600 pairs each, predictions = depth x a
+   log-normal factor) through MSE, MAE, MAPE, SMAPE, MSLE,
+   TweedieDevianceScore(power=1.5), ExplainedVariance, R2Score,
+   PearsonCorrCoef and SpearmanCorrCoef (the rank sketch) over the flat
+   pairs and CosineSimilarity over the [8, 307200] image rows, each
+   collection eager and through compile_update(); gates: every state bit
+   for bit between the legs and against a second card run, every value
+   within rtol 1e-5 of the port's CPU run over the first 2 updates and
+   within 1e-6 (relative above 1) of float64 over the whole stream (float64
+   on the card, its formulas held within 1e-12 of numpy and
+   scipy.stats.spearmanr on two images first; Spearman's is
+   SpearmanCorrCoef(exact=True) over the 39.3M pairs), the sketched
+   Spearman within 4 (1 - rho**2) / sqrt(8192) of exact; ms per update,
+   device ms, idle share, host syncs per update and state bytes per leg;
+18e. sketch-bf16 -- AUROC() over curve-binary's stream after
+   set_dtype(torch.bfloat16), eager and fused: half-precision sketch rows
+   compact widened to float32 (K3, then segment_sum_f32) and round back
+   once; gates: K3 and segment_sum_f32 launched once per compaction (243
+   eager), both bit-equal to their plain versions at a captured bfloat16
+   compaction, the states bit-equal to the port's CPU run over the first
+   16 batches, the value within 1e-4 of the float32 run's;
+18f. windowed-sketch -- the ring of sketch leaves:
+   WindowedMetric(AUROC(pos_label=1)) at window 2 and 8 over curve-binary's
+   stream (no compaction while a bucket's batch fits) and
+   WindowedMetric(SpearmanCorrCoef(), window=8) over regression-depth's
+   last 8 updates; gates: the window-2 read bit-equal to a fresh AUROC fed
+   the last 2 batches, the window-8 AUROC within 5e-3 of exact (float64
+   midranks), one K3 and one segment_sum_f32 launch per merge of a read,
+   bit-equal to their plain versions at a captured fold, and the windowed
+   Spearman within 4 standard errors of exact over its window;
 19. the kernels line: per kernel its launches on its main path (flagship for
    K1, sketch-binary for K3, map-coco for K6, the entry point ops.box_iou
    on 2-D boxes for K5, retrieval-mslr for K4, sliced-psnr for K2 and
@@ -272,6 +305,7 @@ raises, so the script exits non-zero and prints no result line; it does the
 same without CUDA, or without the metrics_tpu_torch package beside it.
 """
 import json
+import math
 import re
 import subprocess
 import sys
@@ -450,6 +484,19 @@ ASYNC_POOL = 8
 ASYNC_STEPS = 100
 ASYNC_EPOCHS = 3
 FUSED_RETRIEVAL_UPDATES = 12
+# regression-depth: NYU-Depth v2's test frames (640 x 480, depth 0.5-10 m),
+# cut from 654 images to 128
+DEPTH_IMAGES = 8
+DEPTH_SHAPE = (480, 640)
+DEPTH_UPDATES = 16
+DEPTH_CPU_UPDATES = 2
+DEPTH_SEED = 12000
+DEPTH_RANGE = (0.5, 10.0)
+DEPTH_NOISE = 0.1
+RANK_CAPACITY = 8192
+# sketch-bf16: |bfloat16 - float32| of AUROC() over curve-binary's stream;
+# 1.70e-5 measured on the CPU (scripts/reference_properties.py)
+BF16_SKETCH_BOUND = 1e-4
 #: K3 parity cases: (name, rows, columns, share of zero-weight rows, keys:
 #: "randn", "tied" (integers 0..49), "equal", "nan" (NaN of both signs among
 #: normal keys) or "signed_zero" (halves, about half the zeros -0.0)); the
@@ -698,7 +745,8 @@ def same_nan_by_position(torch, a, b):
     if not a.is_floating_point():
         return torch.equal(a, b)
     nan = torch.isnan(a)
-    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+    word = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(nan, torch.isnan(b)) and a.dtype == b.dtype and torch.equal(a[~nan].view(word), b[~nan].view(word))
 
 
 def qsketch_parity_phase(torch, ops, card):
@@ -1435,9 +1483,12 @@ def row_topk_inputs(torch, gen, r, n, nan_share=0.02, kind="mixed"):
 
 
 def bits(torch, x):
-    """The tensor's bits on the host (bool as bytes, 4-byte types as int32)."""
+    """The tensor's bits on the host (bool as bytes, 2-byte types as int16,
+    the others as int32)."""
     x = x.detach().cpu().contiguous()
-    return x.view(torch.int8) if x.dtype == torch.bool else x.view(torch.int32)
+    if x.dtype == torch.bool:
+        return x.view(torch.int8)
+    return x.view(torch.int16) if x.element_size() == 2 else x.view(torch.int32)
 
 
 def same_bits(torch, a, b):
@@ -3582,6 +3633,333 @@ def library_bincount_ms(torch, ids, bins):
     return time_ms(torch, lambda: torch.bincount(ids, minlength=bins))
 
 
+def depth_batches(torch):
+    """regression-depth's stream, made on the card from a seed: per update 8
+    images of 640 x 480 depths uniform in [0.5, 10] m (an NYU-Depth v2
+    test frame's size and range) and predictions = depth x a log-normal
+    factor (sigma 0.1), as ``[8, 307200]`` rows."""
+    gen = torch.Generator(device="cuda").manual_seed(DEPTH_SEED)
+    lo, hi = DEPTH_RANGE
+    out = []
+    for _ in range(DEPTH_UPDATES):
+        depth = lo + (hi - lo) * torch.rand((DEPTH_IMAGES,) + DEPTH_SHAPE, generator=gen, device="cuda")
+        noise = torch.exp(DEPTH_NOISE * torch.randn(depth.shape, generator=gen, device="cuda"))
+        out.append(((depth * noise).reshape(DEPTH_IMAGES, -1), depth.reshape(DEPTH_IMAGES, -1)))
+    return out
+
+
+def regression_collections(tm, device=None):
+    """The regression family as a depth loop logs it: ten metrics over the
+    flat pairs, and CosineSimilarity over the ``[8, 307200]`` image rows."""
+    flat = tm.MetricCollection(
+        [
+            tm.MeanSquaredError(device=device),
+            tm.MeanAbsoluteError(device=device),
+            tm.MeanAbsolutePercentageError(device=device),
+            tm.SymmetricMeanAbsolutePercentageError(device=device),
+            tm.MeanSquaredLogError(device=device),
+            tm.TweedieDevianceScore(power=1.5, device=device),
+            tm.ExplainedVariance(device=device),
+            tm.R2Score(device=device),
+            tm.PearsonCorrCoef(device=device),
+            tm.SpearmanCorrCoef(device=device),
+        ]
+    )
+    return flat, tm.MetricCollection([tm.CosineSimilarity(device=device)])
+
+
+def flat_args(collection, batch):
+    collection.update(batch[0].reshape(-1), batch[1].reshape(-1))
+
+
+def float64_ranks(torch, x):
+    """Tie-averaged 1-based ranks of a float64 vector on the card (the
+    reference's float64 rank transform, as ``scipy.stats.rankdata``)."""
+    sorted_x, order = torch.sort(x, stable=True)
+    _, inverse, counts = torch.unique_consecutive(sorted_x, return_inverse=True, return_counts=True)
+    ends = torch.cumsum(counts, 0).to(torch.float64)
+    mean_rank = ends - (counts.to(torch.float64) - 1) / 2
+    return torch.empty_like(x).scatter_(0, order, mean_rank[inverse])
+
+
+def float64_pearson(torch, x, y):
+    x, y = x - x.mean(), y - y.mean()
+    return float((x * y).sum() / torch.sqrt((x * x).sum() * (y * y).sum()))
+
+
+def float64_regression(torch, preds, target):
+    """The regression family over the whole stream in float64 on the card:
+    ``preds``/``target`` are ``[updates, 8, 307200]``. Spearman ranks with
+    ties averaged (``float64_ranks``); the script holds these formulas to
+    numpy and ``scipy.stats.spearmanr`` on a prefix first."""
+    rows_p, rows_t = preds.reshape(-1, preds.shape[-1]).double(), target.reshape(-1, target.shape[-1]).double()
+    p, t = rows_p.reshape(-1), rows_t.reshape(-1)
+    d = p - t
+    eps = 1.17e-06
+    dev = 2 * (torch.sqrt(t) / (-0.5 * 0.5) - t / torch.sqrt(p) / -0.5 + torch.sqrt(p) / 0.5)
+    cos = (rows_p * rows_t).sum(-1) / (torch.linalg.norm(rows_p, dim=-1) * torch.linalg.norm(rows_t, dim=-1))
+    out = {
+        "MeanSquaredError": (d * d).mean(),
+        "MeanAbsoluteError": d.abs().mean(),
+        "MeanAbsolutePercentageError": (d.abs() / torch.clamp(t.abs(), min=eps)).mean(),
+        "SymmetricMeanAbsolutePercentageError": (2 * d.abs() / torch.clamp(t.abs() + p.abs(), min=eps)).mean(),
+        "MeanSquaredLogError": ((torch.log1p(p) - torch.log1p(t)) ** 2).mean(),
+        "TweedieDevianceScore": dev.mean(),
+        "ExplainedVariance": 1 - torch.var(t - p, correction=0) / torch.var(t, correction=0),
+        "R2Score": 1 - (d * d).sum() / ((t - t.mean()) ** 2).sum(),
+        "PearsonCorrCoef": float64_pearson(torch, p, t),
+        "SpearmanCorrCoef": float64_pearson(torch, float64_ranks(torch, p), float64_ranks(torch, t)),
+        "CosineSimilarity": cos.sum(),
+    }
+    return {k: float(v) for k, v in out.items()}
+
+
+def numpy_regression(preds, target):
+    """The same family in float64 numpy and scipy (host arrays, one update)."""
+    from scipy.stats import spearmanr
+
+    rows_p, rows_t = preds.reshape(-1, preds.shape[-1]).astype(np.float64), target.reshape(-1, target.shape[-1]).astype(np.float64)
+    p, t = rows_p.reshape(-1), rows_t.reshape(-1)
+    d = p - t
+    eps = 1.17e-06
+    dev = 2 * (np.sqrt(t) / (-0.5 * 0.5) - t / np.sqrt(p) / -0.5 + np.sqrt(p) / 0.5)
+    cos = (rows_p * rows_t).sum(-1) / (np.linalg.norm(rows_p, axis=-1) * np.linalg.norm(rows_t, axis=-1))
+    return {
+        "MeanSquaredError": np.mean(d * d),
+        "MeanAbsoluteError": np.mean(np.abs(d)),
+        "MeanAbsolutePercentageError": np.mean(np.abs(d) / np.maximum(np.abs(t), eps)),
+        "SymmetricMeanAbsolutePercentageError": np.mean(2 * np.abs(d) / np.maximum(np.abs(t) + np.abs(p), eps)),
+        "MeanSquaredLogError": np.mean((np.log1p(p) - np.log1p(t)) ** 2),
+        "TweedieDevianceScore": np.mean(dev),
+        "ExplainedVariance": 1 - np.var(t - p) / np.var(t),
+        "R2Score": 1 - np.sum(d * d) / np.sum((t - t.mean()) ** 2),
+        "PearsonCorrCoef": np.corrcoef(p, t)[0, 1],
+        "SpearmanCorrCoef": spearmanr(p, t)[0],
+        "CosineSimilarity": cos.sum(),
+    }
+
+
+def path_kernel_parity(torch, ops, path, captured):
+    """K3 and ``segment_sum_f32`` at one call each of a path (``captured``
+    by ``capture_calls``): K3 against its plain version on the card and on
+    the CPU, K1 against its plain version on the CPU (row order), bit for
+    bit; returns the shapes and the largest difference."""
+    rows, capacity = captured["qsketch_sort_bucket"][0]
+    got = ops.qsketch_sort_bucket(rows, capacity)
+    for part, a, b, c in zip(
+        ("weighted rows", "bucket ids", "permutation"),
+        got,
+        ops.qsketch_sort_bucket_reference(rows, capacity),
+        ops.qsketch_sort_bucket_reference(rows.cpu(), capacity),
+    ):
+        check(same_nan_by_position(torch, a, b), f"{path}: K3's {part} differ from the plain version")
+        check(same_nan_by_position(torch, a, c), f"{path}: K3's {part} differ from the plain version on the CPU")
+    vals, ids, s = captured["segment_sum_f32"][0]
+    summed = ops.segment_sum_f32(vals, ids, s)
+    plain = ops.segment_sum_reference(vals.cpu(), ids.cpu(), s)
+    check(same_nan_by_position(torch, summed, plain), f"{path}: segment_sum_f32 differs from the plain version on the CPU")
+    return {
+        "qsketch_sort_bucket": list(rows.shape),
+        "segment_sum_f32": [list(vals.shape), s],
+        "max_abs_err": float((summed.cpu() - plain).abs().max()),
+    }
+
+
+QSKETCH_CALLS = [("metrics_tpu_torch.ops.qsketch", "qsketch_sort_bucket"), ("metrics_tpu_torch.ops.qsketch", "segment_sum_f32")]
+
+
+def regression_depth_phase(torch, ops, card, tm):
+    """regression-depth: the regression family over per-pixel depth, eager
+    and fused, against a second card run, the CPU and float64."""
+    t_phase = time.perf_counter()
+    batches = depth_batches(torch)
+    torch.cuda.synchronize()
+    report, legs_of = {}, {}
+    for label, index, update in (("flat", 0, flat_args), ("rows", 1, update_args)):
+        legs = fused_legs(torch, ops, f"regression-depth ({label})", lambda: regression_collections(tm)[index], batches, {}, update=update)
+        legs_of[label] = legs
+        report[label] = {leg: leg_report(torch, ops, legs[leg], update, batches) for leg in legs}
+        check(report[label]["fused"]["cache_size"] == 1 and not report[label]["fused"]["eager_leg"], f"regression-depth ({label}): {report[label]['fused']['declined']}")
+        check(report[label]["fused"]["host_syncs_per_update"] == 0, f"regression-depth ({label}): the fused update reads the card")
+    values = {**legs_of["flat"]["eager"]["values"], **legs_of["rows"]["eager"]["values"]}
+    # a second card run over the same updates, kept after the CPU's prefix
+    flat, rows = regression_collections(tm)
+    for i, batch in enumerate(batches):
+        flat_args(flat, batch)
+        rows.update(*batch)
+        if i + 1 == DEPTH_CPU_UPDATES:
+            head = {**flat.compute(), **rows.compute()}
+    for label, collection in (("flat", flat), ("rows", rows)):
+        differ = state_bits_differ(torch, collection_states(torch, collection), legs_of[label]["eager"]["states"])
+        check(not differ, f"regression-depth: states {differ} differ between two card runs")
+    # the port on the CPU over the first updates
+    flat_cpu, rows_cpu = regression_collections(tm, "cpu")
+    for batch in batches[:DEPTH_CPU_UPDATES]:
+        cpu_batch = (batch[0].cpu(), batch[1].cpu())
+        flat_args(flat_cpu, cpu_batch)
+        rows_cpu.update(*cpu_batch)
+    cpu = {**flat_cpu.compute(), **rows_cpu.compute()}
+    rel_cpu = {k: abs(float(head[k]) - float(cpu[k])) / max(abs(float(cpu[k])), 1e-30) for k in cpu}
+    for key, diff in rel_cpu.items():
+        check(diff <= 1e-5, f"regression-depth: {key} card and CPU differ by {diff} (relative)")
+    # float64 over the whole stream; Spearman exact=True over all pairs
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        exact = tm.SpearmanCorrCoef(exact=True)
+    for batch in batches:
+        flat_args(exact, batch)
+    spearman_exact, exact_ms = timed(torch, exact.compute)
+    # the float64 formulas on the card, held to numpy and scipy over the
+    # first update's first two images, then over the whole stream
+    t0 = time.perf_counter()
+    first = float64_regression(torch, batches[0][0][None, :2], batches[0][1][None, :2])
+    host = numpy_regression(batches[0][0][:2].cpu().numpy(), batches[0][1][:2].cpu().numpy())
+    ref_vs_numpy = {k: abs(first[k] - float(host[k])) for k in host}
+    for key, diff in ref_vs_numpy.items():
+        check(diff <= 1e-12 * max(1.0, abs(float(host[key]))), f"regression-depth: the float64 {key} differs from numpy/scipy by {diff}")
+    ref = float64_regression(torch, torch.stack([b[0] for b in batches]), torch.stack([b[1] for b in batches]))
+    float64_s = time.perf_counter() - t0
+    scalars = {k: float(v) for k, v in values.items()}
+    scalars["SpearmanCorrCoef_exact"] = float(spearman_exact)
+    errors = {}
+    for key, want in ref.items():
+        got = scalars["SpearmanCorrCoef_exact" if key == "SpearmanCorrCoef" else key]
+        errors[key] = abs(got - want)
+        check(errors[key] <= 1e-6 * max(1.0, abs(want)), f"regression-depth: {key} {got} off float64 {want}")
+    rho = float(ref["SpearmanCorrCoef"])
+    bound = 4 * (1 - rho * rho) / math.sqrt(RANK_CAPACITY)
+    errors["SpearmanCorrCoef_sketch_vs_exact"] = abs(scalars["SpearmanCorrCoef"] - scalars["SpearmanCorrCoef_exact"])
+    check(errors["SpearmanCorrCoef_sketch_vs_exact"] <= bound, f"regression-depth: the sketched Spearman is {errors['SpearmanCorrCoef_sketch_vs_exact']} off exact (4 SE {bound})")
+    emit(
+        {
+            "phase": "regression-depth",
+            "card": card,
+            "updates": DEPTH_UPDATES,
+            "pairs_per_update": DEPTH_IMAGES * DEPTH_SHAPE[0] * DEPTH_SHAPE[1],
+            "reduced": "654 NYU-Depth v2 test images cut to 128 (16 updates of 8) to save time",
+            "legs": report,
+            "state_bytes": {name: state_bytes(m) for c in (flat, rows) for name, m in c.items()},
+            "values": scalars,
+            "float64": ref,
+            "float64_vs_numpy_two_images": ref_vs_numpy,
+            "abs_errors_vs_float64": errors,
+            "sketch_bound_4se": bound,
+            "rel_diff_card_cpu": rel_cpu,
+            "cpu_updates": DEPTH_CPU_UPDATES,
+            "exact_spearman_compute_ms": exact_ms,
+            "float64_reference_s": float64_s,
+            "seconds": time.perf_counter() - t_phase,
+        }
+    )
+    return batches
+
+
+def sketch_bf16_phase(torch, ops, card, tm):
+    """sketch-bf16: AUROC() over curve-binary's stream after
+    set_dtype(torch.bfloat16), eager and fused; half-precision rows compact
+    widened to float32 through K3 and K1 and round back once."""
+    t_phase = time.perf_counter()
+    score_np, y_np = make_curve_stream()
+    score, y = torch.from_numpy(score_np).cuda(), torch.from_numpy(y_np).cuda()
+    batches = [(score[i], y[i]) for i in range(CURVE_BATCHES)]
+
+    def make(device=None):
+        collection = tm.MetricCollection([tm.AUROC(device=device)])
+        return collection.set_dtype(torch.bfloat16)
+
+    legs = fused_legs(torch, ops, "sketch-bf16", make, batches, {})
+    report = {leg: leg_report(torch, ops, legs[leg], update_args, batches) for leg in legs}
+    check(report["fused"]["cache_size"] == 1 and not report["fused"]["eager_leg"], f"sketch-bf16: {report['fused']['declined']}")
+    check(legs["eager"]["collection"]["AUROC"].csketch.dtype == torch.bfloat16, "sketch-bf16: the sketch is not bfloat16")
+    # the first two batches fill the lossless window; each later one compacts once
+    compactions = CURVE_BATCHES - CURVE_WINDOW_BATCHES
+    k3 = check_replay_launches("sketch-bf16", legs, "qsketch_sort_bucket", compactions)
+    k1 = check_replay_launches("sketch-bf16", legs, "segment_sum_f32", compactions)
+    # the card against the CPU over curve-binary's first 16 batches, bit for bit
+    head = batches[:CURVE_CPU_BATCHES]
+    card_run, cpu_run = make(), make("cpu")
+    for i, (preds, target) in enumerate(head):
+        if i == CURVE_CPU_BATCHES // 2:
+            captured = capture_calls(QSKETCH_CALLS, lambda: card_run.update(preds, target))
+        else:
+            card_run.update(preds, target)
+        cpu_run.update(preds.cpu(), target.cpu())
+    differ = state_bits_differ(torch, collection_states(torch, card_run), collection_states(torch, cpu_run))
+    check(not differ, f"sketch-bf16: states {differ} differ between the card and the CPU")
+    check(same_outputs(torch, card_run.compute()["AUROC"], cpu_run.compute()["AUROC"]), "sketch-bf16: the value differs between the card and the CPU")
+    parity = path_kernel_parity(torch, ops, "sketch-bf16", captured)
+    # the float32 run over the whole stream
+    f32 = tm.AUROC()
+    for batch in batches:
+        f32.update(*batch)
+    value, value_f32 = float(legs["eager"]["values"]["AUROC"]), float(f32.compute())
+    check(abs(value - value_f32) <= BF16_SKETCH_BOUND, f"sketch-bf16: {value} is {abs(value - value_f32)} off the float32 run's {value_f32}")
+    weight = float(legs["eager"]["states"]["AUROC.csketch"][:, 0].float().sum())
+    emit({"phase": "sketch-bf16", "card": card, "updates": len(batches), "compactions": compactions,
+          "qsketch_sort_bucket": k3, "segment_sum_f32": k1, "kernel_parity": parity, **report,
+          "value": value, "value_float32": value_f32, "diff_vs_float32": value - value_f32, "bound": BF16_SKETCH_BOUND,
+          "total_weight": weight, "rows": CURVE_BATCHES * CURVE_BATCH,
+          "state_bytes": state_bytes(legs["eager"]["collection"]["AUROC"]), "seconds": time.perf_counter() - t_phase})
+
+
+def windowed_sketch_phase(torch, ops, card, tm, WindowedMetric, depth):
+    """windowed-sketch: the ring of sketch leaves. WindowedMetric(AUROC)
+    at window 2 and 8 over curve-binary's stream, and
+    WindowedMetric(SpearmanCorrCoef(), window=8) over regression-depth's
+    last 8 updates; reads fold the window's sketches oldest first with the
+    sketch's own merge (K3 and K1 on the card)."""
+    t_phase = time.perf_counter()
+    score_np, y_np = make_curve_stream()
+    score, y = torch.from_numpy(score_np).cuda(), torch.from_numpy(y_np).cuda()
+    batches = [(score[i], y[i]) for i in range(CURVE_BATCHES)]
+    rings = {w: WindowedMetric(tm.AUROC(pos_label=1), window=w) for w in (2, 8)}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for batch in batches:
+        for ring in rings.values():
+            ring.update(*batch)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    update_launches = ops.launch_counts()
+    check(not update_launches.get("qsketch_sort_bucket"), f"windowed-sketch: a bucket compacted while its batch fit ({update_launches})")
+    reads, values = {}, {}
+    for w, ring in rings.items():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        captured = capture_calls(QSKETCH_CALLS, lambda: values.__setitem__(w, ring.compute()))
+        torch.cuda.synchronize()
+        reads[w] = {"ms": (time.perf_counter() - t0) * 1e3, "launches": ops.launch_counts()}
+        # one compaction per merge of the fold: w - 1
+        for name in ("qsketch_sort_bucket", "segment_sum_f32"):
+            check(reads[w]["launches"].get(name) == w - 1, f"windowed-sketch: the window-{w} read launched {name} {reads[w]['launches'].get(name)} times")
+        reads[w]["kernel_parity"] = path_kernel_parity(torch, ops, f"windowed-sketch (window {w})", captured)
+    fresh = tm.AUROC(pos_label=1)
+    for batch in batches[-2:]:
+        fresh.update(*batch)
+    check(same_outputs(torch, values[2], fresh.compute()), "windowed-sketch: the window-2 read differs from a fresh AUROC")
+    exact8 = midrank_auroc(score_np[-8:].reshape(-1), y_np[-8:].reshape(-1))
+    err8 = abs(float(values[8]) - exact8)
+    check(err8 <= 5e-3, f"windowed-sketch: the window-8 AUROC is {err8} off exact")
+    # the ring of reservoirs: Spearman over the last 8 depth updates
+    spearman = WindowedMetric(tm.SpearmanCorrCoef(), window=8)
+    tail = depth[-8:]
+    for batch in tail:
+        flat_args(spearman, batch)
+    rho_sketch, spearman_read_ms = timed(torch, spearman.compute)
+    rho = float(import_module("metrics_tpu_torch.functional").spearman_corrcoef(torch.cat([b[0].reshape(-1) for b in tail]), torch.cat([b[1].reshape(-1) for b in tail])))
+    se = (1 - rho * rho) / math.sqrt(RANK_CAPACITY)
+    check(abs(float(rho_sketch) - rho) <= 4 * se, f"windowed-sketch: the windowed Spearman {float(rho_sketch)} is more than 4 SE off exact {rho}")
+    emit({"phase": "windowed-sketch", "card": card, "updates": len(batches), "update_ms": update_ms,
+          "update_launches": update_launches, "reads": {str(w): r for w, r in reads.items()},
+          "values": {str(w): float(v) for w, v in values.items()}, "auroc_window8_exact": exact8, "auroc_window8_abs_err": err8,
+          "spearman_window8": float(rho_sketch), "spearman_window8_exact": rho, "spearman_abs_err": abs(float(rho_sketch) - rho),
+          "spearman_standard_error": se, "spearman_read_ms": spearman_read_ms,
+          "state_bytes": {str(w): state_bytes(r) for w, r in rings.items()} | {"spearman": state_bytes(spearman)},
+          "seconds": time.perf_counter() - t_phase})
+
+
 def main():
     import torch
 
@@ -3803,6 +4181,11 @@ def main():
     fused_sliced_windowed_phase(torch, ops, card, tm, SlicedMetric, WindowedMetric)
     fused_retrieval_phase(torch, ops, card, MetricCollection)
     async_phase(torch, ops, card, tm)
+    # the regression family, half-precision sketch leaves, the ring of sketches
+    depth = regression_depth_phase(torch, ops, card, tm)
+    sketch_bf16_phase(torch, ops, card, tm)
+    windowed_sketch_phase(torch, ops, card, tm, WindowedMetric, depth)
+    del depth
     # K5 is reached by 2-D boxes through the entry point ops.box_iou
     gen = torch.Generator(device="cpu").manual_seed(5)
     k5_inputs = [(iou_boxes(torch, gen, n).cuda(), iou_boxes(torch, gen, m).cuda()) for n, m in K5_PARITY_SHAPES]

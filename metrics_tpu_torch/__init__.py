@@ -15,11 +15,15 @@ one-vs-rest and multilabel inputs, ``exact=True`` and the capacity modes;
 the losses ``HingeLoss`` and ``KLDivergence`` and ``dice_score``,
 ``MeanAveragePrecision`` (COCO mAP/mAR, its reservoir
 table and its exact mode), the eight retrieval metrics (their per-query
-table and their exact mode), ``MeanSquaredError`` and
-``PeakSignalNoiseRatio``, the per-slice and windowed wrappers
+table and their exact mode), the regression family
+(``MeanSquaredError``, ``MeanAbsoluteError``, ``MeanAbsolutePercentageError``,
+``SymmetricMeanAbsolutePercentageError``, ``MeanSquaredLogError``,
+``TweedieDevianceScore``, ``CosineSimilarity``, ``ExplainedVariance``,
+``R2Score``, ``PearsonCorrCoef``, ``SpearmanCorrCoef`` with its rank
+sketch) and its functionals, ``PeakSignalNoiseRatio``, the per-slice and windowed wrappers
 ``SlicedMetric`` (:mod:`metrics_tpu_torch.sliced`) and ``WindowedMetric``
 (:mod:`metrics_tpu_torch.windowed`), the quantile sketch, the keyed
-reservoir and the streaming moments (:mod:`metrics_tpu_torch.sketches`)
+and Gumbel reservoirs, the rank sketch and the streaming moments (:mod:`metrics_tpu_torch.sketches`)
 and ``MetricCollection`` with its fused update on CUDA graphs
 (``compile_update``) and the async update pipeline
 (``compile_update_async``).
@@ -53,7 +57,19 @@ from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
 from metrics_tpu_torch.core.metric import Metric  # noqa: F401
 from metrics_tpu_torch.detection import MeanAveragePrecision  # noqa: F401
 from metrics_tpu_torch.image import PeakSignalNoiseRatio  # noqa: F401
-from metrics_tpu_torch.regression import MeanSquaredError  # noqa: F401
+from metrics_tpu_torch.regression import (  # noqa: F401
+    CosineSimilarity,
+    ExplainedVariance,
+    MeanAbsoluteError,
+    MeanAbsolutePercentageError,
+    MeanSquaredError,
+    MeanSquaredLogError,
+    PearsonCorrCoef,
+    R2Score,
+    SpearmanCorrCoef,
+    SymmetricMeanAbsolutePercentageError,
+    TweedieDevianceScore,
+)
 from metrics_tpu_torch.retrieval import (  # noqa: F401
     RetrievalFallOut,
     RetrievalHitRate,

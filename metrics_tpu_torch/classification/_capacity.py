@@ -129,7 +129,8 @@ class CapacityCurveMixin:
         # the first n free slots, in index order (a stable sort puts the
         # free slots, False, first)
         idx = torch.argsort(self.valid.to(torch.uint8), stable=True)[:n]
-        self.preds = self.preds.index_copy(0, idx, preds.to(torch.float32))
+        # float32 scores, then the buffer's dtype (another after set_dtype)
+        self.preds = self.preds.index_copy(0, idx, preds.to(torch.float32).to(self.preds.dtype))
         self.target = self.target.index_copy(0, idx, target.to(torch.int32))
         self.valid = self.valid.index_fill(0, idx, True)
 

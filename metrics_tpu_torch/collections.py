@@ -431,6 +431,16 @@ class MetricCollection:
             m.to_device(device)
         return self
 
+    def set_dtype(self, dst_type: Any) -> "MetricCollection":
+        """Cast every member's floating states (``Metric.set_dtype``), after
+        draining an open async handle, as :meth:`to_device` does. A compiled
+        update stays: it keys its graphs on the states' dtypes, so the next
+        fused update captures anew over the cast states."""
+        self._drain_async()
+        for m in self._metrics.values():
+            m.set_dtype(dst_type)
+        return self
+
     def state_dict(self) -> Dict[str, Any]:
         self._drain_async()
         destination: Dict[str, Any] = {}

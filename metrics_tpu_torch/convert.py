@@ -33,7 +33,9 @@ def state_from_jax(
 ) -> Dict[str, StateValue]:
     """Tensors on ``device`` (default: the metric's) with the same dtypes as
     the numpy leaves (int32 stays int32). The names, shapes and dtypes must
-    match ``metric.init_state()``; a mismatch raises ``ValueError``. A list
+    match ``metric.init_state()`` (a scalar default takes any shape: it
+    broadcasts into the state an update grows); a mismatch raises
+    ``ValueError``. A list
     state becomes a list of tensors, one per element, in order; it must be
     a list state of ``metric`` too.
 
@@ -56,7 +58,10 @@ def state_from_jax(
             out[name] = [_leaf(v, device) for v in value]
             continue
         tensor = _leaf(value, device)
-        if tuple(tensor.shape) != tuple(expected.shape) or tensor.dtype != expected.dtype:
+        # a scalar default is a broadcast seed: the states of multi-output
+        # updates (ExplainedVariance's sums) grow out of it
+        shape_ok = tuple(tensor.shape) == tuple(expected.shape) or expected.ndim == 0
+        if not shape_ok or tensor.dtype != expected.dtype:
             raise ValueError(
                 f"state {name!r}: got {tuple(tensor.shape)} {tensor.dtype},"
                 f" expected {tuple(expected.shape)} {expected.dtype}"

@@ -21,10 +21,10 @@ own reducer; windowed ring and decay states (``"ring"``/``"decay"``) add
 like sums. Max and min states fold with the JAX package's semantics (NaN
 wins, +0.0 over -0.0 for max): :func:`~metrics_tpu_torch.utils.data.maximum_ieee`.
 ``clone``, ``persistent``, ``to_device`` and ``state_reductions`` are the
-JAX package's; a fused update (``core/fused.py``) installs its states
-through ``_mark_fused_written``. Not in this slice: ``dtype``/``set_dtype``,
-the observability hooks, ``CompositionalMetric`` and cross-process sync (see
-``ROADMAP.md``).
+JAX package's, and so are ``dtype``/``set_dtype``; a fused update
+(``core/fused.py``) installs its states through ``_mark_fused_written``. Not
+in this slice: the observability hooks, ``CompositionalMetric`` and
+cross-process sync (see ``ROADMAP.md``).
 """
 from abc import ABC, abstractmethod
 from copy import deepcopy
@@ -84,6 +84,17 @@ def _clone_state(value: Tensor, device: Optional[torch.device] = None) -> Tensor
     return out
 
 
+def _cast_state(value: Any, dtype: torch.dtype) -> Any:
+    """``value`` cast to ``dtype`` if it is a floating tensor, else as it
+    is. Host-side facts ride along (a sketch's occupancy bound stays an
+    upper bound: a cast can empty a slot, never fill one)."""
+    if not isinstance(value, Tensor) or not value.is_floating_point() or value.dtype == dtype:
+        return value
+    out = value.to(dtype)
+    out.__dict__.update(value.__dict__)
+    return out
+
+
 def _state_tensor(value: Any, device: torch.device) -> Tensor:
     """A state default as a tensor on ``device``, with the JAX package's
     x64-off dtypes for host values (Python/numpy ints become int32, floats
@@ -137,6 +148,7 @@ class Metric(ABC):
 
     def __init__(self, device: Optional[Union[str, torch.device]] = None) -> None:
         self._device = _resolve_device(device)
+        self._dtype = torch.float32
         self._update_called = False
         self._forward_cache: Any = None
         self._computed: Any = None
@@ -475,6 +487,34 @@ class Metric(ABC):
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The floating dtype set by :meth:`set_dtype` (float32 by default)."""
+        return self._dtype
+
+    def set_dtype(self, dst_type: torch.dtype) -> "Metric":
+        """Cast every floating state and default (list states too) to
+        ``dst_type``; integer and bool states stay as they are. The cast is a
+        state write, so the write epoch advances; a cached ``compute()``
+        value is cast too and kept, stamped at the new epoch. A fused update
+        keys its graphs on the states' dtypes, so it captures anew."""
+        self._dtype = dst_type
+        for name, default in self._defaults.items():
+            val = getattr(self, name)
+            if isinstance(val, list):
+                object.__setattr__(self, name, [_cast_state(v, dst_type) for v in val])
+            else:
+                object.__setattr__(self, name, _cast_state(val, dst_type))
+            if isinstance(default, Tensor):
+                self._defaults[name] = _cast_state(default, dst_type)
+        computed = self._computed
+        self._mark_state_written()
+        if computed is not None:
+            leaves, spec = tree_flatten(computed)
+            self._computed = tree_unflatten([_cast_state(x, dst_type) for x in leaves], spec)
+            self._computed_epoch = self._write_epoch
+        return self
 
     def to_device(self, device: Union[str, torch.device]) -> "Metric":
         """Move every state (list states too), the defaults and a wrapped

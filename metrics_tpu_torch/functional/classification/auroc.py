@@ -26,7 +26,7 @@ from metrics_tpu_torch.functional.classification.auc import _auc_compute_without
 from metrics_tpu_torch.functional.classification.roc import roc
 from metrics_tpu_torch.ops import segment_sum_dispatch
 from metrics_tpu_torch.utils.checks import _input_format_classification
-from metrics_tpu_torch.utils.data import _as_tensor, _bincount
+from metrics_tpu_torch.utils.data import _as_tensor, _bincount, _tie_runs
 from metrics_tpu_torch.utils.enums import AverageMethod, DataType
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
@@ -154,14 +154,7 @@ def _sorted_mean_ranks(sorted_x: Tensor) -> Tensor:
     """Tie-averaged 1-based ranks of an already row-sorted ``[C, N]``
     (ascending along the last axis): a tie run's mean rank is
     (first + last position) / 2 + 1."""
-    c, n = sorted_x.shape
-    pos = torch.arange(n, dtype=torch.int32, device=sorted_x.device).expand(c, n)
-    change = sorted_x[:, 1:] != sorted_x[:, :-1]
-    edge = torch.ones((c, 1), dtype=torch.bool, device=sorted_x.device)
-    is_start = torch.cat([edge, change], dim=1)
-    is_last = torch.cat([change, edge], dim=1)
-    start = torch.cummax(torch.where(is_start, pos, 0), dim=1).values
-    end = torch.cummin(torch.where(is_last, pos, n - 1).flip(1), dim=1).values.flip(1)
+    start, end = _tie_runs(sorted_x)
     return (start + end).to(torch.float32) / 2 + 1
 
 

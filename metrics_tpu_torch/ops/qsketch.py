@@ -266,16 +266,22 @@ def compact_rows_reference(rows: Tensor, capacity: int) -> Tensor:
 def qsketch_compact_dispatch(rows: Tensor, capacity: int) -> Tensor:
     """One merging-t-digest compaction pass of ``[n, cols]`` sketch rows
     (the overflow step of ``qsketch_insert``/``qsketch_merge``), rows-shaped
-    out. CUDA rows take the kernels (:func:`qsketch_sort_bucket`, then
-    ``segment_sum_f32``) and must be float32; CPU rows take
-    :func:`compact_rows_reference` in their own dtype."""
+    out, in the rows' dtype. float32 rows on the card take the kernels
+    (:func:`qsketch_sort_bucket`, then ``segment_sum_f32``); on the CPU,
+    :func:`compact_rows_reference`. Half-precision rows (the leaves
+    ``Metric.set_dtype`` makes) are widened to float32, compacted so, and
+    rounded back once: the card and the CPU give the same bits. The JAX
+    package compacts them in their own dtype instead, whose running weight
+    sum stops growing in bfloat16 (ROADMAP.md, C, "Properties")."""
+    dtype = rows.dtype
+    if dtype in (torch.float16, torch.bfloat16):
+        rows = rows.to(torch.float32)
     if not on_card(rows):
-        return compact_rows_reference(rows, capacity)
-    if rows.dtype != torch.float32:
-        raise TypeError(
-            f"sketch rows on the card must be float32, got {rows.dtype} (other dtypes are not ported yet:"
-            " ROADMAP.md, queue A: 'sketches')"
-        )
-    wvals, bucket, _ = qsketch_sort_bucket(rows, capacity)
-    seg = segment_sum_f32(wvals, bucket, num_segments(capacity))
-    return finalize_compact(seg[:, 0], seg[:, 1:], rows)
+        out = compact_rows_reference(rows, capacity)
+    elif rows.dtype != torch.float32:
+        raise TypeError(f"the sketch kernels compact float32 or half-precision rows on the card, got {rows.dtype}")
+    else:
+        wvals, bucket, _ = qsketch_sort_bucket(rows, capacity)
+        seg = segment_sum_f32(wvals, bucket, num_segments(capacity))
+        out = finalize_compact(seg[:, 0], seg[:, 1:], rows)
+    return out.to(dtype)

@@ -1,9 +1,11 @@
 """Fixed-shape, mergeable stream sketches (counterpart of ``metrics_tpu/sketches``).
 
 Ported so far: the weighted quantile sketch that backs the sketched curve
-metrics (``AUROC()``'s default mode), the keyed reservoir behind the mAP
-metric's per-image table, the exact streaming moments, the fixed-edge
-histogram behind ``CalibrationError``, and the exact-mode helpers.
+metrics (``AUROC()``'s default mode), the reservoir (Gumbel priorities
+from the JAX package's random stream, or keyed ones, as behind the mAP
+metric's per-image table), the rank sketch behind ``SpearmanCorrCoef``,
+the exact streaming moments, the fixed-edge histogram behind
+``CalibrationError``, and the exact-mode helpers.
 """
 from metrics_tpu_torch.sketches.compat import register_exact_list_states, warn_exact_buffer  # noqa: F401
 from metrics_tpu_torch.sketches.histogram import hist_bin_index, hist_init, hist_insert, hist_merge  # noqa: F401
@@ -30,10 +32,18 @@ from metrics_tpu_torch.sketches.quantile import (  # noqa: F401
     rank_error_bound,
     sketch_merge_fx,
 )
+from metrics_tpu_torch.sketches.rank import (  # noqa: F401
+    ranksketch_init,
+    ranksketch_insert,
+    ranksketch_merge,
+    ranksketch_merge_fx,
+    ranksketch_spearman,
+)
 from metrics_tpu_torch.sketches.reservoir import (  # noqa: F401
     detection_table_init,
     reservoir_fill,
     reservoir_init,
+    reservoir_insert,
     reservoir_insert_keyed,
     reservoir_key,
     reservoir_merge,

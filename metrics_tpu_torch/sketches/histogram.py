@@ -73,9 +73,11 @@ def hist_insert(
     if n_valid is not None:
         w = w * (torch.arange(b, device=hist.device) < torch.as_tensor(n_valid, device=hist.device))
     n_bins = hist.shape[1]
-    rows = torch.cat([hist.T, (w[None, :] * stats).T])
+    # a half-precision histogram (``set_dtype``) adds in float32 and rounds
+    # back once, as the sketch's compaction does
+    rows = torch.cat([hist.T.to(torch.float32), (w[None, :] * stats).T])
     ids = torch.cat([torch.arange(n_bins, device=hist.device), bin_idx.reshape(-1).to(torch.int64)])
-    return segment_sum_dispatch(rows, ids, n_bins).T
+    return segment_sum_dispatch(rows, ids, n_bins).T.to(hist.dtype)
 
 
 def hist_merge(a: Tensor, b: Tensor) -> Tensor:

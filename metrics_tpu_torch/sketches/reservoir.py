@@ -9,10 +9,14 @@ packed ``[k, 1 + payload_cols]`` float32 tensor:
 It always holds the ``k`` rows of highest priority seen. While every row
 fits, it holds them all in arrival order (a stable pack): the lossless
 window. Past ``k`` it keeps the top ``k`` by priority, ties to the earlier
-row. Priorities come from the caller: :func:`reservoir_key` hashes a row's
-global id into ``(0, 1]``, so the admitted set is a pure function of the
-ids, whatever the batching. The JAX package's Gumbel-priority
-``reservoir_insert`` (for KID) is not ported yet.
+row. :func:`reservoir_insert` draws each row's priority as a Gumbel key,
+``g + log(w)``, from the JAX package's counter-seeded random stream
+(``fold_in(PRNGKey(seed), seen)``, reproduced in
+:mod:`metrics_tpu_torch.utils.prng`), so the reservoir is a uniform (or
+weighted) sample; :func:`reservoir_insert_keyed` takes priorities from the
+caller, such as :func:`reservoir_key`, a hash of a row's global id into
+``(0, 1]``, which makes the admitted set a pure function of the ids,
+whatever the batching.
 
 **The branch without a host read.** The JAX package picks pack or top-``k``
 under ``lax.cond(n_occupied > k)`` on the device. Here a reservoir tensor
@@ -28,6 +32,7 @@ from typing import Any, Optional
 import torch
 
 from metrics_tpu_torch.sketches.quantile import fill_bound, with_fill_bound
+from metrics_tpu_torch.utils import prng
 from metrics_tpu_torch.utils.data import _as_tensor, _resolve_device
 
 Tensor = torch.Tensor
@@ -77,14 +82,34 @@ def _select(rows: Tensor, k: int, bound: int) -> Tensor:
 
 
 def _absorb(reservoir: Tensor, rows: Tensor, incoming: int) -> Tensor:
-    """Fold ``rows`` into ``reservoir`` in chunks of at most ``k`` rows, as
-    the JAX package does; ``incoming`` bounds the occupied rows of ``rows``."""
-    k = reservoir.shape[0]
-    out = reservoir
-    for lo in range(0, rows.shape[0], k):
-        chunk = rows[lo : lo + k]
-        out = _select(torch.cat([out, chunk], dim=0), k, fill_bound(out) + min(incoming, chunk.shape[0]))
-    return out
+    """Fold ``rows`` into ``reservoir`` (``incoming`` bounds their occupied
+    rows). The JAX package folds them in chunks of ``k`` rows, one top
+    ``k`` each; one stable top ``k`` over all ``k + B`` rows keeps the same
+    rows in the same order (priority descending, ties to the earlier row),
+    with one sort instead of ``B / k``."""
+    return _select(torch.cat([reservoir, rows], dim=0), reservoir.shape[0], fill_bound(reservoir) + incoming)
+
+
+def _payload(reservoir: Tensor, payload: Any) -> Tensor:
+    """``payload`` as float32 ``[B, payload_cols]`` rows on the reservoir's
+    device, checked against its layout."""
+    payload = _as_tensor(payload, reservoir.device).to(torch.float32)
+    payload = payload.flatten(1) if payload.ndim > 1 else payload[:, None]
+    if payload.shape[1] != reservoir.shape[1] - 1:
+        raise ValueError(
+            f"payload has {payload.shape[1]} column(s) but the reservoir was initialized"
+            f" with {reservoir.shape[1] - 1}"
+        )
+    return payload
+
+
+def _insert(reservoir: Tensor, payload: Tensor, pri: Tensor, n_valid: Optional[Any]) -> Tensor:
+    """Insert rows of priority ``pri``; ``n_valid`` masks trailing rows to
+    ``-inf`` (the pad-and-mask contract of bucketed updates)."""
+    b = payload.shape[0]
+    if n_valid is not None:
+        pri = torch.where(torch.arange(b, device=pri.device) < _as_tensor(n_valid, pri.device), pri, _EMPTY)
+    return _absorb(reservoir, torch.cat([pri[:, None], payload], dim=1), b)
 
 
 def reservoir_key(ids: Any, device: Optional[Any] = None) -> Tensor:
@@ -111,28 +136,51 @@ def _mul_u32(x: Tensor, c: int) -> Tensor:
     return (low + high) & _U32
 
 
+def reservoir_insert(
+    reservoir: Tensor,
+    payload: Any,
+    seen: Any,
+    seed: int = 0,
+    weights: Optional[Any] = None,
+    n_valid: Optional[Any] = None,
+) -> Tensor:
+    """Insert ``[B, payload_cols]`` rows with Gumbel priorities; pure
+    (``reservoir`` is not modified). ``seen`` is the caller's count of rows
+    inserted before this batch (an int or an integer tensor, which may stay
+    on the card): the draw is ``gumbel(fold_in(PRNGKey(seed), seen), (B,))``,
+    so replays repeat it and successive batches never reuse priorities.
+    ``weights`` bias inclusion (``priority = gumbel + log(w)``, A-ExpJ; a
+    weight of 0 or less never enters); ``n_valid`` masks trailing rows out
+    (the pad-and-mask contract of bucketed updates), and the first
+    ``n_valid`` draws of a padded batch are the unpadded batch's. Host
+    inputs go to the reservoir's device."""
+    device = reservoir.device
+    payload = _payload(reservoir, payload)
+    b = payload.shape[0]
+    if b == 0:
+        return reservoir
+    seen = seen.to(device) if isinstance(seen, Tensor) else torch.full((), int(seen), dtype=torch.int64, device=device)
+    pri = prng.gumbel(prng.fold_in(prng.prng_key(seed), seen), b, device)
+    if weights is not None:
+        w = _as_tensor(weights, device).to(torch.float32).reshape(-1)
+        log_w = torch.log(torch.clamp(w, min=1e-30).double()).to(torch.float32)
+        pri = pri + torch.where(w > 0, log_w, _EMPTY)
+    return _insert(reservoir, payload, pri, n_valid)
+
+
 def reservoir_insert_keyed(reservoir: Tensor, payload: Any, keys: Any, n_valid: Optional[Any] = None) -> Tensor:
     """Insert ``[B, payload_cols]`` rows with caller-supplied priorities;
     pure (``reservoir`` is not modified). ``n_valid`` masks trailing rows to
     ``-inf`` priority (the pad-and-mask contract of bucketed updates).
     Host inputs go to the reservoir's device."""
-    device = reservoir.device
-    payload = _as_tensor(payload, device).to(torch.float32)
-    payload = payload.flatten(1) if payload.ndim > 1 else payload[:, None]
+    payload = _payload(reservoir, payload)
     b = payload.shape[0]
-    if payload.shape[1] != reservoir.shape[1] - 1:
-        raise ValueError(
-            f"payload has {payload.shape[1]} column(s) but the reservoir was initialized"
-            f" with {reservoir.shape[1] - 1}"
-        )
     if b == 0:
         return reservoir
-    pri = _as_tensor(keys, device).to(torch.float32).reshape(-1)
+    pri = _as_tensor(keys, reservoir.device).to(torch.float32).reshape(-1)
     if pri.shape[0] != b:
         raise ValueError(f"got {pri.shape[0]} key(s) for {b} payload row(s)")
-    if n_valid is not None:
-        pri = torch.where(torch.arange(b, device=device) < _as_tensor(n_valid, device), pri, _EMPTY)
-    return _absorb(reservoir, torch.cat([pri[:, None], payload], dim=1), b)
+    return _insert(reservoir, payload, pri, n_valid)
 
 
 def reservoir_merge(a: Tensor, b: Tensor) -> Tensor:

@@ -42,6 +42,7 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from metrics_tpu_torch.core.metric import _AUTO_COUNT, Metric
 from metrics_tpu_torch.ops.segment_extremum import segment_max_dispatch, segment_min_dispatch
 from metrics_tpu_torch.ops.segment_sum import segment_sum_dispatch
+from metrics_tpu_torch.sketches.quantile import _FILL_BOUND, fill_bound, with_fill_bound
 from metrics_tpu_torch.utils.checks import capturing_checks
 from metrics_tpu_torch.utils.data import (
     _as_tensor,
@@ -75,6 +76,12 @@ def _template_of(metric: Metric) -> Metric:
     """A reset copy of ``metric``, the wrapper's template. The wrapper runs
     on the template's device."""
     template = deepcopy(metric)
+    # a copy is a write to torch's version counter, which voids a sketch
+    # default's occupancy bound; the copied content keeps it
+    for name, default in template._defaults.items():
+        original = metric._defaults[name]
+        if isinstance(default, Tensor) and hasattr(original, _FILL_BOUND):
+            with_fill_bound(default, fill_bound(original))
     template.reset()
     return template
 
@@ -256,6 +263,13 @@ class SlicedMetric(Metric):
         dirty = getattr(self, "_dirty", None)
         if dirty is not None:
             dirty.fill_(True)
+
+    def set_dtype(self, dst_type: torch.dtype) -> "SlicedMetric":
+        # kept per-slice values hold the old dtype's bits: every slice
+        # refolds (the cast marked them all dirty)
+        out = super().set_dtype(dst_type)
+        self._values = None
+        return out
 
     def to_device(self, device: Any) -> "SlicedMetric":
         # the dirty bitmap moves with the states, and every slice refolds

@@ -162,6 +162,20 @@ def _tree_sum(x: Tensor) -> Tensor:
     return x[..., 0]
 
 
+def _tie_runs(sorted_x: Tensor) -> Tuple[Tensor, Tensor]:
+    """First and last position of the run of equal values that each
+    position lies in, along the last axis of ``sorted_x`` (sorted along it);
+    NaN is a run of its own, as ``!=`` says."""
+    n = sorted_x.shape[-1]
+    # int32 positions: half the bytes of the scans (the flagship's midranks)
+    pos = torch.arange(n, dtype=torch.int32, device=sorted_x.device).expand(sorted_x.shape)
+    change = sorted_x[..., 1:] != sorted_x[..., :-1]
+    edge = torch.ones(sorted_x.shape[:-1] + (1,), dtype=torch.bool, device=sorted_x.device)
+    start = torch.cummax(torch.where(torch.cat([edge, change], dim=-1), pos, 0), dim=-1).values
+    end = torch.cummin(torch.where(torch.cat([change, edge], dim=-1), pos, n - 1).flip(-1), dim=-1).values.flip(-1)
+    return start, end
+
+
 def _scan_fixed(x: Tensor) -> Tensor:
     """Inclusive prefix sums along the last axis in a fixed order (doubling
     steps: ``x[i] += x[i - 2**k]`` for k = 0, 1, ...): each addition is one

@@ -28,9 +28,19 @@ JAX package; its fold memos and pre-lowered fold are not ported.
 ``n_valid`` and removes the edge-pad rows' contribution itself, as
 ``k_pad * delta(last_row)`` subtracted from the template's sum leaves in
 the live ring slot (the fused update's generic correction would probe from
-the default state, whose slot is another). Left out (ROADMAP.md, queue
-A): the ring of sketch (``merge_like``) leaves, and the telemetry,
-freshness and read-event hooks.
+the default state, whose slot is another).
+
+**The ring of sketches.** A sketch (``merge_like``) leaf of the wrapped
+metric, such as a sketched curve metric's quantile sketch or
+``SpearmanCorrCoef``'s reservoir, gets ``[R, capacity, cols]`` ring rows
+under :func:`~metrics_tpu_torch.windowed.reducers.ring_merge_fx`. Each
+bucket absorbs its batches through the wrapped metric's own insert, and a
+read folds the window's rows oldest first with the wrapped merge (the
+quantile sketch's compaction, K3 and K1 on the card, or the reservoir's
+top ``k``). Inside each sketch's lossless window a read equals a fresh
+metric fed the window's batches bit for bit. Decay mode refuses sketch
+leaves: their weights must not be scaled. Left out (ROADMAP.md, queue A):
+the telemetry, freshness and read-event hooks.
 """
 from typing import Any, Dict, List, Optional
 
@@ -42,6 +52,7 @@ from metrics_tpu_torch.core.metric import _AUTO_COUNT, Metric
 from metrics_tpu_torch.sliced.metric import _reducer_name, _template_of
 from metrics_tpu_torch.utils.data import _squeeze_if_scalar, dim_zero_max, dim_zero_min, dim_zero_sum
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
+from metrics_tpu_torch.windowed.reducers import ring_merge_fx
 
 Tensor = torch.Tensor
 
@@ -122,7 +133,12 @@ class WindowedMetric(Metric):
         if mode == "ring":
             for name, red in m._reductions.items():
                 default = m._defaults[name]
-                fx = "ring" if red is dim_zero_sum else ("max" if red is dim_zero_max else "min")
+                if red is dim_zero_sum:
+                    fx: Any = "ring"
+                elif red in (dim_zero_max, dim_zero_min):
+                    fx = "max" if red is dim_zero_max else "min"
+                else:  # a sketch (merge_like), validated
+                    fx = ring_merge_fx(red)
                 self.add_state(name, default=default.expand((self.window,) + tuple(default.shape)), dist_reduce_fx=fx)
             self.add_state(RING_ROWS, default=torch.zeros(self.window, dtype=torch.int32), dist_reduce_fx="ring")
             self.add_state(RING_COUNT, default=torch.tensor(0, dtype=torch.int32), dist_reduce_fx="max")
@@ -168,12 +184,7 @@ class WindowedMetric(Metric):
                         f" sum-reduced leaves{hint}. A mean-style metric should"
                         " accumulate sum-reduced numerator/denominator leaves."
                     )
-            elif merge_like:
-                raise NotImplementedError(
-                    f"`{cls_name}` state `{name}` is a sketch (merge-like) leaf; the ring of sketches is"
-                    " not ported yet (ROADMAP.md, queue A: 'the rest of the sketches')"
-                )
-            elif red not in (dim_zero_sum, dim_zero_max, dim_zero_min):
+            elif red not in (dim_zero_sum, dim_zero_max, dim_zero_min) and not merge_like:
                 hint = " (the auto mean-merge counter has no per-bucket fold)" if name == _AUTO_COUNT else ""
                 raise MetricsUserError(
                     f"`{cls_name}` state `{name}` has reducer"
@@ -249,12 +260,15 @@ class WindowedMetric(Metric):
         # the slot and the bucket's start, on the device: no host read
         slot = ((count // k) % r).reshape(1).long()
         fresh = (count % k) == 0
-        base = {}
-        for name in m._defaults:
-            row = getattr(self, name).index_select(0, slot)[0]
+        if k == 1:
+            # every update starts a bucket: the defaults themselves, with a
+            # sketch default's empty-occupancy bound (no compaction while
+            # the batch fits)
+            base = dict(m._defaults)
+        else:
             # the first update of a bucket starts from the defaults, so a
             # wrapped (expired) bucket evicts itself
-            base[name] = torch.where(fresh, m._defaults[name], row)
+            base = {name: torch.where(fresh, m._defaults[name], getattr(self, name).index_select(0, slot)[0]) for name in m._defaults}
         new = self._pad_correct(m.update_state(base, *args, **call_kw), args, fkw, n_valid, m)
         for name in m._defaults:
             leaf = getattr(self, name)

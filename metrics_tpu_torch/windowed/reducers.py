@@ -10,13 +10,17 @@ carries:
 * ``windowed_kind`` -- ``"ring"`` or ``"decay"``;
 * ``inner_reduce`` -- ``"sum"``, the fold that ``merge_states`` applies.
 
-The ring of sketches (``ring_merge_fx`` in the JAX package) is not ported
-yet (ROADMAP.md, queue A). Both reducers are module-level singletons that
-pickle through their constructors.
+A ring of sketch leaves (``[R, capacity, cols]``) takes
+:func:`ring_merge_fx`: tagged ``merge_like``, it merges slot ``i`` of one
+ring with slot ``i`` of the other through the wrapped metric's own sketch
+merge, never across buckets. All reducers pickle through their
+constructors.
 """
+from typing import Any
+
 import torch
 
-__all__ = ["decay_sum_fx", "ring_sum_fx"]
+__all__ = ["decay_sum_fx", "ring_merge_fx", "ring_sum_fx"]
 
 
 class _WindowedSumReduce:
@@ -50,3 +54,36 @@ def ring_sum_fx() -> _WindowedSumReduce:
 def decay_sum_fx() -> _WindowedSumReduce:
     """The decayed-sum ``dist_reduce_fx`` (``add_state`` maps ``"decay"`` here)."""
     return _DECAY_SUM
+
+
+class _RingMergeReduce:
+    """Cross-process fold of a ring of sketches ``[R, capacity, cols]``:
+    the stacked rings ``[world, R, capacity, cols]`` fold pairwise in
+    process order, slot by slot, with the wrapped metric's own merge
+    reducer (``inner``). Inside each sketch's lossless window the fold is
+    the concatenation per slot in process order."""
+
+    merge_like = True
+    windowed_kind = "ring"
+    __name__ = "ring_merge"
+
+    def __init__(self, inner: Any) -> None:
+        self._inner = inner
+        self.sketch_kind = getattr(inner, "sketch_kind", "quantile")
+
+    def __call__(self, stacked: torch.Tensor) -> torch.Tensor:
+        if stacked.ndim == 3:  # a single process passes through
+            return stacked
+        out = stacked[0]
+        for i in range(1, stacked.shape[0]):
+            out = torch.stack([self._inner(torch.stack([a, b])) for a, b in zip(out, stacked[i])])
+        return out
+
+    def __reduce__(self):
+        return (ring_merge_fx, (self._inner,))
+
+
+def ring_merge_fx(inner: Any) -> _RingMergeReduce:
+    """The ring-axis form of a ``merge_like`` reducer (the wrapped metric's
+    own sketch merge), see :class:`_RingMergeReduce`."""
+    return _RingMergeReduce(inner)

@@ -21,7 +21,9 @@ names = [m.name for m in pkgutil.walk_packages(metrics_tpu_torch.__path__, "metr
 for name in names:
     importlib.import_module(name)
 for name in ("core.fused", "core.pipeline", "observability.freshness", "classification.hinge",
-             "classification.kl_divergence", "functional.classification.dice"):
+             "classification.kl_divergence", "functional.classification.dice", "utils.prng",
+             "sketches.rank", "regression.spearman", "regression.pearson", "regression.cosine_similarity",
+             "functional.regression.tweedie_deviance", "functional.regression.r2"):
     assert "metrics_tpu_torch." + name in names, name
 import chip_smoke
 assert not any(k == "jax" or k.startswith(("jax.", "metrics_tpu.")) for k, v in sys.modules.items() if v is not None)

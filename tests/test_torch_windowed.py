@@ -10,6 +10,12 @@ after the first (its ``compute_state`` does not mark the template's slices
 dirty, so the sliced template returns the per-slice values of its previous
 fold); ``test_reference_windowed_sliced_read_is_stale`` pins that, so that
 the port is held to fresh SlicedMetrics there, never to the reference.
+
+The ring of sketch leaves (a windowed sketched ``AUROC``) is held bit for
+bit to the JAX package's ring and to a fresh metric fed the window's
+batches inside the sketch's lossless window, and within 1e-6 of the JAX
+package's value past it (the compaction's ``asin`` differs by an ulp,
+ROADMAP.md C).
 """
 import numpy as np
 import pytest
@@ -17,11 +23,14 @@ import torch
 
 import jax.numpy as jnp
 
+from metrics_tpu import AUROC as JaxAUROC
 from metrics_tpu import MeanSquaredError as JaxMSE
+from metrics_tpu import MetricCollection as JaxCollection
 from metrics_tpu import PeakSignalNoiseRatio as JaxPSNR
 from metrics_tpu.sliced import SlicedMetric as JaxSliced
 from metrics_tpu.windowed import WindowedMetric as JaxWindowed
-from metrics_tpu_torch import AUROC, MeanSquaredError, PeakSignalNoiseRatio, SlicedMetric, WindowedMetric
+from metrics_tpu_torch import AUROC, MeanSquaredError, MetricCollection, PeakSignalNoiseRatio, SlicedMetric, WindowedMetric
+from metrics_tpu_torch.windowed.reducers import ring_merge_fx
 from metrics_tpu_torch.convert import state_from_jax
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 
@@ -221,8 +230,9 @@ def test_construction_and_mode_errors():
         WindowedMetric(PeakSignalNoiseRatio(data_range=1.0, device="cpu"))
     with pytest.raises(MetricsUserError, match="cannot wrap another WindowedMetric"):
         WindowedMetric(WindowedMetric(mse))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        WindowedMetric(AUROC(device="cpu"))
+    # sketch leaves window in ring mode only: their weights must not be scaled
+    with pytest.raises(MetricsUserError, match="mode='ring'"):
+        WindowedMetric(AUROC(device="cpu"), mode="decay")
     ring = WindowedMetric(mse)
     # the fused update's pad-and-mask contract: the third row is an edge pad
     ring.update(torch.ones(3), torch.zeros(3), n_valid=2)
@@ -246,3 +256,97 @@ def test_windowed_state_from_jax_round_trip():
     _feed(jax_metric, metric, batch)
     _assert_states_equal(jax_metric, metric)
     np.testing.assert_allclose(metric.compute(window=2).numpy(), np.asarray(jax_metric.compute(window=2)), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the ring of sketch leaves
+# ---------------------------------------------------------------------------
+
+
+def _curve_batches(seed, sizes):
+    rng = np.random.RandomState(seed)
+    return [(rng.rand(n).astype(np.float32), (rng.rand(n) < 0.4).astype(np.int32)) for n in sizes]
+
+
+@pytest.mark.parametrize("updates_per_bucket", [1, 2])
+def test_windowed_sketched_auroc_bit_identical_in_lossless_window(updates_per_bucket):
+    batches = _curve_batches(7, [32] * 6)
+    jax_metric = JaxWindowed(JaxAUROC(pos_label=1, sketch_capacity=512), window=3, updates_per_bucket=updates_per_bucket)
+    metric = WindowedMetric(AUROC(pos_label=1, sketch_capacity=512, device="cpu"), window=3, updates_per_bucket=updates_per_bucket)
+    for batch in batches:
+        _feed(jax_metric, metric, batch)
+    _assert_states_equal(jax_metric, metric)
+    assert isinstance(metric._reductions["csketch"], type(ring_merge_fx(None)))
+    assert tuple(metric.csketch.shape) == (3, 512, 3)
+    for window in (1, 2, 3):
+        fresh = AUROC(pos_label=1, sketch_capacity=512, device="cpu")
+        for preds, target in batches[len(batches) - window * updates_per_bucket :]:
+            fresh.update(torch.from_numpy(preds), torch.from_numpy(target))
+        got = metric.compute(window=window)
+        assert got.numpy().view(np.int32) == fresh.compute().numpy().view(np.int32)
+        # the exact AUROC kernels agree with the JAX package's to float32 rounding
+        np.testing.assert_allclose(float(got), float(jax_metric.compute(window=window)), atol=1e-6)
+
+
+def test_windowed_sketch_past_capacity_matches_jax():
+    """Buckets of two 48-row batches overflow a capacity-64 sketch: each
+    bucket compacts on its second update, and reads compact as they fold."""
+    batches = _curve_batches(9, [48] * 7)
+    jax_metric = JaxWindowed(JaxAUROC(pos_label=1, sketch_capacity=64), window=3, updates_per_bucket=2)
+    metric = WindowedMetric(AUROC(pos_label=1, sketch_capacity=64, device="cpu"), window=3, updates_per_bucket=2)
+    for batch in batches:
+        _feed(jax_metric, metric, batch)
+    ring, want = metric.csketch.numpy(), np.asarray(jax_metric.csketch)
+    # occupancy and mass per slot are exact; centroids differ by float32
+    # rounding where an asin ulp moves a row across a bucket edge
+    np.testing.assert_array_equal((ring[..., 0] > 0).sum(axis=1), (want[..., 0] > 0).sum(axis=1))
+    np.testing.assert_array_equal(ring[..., 0].sum(axis=1), want[..., 0].sum(axis=1))
+    np.testing.assert_array_equal(metric.n_seen.numpy(), np.asarray(jax_metric.n_seen))
+    for window in (1, 2, 3):
+        np.testing.assert_allclose(float(metric.compute(window=window)), float(jax_metric.compute(window=window)), atol=1e-6)
+
+
+def test_bucketed_windowed_auroc_corrects_sum_companions():
+    """A masking template pad-masks its sketch leaf itself, but its sum
+    companion (``n_seen``) counts the padded batch: the wrapper's slot-aware
+    correction removes the pad rows from it, so the bucketed fused update
+    equals the eager one bit for bit (and the JAX package's)."""
+    batches = _curve_batches(12, (48, 64, 57))
+
+    def make():
+        return MetricCollection({"auroc": WindowedMetric(AUROC(pos_label=1, sketch_capacity=512, device="cpu"), window=3)})
+
+    fused = make()
+    handle = fused.compile_update(buckets=(64,))
+    eager = WindowedMetric(AUROC(pos_label=1, sketch_capacity=512, device="cpu"), window=3)
+    jax_metric = JaxCollection({"auroc": JaxWindowed(JaxAUROC(pos_label=1, sketch_capacity=512), window=3)})
+    jax_metric.compile_update(buckets=(64,))
+    for preds, target in batches:
+        fused.update(torch.from_numpy(preds), torch.from_numpy(target))
+        eager.update(torch.from_numpy(preds), torch.from_numpy(target))
+        jax_metric.update(jnp.asarray(preds), jnp.asarray(target))
+    assert handle.n_compiles == 1 and not handle.declined
+    for name in eager._defaults:
+        assert torch.equal(getattr(fused["auroc"], name), getattr(eager, name)), name
+    assert fused["auroc"].n_seen.tolist() == [48, 64, 57] == np.asarray(jax_metric["auroc"].n_seen).tolist()
+    assert float(fused.compute()["auroc"]) == float(eager.compute()) == float(jax_metric.compute()["auroc"])
+
+
+def test_ring_sketch_merges_per_slot():
+    """``merge_states`` of two rings merges slot by slot with the sketch's
+    own merge: the mass doubles in the written slot, the others stay empty."""
+    metric = WindowedMetric(AUROC(pos_label=1, sketch_capacity=64, device="cpu"), window=3)
+    preds, target = _curve_batches(11, [16])[0]
+    metric.update(torch.from_numpy(preds), torch.from_numpy(target))
+    state = metric.state_dict()
+    merged = metric.merge_states(state, state)
+    sk_in, sk_out = state["csketch"], merged["csketch"]
+    assert float(sk_out[..., 0].sum()) == 2 * float(sk_in[..., 0].sum()) == 32.0
+    assert int((sk_out[1:, :, 0] > 0).sum()) == 0
+    # inside the window a merge is the concatenation, in order
+    torch.testing.assert_close(sk_out[0, 16:32], sk_in[0, :16], rtol=0, atol=0)
+    assert merged["n_seen"].tolist() == [32, 0, 0]
+    # the reducer itself, over stacked rings of two processes
+    red = metric._reductions["csketch"]
+    assert torch.equal(red(torch.stack([sk_in, sk_in])), sk_out)
+    assert torch.equal(red(sk_in), sk_in)
