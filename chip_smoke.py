@@ -275,6 +275,36 @@ Phases, each printed as one JSON line:
    midranks), one K3 and one segment_sum_f32 launch per merge of a read,
    bit-equal to their plain versions at a captured fold, and the windowed
    Spearman within 4 standard errors of exact over its window;
+18g. wrappers-flagship -- a training loop's MetricTracker over
+   MetricCollection({loss: MeanMetric(), loss_max: MaxMetric(), acc:
+   Accuracy(1000), err: 1 - Accuracy(1000)}) (three steps of 4 flagship
+   batches; the loss the per-sample NLL, made on the card), and beside it
+   BootStrapper(CohenKappa(1000), 10 copies, multinomial, seed 0),
+   ClasswiseWrapper(JaccardIndex(1000, reduction="none")) and
+   MinMaxMetric(Accuracy(1000)) through forward; gates: bincount_i32
+   launched 2 x (10 + 1) times per batch (each forward updates twice) and
+   the profiler's count equal to the counters, every state bit for bit
+   against a second card run and the CPU's first step, the tracker's values
+   and best_metric(return_step=True) equal to the CPU's, the wrappers'
+   values within the classification tolerances of the CPU; then the
+   collection eager against compile_update(): err declined by name, the
+   other members' states bit for bit, 0 host syncs inside the replays;
+18h. bootstrap-auroc -- BootStrapper(AUROC(), 50 copies, seed 0) over
+   curve-binary's first 24 batches (every copy passes the sketch's 8192
+   rows): one K3 and one segment_sum_f32 launch per copy per compacting
+   update (counted from the seed's draws before the run), bit for bit
+   against the CPU over 2 updates, mean and std within 5e-3 of the exact
+   AUROC's bootstrap (float64 midranks on the card, the same indices);
+18i. multioutput-regression -- MultioutputWrapper(R2Score(), 3) and
+   MultioutputWrapper(MeanAbsoluteError(), 3) over 16 updates of 8 unit
+   surface-normal maps of 640 x 480 (2,457,600 rows x 3 per update, 10% of
+   the rows with a NaN in one output, removed), no kernel launched, states
+   bit for bit against a second card run, values within rtol 1e-5 of the
+   CPU over 2 updates and 1e-6 (relative above 1) of float64;
+18j. pairwise-embeddings -- cosine, linear and euclidean over [8192, 512]
+   embeddings and manhattan over [2048, 512], reduction None and "mean",
+   one input and two: each within 1e-6 of its largest float64 value,
+   bit-equal with TF32 switched on by the caller, 0 host syncs;
 19. the kernels line: per kernel its launches on its main path (flagship for
    K1, sketch-binary for K3, map-coco for K6, the entry point ops.box_iou
    on 2-D boxes for K5, retrieval-mslr for K4, sliced-psnr for K2 and
@@ -494,6 +524,28 @@ DEPTH_SEED = 12000
 DEPTH_RANGE = (0.5, 10.0)
 DEPTH_NOISE = 0.1
 RANK_CAPACITY = 8192
+# wrappers-flagship: 12 flagship batches, a tracker step every 4, ten
+# bootstrap copies
+WRAP_BATCHES = 12
+WRAP_STEP_BATCHES = 4
+WRAP_BOOTSTRAPS = 10
+# bootstrap-auroc: 50 copies over curve-binary's first 24 batches
+BOOT_BATCHES = 24
+BOOT_COPIES = 50
+BOOT_CPU_UPDATES = 2
+# multioutput-regression: surface normals at regression-depth's frame size
+NORMAL_SEED = 13000
+NORMAL_NOISE = 0.1
+NORMAL_INVALID = 0.1
+# pairwise-embeddings: CLIP ViT-B/32 widths (512), 8192 rows (2048 for the
+# manhattan distance's [N, M, d] work); every result within 1e-6 of its
+# largest float64 value (a float32 rounding of each term and at most
+# log2(512) rounded additions)
+PAIRWISE_SEED = 14000
+PAIRWISE_ROWS = 8192
+PAIRWISE_DIM = 512
+PAIRWISE_L1_ROWS = 2048
+PAIRWISE_RTOL = 1e-6
 # sketch-bf16: |bfloat16 - float32| of AUROC() over curve-binary's stream;
 # 1.70e-5 measured on the CPU (scripts/reference_properties.py)
 BF16_SKETCH_BOUND = 1e-4
@@ -605,13 +657,16 @@ def kernel_device_time(torch, fn, kernel_names, launches=50):
     return {"device_ms": total_ms, "device_windows": windows, "device_ms_source": "profiler"}
 
 
-def device_profile(torch, step, steps):
+def device_profile(torch, step, steps, host_ops=True):
     """``step(i)`` for ``i < steps`` under torch.profiler: wall and device
-    time per step and the kernels that took the most device time."""
+    time per step and the kernels that took the most device time.
+    ``host_ops=False`` records the device alone (a step of thousands of
+    host ops takes seconds to profile with them)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
             step(i)
@@ -3960,6 +4015,512 @@ def windowed_sketch_phase(torch, ops, card, tm, WindowedMetric, depth):
           "seconds": time.perf_counter() - t_phase})
 
 
+def tree_states(torch, metrics):
+    """Every state of every metric and of its children (``state_dict``: list
+    states concatenated, ``MinMaxMetric``'s extremes too), on the host."""
+    out = {}
+    for key, metric in metrics.items():
+        for name, value in metric.state_dict().items():
+            out[f"{key}.{name}"] = (torch.cat(value) if isinstance(value, list) else value).detach().cpu()
+    return out
+
+
+def profiled_updates(torch, ops, label, make, step, profiled=3):
+    """Device ms per update and the profiler-seen launches over ``profiled``
+    updates of fresh objects (``make()``, ``step(objects, i)``), held equal
+    to the launch counters (a window that missed is taken again), then host
+    syncs per update over three more."""
+    for windows in range(1, PROFILE_WINDOWS + 1):
+        objects = make()
+        ops.reset_launch_counts()
+        profile = device_profile(torch, lambda i: step(objects, i), profiled, host_ops=False)
+        counted = {k: n for k, n in ops.launch_counts().items() if n}
+        seen = device_launches(profile["kernel_calls"])
+        if seen == counted:
+            break
+    check(seen == counted, f"{label}: the device ran {seen} launches in {windows} profiled windows, the counters say {counted}")
+    objects = make()
+    return {
+        "device_ms_per_update": profile["device_busy_ms_per_step"],
+        "profiled_wall_ms_per_update": profile["profiled_wall_ms_per_step"],
+        "device_launches_profiled": seen,
+        "profiled_windows": windows,
+        "top_device_us": profile["device_us_per_step_by_kernel"],
+        "host_syncs_per_update": syncs_per_update(torch, lambda i: step(objects, i), list(range(3))),
+    }
+
+
+def syncs_inside(torch, obj, attr, run):
+    """Host synchronisations inside the calls of ``obj.attr`` while
+    ``run()`` runs (``set_sync_debug_mode("warn")`` only around them)."""
+    inner = getattr(obj, attr)
+    caught = []
+
+    def watched(*args, **kwargs):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                caught.extend(seen)
+
+    setattr(obj, attr, watched)
+    try:
+        run()
+    finally:
+        delattr(obj, attr)
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def flagship_loss(torch, preds, target):
+    """The per-sample negative log-likelihood of a softmax batch."""
+    return -torch.log(preds.gather(1, target[:, None]).squeeze(1))
+
+
+def wrappers_flagship_objects(tm, device=None):
+    """wrappers-flagship's tracker over the training-loop collection, and
+    the three wrappers beside it."""
+    collection = tm.MetricCollection(
+        {
+            "loss": tm.MeanMetric(device=device),
+            "loss_max": tm.MaxMetric(device=device),
+            "acc": tm.Accuracy(num_classes=NUM_CLASSES, device=device),
+            "err": 1 - tm.Accuracy(num_classes=NUM_CLASSES, device=device),
+        }
+    )
+    wrappers = {
+        "bootstrap": tm.BootStrapper(
+            tm.CohenKappa(num_classes=NUM_CLASSES, device=device),
+            num_bootstraps=WRAP_BOOTSTRAPS,
+            sampling_strategy="multinomial",
+            seed=0,
+        ),
+        "classwise": tm.ClasswiseWrapper(tm.JaccardIndex(num_classes=NUM_CLASSES, reduction="none", device=device)),
+        "minmax": tm.MinMaxMetric(tm.Accuracy(num_classes=NUM_CLASSES, device=device)),
+    }
+    return tm.MetricTracker(collection), wrappers
+
+
+def wrappers_flagship_step(objects, batch, i):
+    """One training-loop step: a tracker increment every WRAP_STEP_BATCHES
+    batches, the collection's update, each wrapper's forward."""
+    tracker, wrappers = objects
+    preds, target, loss = batch
+    if i % WRAP_STEP_BATCHES == 0:
+        tracker.increment()
+    tracker.update(value=loss, preds=preds, target=target)
+    return {name: w(preds, target) for name, w in wrappers.items()}
+
+
+def wrappers_flagship_phase(torch, ops, card, tm, preds_all, target_all):
+    """wrappers-flagship: a training loop's MetricTracker over a collection
+    with aggregators and a composition, and BootStrapper, ClasswiseWrapper
+    and MinMaxMetric through forward, over 12 flagship batches; then the
+    collection once more through compile_update()."""
+    t_phase = time.perf_counter()
+    batches = [(preds_all[i], target_all[i], flagship_loss(torch, preds_all[i], target_all[i])) for i in range(WRAP_BATCHES)]
+    torch.cuda.synchronize()
+
+    def run(device=None, n=WRAP_BATCHES, snapshot_at=None):
+        objects = wrappers_flagship_objects(tm, device)
+        snap = None
+        for i in range(n):
+            batch = batches[i] if device is None else tuple(t.cpu() for t in batches[i])
+            wrappers_flagship_step(objects, batch, i)
+            if snapshot_at == i + 1:
+                snap = tree_states(torch, objects[1])
+        return objects, snap
+
+    objects = wrappers_flagship_objects(tm)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i, batch in enumerate(batches):
+        wrappers_flagship_step(objects, batch, i)
+        if i + 1 == WRAP_STEP_BATCHES:
+            torch.cuda.synchronize()
+            first_states = tree_states(torch, objects[1])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    marks = {"card_run": time.perf_counter()}
+    launches = {k: n for k, n in ops.launch_counts().items() if n}
+    tracker, wrappers = objects
+    # per batch: each forward updates twice; BootStrapper's copies and the
+    # Jaccard each launch bincount_i32 once per update
+    want = {"bincount_i32": WRAP_BATCHES * 2 * (WRAP_BOOTSTRAPS + 1)}
+    check(launches == want, f"wrappers-flagship: launches {launches}, expected {want}")
+    values = {name: w.compute() for name, w in wrappers.items()}
+    steps = tracker.compute_all()
+    best = tracker.best_metric(return_step=True)
+    # a second card run, every state and value bit for bit
+    again, _ = run()
+    marks["second_card_run"] = time.perf_counter()
+    differ = state_bits_differ(torch, tree_states(torch, again[1]), tree_states(torch, wrappers))
+    check(not differ, f"wrappers-flagship: states {differ} differ between two card runs")
+    for name, w in again[1].items():
+        check(same_outputs(torch, list(w.compute().values()), list(values[name].values())), f"wrappers-flagship: {name} differs between two card runs")
+    again_steps = again[0].compute_all()
+    check(all(same_outputs(torch, again_steps[k], steps[k]) for k in steps), "wrappers-flagship: the tracker differs between two card runs")
+    # the port on the CPU: the wrappers over the first step, the tracker over all
+    cpu, _ = run("cpu", n=WRAP_STEP_BATCHES)
+    differ = state_bits_differ(torch, tree_states(torch, cpu[1]), first_states)
+    check(not differ, f"wrappers-flagship: states {differ} differ from the CPU's")
+    cpu_tracker = tm.MetricTracker(wrappers_flagship_objects(tm, "cpu")[0]._base_metric)
+    for i, (p, t, l) in enumerate(batches):
+        if i % WRAP_STEP_BATCHES == 0:
+            cpu_tracker.increment()
+        cpu_tracker.update(value=l.cpu(), preds=p.cpu(), target=t.cpu())
+    cpu_steps = cpu_tracker.compute_all()
+    check(all(same_outputs(torch, steps[k].cpu(), cpu_steps[k]) for k in steps), "wrappers-flagship: the tracker's values differ from the CPU's")
+    check(best == cpu_tracker.best_metric(return_step=True), f"wrappers-flagship: best_metric {best} differs from the CPU's")
+    # the first step's wrapper values against the CPU's (each copy's kappa
+    # sums floats in the device's order)
+    first, _ = run(n=WRAP_STEP_BATCHES)
+    diff_cpu = {}
+    for name in wrappers:
+        got, want_cpu = first[1][name].compute(), cpu[1][name].compute()
+        rtol, atol = cls_tolerance("CohenKappa" if name == "bootstrap" else name)
+        for key in want_cpu:
+            diff = float((got[key].cpu().double() - want_cpu[key].double()).abs().max())
+            check(diff <= atol + rtol * float(want_cpu[key].double().abs().max()), f"wrappers-flagship: {name} {key} off the CPU by {diff}")
+            diff_cpu[name] = max(diff_cpu.get(name, 0.0), diff)
+    marks["cpu_and_second_runs"] = time.perf_counter()
+
+    profile = profiled_updates(
+        torch, ops, "wrappers-flagship", lambda: wrappers_flagship_objects(tm), lambda o, i: wrappers_flagship_step(o, batches[i], i)
+    )
+    marks["profile"] = time.perf_counter()
+
+    # the collection fused: the composition declined by name, the others'
+    # states bit-equal to the eager leg, no host sync inside the replays
+    def make_collection():
+        return wrappers_flagship_objects(tm)[0]._base_metric
+
+    def update(collection, batch):
+        collection.update(value=batch[2], preds=batch[0], target=batch[1])
+
+    legs = fused_legs(torch, ops, "wrappers-flagship (fused)", make_collection, batches, {}, update=update)
+    fused = legs["fused"]
+    check(set(fused["handle"].declined) == {"err"}, f"wrappers-flagship: declined {fused['handle'].declined}")
+    replay_syncs = syncs_inside(torch, fused["handle"], "_run_fused", lambda: [update(fused["collection"], b) for b in batches[3:6]])
+    check(replay_syncs == 0, f"wrappers-flagship: {replay_syncs} host syncs inside three replays")
+    report = {leg: leg_report(torch, ops, legs[leg], update, batches) for leg in legs}
+    marks["fused"] = time.perf_counter()
+    emit(
+        {
+            "phase": "wrappers-flagship",
+            "card": card,
+            "batches": WRAP_BATCHES,
+            "ms_per_update": run_s / WRAP_BATCHES * 1e3,
+            **profile,
+            "device_idle_share": 1 - profile["device_ms_per_update"] / (run_s / WRAP_BATCHES * 1e3),
+            "launches": launches,
+            "launches_expected": want,
+            "best_metric": best,
+            "tracker_values": {k: v.tolist() for k, v in steps.items()},
+            "bootstrap": {k: v.tolist() for k, v in values["bootstrap"].items()},
+            "minmax": {k: float(v) for k, v in values["minmax"].items()},
+            "max_abs_diff_vs_cpu_first_step": diff_cpu,
+            "seconds_by_part": {k: v - t_phase for k, v in marks.items()},
+            "tracker_state_bytes": tracker.total_state_bytes(),
+            "wrapper_state_bytes": {name: w.total_state_bytes() for name, w in wrappers.items()},
+            "fused": {leg: {k: v for k, v in r.items() if k != "top_device_us"} for leg, r in report.items()},
+            "fused_replay_host_syncs": replay_syncs,
+            "seconds": time.perf_counter() - t_phase,
+        }
+    )
+
+
+def float64_auroc(torch, scores, labels):
+    """AUROC from float64 midranks on the card (ties share their mean rank)."""
+    values, inverse, counts = torch.unique(scores, return_inverse=True, return_counts=True)
+    before = torch.cumsum(counts, 0) - counts
+    ranks = (before.double() + (counts.double() + 1) / 2)[inverse]
+    pos = labels.bool()
+    n_pos = pos.sum().double()
+    n_neg = labels.numel() - n_pos
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+
+
+def bootstrap_auroc_phase(torch, ops, card, tm):
+    """bootstrap-auroc: BootStrapper(AUROC(), 50) over the first 24 batches
+    of curve-binary's stream: every copy passes the sketch's capacity."""
+    from metrics_tpu_torch.wrappers.bootstrapping import _bootstrap_sampler
+
+    t_phase = time.perf_counter()
+    score_np, y_np = make_curve_stream()
+    score = torch.from_numpy(score_np[:BOOT_BATCHES]).cuda()
+    y = torch.from_numpy(y_np[:BOOT_BATCHES]).cuda()
+    # the draws, replayed from the seed: each copy compacts on every update
+    # from the one whose rows pass the capacity on
+    rng = np.random.RandomState(0)
+    draws = [[_bootstrap_sampler(CURVE_BATCH, "poisson", rng) for _ in range(BOOT_COPIES)] for _ in range(BOOT_BATCHES)]
+    rows = np.cumsum([[len(d) for d in update] for update in draws], axis=0)
+    compactions = int((rows > SKETCH_CAPACITY).sum())
+    check((rows[-1] > SKETCH_CAPACITY).all(), "bootstrap-auroc: a copy stays inside the lossless window")
+    want = {"qsketch_sort_bucket": compactions, "segment_sum_f32": compactions}
+
+    def make(device=None):
+        return tm.BootStrapper(tm.AUROC(device=device), num_bootstraps=BOOT_COPIES, seed=0)
+
+    metric = make()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(BOOT_BATCHES):
+        metric.update(score[i], y[i])
+        if i + 1 == BOOT_CPU_UPDATES:
+            torch.cuda.synchronize()
+            head = tree_states(torch, {"b": metric})
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: n for k, n in ops.launch_counts().items() if n}
+    check(launches == want, f"bootstrap-auroc: launches {launches}, expected {want}")
+    out, compute_ms = timed(torch, metric.compute)
+    fill = {name: max(m.sketch_fill_ratios().values()) for name, m in metric._iter_child_metrics()}
+    # the CPU over the first updates, bit for bit
+    cpu = make("cpu")
+    for i in range(BOOT_CPU_UPDATES):
+        cpu.update(torch.from_numpy(score_np[i]), torch.from_numpy(y_np[i]))
+    differ = state_bits_differ(torch, tree_states(torch, {"b": cpu}), head)
+    check(not differ, f"bootstrap-auroc: states {differ} differ from the CPU's")
+    # the exact AUROC of each copy's resampled stream, float64 on the card
+    flat_score, flat_y = score.reshape(-1), y.reshape(-1)
+    exact = []
+    for c in range(BOOT_COPIES):
+        idx = torch.from_numpy(np.concatenate([u * CURVE_BATCH + draws[u][c] for u in range(BOOT_BATCHES)])).cuda()
+        exact.append(float64_auroc(torch, flat_score[idx], flat_y[idx]))
+    exact = np.asarray(exact)
+    errors = {
+        "mean": abs(float(out["mean"]) - exact.mean()),
+        "std": abs(float(out["std"]) - exact.std(ddof=1)),
+    }
+    for key, err in errors.items():
+        check(err <= 5e-3, f"bootstrap-auroc: {key} {err} off the exact bootstrap's")
+    def past_capacity():
+        # a fresh bootstrap fed three batches: every copy compacts from then on
+        m = make()
+        for i in range(3):
+            m.update(score[i], y[i])
+        return m
+
+    profile = profiled_updates(torch, ops, "bootstrap-auroc", past_capacity, lambda m, i: m.update(score[3 + i], y[3 + i]))
+    emit(
+        {
+            "phase": "bootstrap-auroc",
+            "card": card,
+            "updates": BOOT_BATCHES,
+            "copies": BOOT_COPIES,
+            "rows_per_copy": rows[-1].tolist()[:5],
+            "ms_per_update": run_s / BOOT_BATCHES * 1e3,
+            **profile,
+            "device_idle_share": 1 - profile["device_ms_per_update"] / (run_s / BOOT_BATCHES * 1e3),
+            "launches": launches,
+            "launches_expected": want,
+            "compute_ms": compute_ms,
+            "mean": float(out["mean"]),
+            "std": float(out["std"]),
+            "exact_mean": float(exact.mean()),
+            "exact_std": float(exact.std(ddof=1)),
+            "abs_errors_vs_exact_bootstrap": errors,
+            "state_bytes": metric.total_state_bytes(),
+            "sketch_fill_min_max": [min(fill.values()), max(fill.values())],
+            "cpu_updates": BOOT_CPU_UPDATES,
+            "seconds": time.perf_counter() - t_phase,
+        }
+    )
+
+
+def normal_batches(torch):
+    """multioutput-regression's stream, made on the card from a seed: per
+    update 8 maps of 640 x 480 unit surface normals (``[2457600, 3]``), the
+    predictions the targets plus 0.1 N(0, 1) renormalised; 10% of the rows
+    hold a NaN in one output of the target (invalid pixels)."""
+    gen = torch.Generator(device="cuda").manual_seed(NORMAL_SEED)
+    rows = DEPTH_IMAGES * DEPTH_SHAPE[0] * DEPTH_SHAPE[1]
+    out = []
+    for _ in range(DEPTH_UPDATES):
+        target = torch.nn.functional.normalize(torch.randn(rows, 3, generator=gen, device="cuda"), dim=1)
+        preds = torch.nn.functional.normalize(target + NORMAL_NOISE * torch.randn(rows, 3, generator=gen, device="cuda"), dim=1)
+        invalid = torch.rand(rows, generator=gen, device="cuda") < NORMAL_INVALID
+        output = torch.randint(0, 3, (rows,), generator=gen, device="cuda")
+        nan = invalid[:, None] & (torch.arange(3, device="cuda")[None, :] == output[:, None])
+        out.append((preds, torch.where(nan, float("nan"), target)))
+    return out
+
+
+def float64_multioutput(torch, batches):
+    """R2 and MAE per output over every update, NaN rows dropped, float64."""
+    preds = torch.cat([b[0] for b in batches]).double()
+    target = torch.cat([b[1] for b in batches]).double()
+    out = {"R2Score": [], "MeanAbsoluteError": []}
+    for k in range(3):
+        keep = ~(torch.isnan(preds[:, k]) | torch.isnan(target[:, k]))
+        p, t = preds[keep, k], target[keep, k]
+        out["R2Score"].append(float(1 - ((t - p) ** 2).sum() / ((t - t.mean()) ** 2).sum()))
+        out["MeanAbsoluteError"].append(float((p - t).abs().mean()))
+    return out
+
+
+def multioutput_regression_phase(torch, ops, card, tm):
+    """multioutput-regression: MultioutputWrapper(R2Score(), 3) and
+    MultioutputWrapper(MeanAbsoluteError(), 3) over 16 updates of surface
+    normals at NYU-Depth v2's frame size, invalid pixels removed."""
+    t_phase = time.perf_counter()
+    batches = normal_batches(torch)
+    torch.cuda.synchronize()
+
+    def make(device=None):
+        return {
+            "R2Score": tm.MultioutputWrapper(tm.R2Score(device=device), 3),
+            "MeanAbsoluteError": tm.MultioutputWrapper(tm.MeanAbsoluteError(device=device), 3),
+        }
+
+    def step(wrappers, batch):
+        for w in wrappers.values():
+            w.update(*batch)
+
+    wrappers = make()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for batch in batches:
+        step(wrappers, batch)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: n for k, n in ops.launch_counts().items() if n}
+    check(not launches, f"multioutput-regression: launches {launches}, expected none")
+    values = {name: [float(v) for v in w.compute()] for name, w in wrappers.items()}
+    # a second card run, read after the CPU's updates too
+    again = make()
+    for i, batch in enumerate(batches):
+        step(again, batch)
+        if i + 1 == DEPTH_CPU_UPDATES:
+            head = {name: [float(v) for v in w.compute()] for name, w in again.items()}
+    differ = state_bits_differ(torch, tree_states(torch, again), tree_states(torch, wrappers))
+    check(not differ, f"multioutput-regression: states {differ} differ between two card runs")
+    cpu = make("cpu")
+    for batch in batches[:DEPTH_CPU_UPDATES]:
+        step(cpu, tuple(t.cpu() for t in batch))
+    rel_cpu = {}
+    for name, w in cpu.items():
+        for k, v in enumerate(w.compute()):
+            diff = abs(head[name][k] - float(v)) / max(abs(float(v)), 1e-30)
+            check(diff <= 1e-5, f"multioutput-regression: {name}[{k}] card and CPU differ by {diff} (relative)")
+            rel_cpu[f"{name}[{k}]"] = diff
+    ref = float64_multioutput(torch, batches)
+    errors = {}
+    for name, want in ref.items():
+        for k, w64 in enumerate(want):
+            errors[f"{name}[{k}]"] = abs(values[name][k] - w64)
+            check(errors[f"{name}[{k}]"] <= 1e-6 * max(1.0, abs(w64)), f"multioutput-regression: {name}[{k}] {values[name][k]} off float64 {w64}")
+    profile = profiled_updates(torch, ops, "multioutput-regression", make, lambda w, i: step(w, batches[i]))
+    emit(
+        {
+            "phase": "multioutput-regression",
+            "card": card,
+            "updates": DEPTH_UPDATES,
+            "rows_per_update": batches[0][0].shape[0],
+            "reduced": "654 NYU-Depth v2 test frames cut to 128 (16 updates of 8), as regression-depth",
+            "ms_per_update": run_s / DEPTH_UPDATES * 1e3,
+            **profile,
+            "device_idle_share": 1 - profile["device_ms_per_update"] / (run_s / DEPTH_UPDATES * 1e3),
+            "values": values,
+            "float64": ref,
+            "abs_errors_vs_float64": errors,
+            "rel_diff_card_cpu": rel_cpu,
+            "cpu_updates": DEPTH_CPU_UPDATES,
+            "state_bytes": {name: w.total_state_bytes() for name, w in wrappers.items()},
+            "seconds": time.perf_counter() - t_phase,
+        }
+    )
+
+
+def float64_pairwise(torch, name, x, y, zero_diagonal):
+    x, y = x.double(), y.double()
+    if name == "pairwise_cosine_similarity":
+        out = (x / x.norm(dim=1, keepdim=True)) @ (y / y.norm(dim=1, keepdim=True)).T
+    elif name == "pairwise_linear_similarity":
+        out = x @ y.T
+    elif name == "pairwise_euclidean_distance":
+        out = ((x * x).sum(1)[:, None] + (y * y).sum(1)[None, :] - 2 * x @ y.T).clamp(min=0).sqrt()
+    else:
+        out = torch.cat([(x[i : i + 64, None, :] - y[None]).abs().sum(-1) for i in range(0, x.shape[0], 64)])
+    if zero_diagonal:
+        n = min(out.shape)
+        out[torch.arange(n), torch.arange(n)] = 0
+    return out
+
+
+def pairwise_embeddings_phase(torch, ops, card, tm):
+    """pairwise-embeddings: the pairwise functionals over CLIP ViT-B/32-width
+    embeddings, against float64 on the card, with and without TF32."""
+    from metrics_tpu_torch.functional import pairwise
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(PAIRWISE_SEED)
+    x = torch.randn(PAIRWISE_ROWS, PAIRWISE_DIM, generator=gen, device="cuda")
+    y = torch.randn(PAIRWISE_ROWS, PAIRWISE_DIM, generator=gen, device="cuda")
+    cases = [
+        (name, reduction, two)
+        for name in ("pairwise_cosine_similarity", "pairwise_linear_similarity", "pairwise_euclidean_distance")
+        for reduction in (None, "mean")
+        for two in (False, True)
+    ] + [("pairwise_manhattan_distance", reduction, two) for reduction in (None, "mean") for two in (False, True)]
+    flag, precision = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
+    results = []
+    ops.reset_launch_counts()
+    for name, reduction, two in cases:
+        rows = PAIRWISE_L1_ROWS if name == "pairwise_manhattan_distance" else PAIRWISE_ROWS
+        a, b = x[:rows], (y[:rows] if two else None)
+        fn = getattr(pairwise, name)
+
+        def call():
+            return fn(a, b, reduction=reduction)
+
+        got, ms = timed(torch, call)
+        syncs = syncs_per_update(torch, lambda _: call(), [0])
+        try:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.set_float32_matmul_precision("high")
+            tf32 = call()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            torch.set_float32_matmul_precision(precision)
+        check(torch.equal(got.view(torch.int32), tf32.view(torch.int32)), f"pairwise-embeddings: {name} {reduction} differs under TF32")
+        ref = float64_pairwise(torch, name, a, a if b is None else b, zero_diagonal=b is None)
+        if reduction == "mean":
+            ref = ref.mean(dim=-1)
+        err = float((got.double() - ref).abs().max())
+        scale = float(ref.abs().max())
+        check(err <= PAIRWISE_RTOL * scale, f"pairwise-embeddings: {name} {reduction} {err} off float64 (scale {scale})")
+        check(syncs == 0, f"pairwise-embeddings: {name} {reduction} synchronised {syncs} times")
+        results.append(
+            {"name": name, "reduction": reduction, "inputs": 2 if two else 1, "rows": rows, "ms": ms, "max_abs_err": err, "scale": scale, "host_syncs": syncs}
+        )
+        del got, tf32, ref
+    launches = {k: n for k, n in ops.launch_counts().items() if n}
+    check(not launches, f"pairwise-embeddings: launches {launches}, expected none")
+    profile = profiled_updates(
+        torch, ops, "pairwise-embeddings", lambda: None, lambda _, i: pairwise.pairwise_cosine_similarity(x, y), profiled=3
+    )
+    emit(
+        {
+            "phase": "pairwise-embeddings",
+            "card": card,
+            "shape": [PAIRWISE_ROWS, PAIRWISE_DIM],
+            "manhattan_rows": PAIRWISE_L1_ROWS,
+            "rtol_of_max": PAIRWISE_RTOL,
+            "cases": results,
+            "cosine_two_inputs": {k: v for k, v in profile.items() if k != "top_device_us"},
+            "top_device_us_cosine": profile["top_device_us"],
+            "seconds": time.perf_counter() - t_phase,
+        }
+    )
+
+
 def main():
     import torch
 
@@ -4186,6 +4747,11 @@ def main():
     sketch_bf16_phase(torch, ops, card, tm)
     windowed_sketch_phase(torch, ops, card, tm, WindowedMetric, depth)
     del depth
+    # the wrappers, the aggregators and a composition; pairwise functionals
+    wrappers_flagship_phase(torch, ops, card, tm, preds_all, target_all)
+    bootstrap_auroc_phase(torch, ops, card, tm)
+    multioutput_regression_phase(torch, ops, card, tm)
+    pairwise_embeddings_phase(torch, ops, card, tm)
     # K5 is reached by 2-D boxes through the entry point ops.box_iou
     gen = torch.Generator(device="cpu").manual_seed(5)
     k5_inputs = [(iou_boxes(torch, gen, n).cuda(), iou_boxes(torch, gen, m).cuda()) for n, m in K5_PARITY_SHAPES]

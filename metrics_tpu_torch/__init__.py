@@ -24,10 +24,16 @@ sketch) and its functionals, ``PeakSignalNoiseRatio``, the per-slice and windowe
 ``SlicedMetric`` (:mod:`metrics_tpu_torch.sliced`) and ``WindowedMetric``
 (:mod:`metrics_tpu_torch.windowed`), the quantile sketch, the keyed
 and Gumbel reservoirs, the rank sketch and the streaming moments (:mod:`metrics_tpu_torch.sketches`)
-and ``MetricCollection`` with its fused update on CUDA graphs
+``MetricCollection`` with its fused update on CUDA graphs
 (``compile_update``) and the async update pipeline
-(``compile_update_async``).
+(``compile_update_async``), the aggregators (``MaxMetric``, ``MinMetric``,
+``SumMetric``, ``CatMetric``, ``MeanMetric``), ``CompositionalMetric`` and
+the operator algebra of ``Metric``, the pairwise functionals
+(:mod:`metrics_tpu_torch.functional.pairwise`) and the wrappers
+(``BootStrapper``, ``ClasswiseWrapper``, ``MinMaxMetric``,
+``MultioutputWrapper``, ``MetricTracker``).
 """
+from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric  # noqa: F401
 from metrics_tpu_torch.classification import (  # noqa: F401
     AUC,
     AUROC,
@@ -54,7 +60,7 @@ from metrics_tpu_torch.classification import (  # noqa: F401
     StatScores,
 )
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
-from metrics_tpu_torch.core.metric import Metric  # noqa: F401
+from metrics_tpu_torch.core.metric import CompositionalMetric, Metric  # noqa: F401
 from metrics_tpu_torch.detection import MeanAveragePrecision  # noqa: F401
 from metrics_tpu_torch.image import PeakSignalNoiseRatio  # noqa: F401
 from metrics_tpu_torch.regression import (  # noqa: F401
@@ -82,5 +88,12 @@ from metrics_tpu_torch.retrieval import (  # noqa: F401
 )
 from metrics_tpu_torch.sliced import SlicedMetric  # noqa: F401
 from metrics_tpu_torch.windowed import WindowedMetric  # noqa: F401
+from metrics_tpu_torch.wrappers import (  # noqa: F401
+    BootStrapper,
+    ClasswiseWrapper,
+    MetricTracker,
+    MinMaxMetric,
+    MultioutputWrapper,
+)
 
 __version__ = "0.1.0"

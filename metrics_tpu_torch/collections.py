@@ -34,6 +34,9 @@ def _flatten_dict(x: Dict) -> Dict:
 
 
 def _equal_values(v1: Any, v2: Any) -> bool:
+    if isinstance(v1, Metric) or isinstance(v2, Metric):
+        # ``==`` between metrics builds a composition: compare by identity
+        return v1 is v2
     if isinstance(v1, torch.Tensor) or isinstance(v2, torch.Tensor):
         return (
             isinstance(v1, torch.Tensor)
@@ -220,6 +223,9 @@ class MetricCollection:
         """True if the two metrics' state definitions, shared
         hyperparameters and state values are identical."""
         if metric1._defaults.keys() != metric2._defaults.keys() or not metric1._defaults:
+            return False
+        # a wrapper's or composition's states are its children's
+        if metric1._children or metric2._children:
             return False
         if not MetricCollection._equal_update_attrs(metric1, metric2):
             return False
@@ -452,6 +458,27 @@ class MetricCollection:
         self._drain_async()
         for name, m in self._metrics.items():
             m.load_state_dict(state_dict, prefix=f"{name}.")
+
+    def state_footprint(self) -> Dict[str, Dict[str, int]]:
+        """Bytes per state of each member (``Metric.state_footprint``);
+        the members of a compute group report the same states, so
+        :meth:`total_state_bytes` is the total."""
+        return {name: m.state_footprint() for name, m in self._metrics.items()}
+
+    def total_state_bytes(self) -> int:
+        """Bytes of unique states: once compute groups are known, only each
+        group's leader counts (the members borrow its states). With an open
+        async handle, the bytes of its queued batches and of the states a
+        donating update is writing count too
+        (``AsyncUpdateHandle.in_flight_bytes``)."""
+        if self._enable_compute_groups and self._groups_checked:
+            names = [cg[0] for cg in self._groups.values()]
+        else:
+            names = list(self._metrics)
+        total = sum(self._metrics[name].total_state_bytes() for name in names)
+        if self._async is not None and not self._async.closed:
+            total += self._async.in_flight_bytes
+        return total
 
     # ------------------------------------------------------------------
     # construction

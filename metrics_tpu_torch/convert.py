@@ -17,6 +17,12 @@ multilabel) and its sketch's row layout at its first update, and ``ROC``,
 nothing of JAX is imported). The capacity buffers (``overflow`` included),
 the binned ``TPs``/``FPs``/``FNs`` and CalibrationError's bin sums carry as
 they are.
+
+:func:`carry_from_jax` carries a whole metric the same way, into the port's
+metric in place: its own states, every child's (wrappers and compositions,
+by their ``_iter_child_metrics`` names), ``MinMaxMetric``'s extremes and
+``BootStrapper``'s ``RandomState``, so an epoch started in the JAX package
+continues here bit for bit.
 """
 from enum import Enum
 from typing import Any, Dict, Mapping, Optional
@@ -68,6 +74,45 @@ def state_from_jax(
             )
         out[name] = tensor
     return out
+
+
+def carry_from_jax(jax_metric: Any, metric: Metric, device: Optional[Any] = None) -> Metric:
+    """Install what ``jax_metric`` accumulated into ``metric`` (the port's
+    metric of the same class and configuration) and return it: the states
+    through :func:`state_from_jax` (``host_from=jax_metric``), recursively
+    into the children, which must have the same names; ``min_val`` and
+    ``max_val`` where the metric keeps them; a ``RandomState``'s state where
+    it keeps one (``BootStrapper``'s draws continue where the JAX ones
+    stopped). Read from ``jax_metric`` by attribute: nothing of JAX is
+    imported."""
+    children = dict(metric._iter_child_metrics())
+    jax_children = dict(jax_metric._iter_child_metrics())
+    if children.keys() != jax_children.keys():
+        raise ValueError(f"child metrics {sorted(jax_children)} do not match {type(metric).__name__}'s {sorted(children)}")
+    if metric._defaults:
+        state = {name: _host_leaf(getattr(jax_metric, name)) for name in jax_metric._defaults}
+        for name, value in state_from_jax(state, metric, device=device, host_from=jax_metric).items():
+            object.__setattr__(metric, name, value)
+    for name, child in children.items():
+        carry_from_jax(jax_children[name], child, device)
+    for name in ("min_val", "max_val"):
+        if isinstance(getattr(metric, name, None), torch.Tensor):
+            setattr(metric, name, _leaf(np.asarray(getattr(jax_metric, name)), getattr(metric, name).device))
+    if isinstance(getattr(metric, "_rng", None), np.random.RandomState):
+        metric._rng.set_state(jax_metric._rng.get_state())
+    metric._mark_state_written()
+    metric._update_called = bool(jax_metric._update_called)
+    return metric
+
+
+def _host_leaf(value: Any) -> Any:
+    """A JAX state leaf as numpy (a list state as a list of them); the
+    eager update counter, a host int there, as int32."""
+    if isinstance(value, (list, tuple)):
+        return [np.asarray(v) for v in value]
+    if isinstance(value, int):
+        return np.asarray(value, dtype=np.int32)
+    return np.asarray(value)
 
 
 def _leaf(value: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -1,1 +1,1 @@
-from metrics_tpu_torch.core.metric import Metric  # noqa: F401
+from metrics_tpu_torch.core.metric import CompositionalMetric, Metric  # noqa: F401

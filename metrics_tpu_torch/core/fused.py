@@ -29,9 +29,11 @@ few copies and one replay:
   mean, custom or None-reduced states, bool sums, or the
   ``__fused_bucket_unsafe__`` flag decline bucketing.
 * **Compute-group dedup** -- once groups are known, only group leaders run.
-* **The eager leg** -- members flagged ``__jit_unsafe__``, wrappers, list
-  ("cat") states and members that fail the probe run their ordinary update
-  in the same call, on the same card with the same kernels.
+* **The eager leg** -- members flagged ``__jit_unsafe__``, wrappers and
+  compositions (members with child metrics), list ("cat") states and
+  members that fail the probe run their ordinary update in the same call,
+  on the same card with the same kernels; ``declined`` names the probe's
+  refusals and the members with child metrics.
 * **The probe** stands in for ``jax.eval_shape``: a member's update runs
   once per batch signature, on a copy of its state, under the capture rule
   of ``utils/checks.py`` and a function mode that raises on every call that
@@ -284,7 +286,8 @@ class FusedUpdate:
         self.n_compiles = 0
         #: members the probe routed to the eager leg for some signature
         self._eager_names: set = set()
-        #: why the probe declined each of them (the first error it met)
+        #: why the probe declined each of them (the first error it met),
+        #: and the wrappers and compositions (members with child metrics)
         self.declined: Dict[str, str] = {}
 
     # graphs, buffers and the collection back-reference are not copied:
@@ -322,34 +325,34 @@ class FusedUpdate:
             return 0
         col = self._collection
         names = [cg[0] for cg in col._groups.values()] if col._groups_checked else list(col._metrics)
-        total = 0
-        for name in names:
-            if self._never_fused(name):
-                continue
-            m = col._metrics[name]
-            for k in m._defaults:
-                v = getattr(m, k)
-                total += v.numel() * v.element_size() if isinstance(v, Tensor) else 4
-        return total
+        return sum(col._metrics[name].total_state_bytes() for name in names if not self._never_fused(name))
 
     @staticmethod
-    def _static_unfusible(m: Metric) -> bool:
-        """``__jit_unsafe__``, a wrapper's child metrics, list states."""
-        if getattr(m, "__jit_unsafe__", False) or getattr(m, "_children", None):
-            return True
-        return any(isinstance(v, list) for v in m._defaults.values()) or any(
+    def _static_unfusible(m: Metric) -> Optional[str]:
+        """Why ``m`` never fuses, or None: ``__jit_unsafe__``, child metrics
+        (a wrapper or a composition), list states."""
+        if m._children:
+            return f"child metrics {sorted(dict(m._iter_child_metrics()))}"
+        if getattr(m, "__jit_unsafe__", False):
+            return "__jit_unsafe__"
+        if any(isinstance(v, list) for v in m._defaults.values()) or any(
             isinstance(getattr(m, k), list) for k in m._defaults
-        )
+        ):
+            return "list states"
+        return None
 
     def _never_fused(self, name: str) -> bool:
-        return self._static_unfusible(self._collection._metrics[name]) or name in self._eager_names
+        return self._static_unfusible(self._collection._metrics[name]) is not None or name in self._eager_names
 
     # ------------------------------------------------------------------
     # fusibility / bucket eligibility
     # ------------------------------------------------------------------
     def _is_fusible(self, name: str, args: Tuple, kwargs: Dict[str, Any], sig: Tuple) -> bool:
         m = self._collection._metrics[name]
-        if self._static_unfusible(m):
+        static = self._static_unfusible(m)
+        if static is not None:
+            if m._children:
+                self.declined.setdefault(name, static)
             return False
         key = (name, sig)
         cached = self._fusible.get(key)

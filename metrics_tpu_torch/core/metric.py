@@ -1,10 +1,17 @@
-"""The ``Metric`` base class.
+"""The ``Metric`` base class and the operator algebra.
 
 Counterpart of ``metrics_tpu/core/metric.py``: the state registry
-(``add_state``), the ``update``/``compute`` lifecycle with the write-epoch
-compute cache, the double-update ``forward``, ``reset``, the pure-state API
-(``init_state`` / ``update_state`` / ``compute_state`` / ``merge_states``)
-and ``state_dict`` / ``load_state_dict``.
+(``add_state``), the child-metric registry of wrappers and compositions
+(``_children``: an attribute holding a ``Metric``, or a non-empty list of
+them, registers as a child), the ``update``/``compute`` lifecycle with the
+write-epoch compute cache, the double-update ``forward`` (which snapshots
+and restores the children's states too), ``reset``, the pure-state API
+(``init_state`` / ``update_state`` / ``compute_state`` / ``merge_states``),
+``state_dict`` / ``load_state_dict`` (children under ``name.`` and
+``name.i.`` prefixes), the state memory accounting (``state_footprint``,
+``total_state_bytes``, ``theoretical_state_bytes``,
+``sketch_fill_ratios``) and :class:`CompositionalMetric`, which the 33
+operator overloads build.
 
 States are tensors on the metric's device (or lists of tensors), held as
 plain attributes. Every update replaces a state with a new tensor and never
@@ -20,23 +27,29 @@ Sketch states (``dist_reduce_fx="merge"`` or a ``merge_like`` reducer:
 own reducer; windowed ring and decay states (``"ring"``/``"decay"``) add
 like sums. Max and min states fold with the JAX package's semantics (NaN
 wins, +0.0 over -0.0 for max): :func:`~metrics_tpu_torch.utils.data.maximum_ieee`.
-``clone``, ``persistent``, ``to_device`` and ``state_reductions`` are the
-JAX package's, and so are ``dtype``/``set_dtype``; a fused update
-(``core/fused.py``) installs its states through ``_mark_fused_written``. Not
-in this slice: the observability hooks, ``CompositionalMetric`` and
+``clone``, ``persistent``, ``to_device``, ``state_reductions``, ``dtype`` and
+``set_dtype`` are the JAX package's, and each recurses into the children; a
+fused update (``core/fused.py``) installs its states through
+``_mark_fused_written``. Not in this slice: the observability hooks and
 cross-process sync (see ``ROADMAP.md``).
+
+A metric defines ``__eq__`` (it builds a composition), so code that
+compares metrics compares them by identity (``is``), never with ``==``,
+``in`` or ``list.index``; and ``__getitem__`` (a composition too), so a
+metric is never iterated: ``iter(metric)`` raises ``TypeError``.
 """
 from abc import ABC, abstractmethod
 from copy import deepcopy
 import inspect
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
+import operator
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from metrics_tpu_torch.parallel.distributed import check_single_process
-from metrics_tpu_torch.sketches.quantile import sketch_merge_fx
+from metrics_tpu_torch.sketches.quantile import _FILL_BOUND, fill_bound, sketch_merge_fx, with_fill_bound
 from metrics_tpu_torch.utils.data import (
     _as_tensor,
     _resolve_device,
@@ -59,6 +72,10 @@ StateValue = Union[Tensor, List[Tensor]]
 #: default weights of `merge_states` on uneven accumulations; negative means
 #: "history unknown" (a checkpoint restored without it)
 _AUTO_COUNT = "_n_updates"
+
+#: key prefix of sketch leaves (merge-like reducers) in ``state_footprint``:
+#: their bytes are a fixed budget, not a growing accumulation
+SKETCH_FOOTPRINT_PREFIX = "sketch/"
 
 _REDUCERS = {
     "sum": dim_zero_sum,
@@ -147,6 +164,8 @@ class Metric(ABC):
     _host_state: Tuple[str, ...] = ()
 
     def __init__(self, device: Optional[Union[str, torch.device]] = None) -> None:
+        # first: every later attribute that holds a metric registers here
+        self._children: Dict[str, Union["Metric", List["Metric"]]] = {}
         self._device = _resolve_device(device)
         self._dtype = torch.float32
         self._update_called = False
@@ -163,6 +182,54 @@ class Metric(ABC):
         self._persistent: Dict[str, bool] = {}
         self._reductions: Dict[str, Optional[Callable]] = {}
         self._cat_states: Dict[str, bool] = {}
+
+    # ------------------------------------------------------------------
+    # child-metric registry (wrappers and compositions)
+    # ------------------------------------------------------------------
+    def __setattr__(self, name: str, value: Any) -> None:
+        children = self.__dict__.get("_children")
+        if children is not None and name != "_children":
+            if isinstance(value, Metric):
+                children[name] = value
+            elif isinstance(value, list) and value and all(isinstance(v, Metric) for v in value):
+                # the copies of BootStrapper and MultioutputWrapper
+                children[name] = value
+            elif name in children:
+                del children[name]
+        object.__setattr__(self, name, value)
+
+    #: a metric is not a sequence, though ``__getitem__`` builds a
+    #: composition: without this, ``iter(metric)`` would never end
+    __iter__ = None
+
+    def _iter_child_metrics(self) -> Iterator[Tuple[str, "Metric"]]:
+        """``(name, metric)`` for every child; list children as ``name.i``."""
+        for name, child in self._children.items():
+            if isinstance(child, list):
+                for i, c in enumerate(child):
+                    yield f"{name}.{i}", c
+            else:
+                yield name, child
+
+    def _snapshot_state(self) -> Dict[str, Any]:
+        """The states of this metric and of its children, recursively (what
+        ``forward`` restores after its batch-only update)."""
+        return {
+            "own": {attr: getattr(self, attr) for attr in self._defaults},
+            "children": {n: c._snapshot_state() for n, c in self._iter_child_metrics()},
+            "update_called": self._update_called,
+            "donated": self._states_donated,
+        }
+
+    def _restore_state(self, snap: Dict[str, Any]) -> None:
+        for attr, val in snap["own"].items():
+            object.__setattr__(self, attr, val)
+        for n, c in self._iter_child_metrics():
+            if n in snap["children"]:
+                c._restore_state(snap["children"][n])
+        self._update_called = snap["update_called"]
+        self._mark_state_written()
+        self._states_donated = snap["donated"]
 
     # ------------------------------------------------------------------
     # state registry
@@ -299,15 +366,14 @@ class Metric(ABC):
     def forward(self, *args: Any, **kwargs: Any) -> Any:
         """Update the accumulated states AND return the metric of this batch
         alone (double update: accumulate; then snapshot, reset, update on
-        the batch, compute, restore)."""
+        the batch, compute, restore). The snapshot holds the children's
+        states too, so a wrapper keeps its children's accumulation."""
         self.update(*args, **kwargs)
-        snapshot = {attr: getattr(self, attr) for attr in self._defaults}
+        snapshot = self._snapshot_state()
         self.reset()
         self.update(*args, **kwargs)
         self._forward_cache = self.compute()
-        for attr, val in snapshot.items():
-            object.__setattr__(self, attr, val)
-        self._mark_state_written()
+        self._restore_state(snapshot)
         self._update_called = True
         return self._forward_cache
 
@@ -315,13 +381,15 @@ class Metric(ABC):
         return self.forward(*args, **kwargs)
 
     def reset(self) -> None:
-        """Restore every state to its default."""
+        """Restore every state, and every child's, to its default."""
         self._update_called = False
         self._states_donated = False
         self._forward_cache = None
         self._mark_state_written()
         for attr, default in self._defaults.items():
             object.__setattr__(self, attr, [] if isinstance(default, list) else _clone_state(default))
+        for _, child in self._iter_child_metrics():
+            child.reset()
 
     # ------------------------------------------------------------------
     # pure-state API
@@ -433,15 +501,70 @@ class Metric(ABC):
         return out
 
     # ------------------------------------------------------------------
+    # state memory accounting
+    # ------------------------------------------------------------------
+    def state_footprint(self, include_children: bool = True) -> Dict[str, int]:
+        """Bytes per state (``numel * element_size``): a list state sums its
+        elements, the eager ``_n_updates`` counter (a host int) counts 4,
+        sketch leaves report under ``"sketch/"`` and children's states under
+        their dotted names. Reads nothing from the card."""
+        out: Dict[str, int] = {}
+        for name in self._defaults:
+            val = getattr(self, name)
+            if isinstance(val, list):
+                out[name] = sum(_nbytes(v) for v in val)
+            elif isinstance(val, int):
+                out[name] = 4
+            else:
+                merge_like = getattr(self._reductions.get(name), "merge_like", False)
+                out[f"{SKETCH_FOOTPRINT_PREFIX}{name}" if merge_like else name] = _nbytes(val)
+        if include_children:
+            for cname, child in self._iter_child_metrics():
+                for key, nb in child.state_footprint().items():
+                    out[f"{cname}.{key}"] = nb
+        return out
+
+    def total_state_bytes(self) -> int:
+        """Bytes held by the states of this metric and of its children."""
+        return sum(self.state_footprint().values())
+
+    def theoretical_state_bytes(self) -> int:
+        """Bytes that the defaults predict at their current dtypes (list
+        states predict 0), children included: equal to
+        :meth:`total_state_bytes` for a fixed-shape metric."""
+        total = sum(_nbytes(d) for d in self._defaults.values() if not isinstance(d, list))
+        return total + sum(child.theoretical_state_bytes() for _, child in self._iter_child_metrics())
+
+    def sketch_fill_ratios(self) -> Dict[str, float]:
+        """Occupied share of each sketch leaf (a reservoir's slot is
+        occupied above -inf, any other sketch's above 0); a ring of sketches
+        reports its fullest slot. Reads the card: never called by
+        ``update``."""
+        out: Dict[str, float] = {}
+        for name, red in self._reductions.items():
+            if not getattr(red, "merge_like", False):
+                continue
+            val = getattr(self, name)
+            if not isinstance(val, Tensor) or val.ndim < 2:
+                continue
+            lead = val[..., 0]
+            occupied = lead > float("-inf") if getattr(red, "sketch_kind", "") == "reservoir" else lead > 0
+            out[name] = float(occupied.to(torch.float32).mean(dim=-1).max())
+        return out
+
+    # ------------------------------------------------------------------
     # persistence
     # ------------------------------------------------------------------
     def persistent(self, mode: bool = False) -> None:
-        """Set every state's ``persistent`` flag to ``mode``."""
+        """Set every state's ``persistent`` flag to ``mode``, children's too."""
         for name in self._persistent:
             self._persistent[name] = mode
+        for _, child in self._iter_child_metrics():
+            child.persistent(mode)
 
     def state_dict(self, destination: Optional[Dict] = None, prefix: str = "") -> Dict[str, Any]:
-        """Flat dict of copies of all states."""
+        """Flat dict of copies of all states; a child's under its name
+        (``metric.`` or, in a list, ``metrics.0.``)."""
         destination = {} if destination is None else destination
         for name in self._defaults:
             current = getattr(self, name)
@@ -451,6 +574,8 @@ class Metric(ABC):
                 destination[prefix + name] = torch.tensor(current, dtype=torch.int32, device=self._device)
             else:
                 destination[prefix + name] = _clone_state(current)
+        for cname, child in self._iter_child_metrics():
+            child.state_dict(destination, prefix=f"{prefix}{cname}.")
         return destination
 
     def load_state_dict(self, state_dict: Dict[str, Any], prefix: str = "") -> None:
@@ -473,6 +598,8 @@ class Metric(ABC):
             object.__setattr__(self, _AUTO_COUNT, torch.tensor(-1, dtype=torch.int32, device=self._device))
         if restored_real_state:
             self._mark_state_written()
+        for cname, child in self._iter_child_metrics():
+            child.load_state_dict(state_dict, prefix=f"{prefix}{cname}.")
 
     def _set_host_state(self, values: Mapping[str, Any]) -> None:
         """Adopt host-side attributes (names from ``_host_state``)."""
@@ -514,6 +641,8 @@ class Metric(ABC):
             leaves, spec = tree_flatten(computed)
             self._computed = tree_unflatten([_cast_state(x, dst_type) for x in leaves], spec)
             self._computed_epoch = self._write_epoch
+        for _, child in self._iter_child_metrics():
+            child.set_dtype(dst_type)
         return self
 
     def to_device(self, device: Union[str, torch.device]) -> "Metric":
@@ -534,12 +663,27 @@ class Metric(ABC):
         template = getattr(self, "_template", None)
         if isinstance(template, Metric):
             template.to_device(device)
+        for _, child in self._iter_child_metrics():
+            child.to_device(device)
         self._mark_state_written()
         return self
 
     def clone(self) -> "Metric":
-        """A deep copy of the metric."""
+        """A deep copy of the metric, its children included."""
         return deepcopy(self)
+
+    def __deepcopy__(self, memo: Dict[int, Any]) -> "Metric":
+        # the ordinary deep copy, then the host-side facts of the sketch
+        # tensors (their occupancy bounds), which the tensors' copies void:
+        # a copied sketch is as full as its original
+        new = self.__class__.__new__(self.__class__)
+        memo[id(self)] = new
+        new.__dict__.update(deepcopy(self.__dict__, memo))
+        for name, default in self._defaults.items():
+            for old, copied in ((default, new._defaults[name]), (getattr(self, name), getattr(new, name))):
+                if isinstance(old, Tensor) and hasattr(old, _FILL_BOUND):
+                    with_fill_bound(copied, fill_bound(old))
+        return new
 
     def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
         """Keep the kwargs that ``self._update`` accepts."""
@@ -549,5 +693,223 @@ class Metric(ABC):
         _params = (inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD)
         return {k: v for k, v in kwargs.items() if k in params and params[k].kind not in _params}
 
+    def __hash__(self) -> int:
+        hash_vals: List[Any] = [self.__class__.__name__, id(self)]
+        for key in self._defaults:
+            val = getattr(self, key)
+            if isinstance(val, list):
+                hash_vals.extend(id(v) for v in val)
+            else:
+                hash_vals.append(id(val))
+        return hash(tuple(hash_vals))
+
     def __repr__(self) -> str:
         return f"{self.__class__.__name__}()"
+
+    # ------------------------------------------------------------------
+    # operator algebra: each operator builds a CompositionalMetric
+    # ------------------------------------------------------------------
+    def __add__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.add, self, other)
+
+    def __radd__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.add, other, self)
+
+    def __sub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.sub, self, other)
+
+    def __rsub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.sub, other, self)
+
+    def __mul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.mul, self, other)
+
+    def __rmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.mul, other, self)
+
+    def __truediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.truediv, self, other)
+
+    def __rtruediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.truediv, other, self)
+
+    def __floordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.floordiv, self, other)
+
+    def __rfloordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.floordiv, other, self)
+
+    def __mod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.mod, self, other)
+
+    def __rmod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.mod, other, self)
+
+    def __pow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.pow, self, other)
+
+    def __rpow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.pow, other, self)
+
+    def __matmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.matmul, self, other)
+
+    def __rmatmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.matmul, other, self)
+
+    def __and__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.and_, self, other)
+
+    def __rand__(self, other: Any) -> "CompositionalMetric":
+        # as in the JAX package: bitwise and commutes, so the order is kept
+        return CompositionalMetric(operator.and_, self, other)
+
+    def __or__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.or_, self, other)
+
+    def __ror__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.or_, other, self)
+
+    def __xor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.xor, self, other)
+
+    def __rxor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.xor, other, self)
+
+    def __eq__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(operator.eq, self, other)
+
+    def __ne__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(operator.ne, self, other)
+
+    def __lt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.lt, self, other)
+
+    def __le__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.le, self, other)
+
+    def __gt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.gt, self, other)
+
+    def __ge__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.ge, self, other)
+
+    def __abs__(self) -> "CompositionalMetric":
+        return CompositionalMetric(operator.abs, self, None)
+
+    def __neg__(self) -> "CompositionalMetric":
+        # the JAX package's quirk: -metric is -|metric|
+        return CompositionalMetric(_neg, self, None)
+
+    def __pos__(self) -> "CompositionalMetric":
+        # the JAX package's quirk: +metric is |metric|
+        return CompositionalMetric(operator.abs, self, None)
+
+    def __invert__(self) -> "CompositionalMetric":
+        return CompositionalMetric(operator.invert, self, None)
+
+    def __getitem__(self, idx: Any) -> "CompositionalMetric":
+        return CompositionalMetric(lambda x: x[idx], self, None)
+
+
+def _nbytes(value: Any) -> int:
+    return value.numel() * value.element_size() if isinstance(value, Tensor) else 0
+
+
+def _neg(x: Tensor) -> Tensor:
+    return -torch.abs(x)
+
+
+def _operand(value: Any, device: torch.device) -> Any:
+    """A composition's operand: a metric or ``None`` as it is, anything else
+    a tensor on ``device`` (host ints int32, floats float32, as
+    ``_state_tensor`` makes defaults)."""
+    if value is None or isinstance(value, Metric):
+        return value
+    return _state_tensor(value, device)
+
+
+class CompositionalMetric(Metric):
+    """Two metrics, or a metric and a constant, joined by an operator.
+
+    ``update`` and ``forward`` pass each child the keyword arguments its
+    update accepts; ``compute`` applies the operator to the children's
+    values (it keeps no cache and no states of its own, and its
+    ``_sync_dist`` does nothing: the children sync themselves). It runs on
+    its first metric operand's device.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import MeanSquaredError
+        >>> mse = MeanSquaredError(device="cpu")
+        >>> rmse = mse ** 0.5
+        >>> rmse.update(torch.tensor([1.0, 2.0]), torch.tensor([2.0, 4.0]))
+        >>> rmse.compute()
+        tensor(1.5811)
+    """
+
+    def __init__(
+        self,
+        operator: Callable,
+        metric_a: Union[Metric, float, int, Tensor],
+        metric_b: Union[Metric, float, int, Tensor, None],
+    ) -> None:
+        metric = metric_a if isinstance(metric_a, Metric) else metric_b
+        super().__init__(device=metric.device if isinstance(metric, Metric) else None)
+        self.op = operator
+        self.metric_a = _operand(metric_a, self._device)
+        self.metric_b = _operand(metric_b, self._device)
+
+    def _sync_dist(self, *args: Any, **kwargs: Any) -> None:
+        pass  # the children sync themselves
+
+    def _update(self, *args: Any, **kwargs: Any) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.update(*args, **self.metric_a._filter_kwargs(**kwargs))
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.update(*args, **self.metric_b._filter_kwargs(**kwargs))
+
+    def _compute(self) -> Any:
+        return self.compute()
+
+    def compute(self) -> Any:
+        val_a = self.metric_a.compute() if isinstance(self.metric_a, Metric) else self.metric_a
+        val_b = self.metric_b.compute() if isinstance(self.metric_b, Metric) else self.metric_b
+        if val_b is None:
+            return self.op(val_a)
+        return self.op(val_a, val_b)
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        val_a = (
+            self.metric_a(*args, **self.metric_a._filter_kwargs(**kwargs))
+            if isinstance(self.metric_a, Metric)
+            else self.metric_a
+        )
+        val_b = (
+            self.metric_b(*args, **self.metric_b._filter_kwargs(**kwargs))
+            if isinstance(self.metric_b, Metric)
+            else self.metric_b
+        )
+        if val_a is None:
+            self._forward_cache = None
+        elif val_b is None:
+            self._forward_cache = None if isinstance(self.metric_b, Metric) else self.op(val_a)
+        else:
+            self._forward_cache = self.op(val_a, val_b)
+        return self._forward_cache
+
+    def reset(self) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.reset()
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.reset()
+        self._update_called = False
+        self._forward_cache = None
+        self._computed = None
+
+    def __repr__(self) -> str:
+        _op_name = getattr(self.op, "__name__", str(self.op))
+        return self.__class__.__name__ + f"(\n  {_op_name}(\n    {repr(self.metric_a)},\n    {repr(self.metric_b)}\n  )\n)"
+
+    def __hash__(self) -> int:
+        return hash((self.__class__.__name__, id(self)))

@@ -120,6 +120,11 @@ def _tensors(args: Tuple, kwargs: Dict[str, Any]) -> list:
     return [x for x in leaves if isinstance(x, torch.Tensor)]
 
 
+def _payload_nbytes(args: Tuple, kwargs: Dict[str, Any]) -> int:
+    """Bytes of a queued batch's tensors (host attributes only)."""
+    return sum(t.numel() * t.element_size() for t in _tensors(args, kwargs))
+
+
 class AsyncUpdateHandle:
     """Handle returned by :meth:`MetricCollection.compile_update_async`.
 
@@ -158,6 +163,7 @@ class AsyncUpdateHandle:
         self._state_lock = threading.Lock()
         self._snapshot_waiters = 0
         self._pending = 0  # accepted batches not yet applied
+        self._in_flight_bytes = 0
         self._attempts = 0  # batch-index source; a rejected batch consumes one
         self._enqueued = 0
         self._applied = 0
@@ -215,6 +221,14 @@ class AsyncUpdateHandle:
         """Batches applied to the metric states."""
         with self._cond:
             return self._applied
+
+    @property
+    def in_flight_bytes(self) -> int:
+        """Bytes held by the queued batches, plus (when the update donates)
+        the state buffers of the batch being applied: what the states'
+        footprint does not show while batches are in flight."""
+        with self._cond:
+            return self._in_flight_bytes
 
     @property
     def state_lock(self) -> "threading.Lock":
@@ -283,6 +297,7 @@ class AsyncUpdateHandle:
                 f"{name}() on a closed AsyncUpdateHandle; call compile_update_async() again after reset()/close()"
             )
         ready = None
+        nbytes = _payload_nbytes(args, kwargs)
         if self._stream is not None:
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(self._device))
@@ -294,25 +309,26 @@ class AsyncUpdateHandle:
             self._attempts += 1
             self._enqueued += 1
             self._pending += 1
+            self._in_flight_bytes += nbytes
             self._pending_wall[idx] = time.time()
-        return (idx, args, kwargs, ready)
+        return (idx, args, kwargs, ready, nbytes)
 
-    def _reject(self, idx: int) -> None:
+    def _reject(self, item: Tuple) -> None:
         with self._cond:
             self._enqueued -= 1
             self._pending -= 1
-            self._pending_wall.pop(idx, None)
+            self._in_flight_bytes -= item[4]
+            self._pending_wall.pop(item[0], None)
 
     def update_async(self, *args: Any, **kwargs: Any) -> bool:
         """Enqueue one batch and return: ``True`` when accepted, ``False``
         when the ``drop`` policy discarded it. Raises a kept worker error
         (:class:`AsyncWorkerError`) first. Reads nothing back."""
         item = self._accept("update_async", args, kwargs)
-        idx = item[0]
         # single producer: only the worker changes the queue meanwhile, and
         # it only drains, so not-full cannot turn full before the put
         if self.policy != "block" and self._queue.full():
-            self._reject(idx)
+            self._reject(item)
             if self.policy == "error":
                 raise AsyncQueueFull(
                     f"async update queue is full (depth {self.queue_depth}); the producer outran the"
@@ -327,13 +343,10 @@ class AsyncUpdateHandle:
     def _enqueue_lossless(self, item: Tuple) -> None:
         """Wait for a queue slot, then put. A dead worker (interpreter
         teardown) raises instead of parking the producer forever."""
-        idx = item[0]
         with self._cond:
             while self._queue.full():
                 if not self._thread.is_alive():
-                    self._enqueued -= 1
-                    self._pending -= 1
-                    self._pending_wall.pop(idx, None)
+                    self._reject(item)  # the condition's lock is reentrant
                     raise MetricsUserError(
                         "async update worker thread is not running; the queue cannot drain"
                         " (was the interpreter shutting down?)"
@@ -427,6 +440,7 @@ class AsyncUpdateHandle:
                     continue
                 with self._cond:
                     self._pending -= 1
+                    self._in_flight_bytes -= item[4]
                     self._pending_wall.pop(item[0], None)
                     self._cond.notify_all()
         while True:
@@ -459,13 +473,20 @@ class AsyncUpdateHandle:
     def _drain_item(self, item: Tuple) -> None:
         """Apply one dequeued batch. Everything fallible runs inside the
         error capture, so a raise poisons the handle and releases waiters."""
-        idx, args, kwargs, ready = item
+        idx, args, kwargs, ready, nbytes = item
         with self._cond:
             self._cond.notify_all()  # a slot is free: wake a blocked producer
         err: Optional[BaseException] = None
+        donated = 0
         poisoned = self._error is not None or self._discard
         if not poisoned:
             try:
+                if self._fused.donating:
+                    # the update writes the current state buffers in place
+                    # until it ends: they count as in flight meanwhile
+                    donated = self._fused.donated_state_bytes()
+                    with self._cond:
+                        self._in_flight_bytes += donated
                 with self._state_lock:
                     if self._stream is None:
                         self._fused.dispatch(args, kwargs)
@@ -479,6 +500,7 @@ class AsyncUpdateHandle:
                 err = e
         with self._cond:
             self._pending -= 1
+            self._in_flight_bytes -= nbytes + donated
             t_wall = self._pending_wall.pop(idx, None)
             if err is not None and self._error is None:
                 self._error = (idx, err)

@@ -61,6 +61,8 @@ Tensor = torch.Tensor
 #: per-slice row counter: the sum-reduced ``[S]`` int32 state every
 #: SlicedMetric registers beside the wrapped leaves
 SLICE_ROWS = "_slice_rows"
+#: key prefix of this wrapper's states in ``state_footprint``
+SLICED_FOOTPRINT_PREFIX = "sliced/"
 
 #: reducers with an exact slice-axis scatter
 _SLICEABLE = {dim_zero_sum: "sum", dim_zero_max: "max", dim_zero_min: "min"}
@@ -124,7 +126,10 @@ class SlicedMetric(Metric):
         self.num_slices = num_slices
         # the wrapped metric is a TEMPLATE: its pure update and compute run
         # per row and per slice; its own states are never accumulated
-        self._template = _template_of(metric)
+        # set past the child registry: the template is not a child (a child
+        # would send this metric to a fused update's eager leg, and its
+        # placeholder states would count in the footprint)
+        object.__setattr__(self, "_template", _template_of(metric))
         for name, red in self._template._reductions.items():
             default = self._template._defaults[name]
             self.add_state(name, default=default.expand((num_slices,) + tuple(default.shape)), dist_reduce_fx=red)
@@ -149,6 +154,12 @@ class SlicedMetric(Metric):
             raise MetricsUserError(
                 f"`{cls_name}` declares `__jit_unsafe__`: its update cannot be vmapped, so it"
                 " cannot run inside the sliced scatter."
+            )
+        if metric._children:
+            raise MetricsUserError(
+                f"`{cls_name}` is a wrapper metric (child registry"
+                f" {sorted(dict(metric._iter_child_metrics()))}); slice the inner"
+                " metric directly instead of the wrapper."
             )
         for name, red in metric._reductions.items():
             if isinstance(metric._defaults[name], list):
@@ -369,6 +380,11 @@ class SlicedMetric(Metric):
         total = torch.clamp(counts.sum(dtype=torch.int32), min=1)
         ids = self._top_ids(min(k, self.num_slices))
         return ids, counts[ids.long()].to(torch.float32) / total.to(torch.float32)
+
+    def state_footprint(self, include_children: bool = True) -> Dict[str, int]:
+        """Bytes per state, every key under ``"sliced/"``."""
+        base = super().state_footprint(include_children=include_children)
+        return {f"{SLICED_FOOTPRINT_PREFIX}{k}": v for k, v in base.items()}
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}({type(self._template).__name__}(), num_slices={self.num_slices})"

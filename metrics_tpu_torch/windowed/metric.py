@@ -63,6 +63,8 @@ RING_ROWS = "_ring_rows"
 RING_COUNT = "_ring_count"
 #: decayed effective sample weight ``sum_i alpha**i``, float32 scalar
 DECAY_WEIGHT = "_decay_weight"
+#: key prefix of this wrapper's states in ``state_footprint``
+WINDOWED_FOOTPRINT_PREFIX = "windowed/"
 
 _RESERVED = (RING_ROWS, RING_COUNT, DECAY_WEIGHT)
 _MODES = ("ring", "decay")
@@ -128,7 +130,10 @@ class WindowedMetric(Metric):
         self.window = int(window)
         self.updates_per_bucket = int(updates_per_bucket)
         self._alpha = float(decay) if decay is not None else None
-        self._template = _template_of(metric)
+        # set past the child registry: the template is not a child (a child
+        # would send this metric to a fused update's eager leg, and its
+        # placeholder states would count in the footprint)
+        object.__setattr__(self, "_template", _template_of(metric))
         m = self._template
         if mode == "ring":
             for name, red in m._reductions.items():
@@ -160,6 +165,12 @@ class WindowedMetric(Metric):
             raise MetricsUserError(
                 f"`{cls_name}` declares `__jit_unsafe__` — its update cannot trace, so it"
                 " cannot run inside the windowed ring/decay kernel."
+            )
+        if metric._children:
+            raise MetricsUserError(
+                f"`{cls_name}` is a wrapper metric (child registry"
+                f" {sorted(dict(metric._iter_child_metrics()))}); window the inner"
+                " metric directly instead of the wrapper."
             )
         for name, red in metric._reductions.items():
             if isinstance(metric._defaults[name], list):
@@ -347,6 +358,11 @@ class WindowedMetric(Metric):
         return self._undonated(
             _squeeze_if_scalar(self._template.compute_state(self.window_state(window, before=before or 0)))
         )
+
+    def state_footprint(self, include_children: bool = True) -> Dict[str, int]:
+        """Bytes per state, every key under ``"windowed/"``."""
+        base = super().state_footprint(include_children=include_children)
+        return {f"{WINDOWED_FOOTPRINT_PREFIX}{k}": v for k, v in base.items()}
 
     def __repr__(self) -> str:
         inner = type(self._template).__name__

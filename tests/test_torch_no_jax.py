@@ -23,8 +23,12 @@ for name in names:
 for name in ("core.fused", "core.pipeline", "observability.freshness", "classification.hinge",
              "classification.kl_divergence", "functional.classification.dice", "utils.prng",
              "sketches.rank", "regression.spearman", "regression.pearson", "regression.cosine_similarity",
-             "functional.regression.tweedie_deviance", "functional.regression.r2"):
+             "functional.regression.tweedie_deviance", "functional.regression.r2", "aggregation",
+             "wrappers", "wrappers.bootstrapping", "wrappers.classwise", "wrappers.minmax", "wrappers.multioutput",
+             "wrappers.tracker", "functional.pairwise", "functional.pairwise.helpers", "functional.pairwise.cosine",
+             "functional.pairwise.euclidean", "functional.pairwise.linear", "functional.pairwise.manhattan"):
     assert "metrics_tpu_torch." + name in names, name
+from metrics_tpu_torch import BootStrapper, CompositionalMetric, MeanMetric, MetricTracker  # noqa: F401
 import chip_smoke
 assert not any(k == "jax" or k.startswith(("jax.", "metrics_tpu.")) for k, v in sys.modules.items() if v is not None)
 print(len(names))
