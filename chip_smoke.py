@@ -305,6 +305,43 @@ Phases, each printed as one JSON line:
    embeddings and manhattan over [2048, 512], reduction None and "mean",
    one input and two: each within 1e-6 of its largest float64 value,
    bit-equal with TF32 switched on by the caller, 0 host syncs;
+18k. the sync families: two ranks spawned on cuda:0 in one gloo
+   group (the collectives take the card tensors; the folds run on the
+   card), every rank's stream split by batch (rank r: r, r + 2, ...):
+   sync-flagship -- ConfusionMatrix(1000) and AUROC(1000, capacity=65536)
+   over the 12 seed-42 batches, and Accuracy(1000, dist_sync_on_step=True)
+   through forward; sync-sketch -- AUROC() over sketch-binary's 6,553,600
+   samples (each rank past capacity: K3 + K1 once per merge), the first
+   8192 samples split (inside the window: no K3, against one without the
+   exchanged occupancy bounds), ROC() and AveragePrecision() over
+   curve-binary; sync-retrieval -- RetrievalNormalizedDCG and RetrievalMAP
+   (max_docs 256: lossless) over config 4 with documents dealt in chunks of
+   64, so most queries live on both ranks (one K4 per table merge);
+   sync-map -- MeanAveragePrecision(class_metrics=True) over config 3's
+   5000 images; sync-sliced -- SlicedMetric(PSNR(), 1000) over
+   sliced-psnr's 16 updates and WindowedMetric(MSE(), window=8) over 40.
+   Each sync is recorded: its ms, bytes gathered, collective rounds, host
+   reads and each kernel's launches (held to world - 1 per sketch and table
+   leaf, none elsewhere), every rank's synced states equal (sha256 of their
+   bits), and rank 0's held bit for bit against the CPU's plain folds of the
+   same gathers; each synced compute() timed (median of 3). Gates: the
+   confusion matrix bit-equal to one process over all 12 batches, AUROC
+   within 1e-6 of scipy, each forward value the global batch's accuracy;
+   the sketched values within 5e-3 of exact, the window bit-equal to one
+   process; NDCG and MAP bit-equal to one process's exact=True and to its
+   table; every mAP key bit-equal to one process; sliced and
+   windowed counts, max and min bit-equal to one process, float sums and
+   values within rtol 1e-6;
+18l. sync-bundle -- BASELINE config 6 on the card: eight ranks on cuda:0,
+   each with a ConfusionMatrix(1000) and a binary AUROC(capacity=65536)
+   (about 4.6 MB), synced per metric (Metric.sync) and in one sync_pytree
+   call over the collection's state_reductions(), 3 + 20 times each: p50 and
+   p95 ms per rank, bytes and rounds; the synced bundle equal on every rank
+   and between the two paths;
+18m. nccl-world1 -- the NCCL transport in a one-process group: card
+   tensors of every state dtype (bfloat16 NaN payloads of both signs
+   among them) all-gathered as bytes, the same bits back (multi-rank NCCL
+   needs a card per rank: not measured);
 19. the kernels line: per kernel its launches on its main path (flagship for
    K1, sketch-binary for K3, map-coco for K6, the entry point ops.box_iou
    on 2-D boxes for K5, retrieval-mslr for K4, sliced-psnr for K2 and
@@ -326,7 +363,9 @@ Phases, each printed as one JSON line:
    the wrapper issues, merge passes and combines included, summed) with the
    number of profiler windows it took (a window that saw no launch is taken
    again, at most five in all; when all miss, the CUDA-event time of the
-   back-to-back calls, and ``device_ms_source`` says which).
+   back-to-back calls, and ``device_ms_source`` says which); and each
+   kernel's launches inside the sync phases' syncs, by phase and rank
+   (``sync_launches``).
 
 PERF.md gives the run times measured on an H100 and where they go. Then the card's name
 and power limit as nvidia-smi reports them, and last
@@ -334,11 +373,16 @@ and power limit as nvidia-smi reports them, and last
 raises, so the script exits non-zero and prints no result line; it does the
 same without CUDA, or without the metrics_tpu_torch package beside it.
 """
+import hashlib
 import json
 import math
+import os
 import re
+import shutil
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -534,6 +578,30 @@ BOOT_BATCHES = 24
 BOOT_COPIES = 50
 BOOT_CPU_UPDATES = 2
 # multioutput-regression: surface normals at regression-depth's frame size
+# cross-process sync: ranks spawned on cuda:0 in a gloo group
+SYNC_DEVICE = "cuda"
+SYNC_WORLD = 2
+SYNC_TIMEOUT_S = 600
+SYNC_COMPUTE_REPEATS = 3
+SYNC_RETRIEVAL_CHUNK = 64
+SYNC_RETRIEVAL_MAX_DOCS = 256
+BUNDLE_WORLD = 8
+BUNDLE_TIMEOUT_S = 300
+BUNDLE_WARMUP = 3
+BUNDLE_ITERS = 20
+#: the kernels a sync's launches are held to (K1-K6)
+SYNC_GATED_KERNELS = (
+    "bincount_i32",
+    "segment_sum_f32",
+    "segment_sum_i32",
+    "segment_max_f32",
+    "segment_min_f32",
+    "qsketch_sort_bucket",
+    "row_topk",
+    "box_iou_pairwise",
+    "box_iou_batched",
+)
+
 NORMAL_SEED = 13000
 NORMAL_NOISE = 0.1
 NORMAL_INVALID = 0.1
@@ -4521,6 +4589,618 @@ def pairwise_embeddings_phase(torch, ops, card, tm):
     )
 
 
+# ---------------------------------------------------------------------------
+# cross-process sync: ranks spawned on the one card, joined in a gloo group
+# ---------------------------------------------------------------------------
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(fn, world, args, timeout_s):
+    """``fn(rank, world, port, out_dir, *args)`` in ``world`` spawned
+    processes; returns each rank's JSON result. A rank that raises or exits
+    fails the phase (its error is raised here), and so does the deadline;
+    every rank still running then is killed."""
+    import torch.multiprocessing as mp
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_sync_")
+    ctx = mp.start_processes(
+        fn, args=(world, free_port(), out_dir) + tuple(args), nprocs=world, join=False, start_method="spawn"
+    )
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=5.0):
+            check(time.monotonic() < deadline, f"{fn.__name__}: ranks still running after {timeout_s} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(10)
+    results = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            results.append(json.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return results
+
+
+def join_gloo(torch, rank, world, port):
+    import datetime
+
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo",
+        init_method=f"tcp://127.0.0.1:{port}",
+        rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=SYNC_TIMEOUT_S),
+    )
+
+
+def digest(torch, *tensors):
+    """sha256 of the tensors' bits (host copies: the cross-rank check only)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(bits(torch, t).numpy().tobytes())
+    return h.hexdigest()
+
+
+def alone(x, group=None):
+    """A gather over a world of one: a metric built with it inside a process
+    group computes on its own states (the one-process references)."""
+    return [x]
+
+
+def timed_collective(torch, ops, dist_mod, fn):
+    """``fn()`` once, all ranks started together, with the kernel launch and
+    collective counters reset: ``(result, ms, launches, collectives)``."""
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    ops.reset_launch_counts()
+    dist_mod.reset_collective_counts()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    return result, ms, launches, dist_mod.collective_counts()
+
+
+def recording(dist_mod, log):
+    """The process group's gather, keeping what each call returned."""
+
+    def gather(x, group=None):
+        out = dist_mod.gather_all_arrays(x, group)
+        log.append(out)
+        return out
+
+    return gather
+
+
+def cpu_replay_sync(torch, metric, log):
+    """Sync ``metric`` (a CPU copy of a card metric, taken before its sync)
+    with the gathers the card's sync recorded, copied to the host with their
+    occupancy bounds: the plain folds on the CPU."""
+    from metrics_tpu_torch.sketches.quantile import _FILL_BOUND, fill_bound, with_fill_bound
+
+    calls = iter(log)
+
+    def gather(x, group=None):
+        out = []
+        for g in next(calls):
+            host = g.detach().cpu()
+            if hasattr(g, _FILL_BOUND):
+                with_fill_bound(host, fill_bound(g))
+            out.append(host)
+        return out
+
+    metric.sync(dist_sync_fn=gather)
+    states = {k: getattr(metric, k) for k in metric._defaults}
+    metric.unsync()
+    return states
+
+
+def checked_sync(torch, ops, dist_mod, rank, metric, expected_launches, label):
+    """One sync of ``metric`` through the process group, recorded: its ms,
+    launches (held to ``expected_launches``) and collectives; on rank 0 the
+    synced states held bit for bit against the CPU's plain folds of the same
+    gathers. Returns ``(report, synced states)``; the metric is unsynced."""
+    twin = metric.clone().to_device("cpu") if rank == 0 else None
+    log = []
+    _, ms, launches, coll = timed_collective(torch, ops, dist_mod, lambda: metric.sync(dist_sync_fn=recording(dist_mod, log)))
+    synced = {k: getattr(metric, k) for k in metric._defaults}
+    check(metric._is_synced, f"{label}: the metric did not sync")
+    for kernel, want in expected_launches.items():
+        check(launches.get(kernel, 0) == want, f"{label}: {kernel} launched {launches.get(kernel, 0)} times in a sync, expected {want}")
+    unexpected = {k: v for k, v in launches.items() if k not in expected_launches and k in SYNC_GATED_KERNELS}
+    check(not unexpected, f"{label}: kernels launched in a sync where none was expected: {unexpected}")
+    report = {
+        "sync_ms": ms,
+        "bytes_gathered": coll["bytes_received"],
+        "rounds": coll["rounds"],
+        "host_reads": coll["host_reads"],
+        "launches": launches,
+        "state_bytes": metric.total_state_bytes(),
+        "states_digest": digest(torch, *[v for v in synced.values() if isinstance(v, torch.Tensor)]),
+    }
+    if rank == 0:
+        cpu = cpu_replay_sync(torch, twin, log)
+        differ = [k for k, v in synced.items() if isinstance(v, torch.Tensor) and not torch.equal(bits(torch, v), bits(torch, cpu[k]))]
+        check(not differ, f"{label}: synced states differ from the CPU's plain folds: {differ}")
+        report["cpu_plain_folds_equal"] = True
+    metric.unsync()
+    # one more sync under torch.profiler: the device's share of a sync
+    torch.distributed.barrier()
+    prof = device_profile(torch, lambda i: metric.sync(), 1, host_ops=False)
+    metric.unsync()
+    report["profiled_sync"] = {
+        "wall_ms": prof["profiled_wall_ms_per_step"],
+        "device_ms": prof["device_busy_ms_per_step"],
+        "device_idle_share": 1 - prof["device_busy_ms_per_step"] / prof["profiled_wall_ms_per_step"],
+        "device_us_by_kernel": prof["device_us_per_step_by_kernel"],
+        "wrapper_kernels_seen": device_launches(prof["kernel_calls"]),
+    }
+    return report, synced
+
+
+def synced_compute(torch, ops, dist_mod, metric, repeats=SYNC_COMPUTE_REPEATS):
+    """``compute()`` (sync, compute, unsync) ``repeats`` times in step on
+    every rank: the last value, the median ms and the first one's launches
+    and collectives."""
+    times, first = [], None
+    for _ in range(repeats):
+        metric._computed = None
+        value, ms, launches, coll = timed_collective(torch, ops, dist_mod, metric.compute)
+        times.append(ms)
+        first = first or (launches, coll)
+    check(not metric._is_synced, "compute() left the metric synced")
+    return value, {"compute_ms": float(np.median(times)), "compute_ms_all": times, "compute_launches": first[0], "compute_collectives": first[1]}
+
+
+def sync_flagship_rank(torch, ops, tm, dist_mod, rank, world):
+    """ConfusionMatrix(1000) + AUROC(1000, capacity=65536) over the 12 seed-42
+    batches, rank r taking batches r, r + world, ...; Accuracy(1000,
+    dist_sync_on_step=True) through forward on the same batches."""
+    device = torch.device(SYNC_DEVICE)
+    preds_np, target_np = make_data(STATEFUL_BATCHES)
+    mine = list(range(rank, STATEFUL_BATCHES, world))
+    preds = torch.from_numpy(preds_np[mine]).to(device)
+    target = torch.from_numpy(target_np[mine]).to(device)
+    cm = tm.ConfusionMatrix(num_classes=NUM_CLASSES)
+    auroc = tm.AUROC(num_classes=NUM_CLASSES, capacity=CAPACITY)
+    for i in range(len(mine)):
+        cm.update(preds[i], target[i])
+        auroc.update(preds[i], target[i])
+    out = {}
+    out["confmat_sync"], synced_cm = checked_sync(torch, ops, dist_mod, rank, cm, {}, "sync-flagship confmat")
+    out["auroc_sync"], _ = checked_sync(torch, ops, dist_mod, rank, auroc, {}, "sync-flagship auroc")
+    auc, out["auroc_compute"] = synced_compute(torch, ops, dist_mod, auroc)
+    check(out["auroc_compute"]["compute_launches"].get("segment_sum_f32") == 1, f"sync-flagship: compute launches {out['auroc_compute']['compute_launches']}")
+    _, out["confmat_compute"] = synced_compute(torch, ops, dist_mod, cm)
+    out["macro_auroc"] = float(auc)
+    if rank == 0:
+        one = tm.ConfusionMatrix(num_classes=NUM_CLASSES, dist_sync_fn=alone)
+        all_preds, all_target = torch.from_numpy(preds_np).to(device), torch.from_numpy(target_np).to(device)
+        for i in range(STATEFUL_BATCHES):
+            one.update(all_preds[i], all_target[i])
+        check(torch.equal(synced_cm["confmat"], one.confmat), "sync-flagship: synced confusion matrix differs from one process")
+        rows = STATEFUL_BATCHES * BATCH
+        _, ref = numpy_auroc(preds_np.reshape(rows, -1), target_np.reshape(-1), NUM_CLASSES)
+        out["auroc_abs_err_vs_scipy"] = abs(float(auc) - ref)
+        check(out["auroc_abs_err_vs_scipy"] <= 1e-6, f"sync-flagship: AUROC off the scipy reference by {out['auroc_abs_err_vs_scipy']}")
+        del all_preds, all_target
+    # forward with dist_sync_on_step: each step's value is the global batch's
+    acc = tm.Accuracy(num_classes=NUM_CLASSES, dist_sync_on_step=True)
+    values, times = [], []
+    for i in range(len(mine)):
+        value, ms, _, _ = timed_collective(torch, ops, dist_mod, lambda: acc(preds[i], target[i]))
+        values.append(float(value))
+        times.append(ms)
+    pred_labels = preds_np.argmax(axis=-1)
+    for step, value in enumerate(values):
+        batch = list(range(step * world, min((step + 1) * world, STATEFUL_BATCHES)))
+        want = float(np.float32((pred_labels[batch] == target_np[batch]).sum()) / np.float32(len(batch) * BATCH))
+        check(abs(value - want) <= 1e-7, f"sync-flagship: forward step {step} gave {value}, the global batch {want}")
+    local = float((pred_labels[mine] == target_np[mine]).mean())
+    acc.dist_sync_fn = alone  # the local accumulation
+    check(abs(float(acc.compute()) - local) <= 1e-6, "sync-flagship: forward changed the local accumulation")
+    out["forward_values"] = values
+    out["forward_ms"] = float(np.median(times))
+    return out
+
+
+def sketch_sync_parts(torch, ops, dist_mod, rank, metric, label):
+    """A sketched metric's checked sync past capacity (K3 + K1 world - 1
+    times for its sketch leaf) and its synced compute."""
+    world = torch.distributed.get_world_size()
+    expected = {"qsketch_sort_bucket": world - 1, "segment_sum_f32": world - 1}
+    report, synced = checked_sync(torch, ops, dist_mod, rank, metric, expected, label)
+    value, compute = synced_compute(torch, ops, dist_mod, metric)
+    return {**report, **compute}, synced, value
+
+
+def sync_sketch_rank(torch, ops, tm, dist_mod, rank, world):
+    """AUROC() over sketch-binary's click log (rank r: batches r, r + world,
+    ...), the lossless window's first 8192 samples split, and ROC() and
+    AveragePrecision() over curve-binary's stream."""
+    from metrics_tpu_torch.sketches import sketch_merge_fx
+
+    device = torch.device(SYNC_DEVICE)
+    score_np, y_np = make_ctr_stream(SKETCH_BATCHES * SKETCH_BATCH)
+    score, y = torch.from_numpy(score_np).to(device), torch.from_numpy(y_np).to(device)
+    out = {}
+    m = tm.AUROC()
+    for b in range(rank, SKETCH_BATCHES, world):
+        m.update(score[b * SKETCH_BATCH : (b + 1) * SKETCH_BATCH], y[b * SKETCH_BATCH : (b + 1) * SKETCH_BATCH])
+    out["auroc"], synced, value = sketch_sync_parts(torch, ops, dist_mod, rank, m, "sync-sketch auroc")
+    out["auroc"]["value"] = float(value)
+    if rank == 0:
+        exact = midrank_auroc(score_np, y_np)
+        out["auroc"]["abs_err_vs_exact"] = abs(float(value) - exact)
+        check(out["auroc"]["abs_err_vs_exact"] <= 5e-3, f"sync-sketch: AUROC {float(value)} off exact {exact}")
+        check(float(synced["csketch"][:, 0].sum()) == SKETCH_BATCHES * SKETCH_BATCH, "sync-sketch: synced sketch weight")
+    # the lossless window: the first 8192 samples, rank r the r-th part
+    part = SKETCH_CAPACITY // world
+    w = tm.AUROC()
+    w.update(score[rank * part : (rank + 1) * part], y[rank * part : (rank + 1) * part])
+    out["window"], synced_w = checked_sync(
+        torch, ops, dist_mod, rank, w, {"qsketch_sort_bucket": 0, "segment_sum_f32": 0}, "sync-sketch window"
+    )
+    gathered = dist_mod.gather_all_arrays(w.csketch)
+    bare = torch.stack([g.clone() for g in gathered])  # without the ranks' occupancy bounds
+    ops.reset_launch_counts()
+    bare_merge = sketch_merge_fx()(bare)
+    torch.cuda.synchronize()
+    out["window"]["launches_without_bounds"] = {k: v for k, v in ops.launch_counts().items() if v}
+    check(torch.equal(bits(torch, bare_merge), bits(torch, synced_w["csketch"])), "sync-sketch: the bounds changed the merged window")
+    if rank == 0:
+        one = tm.AUROC(dist_sync_fn=alone)
+        one.update(score[: part * world], y[: part * world])
+        check(torch.equal(bits(torch, synced_w["csketch"]), bits(torch, one.csketch)), "sync-sketch: synced window differs from one process")
+        check(torch.equal(synced_w["n_seen"], one.n_seen), "sync-sketch: synced window count differs")
+    # ROC and AveragePrecision, sketched, over curve-binary's stream
+    curve_scores, curve_labels = make_curve_stream()
+    cs, cl = torch.from_numpy(curve_scores).to(device), torch.from_numpy(curve_labels).to(device)
+    roc, ap = tm.ROC(), tm.AveragePrecision()
+    for b in range(rank, CURVE_BATCHES, world):
+        roc.update(cs[b], cl[b])
+        ap.update(cs[b], cl[b])
+    out["roc"], _, (fpr, tpr, _) = sketch_sync_parts(torch, ops, dist_mod, rank, roc, "sync-sketch roc")
+    out["ap"], _, ap_value = sketch_sync_parts(torch, ops, dist_mod, rank, ap, "sync-sketch ap")
+    roc_area = float(torch.trapezoid(tpr.double(), fpr.double()))
+    out["roc"]["area"], out["ap"]["value"] = roc_area, float(ap_value)
+    if rank == 0:
+        flat_s, flat_y = curve_scores.reshape(-1), curve_labels.reshape(-1)
+        out["roc"]["abs_err_vs_exact"] = abs(roc_area - midrank_auroc(flat_s, flat_y))
+        out["ap"]["abs_err_vs_exact"] = abs(float(ap_value) - numpy_step_ap(flat_s, flat_y))
+        check(out["roc"]["abs_err_vs_exact"] <= 5e-3 and out["ap"]["abs_err_vs_exact"] <= 5e-3, f"sync-sketch: ROC/AP off exact {out['roc']}, {out['ap']}")
+    return out
+
+
+def retrieval_split(n_docs, rank, world):
+    """Document positions of rank ``rank``: chunks of SYNC_RETRIEVAL_CHUNK
+    documents dealt in turn, so most queries live on every rank."""
+    pos = np.arange(n_docs)
+    return pos[(pos // SYNC_RETRIEVAL_CHUNK) % world == rank]
+
+
+def sync_retrieval_rank(torch, ops, tm, dist_mod, rank, world):
+    """RetrievalNormalizedDCG + RetrievalMAP (lossless tables) over config 4,
+    documents dealt to the ranks by chunk; one K4 per table merge."""
+    device = torch.device(SYNC_DEVICE)
+    idx_np, preds_np, target_np = make_mslr_stream()
+    mine = retrieval_split(idx_np.shape[0], rank, world)
+    stream = stream_on(torch, (idx_np[mine], preds_np[mine], target_np[mine]), device)
+    kw = dict(max_queries=RETRIEVAL_MAX_QUERIES, max_docs=SYNC_RETRIEVAL_MAX_DOCS)
+    ndcg, rmap = tm.RetrievalNormalizedDCG(**kw), tm.RetrievalMAP(**kw)
+    idx, preds, target = stream
+    for start in range(0, idx.shape[0], RETRIEVAL_UPDATE_DOCS):
+        sl = slice(start, start + RETRIEVAL_UPDATE_DOCS)
+        ndcg.update(preds[sl], target[sl], indexes=idx[sl])
+        rmap.update(preds[sl], target[sl], indexes=idx[sl])
+    out = {}
+    values = {}
+    for name, m in (("ndcg", ndcg), ("map", rmap)):
+        out[name], _ = checked_sync(torch, ops, dist_mod, rank, m, {"row_topk": world - 1}, f"sync-retrieval {name}")
+        value, compute = synced_compute(torch, ops, dist_mod, m)
+        out[name].update(compute)
+        values[name] = value
+        out[name]["value"] = float(value)
+    if rank == 0:
+        whole = stream_on(torch, (idx_np, preds_np, target_np), device)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            exact = {
+                "ndcg": tm.RetrievalNormalizedDCG(exact=True, dist_sync_fn=alone),
+                "map": tm.RetrievalMAP(exact=True, dist_sync_fn=alone),
+            }
+        tables = {"ndcg": tm.RetrievalNormalizedDCG(dist_sync_fn=alone, **kw), "map": tm.RetrievalMAP(dist_sync_fn=alone, **kw)}
+        for start in range(0, idx_np.shape[0], RETRIEVAL_UPDATE_DOCS):
+            sl = slice(start, start + RETRIEVAL_UPDATE_DOCS)
+            for m in (*exact.values(), *tables.values()):
+                m.update(whole[1][sl], whole[2][sl], indexes=whole[0][sl])
+        for name in ("ndcg", "map"):
+            ex, one = exact[name].compute(), tables[name].compute()
+            out[name]["abs_diff_vs_exact"] = abs(float(values[name]) - float(ex))
+            out[name]["bit_equal_to_exact"] = bool(torch.equal(bits(torch, values[name]), bits(torch, ex)))
+            out[name]["bit_equal_to_one_process_table"] = bool(torch.equal(bits(torch, values[name]), bits(torch, one)))
+            check(
+                out[name]["bit_equal_to_exact"] and out[name]["bit_equal_to_one_process_table"],
+                f"sync-retrieval: {name} {float(values[name])} is not one process's exact=True {float(ex)} or table {float(one)}",
+            )
+    return out
+
+
+def sync_map_rank(torch, ops, tm, dist_mod, rank, world):
+    """MeanAveragePrecision over config 3's 5000 images, batches of 16 dealt
+    to the ranks in turn; every key against one process over all images."""
+    device = torch.device(SYNC_DEVICE)
+    preds_np, target_np = make_detection_data(MAP_IMAGES)
+    starts = list(range(0, MAP_IMAGES, MAP_BATCH))
+    m = tm.MeanAveragePrecision(class_metrics=True, max_images=MAP_LOSSLESS_CAPACITY)
+    for lo in starts[rank::world]:
+        m.update(images_on(torch, preds_np[lo : lo + MAP_BATCH], device), images_on(torch, target_np[lo : lo + MAP_BATCH], device))
+    out, _ = checked_sync(torch, ops, dist_mod, rank, m, {}, "sync-map")
+    value, compute = synced_compute(torch, ops, dist_mod, m, repeats=1)
+    out.update(compute)
+    check(compute["compute_launches"].get("box_iou_batched", 0) >= 1, f"sync-map: compute launches {compute['compute_launches']}")
+    out["map"] = float(value["map"])
+    out["values_digest"] = digest(torch, *[value[k] for k in sorted(value)])
+    if rank == 0:
+        one = tm.MeanAveragePrecision(class_metrics=True, max_images=MAP_LOSSLESS_CAPACITY, dist_sync_fn=alone)
+        for lo in starts:
+            one.update(images_on(torch, preds_np[lo : lo + MAP_BATCH], device), images_on(torch, target_np[lo : lo + MAP_BATCH], device))
+        want = one.compute()
+        differ = [k for k in want if not torch.equal(bits(torch, value[k]), bits(torch, want[k]))]
+        out["keys_differing_from_one_process"] = differ
+        check(not differ, f"sync-map: keys differ from one process: {differ}")
+    return out
+
+
+def sync_sliced_rank(torch, ops, tm, dist_mod, rank, world):
+    """SlicedMetric(PSNR(), 1000) over sliced-psnr's 16 updates (rank r:
+    updates r, r + world, ...), and WindowedMetric(MSE(), window=8) over 40
+    updates, against one process over all updates."""
+    from metrics_tpu_torch.utils.data import dim_zero_sum
+
+    sliced = tm.SlicedMetric(tm.PeakSignalNoiseRatio(), PSNR_TENANTS)
+    for i in range(rank, PSNR_UPDATES, world):
+        sliced.update(*psnr_batch(torch, PSNR_SEED + i))
+    window = tm.WindowedMetric(tm.MeanSquaredError(), window=8)
+    for i in range(rank, WINDOW_UPDATES, world):
+        window.update(*psnr_batch(torch, WINDOW_SEED + i)[1:])
+    out = {}
+    out["sliced"], synced_s = checked_sync(torch, ops, dist_mod, rank, sliced, {}, "sync-sliced sliced")
+    value_s, compute = synced_compute(torch, ops, dist_mod, sliced)
+    out["sliced"].update(compute)
+    out["windowed"], synced_w = checked_sync(torch, ops, dist_mod, rank, window, {}, "sync-sliced windowed")
+    value_w, compute = synced_compute(torch, ops, dist_mod, window)
+    out["windowed"].update(compute)
+    if rank == 0:
+        one_s = tm.SlicedMetric(tm.PeakSignalNoiseRatio(), PSNR_TENANTS, dist_sync_fn=alone)
+        for i in range(PSNR_UPDATES):
+            one_s.update(*psnr_batch(torch, PSNR_SEED + i))
+        # each rank's bucket b is update b of its share: one process puts
+        # two updates in a bucket
+        one_w = tm.WindowedMetric(tm.MeanSquaredError(), window=8, updates_per_bucket=world, dist_sync_fn=alone)
+        for i in range(WINDOW_UPDATES):
+            one_w.update(*psnr_batch(torch, WINDOW_SEED + i)[1:])
+        worst = 0.0
+        for m, synced, one, skip in ((sliced, synced_s, one_s, ()), (window, synced_w, one_w, ("_ring_count",))):
+            for name, red in m._reductions.items():
+                if name in skip:
+                    continue
+                got, want = synced[name], getattr(one, name)
+                if got.is_floating_point() and (red is dim_zero_sum or getattr(red, "inner_reduce", None) == "sum"):
+                    # float sums: the rank-order fold adds in another order
+                    rel = float(((got.double() - want.double()).abs() / want.double().abs().clamp(min=1e-30)).max())
+                    worst = max(worst, rel)
+                    check(rel <= 1e-6, f"sync-sliced: {name} off one process by rtol {rel}")
+                else:  # integer counts, max and min
+                    check(torch.equal(bits(torch, got), bits(torch, want)), f"sync-sliced: {name} differs from one process")
+        out["float_sum_max_rel_err"] = worst
+        for label, got, want in (("sliced", value_s, one_s.compute()), ("windowed", value_w, one_w.compute())):
+            same_nan = torch.equal(torch.isnan(got), torch.isnan(want))
+            ok = ~torch.isnan(want)
+            rel = float(((got[ok].double() - want[ok].double()).abs() / want[ok].double().abs()).max()) if ok.any() else 0.0
+            out[label]["value_max_rel_err"] = rel
+            check(same_nan and rel <= 1e-6, f"sync-sliced: {label} values off one process by rtol {rel}")
+    return out
+
+
+SYNC_PHASES = {
+    "sync-flagship": sync_flagship_rank,
+    "sync-sketch": sync_sketch_rank,
+    "sync-retrieval": sync_retrieval_rank,
+    "sync-map": sync_map_rank,
+    "sync-sliced": sync_sliced_rank,
+}
+
+
+def sync_families_rank(rank, world, port, out_dir, phases):
+    """One rank of the 2-rank sync families: each phase in turn, then its
+    results to ``out_dir``."""
+    import torch
+
+    join_gloo(torch, rank, world, port)
+    try:
+        from metrics_tpu_torch import ops
+
+        tm = import_module("metrics_tpu_torch")
+        dist_mod = import_module("metrics_tpu_torch.parallel.distributed")
+        out = {}
+        for name in phases:
+            t0 = time.perf_counter()
+            out[name] = SYNC_PHASES[name](torch, ops, tm, dist_mod, rank, world)
+            out[name]["phase_seconds"] = time.perf_counter() - t0
+            torch.distributed.barrier()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def bundle_rank(rank, world, port, out_dir):
+    """BASELINE config 6 on the card: a ConfusionMatrix(1000) and a binary
+    AUROC(capacity=65536) per rank, synced per metric (Metric.sync) and in
+    one sync_pytree round, each 3 + 20 times."""
+    import torch
+
+    join_gloo(torch, rank, world, port)
+    try:
+        from metrics_tpu_torch import ops
+
+        tm = import_module("metrics_tpu_torch")
+        dist_mod = import_module("metrics_tpu_torch.parallel.distributed")
+        device = torch.device(SYNC_DEVICE)
+        gen = torch.Generator(device=SYNC_DEVICE).manual_seed(rank)
+        col = tm.MetricCollection(
+            {"confmat": tm.ConfusionMatrix(num_classes=NUM_CLASSES), "auroc": tm.AUROC(capacity=CAPACITY)}, compute_groups=False
+        )
+        n = CAPACITY // world
+        col["confmat"].update(
+            torch.randint(0, NUM_CLASSES, (BATCH,), generator=gen, device=device), torch.randint(0, NUM_CLASSES, (BATCH,), generator=gen, device=device)
+        )
+        col["auroc"].update(torch.rand(n, generator=gen, device=device), torch.randint(0, 2, (n,), generator=gen, device=device))
+        metrics = list(col.values())
+
+        def per_metric():
+            for m in metrics:
+                m.sync()
+
+        def unsync_all():
+            for m in metrics:
+                m.unsync()
+
+        state = {name: {k: getattr(m, k) for k in m._defaults} for name, m in col.items()}
+        reductions = col.state_reductions()
+        out = {"state_bytes": sum(m.total_state_bytes() for m in metrics)}
+        for label, run, after in (
+            ("per_metric_sync", per_metric, unsync_all),
+            ("sync_pytree", lambda: dist_mod.sync_pytree(state, reductions), lambda: None),
+        ):
+            times = []
+            for i in range(BUNDLE_WARMUP + BUNDLE_ITERS):
+                result, ms, launches, coll = timed_collective(torch, ops, dist_mod, run)
+                if i == 0:
+                    if label == "per_metric_sync":
+                        flat = [getattr(m, k).reshape(-1) for m in metrics for k in m._defaults]
+                    else:
+                        flat = [result[name][k].reshape(-1) for name, m in col.items() for k in m._defaults]
+                    out[f"{label}_digest"] = digest(torch, *flat)
+                    out[f"{label}_collectives"] = coll
+                    out[f"{label}_launches"] = launches
+                after()
+                if i >= BUNDLE_WARMUP:
+                    times.append(ms)
+            out[f"{label}_p50_ms"] = float(np.percentile(times, 50))
+            out[f"{label}_p95_ms"] = float(np.percentile(times, 95))
+            out[f"{label}_ms"] = times
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def sync_phases(torch, card):
+    """The 2-rank sync families in one spawn, then the 8-rank bundle; each
+    phase's line carries every rank's numbers. Returns each kernel's
+    launches in the syncs, by phase and rank."""
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(sync_families_rank, SYNC_WORLD, (list(SYNC_PHASES),), SYNC_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    kernel_launches = {}
+    for name in SYNC_PHASES:
+        per_rank = [r[name] for r in ranks]
+        # every rank holds the same synced states and values
+        for key, section in per_rank[0].items():
+            if isinstance(section, dict) and "states_digest" in section:
+                check(all(r[key]["states_digest"] == section["states_digest"] for r in per_rank), f"{name}: {key} synced states differ across ranks")
+                for r, rank_out in enumerate(per_rank):
+                    for kernel, count in rank_out[key]["launches"].items():
+                        kernel_launches.setdefault(kernel, {}).setdefault(f"{name} {key}" if key else name, []).append(count)
+        if "states_digest" in per_rank[0]:
+            check(all(r["states_digest"] == per_rank[0]["states_digest"] for r in per_rank), f"{name}: synced states differ across ranks")
+            for rank_out in per_rank:
+                for kernel, count in rank_out["launches"].items():
+                    kernel_launches.setdefault(kernel, {}).setdefault(name, []).append(count)
+        if "values_digest" in per_rank[0]:
+            check(all(r["values_digest"] == per_rank[0]["values_digest"] for r in per_rank), f"{name}: synced values differ across ranks")
+        emit({"phase": name, "card": card, "world": SYNC_WORLD, "backend": "gloo", "device": f"{SYNC_DEVICE}:0", "ranks": per_rank})
+    t0 = time.perf_counter()
+    bundle = spawn_ranks(bundle_rank, BUNDLE_WORLD, (), BUNDLE_TIMEOUT_S)
+    bundle_s = time.perf_counter() - t0
+    for key in ("per_metric_sync_digest", "sync_pytree_digest"):
+        check(all(r[key] == bundle[0][key] for r in bundle), f"sync-bundle: {key} differs across ranks")
+    check(bundle[0]["per_metric_sync_digest"] == bundle[0]["sync_pytree_digest"], "sync-bundle: sync_pytree differs from per-metric sync")
+    emit(
+        {
+            "phase": "sync-bundle",
+            "card": card,
+            "world": BUNDLE_WORLD,
+            "backend": "gloo",
+            "device": f"{SYNC_DEVICE}:0",
+            "state_bytes_per_rank": bundle[0]["state_bytes"],
+            "per_metric_sync": {
+                "p50_ms": [r["per_metric_sync_p50_ms"] for r in bundle],
+                "p95_ms": [r["per_metric_sync_p95_ms"] for r in bundle],
+                "collectives": bundle[0]["per_metric_sync_collectives"],
+            },
+            "sync_pytree": {
+                "p50_ms": [r["sync_pytree_p50_ms"] for r in bundle],
+                "p95_ms": [r["sync_pytree_p95_ms"] for r in bundle],
+                "collectives": bundle[0]["sync_pytree_collectives"],
+            },
+            "launches": bundle[0]["per_metric_sync_launches"],
+            "spawn_seconds": bundle_s,
+        }
+    )
+    emit({"phase": "sync-spawns", "families_seconds": spawn_s, "bundle_seconds": bundle_s})
+    return kernel_launches
+
+
+def nccl_world1_phase(torch, card):
+    """The NCCL transport in a one-process group: card tensors of every state
+    dtype, viewed as bytes, all-gathered; the bits that come back are the
+    bits that went in (multi-rank NCCL needs a card per rank)."""
+    dist = torch.distributed
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1)
+    try:
+        gen = torch.Generator(device=SYNC_DEVICE).manual_seed(9)
+        base = torch.randn(4097, generator=gen, device=SYNC_DEVICE) * 1e3
+        nan_payload = torch.tensor([0x7FC1, -61, 0x7F81, -32768], dtype=torch.int16, device=SYNC_DEVICE)
+        cases = {
+            "float32": base,
+            "float64": base.double(),
+            "float16": base.half(),
+            "bfloat16": torch.cat([base.bfloat16(), nan_payload.view(torch.bfloat16)]),
+            "int32": base.int(),
+            "int64": base.long(),
+            "bool": base > 0,
+            "uint8": base.to(torch.uint8),
+        }
+        results = {}
+        for name, x in cases.items():
+            raw = x.contiguous().view(torch.uint8) if x.dtype != torch.uint8 else x
+            out = [torch.empty_like(raw)]
+            t0 = time.perf_counter()
+            dist.all_gather(out, raw)
+            torch.cuda.synchronize()
+            back = out[0].view(x.dtype) if x.dtype != torch.uint8 else out[0]
+            same = torch.equal(out[0], raw) and torch.equal(back.view(torch.uint8) if x.dtype != torch.uint8 else back, raw)
+            check(same, f"nccl-world1: {name} bits changed")
+            results[name] = {"bytes": raw.numel(), "ms": (time.perf_counter() - t0) * 1e3}
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "nccl-world1", "card": card, "backend": "nccl", "world": 1, "dtypes": results, "multi_rank_nccl": "not measured: one card"})
+
+
 def main():
     import torch
 
@@ -4752,6 +5432,9 @@ def main():
     bootstrap_auroc_phase(torch, ops, card, tm)
     multioutput_regression_phase(torch, ops, card, tm)
     pairwise_embeddings_phase(torch, ops, card, tm)
+    # cross-process sync: 2 ranks (the families), 8 (the bundle), NCCL alone
+    sync_launches = sync_phases(torch, card)
+    nccl_world1_phase(torch, card)
     # K5 is reached by 2-D boxes through the entry point ops.box_iou
     gen = torch.Generator(device="cpu").manual_seed(5)
     k5_inputs = [(iou_boxes(torch, gen, n).cuda(), iou_boxes(torch, gen, m).cuda()) for n, m in K5_PARITY_SHAPES]
@@ -4888,6 +5571,9 @@ def main():
     # CalibrationError's sums (launches at that shape), bincount_i32 at the
     # weighted AP's supports, K3 at curve-binary's compactions
     kernels += curve_kernel_lines(torch, ops, curve_mc, curve_launches, curve_k3)
+    # each kernel's launches inside the sync phases' syncs, by phase and rank
+    for entry in kernels:
+        entry["sync_launches"] = sync_launches.get(entry["name"], {})
     emit({"phase": "kernel_times", "card": card})
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -53,8 +53,9 @@ class BaseAggregator(Metric):
         default_value: Union[Tensor, List],
         nan_strategy: Union[str, float] = "error",
         device: Any = None,
+        **kwargs: Any,
     ) -> None:
-        super().__init__(device=device)
+        super().__init__(device=device, **kwargs)
         allowed_nan_strategy = ("error", "warn", "ignore")
         if nan_strategy not in allowed_nan_strategy and not isinstance(nan_strategy, float):
             raise ValueError(
@@ -113,8 +114,8 @@ class MaxMetric(BaseAggregator):
 
     _nan_neutral = float("-inf")
 
-    def __init__(self, nan_strategy: Union[str, float] = "warn", device: Any = None) -> None:
-        super().__init__("max", -float("inf"), nan_strategy, device=device)
+    def __init__(self, nan_strategy: Union[str, float] = "warn", device: Any = None, **kwargs: Any) -> None:
+        super().__init__("max", -float("inf"), nan_strategy, device=device, **kwargs)
 
     def _update(self, value: Union[float, Tensor]) -> None:
         value = self._cast_and_nan_check_input(value)
@@ -127,8 +128,8 @@ class MinMetric(BaseAggregator):
 
     _nan_neutral = float("inf")
 
-    def __init__(self, nan_strategy: Union[str, float] = "warn", device: Any = None) -> None:
-        super().__init__("min", float("inf"), nan_strategy, device=device)
+    def __init__(self, nan_strategy: Union[str, float] = "warn", device: Any = None, **kwargs: Any) -> None:
+        super().__init__("min", float("inf"), nan_strategy, device=device, **kwargs)
 
     def _update(self, value: Union[float, Tensor]) -> None:
         value = self._cast_and_nan_check_input(value)
@@ -141,8 +142,8 @@ class SumMetric(BaseAggregator):
 
     _nan_neutral = 0.0
 
-    def __init__(self, nan_strategy: Union[str, float] = "warn", device: Any = None) -> None:
-        super().__init__("sum", 0.0, nan_strategy, device=device)
+    def __init__(self, nan_strategy: Union[str, float] = "warn", device: Any = None, **kwargs: Any) -> None:
+        super().__init__("sum", 0.0, nan_strategy, device=device, **kwargs)
 
     def _update(self, value: Union[float, Tensor]) -> None:
         value = self._cast_and_nan_check_input(value)
@@ -153,8 +154,8 @@ class SumMetric(BaseAggregator):
 class CatMetric(BaseAggregator):
     """Concatenation of a stream of values (a list state: never fused)."""
 
-    def __init__(self, nan_strategy: Union[str, float] = "warn", device: Any = None) -> None:
-        super().__init__("cat", [], nan_strategy, device=device)
+    def __init__(self, nan_strategy: Union[str, float] = "warn", device: Any = None, **kwargs: Any) -> None:
+        super().__init__("cat", [], nan_strategy, device=device, **kwargs)
 
     def _update(self, value: Union[float, Tensor]) -> None:
         value = self._cast_and_nan_check_input(value)
@@ -179,8 +180,8 @@ class MeanMetric(BaseAggregator):
         tensor(1.5000)
     """
 
-    def __init__(self, nan_strategy: Union[str, float] = "warn", device: Any = None) -> None:
-        super().__init__("sum", 0.0, nan_strategy, device=device)
+    def __init__(self, nan_strategy: Union[str, float] = "warn", device: Any = None, **kwargs: Any) -> None:
+        super().__init__("sum", 0.0, nan_strategy, device=device, **kwargs)
         self.add_state("weight", default=0.0, dist_reduce_fx="sum")
 
     def _update(self, value: Union[float, Tensor], weight: Union[float, Tensor] = 1.0) -> None:

@@ -18,6 +18,7 @@ import torch
 
 from metrics_tpu_torch.core.metric import Metric
 from metrics_tpu_torch.observability.freshness import FreshnessStamp, merge_stamps
+from metrics_tpu_torch.parallel.distributed import distributed_available as _dist_available
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
@@ -257,10 +258,15 @@ class MetricCollection:
         """Compute each metric; group members borrow the leader's state.
         With an async handle open, a bounded-staleness snapshot: wait until
         at most ``max_staleness`` accepted batches are unapplied, then read
-        between whole batches."""
+        between whole batches; a compute that syncs across processes drains
+        the handle first."""
         handle = self._async if self._async is not None and not self._async.closed else None
         if handle is None:
             return self._compute_metrics()
+        if _dist_available() or any(m.dist_sync_fn is not None for m in self._metrics.values()):
+            # a synced read folds every rank's states: none may be behind
+            # the batches accepted here, whatever the staleness bound
+            handle._wait_drained()
         handle._before_compute()
         applied_mark = handle.applied
         try:

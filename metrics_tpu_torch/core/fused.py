@@ -418,6 +418,10 @@ class FusedUpdate:
         synchronises is one-time (the probe, a capture, the first call's
         compute-group discovery) or belongs to the eager leg."""
         col = self._collection
+        for m in col._metrics.values():
+            # the synced states are the cross-rank reduction; the graphs'
+            # static buffers wait in the metric's cache for unsync
+            m._raise_if_synced()
         args = _to_device_inputs(args, self._device)
         kwargs = _to_device_inputs(kwargs, self._device)
         leaders = [cg[0] for cg in col._groups.values()] if col._groups_checked else list(col._metrics)

@@ -30,8 +30,20 @@ wins, +0.0 over -0.0 for max): :func:`~metrics_tpu_torch.utils.data.maximum_ieee
 ``clone``, ``persistent``, ``to_device``, ``state_reductions``, ``dtype`` and
 ``set_dtype`` are the JAX package's, and each recurses into the children; a
 fused update (``core/fused.py``) installs its states through
-``_mark_fused_written``. Not in this slice: the observability hooks and
-cross-process sync (see ``ROADMAP.md``).
+``_mark_fused_written``.
+
+**Cross-process sync** is the JAX package's state machine on
+``torch.distributed`` (``parallel/distributed.py``): ``compute`` runs inside
+``sync_context``, which gathers every state from every rank, folds it by its
+reducer, computes and puts the local states back. ``sync`` installs new
+tensors and never writes into a state, so a donating fused update's static
+buffers are left as they are, and ``unsync`` puts the very same objects
+back. ``update`` and ``forward`` raise while synced. A ``dist_sync_fn``
+(``fn(x, group=...) -> [one tensor per rank]``) replaces the gather, which
+is how a simulated world drives it. In a real group every rank must compute
+in step: each sync is a series of collectives that every rank enters in
+the same order. Not in this slice: the observability hooks (see
+``ROADMAP.md``).
 
 A metric defines ``__eq__`` (it builds a composition), so code that
 compares metrics compares them by identity (``is``), never with ``==``,
@@ -39,17 +51,25 @@ compares metrics compares them by identity (``is``), never with ``==``,
 metric is never iterated: ``iter(metric)`` raises ``TypeError``.
 """
 from abc import ABC, abstractmethod
+from contextlib import contextmanager
 from copy import deepcopy
 import inspect
 import operator
-from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Generator, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
-from metrics_tpu_torch.parallel.distributed import check_single_process
-from metrics_tpu_torch.sketches.quantile import _FILL_BOUND, fill_bound, sketch_merge_fx, with_fill_bound
+from metrics_tpu_torch.parallel.distributed import distributed_available as _dist_available
+from metrics_tpu_torch.parallel.distributed import gather_all_arrays
+from metrics_tpu_torch.sketches.quantile import (
+    _FILL_BOUND,
+    fill_bound,
+    sketch_merge_fx,
+    stack_with_fill_bounds,
+    with_fill_bound,
+)
 from metrics_tpu_torch.utils.data import (
     _as_tensor,
     _resolve_device,
@@ -148,9 +168,11 @@ class Metric(ABC):
     Subclasses implement ``_update(self, ...)`` (reading and assigning the
     registered states) and ``_compute(self)``. ``device=None`` means the
     card; without CUDA that raises, so CPU use is asked for explicitly with
-    ``device="cpu"``. The JAX package's sync arguments (``dist_sync_on_step``,
-    ``process_group``, ``dist_sync_fn``) arrive with the ``torch.distributed``
-    slice.
+    ``device="cpu"``. The sync arguments are the JAX package's:
+    ``dist_sync_on_step`` (``forward``'s batch value is synced too),
+    ``process_group`` (the ``torch.distributed`` group to sync over, the
+    default group when None), ``dist_sync_fn`` (replaces the gather) and the
+    deprecated ``compute_on_step``, which has no effect.
     """
 
     is_differentiable: Optional[bool] = None
@@ -163,11 +185,42 @@ class Metric(ABC):
     #: :func:`metrics_tpu_torch.convert.state_from_jax`
     _host_state: Tuple[str, ...] = ()
 
-    def __init__(self, device: Optional[Union[str, torch.device]] = None) -> None:
+    def __init__(
+        self,
+        device: Optional[Union[str, torch.device]] = None,
+        *,
+        dist_sync_on_step: bool = False,
+        process_group: Optional[Any] = None,
+        dist_sync_fn: Optional[Callable] = None,
+        compute_on_step: Optional[bool] = None,
+    ) -> None:
         # first: every later attribute that holds a metric registers here
         self._children: Dict[str, Union["Metric", List["Metric"]]] = {}
         self._device = _resolve_device(device)
         self._dtype = torch.float32
+        if compute_on_step is not None:
+            rank_zero_warn(
+                "Argument `compute_on_step` is deprecated and has no effect; `forward` always"
+                " returns the batch value.",
+                DeprecationWarning,
+            )
+        if not isinstance(dist_sync_on_step, bool):
+            raise ValueError(
+                f"Expected keyword argument `dist_sync_on_step` to be an `bool` but got {dist_sync_on_step}"
+            )
+        if dist_sync_fn is not None and not callable(dist_sync_fn):
+            raise ValueError(
+                f"Expected keyword argument `dist_sync_fn` to be an callable function but got {dist_sync_fn}"
+            )
+        self.dist_sync_on_step = dist_sync_on_step
+        self.process_group = process_group
+        self.dist_sync_fn = dist_sync_fn
+        # sync state machine: `forward` flips the first two for its batch
+        # compute; `_cache` holds the local states while synced
+        self._to_sync = True
+        self._should_unsync = True
+        self._is_synced = False
+        self._cache: Optional[Dict[str, StateValue]] = None
         self._update_called = False
         self._forward_cache: Any = None
         self._computed: Any = None
@@ -175,6 +228,9 @@ class Metric(ABC):
         # `_computed` is served only while it was folded at the current epoch
         self._write_epoch: int = 0
         self._computed_epoch: int = -1
+        # whether the cached value is a synced one: a local read never gets
+        # a synced value, nor the reverse
+        self._computed_synced = False
         # set while the states may be a donating fused update's static
         # buffers, which its next replay overwrites in place
         self._states_donated = False
@@ -230,6 +286,8 @@ class Metric(ABC):
         self._update_called = snap["update_called"]
         self._mark_state_written()
         self._states_donated = snap["donated"]
+        self._is_synced = False
+        self._cache = None
 
     # ------------------------------------------------------------------
     # state registry
@@ -339,8 +397,15 @@ class Metric(ABC):
             spec,
         )
 
+    def _raise_if_synced(self) -> None:
+        if self._is_synced:
+            raise MetricsUserError(
+                "The Metric shouldn't be synced when performing ``update``. HINT: Did you forget to call ``unsync``?."
+            )
+
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Accumulate a batch into the states. numpy inputs go to the metric's device."""
+        self._raise_if_synced()
         self._write_epoch += 1
         self._computed = None
         self._update_called = True
@@ -348,32 +413,50 @@ class Metric(ABC):
         self._bump_auto_count(eager=True)
 
     def compute(self) -> Any:
-        """Compute (and cache) the metric from the accumulated states."""
+        """Compute (and cache) the metric from the accumulated states,
+        synced across processes first where there are several (or a
+        ``dist_sync_fn`` was given); the local states are put back after."""
         if not self._update_called:
             rank_zero_warn(
                 f"The ``compute`` method of metric {self.__class__.__name__} was called before"
                 " the ``update`` method which may lead to errors, as metric states have not yet been updated.",
                 UserWarning,
             )
-        if self._computed is not None and self._computed_epoch == self._write_epoch:
+        synced = self._to_sync and (_dist_available() or self.dist_sync_fn is not None)
+        if (
+            self._computed is not None
+            and self._computed_epoch == self._write_epoch
+            and self._computed_synced == synced
+        ):
             return self._computed
-        check_single_process()
         epoch0 = self._write_epoch
-        self._computed = self._undonated(_squeeze_if_scalar(self._compute()))
-        self._computed_epoch = epoch0
+        with self.sync_context(
+            dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
+        ):
+            self._computed = self._undonated(_squeeze_if_scalar(self._compute()))
+            self._computed_epoch = epoch0
+            self._computed_synced = synced
         return self._computed
 
     def forward(self, *args: Any, **kwargs: Any) -> Any:
         """Update the accumulated states AND return the metric of this batch
         alone (double update: accumulate; then snapshot, reset, update on
         the batch, compute, restore). The snapshot holds the children's
-        states too, so a wrapper keeps its children's accumulation."""
+        states too, so a wrapper keeps its children's accumulation. With
+        ``dist_sync_on_step`` the batch value is synced across processes."""
+        self._raise_if_synced()
         self.update(*args, **kwargs)
         snapshot = self._snapshot_state()
-        self.reset()
-        self.update(*args, **kwargs)
-        self._forward_cache = self.compute()
-        self._restore_state(snapshot)
+        self._to_sync = self.dist_sync_on_step
+        self._should_unsync = False
+        try:
+            self.reset()
+            self.update(*args, **kwargs)
+            self._forward_cache = self.compute()
+        finally:
+            self._restore_state(snapshot)
+            self._should_unsync = True
+            self._to_sync = True
         self._update_called = True
         return self._forward_cache
 
@@ -385,11 +468,121 @@ class Metric(ABC):
         self._update_called = False
         self._states_donated = False
         self._forward_cache = None
+        self._is_synced = False
+        self._cache = None
         self._mark_state_written()
         for attr, default in self._defaults.items():
             object.__setattr__(self, attr, [] if isinstance(default, list) else _clone_state(default))
         for _, child in self._iter_child_metrics():
             child.reset()
+
+    # ------------------------------------------------------------------
+    # cross-process sync
+    # ------------------------------------------------------------------
+    def _sync_dist(self, dist_sync_fn: Callable = gather_all_arrays, process_group: Optional[Any] = None) -> None:
+        """Replace every state by its cross-rank reduction: each tensor state
+        is gathered (``dist_sync_fn``), stacked ``[world, ...]`` with the
+        ranks' sketch occupancy bounds, and folded by its reducer (None
+        keeps the stack). A list state is concatenated first, so it costs one
+        gather whatever its length, and an empty one still gathers (zero
+        rows). The eager ``_n_updates`` counter gathers as an int32 tensor.
+        Tensors are installed, never written in place."""
+        group = process_group or self.process_group
+        for attr, reduction_fn in self._reductions.items():
+            value = getattr(self, attr)
+            if isinstance(value, int):
+                value = torch.tensor(value, dtype=torch.int32, device=self._device)
+            if isinstance(value, list):
+                synced = self._sync_list(value, reduction_fn, dist_sync_fn, group)
+            else:
+                stacked = stack_with_fill_bounds(dist_sync_fn(value, group=group))
+                synced = stacked if reduction_fn is None else reduction_fn(stacked)
+            object.__setattr__(self, attr, synced)
+
+    def _sync_list(
+        self, value: List[Tensor], reduction_fn: Optional[Callable], dist_sync_fn: Callable, group: Any
+    ) -> StateValue:
+        """A list state across ranks. With a reducer (``"cat"``): every rank's
+        rows, reduced (the concatenation in rank order), or ``[]`` where no
+        rank has any. Without one: every rank's entries, rank by rank, each
+        as it was appended (a second gather carries the entry lengths)."""
+        entries = [torch.atleast_1d(v) for v in value]
+        if entries:
+            local = torch.cat(entries) if len(entries) > 1 else entries[0]
+        else:
+            local = torch.zeros((0,), device=self._device)
+        rows = dist_sync_fn(local, group=group)
+        if reduction_fn is not None:
+            kept = [r for r in rows if r.shape[0]]
+            return reduction_fn(kept) if kept else []
+        lengths = torch.tensor([e.shape[0] for e in entries], dtype=torch.int64, device=self._device)
+        per_rank = dist_sync_fn(lengths, group=group)
+        sizes = torch.cat([s.reshape(-1) for s in per_rank]).tolist()
+        out: List[Tensor] = []
+        for r, s in zip(rows, per_rank):
+            n = s.numel()
+            out.extend(torch.split(r, sizes[:n]))
+            sizes = sizes[n:]
+        return out
+
+    def sync(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        distributed_available: Optional[Callable] = _dist_available,
+    ) -> None:
+        """Replace the states by their cross-process reduction (kept local
+        states go back with :meth:`unsync`). Nothing happens with one
+        process and no ``dist_sync_fn`` (this call's or the constructor's);
+        a ``dist_sync_fn`` alone makes a simulated world."""
+        if self._is_synced and should_sync:
+            raise MetricsUserError("The Metric has already been synced.")
+        is_distributed = distributed_available() if callable(distributed_available) else None
+        if dist_sync_fn is None:
+            dist_sync_fn = self.dist_sync_fn
+        if not should_sync or not (is_distributed or dist_sync_fn is not None):
+            return
+        if dist_sync_fn is None:
+            dist_sync_fn = gather_all_arrays
+        self._cache = {attr: getattr(self, attr) for attr in self._defaults}
+        self._sync_dist(dist_sync_fn, process_group=process_group)
+        self._is_synced = True
+
+    def unsync(self, should_unsync: bool = True) -> None:
+        """Put back the local states that :meth:`sync` kept (the same objects)."""
+        if not should_unsync:
+            return
+        if not self._is_synced:
+            raise MetricsUserError("The Metric has already been un-synced.")
+        if self._cache is None:
+            raise MetricsUserError("The internal cache should exist to unsync the Metric.")
+        for attr, val in self._cache.items():
+            object.__setattr__(self, attr, val)
+        self._is_synced = False
+        self._cache = None
+
+    @contextmanager
+    def sync_context(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        should_unsync: bool = True,
+        distributed_available: Optional[Callable] = _dist_available,
+    ) -> Generator:
+        """Sync on entry and put the local states back on exit (an exception
+        inside leaves the metric unsynced too)."""
+        self.sync(
+            dist_sync_fn=dist_sync_fn,
+            process_group=process_group,
+            should_sync=should_sync,
+            distributed_available=distributed_available,
+        )
+        try:
+            yield
+        finally:
+            self.unsync(should_unsync=self._is_synced and should_unsync)
 
     # ------------------------------------------------------------------
     # pure-state API
@@ -835,8 +1028,8 @@ class CompositionalMetric(Metric):
     ``update`` and ``forward`` pass each child the keyword arguments its
     update accepts; ``compute`` applies the operator to the children's
     values (it keeps no cache and no states of its own, and its
-    ``_sync_dist`` does nothing: the children sync themselves). It runs on
-    its first metric operand's device.
+    ``_sync_dist`` does nothing: the children sync themselves, each by its
+    own sync arguments). It runs on its first metric operand's device.
 
     Example:
         >>> import torch

@@ -1,20 +1,79 @@
-"""Cross-process state synchronisation (single-process only in this slice)
-and the scalar ``reduce`` helper.
+"""Cross-process state synchronisation on ``torch.distributed``, and the
+scalar ``reduce``/``class_reduce`` helpers.
 
-Counterpart of ``metrics_tpu/parallel/distributed.py``. With one process
-the world size is 1 and syncing a state is the identity. A metric computed
-inside an initialised ``torch.distributed`` group of more than one process
-raises instead of returning a rank-local value: the ``torch.distributed``
-sync is its own item of the port (ROADMAP.md, queue A).
+Counterpart of ``metrics_tpu/parallel/distributed.py``. The process group
+takes the place of the JAX package's mesh axis:
+
+* :func:`gather_all_arrays` -- one tensor per rank, each with its true
+  shape (the reference's ``gather_all_tensors`` contract). Tensors travel
+  as **bytes**: each is viewed as ``uint8`` for the collective and viewed
+  back, so every dtype (``bool``, ``bfloat16``, ``float16`` included) and
+  every NaN bit arrives as it left, whatever dtypes the backend moves.
+  Card tensors go to the collective as they are (NCCL moves them on the
+  card; gloo stages CUDA tensors itself); nothing is copied to the host to
+  be synced. A header exchange (one small int64 tensor, the one host read
+  of a gather) gives every rank the others' dtypes, shapes and sketch
+  occupancy bounds; the payload is padded to the largest rank's byte count,
+  gathered once and trimmed. A 0-d tensor is gathered as it is, with no
+  header. A rank with nothing to send (an empty list state) sends zero
+  bytes and receives the others' trailing shape and dtype, so every rank
+  enters the same collectives in the same order.
+* :func:`sync_pytree` -- a whole nested state (``MetricCollection.
+  state_reductions()``'s layout) in one collective round per group of
+  leaves: sum/mean/max/min leaves grouped by (reduction, dtype), sketch
+  (``merge_like``) leaves by dtype, the others one by one. Every group is
+  one ``all_gather`` of its flat bytes and a fold on the device in rank
+  order, so float sums give every rank the same bits, equal to
+  ``(r0 + r1) + r2 ...``; max and min fold with the JAX package's NaN and
+  signed-zero semantics.
+
+Every collective counts in :func:`collective_counts` (rounds, bytes
+received and host reads), as the kernels count their launches.
 """
-from typing import Any, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-_NOT_PORTED = (
-    "cross-process metric sync is not ported yet (ROADMAP.md, queue A:"
-    " 'torch.distributed sync'); this slice runs in one process"
+from metrics_tpu_torch.sketches.quantile import _FILL_BOUND, fill_bound, with_fill_bound, with_rank_fill_bounds
+from metrics_tpu_torch.utils.data import dim_zero_cat, maximum_ieee, minimum_ieee
+
+Tensor = torch.Tensor
+
+#: the dtypes a gather moves, by their code in the header exchange
+_DTYPES = (
+    torch.bool,
+    torch.uint8,
+    torch.int8,
+    torch.int16,
+    torch.int32,
+    torch.int64,
+    torch.float16,
+    torch.bfloat16,
+    torch.float32,
+    torch.float64,
+    torch.complex64,
+    torch.complex128,
 )
+_DTYPE_CODE = {dt: i for i, dt in enumerate(_DTYPES)}
+#: most dimensions a gathered tensor may have (the header's width)
+_MAX_DIMS = 8
+#: header fields before the shape: dtype code, ndim, occupancy bound (-1: none)
+_HEAD = 3
+
+_COUNTS = {"rounds": 0, "bytes_received": 0, "host_reads": 0}
+
+
+def collective_counts() -> Dict[str, int]:
+    """Collectives issued by this process since the last reset: ``rounds``
+    (each ``all_gather``), ``bytes_received`` (the bytes every round brought
+    in, this rank's own included) and ``host_reads`` (header and bound
+    reads)."""
+    return dict(_COUNTS)
+
+
+def reset_collective_counts() -> None:
+    for key in _COUNTS:
+        _COUNTS[key] = 0
 
 
 def distributed_available() -> bool:
@@ -38,13 +97,251 @@ def process_index() -> int:
     return 0
 
 
-def check_single_process() -> None:
-    """Raise where a sync would be needed: more than one process."""
-    if distributed_available():
-        raise NotImplementedError(_NOT_PORTED)
+# ---------------------------------------------------------------------------
+# the byte transport
+# ---------------------------------------------------------------------------
 
 
-def reduce(x: torch.Tensor, reduction: str) -> torch.Tensor:
+def _as_bytes(x: Tensor) -> Tensor:
+    """``x``'s bytes as a flat ``uint8`` tensor (a view where ``x`` is contiguous)."""
+    flat = x.contiguous().reshape(-1)
+    return flat if flat.dtype == torch.uint8 else flat.view(torch.uint8)
+
+
+def _from_bytes(raw: Tensor, dtype: torch.dtype, shape: Sequence[int]) -> Tensor:
+    """The inverse of :func:`_as_bytes` on a flat ``uint8`` tensor."""
+    return (raw if dtype == torch.uint8 else raw.view(dtype)).reshape(tuple(shape))
+
+
+def _all_gather_even(buf: Tensor, group: Optional[Any]) -> List[Tensor]:
+    """One ``all_gather`` of a flat tensor of the same length and dtype on every rank."""
+    world = world_size(group)
+    if world == 1:
+        return [buf]
+    out = [torch.empty_like(buf) for _ in range(world)]
+    torch.distributed.all_gather(out, buf, group=group)
+    _COUNTS["rounds"] += 1
+    _COUNTS["bytes_received"] += buf.numel() * buf.element_size() * world
+    return out
+
+
+def _header(x: Tensor, bound: int) -> List[int]:
+    if x.ndim > _MAX_DIMS:
+        raise ValueError(f"cannot gather a tensor of {x.ndim} dimensions (at most {_MAX_DIMS})")
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"cannot gather a tensor of dtype {x.dtype}")
+    shape = list(x.shape) + [0] * (_MAX_DIMS - x.ndim)
+    return [_DTYPE_CODE[x.dtype], x.ndim, bound] + shape
+
+
+def gather_all_arrays(result: Tensor, group: Optional[Any] = None) -> List[Tensor]:
+    """Gather a tensor from every process, one per rank, each with its true
+    shape (ranks may differ in every dimension and in the leading one may
+    hold zero rows). With one process: ``[result]``.
+
+    A sketch tensor's occupancy bound (``sketches.quantile.fill_bound``)
+    rides in the header, and each rank's tensor comes back stamped with its
+    bound, so a merge of sketches whose union fits compacts nothing.
+    """
+    if not distributed_available():
+        return [result]
+    if result.ndim == 0:
+        raw = _all_gather_even(_as_bytes(result), group)
+        return [_from_bytes(r, result.dtype, ()) for r in raw]
+
+    bound = fill_bound(result) if hasattr(result, _FILL_BOUND) else -1
+    head = torch.tensor(_header(result, bound), dtype=torch.int64, device=result.device)
+    table = torch.stack(_all_gather_even(head, group)).tolist()
+    _COUNTS["host_reads"] += 1
+    nbytes = []
+    for row in table:
+        shape = row[_HEAD : _HEAD + row[1]]
+        numel = 1
+        for d in shape:
+            numel *= d
+        nbytes.append(numel * _DTYPES[row[0]].itemsize)
+    width = max(nbytes)
+    if width == 0:
+        gathered = [result.new_empty((0,), dtype=torch.uint8) for _ in table]
+    else:
+        local = _as_bytes(result)
+        if local.numel() < width:
+            local = torch.cat([local, local.new_zeros(width - local.numel())])
+        gathered = _all_gather_even(local, group)
+    # a rank that sent nothing takes the trailing shape and dtype of the
+    # first rank that sent something (its own when none did)
+    ref = next((row for row, n in zip(table, nbytes) if n), table[0])
+    out = []
+    for row, n, raw in zip(table, nbytes, gathered):
+        if n == 0 and row is not ref:
+            dtype, shape = _DTYPES[ref[0]], [0] + ref[_HEAD + 1 : _HEAD + ref[1]]
+        else:
+            dtype, shape = _DTYPES[row[0]], row[_HEAD : _HEAD + row[1]]
+        tensor = _from_bytes(raw[:n], dtype, shape)
+        if row[2] >= 0:
+            with_fill_bound(tensor, row[2])
+        out.append(tensor)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# one-round sync of a nested state
+# ---------------------------------------------------------------------------
+
+
+def _iter_state_leaves(tree: Dict[str, Any], path: Tuple = ()):
+    """Depth-first ``(path, value)`` pairs of a (possibly nested) state dict."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _iter_state_leaves(value, path + (key,))
+        else:
+            yield path + (key,), value
+
+
+def _path_get(tree: Any, path: Tuple) -> Any:
+    for key in path:
+        if not isinstance(tree, dict) or key not in tree:
+            return None
+        tree = tree[key]
+    return tree
+
+
+def _path_set(tree: Dict[str, Any], path: Tuple, value: Any) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+#: reductions that fold elementwise across ranks, grouped by (reduction, dtype)
+_ELEMENTWISE = ("sum", "mean", "max", "min")
+
+
+def _fold(red: str, stack: Tensor) -> Tensor:
+    """Fold a ``[world, ...]`` stack across ranks in rank order."""
+    if red in ("max", "min"):
+        fold = maximum_ieee if red == "max" else minimum_ieee
+        out = stack[0]
+        for r in range(1, stack.shape[0]):
+            out = fold(out, stack[r])
+        return out
+    work = stack.to(torch.int32) if stack.dtype == torch.bool else stack
+    out = work[0]
+    for r in range(1, work.shape[0]):
+        out = out + work[r]
+    if red == "mean":
+        out = (out if out.is_floating_point() else out.to(torch.float32)) / stack.shape[0]
+    elif stack.dtype == torch.bool:
+        out = out.to(torch.bool)
+    return out
+
+
+def _gather_group(parts: List[Tensor], extra: Optional[Tensor], gather: Callable, group: Any) -> Tensor:
+    """One gather of the bytes of ``parts`` (and ``extra``) back to back:
+    ``[world, total_bytes]``."""
+    pieces = [_as_bytes(p) for p in parts] + ([] if extra is None else [_as_bytes(extra)])
+    buf = torch.cat(pieces) if len(pieces) > 1 else pieces[0]
+    return torch.stack(gather(buf, group=group))
+
+
+def _split_group(gathered: Tensor, parts: List[Tensor]) -> Tuple[List[Tensor], int]:
+    """The ``[world, ...]`` stack of each part of a gathered group, and the
+    byte offset past the last part."""
+    world, offset, stacks = gathered.shape[0], 0, []
+    for part in parts:
+        n = part.numel() * part.element_size()
+        shape = (world,) + tuple(part.shape)
+        raw = gathered[:, offset : offset + n].contiguous()
+        stacks.append(raw.view(part.dtype).reshape(shape) if n else part.new_empty(shape))
+        offset += n
+    return stacks, offset
+
+
+def sync_pytree(
+    state: Dict[str, Any],
+    reductions: Dict[str, Any],
+    group: Optional[Any] = None,
+    dist_sync_fn: Optional[Callable] = None,
+) -> Dict[str, Any]:
+    """Sync a whole (possibly nested) state across the process group in
+    one collective round per group of leaves.
+
+    ``state``/``reductions`` are matching flat or nested string-keyed dicts
+    (``MetricCollection.state_reductions()`` gives the nested form).
+    Tensor leaves reduced by ``"sum"``/``"mean"``/``"max"``/``"min"`` are
+    grouped by (reduction, dtype), their bytes laid back to back and
+    gathered in one ``all_gather``, then folded in rank order on the device.
+    ``merge_like`` (sketch) leaves are grouped by dtype, gathered once with
+    their occupancy bounds, and folded by their own reducer in rank order.
+    ``"cat"``, None and other callable leaves take a gather each, as the
+    JAX package's per-state path does (a tensor leaf has one shape on every
+    rank, so it needs no header); a list leaf takes :func:`gather_all_arrays`
+    (its ranks may hold any number of rows) and becomes a one-element list
+    of every rank's rows.
+
+    ``dist_sync_fn(x, group=...)`` replaces the gather (a simulated world
+    returns every rank's ``x``); by default the process group's.
+    """
+    even = dist_sync_fn or (lambda x, group=None: _all_gather_even(x, group))
+    gather = dist_sync_fn or gather_all_arrays
+    groups: Dict[Tuple, List[Tuple]] = {}
+    merge_groups: Dict[torch.dtype, List[Tuple]] = {}
+    fallback: List[Tuple] = []
+    for path, value in _iter_state_leaves(state):
+        red = _path_get(reductions, path)
+        if isinstance(value, Tensor) and red in _ELEMENTWISE:
+            groups.setdefault((red, value.dtype), []).append(path)
+        elif isinstance(value, Tensor) and getattr(red, "merge_like", False):
+            merge_groups.setdefault(value.dtype, []).append(path)
+        else:
+            fallback.append(path)
+
+    device = next((v.device for _, v in _iter_state_leaves(state) if isinstance(v, Tensor)), torch.device("cpu"))
+    out: Dict[str, Any] = {}
+    for (red, _), paths in groups.items():
+        parts = [_path_get(state, p) for p in paths]
+        stacks, _ = _split_group(_gather_group(parts, None, even, group), parts)
+        for path, stack in zip(paths, stacks):
+            _path_set(out, path, _fold(red, stack))
+    for _, paths in merge_groups.items():
+        parts = [_path_get(state, p) for p in paths]
+        bounds = torch.tensor(
+            [fill_bound(p) if hasattr(p, _FILL_BOUND) else -1 for p in parts], dtype=torch.int64, device=parts[0].device
+        )
+        gathered = _gather_group(parts, bounds, even, group)
+        stacks, offset = _split_group(gathered, parts)
+        rank_bounds = gathered[:, offset:].contiguous().view(torch.int64).tolist()
+        _COUNTS["host_reads"] += 1
+        for i, (path, stack) in enumerate(zip(paths, stacks)):
+            with_rank_fill_bounds(stack, [b[i] if b[i] >= 0 else None for b in rank_bounds])
+            _path_set(out, path, _path_get(reductions, path)(stack))
+    for path in fallback:
+        value, red = _path_get(state, path), _path_get(reductions, path)
+        if isinstance(value, list):
+            local = dim_zero_cat(value) if value else torch.zeros((0,), device=device)
+            rows = [g for g in gather(local, group=group) if g.numel() or g.ndim == 0]
+            _path_set(out, path, [torch.cat(rows)] if rows else [])
+            continue
+        if isinstance(value, int):
+            value = torch.tensor(value, dtype=torch.int32, device=device)
+        # a tensor leaf has the same shape on every rank: one gather, no header
+        (stack,), _ = _split_group(_gather_group([value], None, even, group), [value])
+        if red == "cat":
+            _path_set(out, path, stack.reshape((-1,) + tuple(value.shape[1:])) if value.ndim else stack)
+        elif red is None:
+            _path_set(out, path, stack)
+        elif callable(red):
+            _path_set(out, path, red(stack))
+        else:
+            raise ValueError(f"Unknown reduction {red!r} for state {'/'.join(path)!r}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# scalar reduction helpers
+# ---------------------------------------------------------------------------
+
+
+def reduce(x: Tensor, reduction: str) -> Tensor:
     """Reduce a tensor: ``"elementwise_mean"`` | ``"sum"`` | ``"none"`` (or ``None``)."""
     if reduction == "elementwise_mean":
         return torch.mean(x)
@@ -53,3 +350,21 @@ def reduce(x: torch.Tensor, reduction: str) -> torch.Tensor:
     if reduction in ("none", None):
         return x
     raise ValueError("Reduction parameter unknown.")
+
+
+def class_reduce(num: Tensor, denom: Tensor, weights: Tensor, class_reduction: str = "none") -> Tensor:
+    """Per-class fraction reduction: ``"micro"`` | ``"macro"`` | ``"weighted"`` | ``"none"``."""
+    valid_reduction = ("micro", "macro", "weighted", "none", None)
+    fraction = torch.sum(num) / torch.sum(denom) if class_reduction == "micro" else num / denom
+    if class_reduction != "micro":
+        fraction = torch.where(torch.isnan(fraction), torch.zeros_like(fraction), fraction)
+
+    if class_reduction == "micro":
+        return fraction
+    if class_reduction == "macro":
+        return torch.mean(fraction)
+    if class_reduction == "weighted":
+        return torch.sum(fraction * (weights / torch.sum(weights)))
+    if class_reduction in ("none", None):
+        return fraction
+    raise ValueError(f"Reduction parameter {class_reduction} unknown. Choose between one of these: {valid_reduction}")

@@ -134,8 +134,9 @@ class RetrievalMetric(Metric, ABC):
         max_queries: int = 1024,
         max_docs: int = 128,
         device: Optional[Union[str, torch.device]] = None,
+        **kwargs: Any,
     ) -> None:
-        super().__init__(device=device)
+        super().__init__(device=device, **kwargs)
         self.allow_non_binary_target = False
 
         empty_target_action_options = ("error", "skip", "neg", "pos")

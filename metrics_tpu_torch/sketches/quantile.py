@@ -30,7 +30,7 @@ either way, and its bound becomes ``capacity``. The port never writes a
 state in place; a bound also records the tensor's in-place write counter,
 so a caller's in-place write voids it instead of making it false.
 """
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import torch
 
@@ -80,6 +80,37 @@ def fill_bound(sketch: Tensor) -> int:
     if version is None or version != _version(sketch):
         return sketch.shape[0]
     return bound
+
+
+#: the attribute of a stacked per-rank tensor holding each rank's bound
+_RANK_FILL_BOUNDS = "_qsketch_rank_fill_bounds"
+
+
+def with_rank_fill_bounds(stacked: Tensor, bounds: Sequence[Optional[int]]) -> Tensor:
+    """Attach the occupancy bound of each rank's slice of ``stacked`` (None
+    where a rank's is unknown) for :func:`rank_slice`; returns ``stacked``."""
+    if any(b is not None for b in bounds):
+        setattr(stacked, _RANK_FILL_BOUNDS, (list(bounds), _version(stacked)))
+    return stacked
+
+
+def stack_with_fill_bounds(tensors: Sequence[Tensor]) -> Tensor:
+    """``torch.stack(tensors)`` that keeps each tensor's occupancy bound
+    (those that carry one) for :func:`rank_slice`: the per-rank stack a
+    sync hands to a merge reducer."""
+    bounds = [fill_bound(t) if hasattr(t, _FILL_BOUND) else None for t in tensors]
+    return with_rank_fill_bounds(torch.stack(list(tensors)), bounds)
+
+
+def rank_slice(stacked: Tensor, i: int) -> Tensor:
+    """``stacked[i]``, stamped with rank ``i``'s occupancy bound where
+    :func:`stack_with_fill_bounds` recorded one (and the stack was not
+    written in place since)."""
+    out = stacked[i]
+    bounds, version = getattr(stacked, _RANK_FILL_BOUNDS, (None, None))
+    if bounds is not None and bounds[i] is not None and version is not None and version == _version(stacked):
+        with_fill_bound(out, bounds[i])
+    return out
 
 
 def qsketch_init(capacity: int, payload_cols: int = 0, device: Optional[Any] = None) -> Tensor:
@@ -194,7 +225,9 @@ class _QSketchReduce:
     :func:`qsketch_merge` across them in rank order (inside the lossless
     window this is the concatenation in rank order). A module-level class,
     so metrics holding it pickle and deepcopy; tagged ``merge_like`` so
-    ``Metric.merge_states`` recognises sketch states."""
+    ``Metric.merge_states`` recognises sketch states. A stack made by
+    :func:`stack_with_fill_bounds` lends each rank its occupancy bound, so a
+    union that fits concatenates without a compaction."""
 
     merge_like = True
     sketch_kind = "quantile"
@@ -203,9 +236,9 @@ class _QSketchReduce:
     def __call__(self, stacked: Tensor) -> Tensor:
         if stacked.ndim == 2:  # a single rank passes through
             return stacked
-        out = stacked[0]
+        out = rank_slice(stacked, 0)
         for i in range(1, stacked.shape[0]):
-            out = qsketch_merge(out, stacked[i])
+            out = qsketch_merge(out, rank_slice(stacked, i))
         return out
 
 

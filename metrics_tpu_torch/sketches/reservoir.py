@@ -31,7 +31,7 @@ from typing import Any, Optional
 
 import torch
 
-from metrics_tpu_torch.sketches.quantile import fill_bound, with_fill_bound
+from metrics_tpu_torch.sketches.quantile import fill_bound, rank_slice, with_fill_bound
 from metrics_tpu_torch.utils import prng
 from metrics_tpu_torch.utils.data import _as_tensor, _resolve_device
 
@@ -204,9 +204,9 @@ class _ReservoirReduce:
     def __call__(self, stacked: Tensor) -> Tensor:
         if stacked.ndim == 2:  # a single rank passes through
             return stacked
-        out = stacked[0]
+        out = rank_slice(stacked, 0)
         for i in range(1, stacked.shape[0]):
-            out = reservoir_merge(out, stacked[i])
+            out = reservoir_merge(out, rank_slice(stacked, i))
         return out
 
 

@@ -22,7 +22,10 @@ scatters each batch row's contribution into its slice:
   dirty bitmap on the metric's device is set by each update with no host
   read, and read once per ``compute()``; the per-slice values of earlier
   folds are kept on the device. ``compute_state(state)`` always folds the
-  state it is given and never serves those values.
+  state it is given and never serves those values. A synced read (the
+  cross-rank states, inside ``sync_context``) folds every slice that any
+  rank wrote, i.e. all of them, and leaves the bitmap and the kept values
+  to the local states.
 
 Slice ids are a 1-D integer tensor aligned with the batch's leading axis;
 ids outside ``[0, num_slices)`` are dropped. The ``_slice_rows`` counter
@@ -114,7 +117,7 @@ class SlicedMetric(Metric):
     higher_is_better = None
     is_differentiable = False
 
-    def __init__(self, metric: Metric, num_slices: int) -> None:
+    def __init__(self, metric: Metric, num_slices: int, **kwargs: Any) -> None:
         if not isinstance(metric, Metric):
             raise MetricsUserError(f"SlicedMetric wraps a Metric instance, got {type(metric).__name__}")
         if isinstance(metric, SlicedMetric):
@@ -122,7 +125,7 @@ class SlicedMetric(Metric):
         if not isinstance(num_slices, int) or isinstance(num_slices, bool) or num_slices <= 0:
             raise MetricsUserError(f"`num_slices` must be a positive int, got {num_slices!r}")
         self._validate_sliceable(metric)
-        super().__init__(device=metric.device)
+        super().__init__(device=metric.device, **kwargs)
         self.num_slices = num_slices
         # the wrapped metric is a TEMPLATE: its pure update and compute run
         # per row and per slice; its own states are never accumulated
@@ -322,6 +325,11 @@ class SlicedMetric(Metric):
         return tree_unflatten([kept[index] for kept in cache], spec), int(fold.size)
 
     def _compute(self) -> Any:
+        if self._is_synced:
+            # synced states are the cross-rank reduction, not the local
+            # accumulation that the dirty bitmap and the kept values
+            # describe: fold every slice, and touch neither
+            return self._fold({name: getattr(self, name) for name in self._template._defaults})
         values, _ = self._fold_slices(np.arange(self.num_slices))
         return values
 
@@ -356,7 +364,10 @@ class SlicedMetric(Metric):
                     f"`slice_ids` out of range for num_slices={self.num_slices}:"
                     f" min {int(host_ids.min())}, max {int(host_ids.max())}"
                 )
-        if host_ids.size:
+        if host_ids.size and self._is_synced:
+            index = torch.as_tensor(host_ids, device=self.device).long()
+            values = self._fold({name: getattr(self, name)[index] for name in self._template._defaults})
+        elif host_ids.size:
             values, _ = self._fold_slices(host_ids)
         else:  # an empty subset: the fold of one slice, cut to none
             one = self._fold({name: getattr(self, name)[:1] for name in self._template._defaults})

@@ -4,13 +4,15 @@ import warnings
 from functools import wraps
 from typing import Any, Callable
 
-from metrics_tpu_torch.parallel.distributed import process_index as _process_index
+# a module import: the distributed module imports (through the sketches)
+# modules that warn, so it may still be initialising here
+import metrics_tpu_torch.parallel.distributed as _distributed
 
 
 def rank_zero_only(fn: Callable) -> Callable:
     @wraps(fn)
     def wrapped_fn(*args: Any, **kwargs: Any) -> Any:
-        if _process_index() == 0:
+        if _distributed.process_index() == 0:
             return fn(*args, **kwargs)
         return None
 

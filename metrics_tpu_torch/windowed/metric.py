@@ -21,7 +21,9 @@ Counterpart of ``metrics_tpu/windowed/metric.py``, with two state layouts:
 Per-tenant windows are ``WindowedMetric(SlicedMetric(...))``: the leaves
 become ``[R, S, ...]`` and each update runs the sliced scatter (and its
 kernels) on the live slot. Every read is the cold oldest-first fold of the
-JAX package; its fold memos and pre-lowered fold are not ported.
+JAX package; its fold memos and pre-lowered fold are not ported. A synced
+read folds the synced rows the same way; the ring clock syncs by ``"max"``
+(the furthest clock wins) and same-bucket rows add.
 
 **The pad-and-mask contract** of a bucketed fused update
 (``core/fused.py``): the wrapper declares ``__fused_mask_valid__``, takes
@@ -101,6 +103,7 @@ class WindowedMetric(Metric):
         updates_per_bucket: Optional[int] = None,
         mode: str = "ring",
         decay: Optional[float] = None,
+        **kwargs: Any,
     ) -> None:
         if not isinstance(metric, Metric):
             raise MetricsUserError(f"WindowedMetric wraps a Metric instance, got {type(metric).__name__}")
@@ -125,7 +128,7 @@ class WindowedMetric(Metric):
             if not isinstance(decay, (int, float)) or not 0.0 < float(decay) < 1.0:
                 raise MetricsUserError(f"`decay` must be a float in (0, 1), got {decay!r}")
         self._validate_windowable(metric, mode)
-        super().__init__(device=metric.device)
+        super().__init__(device=metric.device, **kwargs)
         self.mode = mode
         self.window = int(window)
         self.updates_per_bucket = int(updates_per_bucket)

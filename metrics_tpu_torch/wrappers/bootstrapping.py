@@ -70,12 +70,13 @@ class BootStrapper(Metric):
         raw: bool = False,
         sampling_strategy: str = "poisson",
         seed: Optional[int] = None,
+        **kwargs: Any,
     ) -> None:
         if not isinstance(base_metric, Metric):
             raise ValueError(
                 f"Expected base metric to be an instance of metrics_tpu.Metric but received {base_metric}"
             )
-        super().__init__(device=base_metric.device)
+        super().__init__(device=base_metric.device, **kwargs)
         self.metrics = [base_metric.clone() for _ in range(num_bootstraps)]
         self.num_bootstraps = num_bootstraps
 

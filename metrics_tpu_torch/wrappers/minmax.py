@@ -33,12 +33,12 @@ class MinMaxMetric(Metric):
     #: updates its child eagerly: a fused update sends it to the eager leg
     __jit_unsafe__ = True
 
-    def __init__(self, base_metric: Metric) -> None:
+    def __init__(self, base_metric: Metric, **kwargs: Any) -> None:
         if not isinstance(base_metric, Metric):
             raise ValueError(
                 f"Expected base metric to be an instance of `metrics_tpu.Metric` but received {base_metric}"
             )
-        super().__init__(device=base_metric.device)
+        super().__init__(device=base_metric.device, **kwargs)
         self._base_metric = base_metric
         self.min_val = self._extreme(float("inf"))
         self.max_val = self._extreme(-float("inf"))

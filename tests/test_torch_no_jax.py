@@ -26,9 +26,11 @@ for name in ("core.fused", "core.pipeline", "observability.freshness", "classifi
              "functional.regression.tweedie_deviance", "functional.regression.r2", "aggregation",
              "wrappers", "wrappers.bootstrapping", "wrappers.classwise", "wrappers.minmax", "wrappers.multioutput",
              "wrappers.tracker", "functional.pairwise", "functional.pairwise.helpers", "functional.pairwise.cosine",
-             "functional.pairwise.euclidean", "functional.pairwise.linear", "functional.pairwise.manhattan"):
+             "functional.pairwise.euclidean", "functional.pairwise.linear", "functional.pairwise.manhattan",
+             "parallel", "parallel.distributed"):
     assert "metrics_tpu_torch." + name in names, name
 from metrics_tpu_torch import BootStrapper, CompositionalMetric, MeanMetric, MetricTracker  # noqa: F401
+from metrics_tpu_torch.parallel import class_reduce, gather_all_arrays, sync_pytree  # noqa: F401
 import chip_smoke
 assert not any(k == "jax" or k.startswith(("jax.", "metrics_tpu.")) for k, v in sys.modules.items() if v is not None)
 print(len(names))

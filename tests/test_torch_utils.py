@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from metrics_tpu.utils import checks as jax_checks
 from metrics_tpu.utils import data as jax_data
+from metrics_tpu_torch import MeanSquaredError
 from metrics_tpu_torch.parallel import distributed
 from metrics_tpu_torch.utils import checks, data
 from tests.classification.inputs import (
@@ -185,4 +186,10 @@ def test_apply_to_collection_and_squeeze():
 def test_one_process_needs_no_sync():
     assert not distributed.distributed_available()
     assert distributed.world_size() == 1
-    distributed.check_single_process()  # does not raise
+    x = torch.arange(6.0).reshape(2, 3)
+    gathered = distributed.gather_all_arrays(x)
+    assert len(gathered) == 1 and gathered[0] is x
+    # one process: compute neither syncs nor raises
+    m = MeanSquaredError(device="cpu")
+    m.update(torch.tensor([1.0, 2.0]), torch.tensor([1.0, 4.0]))
+    assert float(m.compute()) == 2.0 and not m._is_synced and m._cache is None
