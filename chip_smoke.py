@@ -342,6 +342,37 @@ Phases, each printed as one JSON line:
    tensors of every state dtype (bfloat16 NaN payloads of both signs
    among them) all-gathered as bytes, the same bits back (multi-rank NCCL
    needs a card per rank: not measured);
+18n. ssim -- BASELINE config 5: 64 restoration outputs of 3 x 192 x 192
+   against their ground truth (uniform targets plus N(0, 0.1) noise,
+   clipped; made on the card from a seed) through
+   StructuralSimilarityIndexMeasure(), MultiScaleStructuralSimilarityIndexMeasure()
+   and UniversalImageQualityIndex(), 4 updates of 16 then compute(); gates:
+   0 host syncs per update, no launch of a kernel of ours, each functional
+   over all 64 bit-equal to its metric's compute(), image_gradients bit-equal
+   to the CPU's, every value within rtol 1e-5 of the port's CPU run and of a
+   float64 evaluation on the CPU; images/s, update and compute ms, device ms
+   and idle share of one profiled compute, its top device kernels, state
+   bytes, peak memory;
+18o. fid-inception -- BASELINE config 5b: 16 real and 16 fake uint8 [64, 3,
+   299, 299] batches (random colour fields of two generators, made on the
+   card from a seed) through FrechetInceptionDistance(2048),
+   KernelInceptionDistance(subset_size=1000) and InceptionScore() on the
+   InceptionV3 at full width (seeded random weights written to the JAX
+   package's .npz layout by convert.inception_to_flax, BatchNorm statistics
+   calibrated on a seeded batch), each eager and through compile_update();
+   gates: states and values bit-equal between the legs, nothing declined, 0
+   host syncs per fused update, streaming FID within rtol 1e-3 of
+   exact=True's float64 value, KID in its reservoir window (1024 <= 2048
+   rows) bit-equal to exact=True, the features bit-equal with the caller's
+   TF32 flags all on and all off (each flag found as set after the call);
+   images/s, device ms and idle share per batch, compute ms, state bytes,
+   peak memory, and the features' gap were TF32 on inside (information);
+18p. lpips -- LearnedPerceptualImagePatchSimilarity alex and vgg over 64
+   pairs of 3 x 256 x 256 in [-1, 1] (4 updates of 16; seeded random weights
+   through convert.lpips_to_flax), eager and fused; gates: states and values
+   bit-equal between the legs, nothing declined, 0 host syncs per fused
+   update, the first update's value within rtol 1e-5 of the port's CPU run;
+   pairs/s, device ms and idle share per update, peak memory;
 19. the kernels line: per kernel its launches on its main path (flagship for
    K1, sketch-binary for K3, map-coco for K6, the entry point ops.box_iou
    on 2-D boxes for K5, retrieval-mslr for K4, sliced-psnr for K2 and
@@ -373,6 +404,7 @@ and power limit as nvidia-smi reports them, and last
 raises, so the script exits non-zero and prints no result line; it does the
 same without CUDA, or without the metrics_tpu_torch package beside it.
 """
+import gc
 import hashlib
 import json
 import math
@@ -614,6 +646,52 @@ PAIRWISE_ROWS = 8192
 PAIRWISE_DIM = 512
 PAIRWISE_L1_ROWS = 2048
 PAIRWISE_RTOL = 1e-6
+# ssim: BASELINE config 5 (64 x 3 x 192 x 192 float32), a restoration
+# model's outputs (the targets plus N(0, 0.1) noise, clipped to [0, 1])
+# against their ground truth, made on the card from a seed; 4 updates of 16;
+# values within rtol 1e-5 of the port's CPU run and of a float64 evaluation
+# on the CPU
+SSIM_SEED = 15000
+#: where the image phases make their data (the CPU only for a rehearsal)
+IMAGE_DEVICE = "cuda"
+SSIM_IMAGES = 64
+SSIM_SHAPE = (3, 192, 192)
+SSIM_UPDATES = 4
+SSIM_NOISE = 0.1
+SSIM_RTOL = 1e-5
+# fid-inception: BASELINE config 5b, uint8 [64, 3, 299, 299] batches made on
+# the card from a seed: random colour fields (8 x 8 cells over 0..255 for the
+# real images; 12 x 12 over 32..200 for a generator's, a duller one)
+# upsampled bilinearly to 299 x 299, plus N(0, 8) pixel noise; 16 real and
+# 16 fake batches. The InceptionV3 at full width with seeded random weights:
+# tests/image/test_fid_kid_is.py's recipe (the default initialisation under
+# seed 0, BatchNorm weights U(0.5, 1.5), biases N(0, 0.1)), but the
+# BatchNorm running statistics taken from a calibration batch of both
+# generators: with the recipe's random statistics the activations vanish
+# with depth, and the 2048 pooled features are the same for every input
+# (a within-batch standard deviation of 6.6e-9 on the CPU), which leaves FID
+# nothing to measure. Streaming FID within rtol 1e-3 of exact=True's float64
+# value (the JAX package's device tolerance).
+FID_SEED = 16000
+FID_BATCH = 64
+FID_BATCHES = 16
+#: (cells per side, low, high) of the colour fields of each generator
+FID_REAL = (8, 0, 256)
+FID_FAKE = (12, 32, 201)
+FID_PIXEL_NOISE = 8.0
+FID_CALIBRATION = 64
+FID_RTOL = 1e-3
+KID_SUBSET = 1000
+# lpips: alex and vgg over 64 pairs of 3 x 256 x 256 in [-1, 1] (the second
+# image the first plus N(0, 0.2) noise, clipped), 4 updates of 16, seeded
+# random weights (tests/image/test_lpips.py's recipe); the value within rtol
+# 1e-5 of the port's CPU run over the first update's pairs
+LPIPS_SEED = 17000
+LPIPS_PAIRS = 64
+LPIPS_SHAPE = (3, 256, 256)
+LPIPS_UPDATES = 4
+LPIPS_NOISE = 0.2
+LPIPS_RTOL = 1e-5
 # sketch-bf16: |bfloat16 - float32| of AUROC() over curve-binary's stream;
 # 1.70e-5 measured on the CPU (scripts/reference_properties.py)
 BF16_SKETCH_BOUND = 1e-4
@@ -4590,6 +4668,364 @@ def pairwise_embeddings_phase(torch, ops, card, tm):
 
 
 # ---------------------------------------------------------------------------
+# the image family: SSIM / MS-SSIM / UQI, FID / KID / IS, LPIPS
+# ---------------------------------------------------------------------------
+
+
+def free_card(torch):
+    """Release what earlier phases left: a fused handle and its collection
+    reference each other, so their graphs' memory pools wait for the
+    cyclic collector; then hand the cached blocks back. Returns the bytes
+    still allocated (the phase's starting point for its peak)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def ssim_images(torch):
+    """BASELINE config 5's pairs, made on the card: targets uniform in
+    [0, 1], predictions the targets plus N(0, SSIM_NOISE) clipped."""
+    gen = torch.Generator(device=IMAGE_DEVICE).manual_seed(SSIM_SEED)
+    shape = (SSIM_IMAGES,) + SSIM_SHAPE
+    target = torch.rand(shape, generator=gen, device=IMAGE_DEVICE)
+    preds = (target + SSIM_NOISE * torch.randn(shape, generator=gen, device=IMAGE_DEVICE)).clamp_(0.0, 1.0)
+    return preds, target
+
+
+def ssim_phase(torch, ops, card, tm):
+    """ssim: SSIM, MS-SSIM and UQI modular over 4 updates of 16 of config 5,
+    then compute(); the functionals over all 64 and image_gradients; against
+    the port on the CPU and a float64 evaluation on the CPU."""
+    from metrics_tpu_torch import functional as tmf
+
+    t_phase = time.perf_counter()
+    base = free_card(torch)
+    preds, target = ssim_images(torch)
+    per = SSIM_IMAGES // SSIM_UPDATES
+    batches = [(preds[i * per : (i + 1) * per], target[i * per : (i + 1) * per]) for i in range(SSIM_UPDATES)]
+    metrics = {
+        "SSIM": (tm.StructuralSimilarityIndexMeasure, tmf.structural_similarity_index_measure),
+        "MS-SSIM": (tm.MultiScaleStructuralSimilarityIndexMeasure, tmf.multiscale_structural_similarity_index_measure),
+        "UQI": (tm.UniversalImageQualityIndex, tmf.universal_image_quality_index),
+    }
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    report, values = {}, {}
+    for name, (make, functional) in metrics.items():
+        probe = make()
+        syncs = syncs_per_update(torch, lambda b: probe.update(*b), batches[:3])
+        metric = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in batches:
+            metric.update(*batch)
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - t0
+        value, cold_ms = timed(torch, metric.compute)
+        warm_ms = median_ms(torch, metric._compute)
+        profile = device_profile(torch, lambda i: metric._compute(), 1, host_ops=False)
+        whole = functional(preds, target)
+        check(torch.equal(whole, value), f"ssim: the {name} functional over all {SSIM_IMAGES} images differs from the metric's compute()")
+        values[name] = value
+        report[name] = {
+            "value": float(value),
+            "images_per_s": SSIM_IMAGES / (update_s + warm_ms / 1e3),
+            "update_ms": update_s / SSIM_UPDATES * 1e3,
+            "cold_compute_ms": cold_ms,
+            "warm_compute_ms": warm_ms,
+            "compute_device_ms": profile["device_busy_ms_per_step"],
+            "compute_idle_share": 1 - profile["device_busy_ms_per_step"] / warm_ms,
+            "top_device_us": profile["device_us_per_step_by_kernel"],
+            "host_syncs_per_update": syncs,
+            "state_bytes": state_bytes(metric),
+        }
+        check(syncs == 0, f"ssim: a {name} update synchronised {syncs} times")
+    gradients = tmf.image_gradients(preds)
+    gradients_ms = median_ms(torch, lambda: tmf.image_gradients(preds))
+    launches = {k: n for k, n in ops.launch_counts().items() if n}
+    check(not launches, f"ssim: launches {launches}, expected none (no kernel of ours on this path)")
+    peak = torch.cuda.max_memory_allocated()
+    # the same port code on the CPU, and a float64 evaluation there
+    t0 = time.perf_counter()
+    preds_cpu, target_cpu = preds.cpu(), target.cpu()
+    cpu_grad = tmf.image_gradients(preds_cpu)
+    for got, want in zip(gradients, cpu_grad):
+        check(torch.equal(got.cpu(), want), "ssim: image_gradients differ between the card and the CPU")
+    rel_cpu, rel_f64, float64 = {}, {}, {}
+    for name, (make, functional) in metrics.items():
+        cpu_metric = make(device="cpu")
+        for lo in range(0, SSIM_IMAGES, per):
+            cpu_metric.update(preds_cpu[lo : lo + per], target_cpu[lo : lo + per])
+        cpu_value = float(cpu_metric.compute())
+        float64[name] = float(functional(preds_cpu.double(), target_cpu.double()))
+        rel_cpu[name] = abs(float(values[name]) - cpu_value) / abs(cpu_value)
+        rel_f64[name] = abs(float(values[name]) - float64[name]) / abs(float64[name])
+        check(rel_cpu[name] <= SSIM_RTOL, f"ssim: {name} card and CPU differ by {rel_cpu[name]} (relative)")
+        check(rel_f64[name] <= SSIM_RTOL, f"ssim: {name} {float(values[name])} off float64 {float64[name]} by {rel_f64[name]}")
+    cpu_s = time.perf_counter() - t0
+    emit(
+        {
+            "phase": "ssim",
+            "card": card,
+            "images": SSIM_IMAGES,
+            "shape": list(SSIM_SHAPE),
+            "updates": SSIM_UPDATES,
+            "metrics": report,
+            "image_gradients_ms": gradients_ms,
+            "peak_memory_bytes": peak,
+            "memory_at_start_bytes": base,
+            "float64_cpu": float64,
+            "rel_diff_card_cpu": rel_cpu,
+            "rel_diff_card_float64": rel_f64,
+            "cpu_reference_s": cpu_s,
+            "seconds": time.perf_counter() - t_phase,
+        }
+    )
+
+
+def fid_images(torch, gen, real, n):
+    """``n`` uint8 images of one generator: random colour fields upsampled
+    bilinearly to 299 x 299, plus pixel noise."""
+    cells, low, high = FID_REAL if real else FID_FAKE
+    x = torch.randint(low, high, (n, 3, cells, cells), generator=gen, device=IMAGE_DEVICE).to(torch.float32)
+    x = torch.nn.functional.interpolate(x, size=(299, 299), mode="bilinear", align_corners=False)
+    x = x + FID_PIXEL_NOISE * torch.randn(x.shape, generator=gen, device=IMAGE_DEVICE)
+    return x.clamp_(0.0, 255.0).to(torch.uint8)
+
+
+def fid_batches(torch):
+    """BASELINE config 5b: 16 real and 16 fake uint8 [64, 3, 299, 299]
+    batches made on the card, interleaved as ``(images, real)``."""
+    gen = torch.Generator(device=IMAGE_DEVICE).manual_seed(FID_SEED)
+    out = []
+    for _ in range(FID_BATCHES):
+        out.append((fid_images(torch, gen, True, FID_BATCH), True))
+        out.append((fid_images(torch, gen, False, FID_BATCH), False))
+    return out
+
+
+def inception_weights(torch, directory):
+    """An ``.npz`` of seeded random InceptionV3 weights in the JAX package's
+    layout: the default initialisation under seed 0 and random BatchNorm
+    affine parameters (tests/image/test_fid_kid_is.py's recipe), the
+    running statistics from a seeded calibration batch of both generators
+    (see FID_SEED)."""
+    from metrics_tpu_torch.convert import inception_to_flax
+    from metrics_tpu_torch.models.inception import InceptionV3FID
+
+    torch.manual_seed(0)
+    model = InceptionV3FID()
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                mod.weight.uniform_(0.5, 1.5)
+                mod.bias.normal_(0.0, 0.1)
+                mod.momentum = None  # a cumulative average: the batch's own statistics
+                mod.reset_running_stats()
+        gen = torch.Generator(device=IMAGE_DEVICE).manual_seed(FID_SEED + 1)
+        half = FID_CALIBRATION // 2
+        calibration = torch.cat([fid_images(torch, gen, True, half), fid_images(torch, gen, False, half)])
+        model.to(IMAGE_DEVICE).train()(calibration)
+    path = os.path.join(directory, "inception.npz")
+    np.savez(path, variables=np.asarray(inception_to_flax(model.state_dict()), dtype=object))
+    return path
+
+
+def fid_update(collection, batch):
+    collection.update(batch[0], real=batch[1])
+
+
+def is_update(collection, batch):
+    collection.update(batch[0])
+
+
+def tf32_gate(torch, extractor, images):
+    """The extractor's features with the caller's TF32 flags all on and all
+    off: bit-equal, and each setting found again after the call. Returns
+    the features and the gap of a forward run with TF32 on inside."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32, torch.get_float32_matmul_precision())
+    out = {}
+    try:
+        for label, on in (("tf32_on", True), ("tf32_off", False)):
+            cudnn.allow_tf32, matmul.allow_tf32 = on, on
+            torch.set_float32_matmul_precision("high" if on else "highest")
+            out[label] = extractor(images)
+            torch.cuda.synchronize()
+            found = (cudnn.allow_tf32, matmul.allow_tf32, torch.get_float32_matmul_precision())
+            check(found == (on, on, "high" if on else "highest"), f"fid-inception: the extractor left the flags at {found}")
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved[0], saved[1]
+        torch.set_float32_matmul_precision(saved[2])
+    check(torch.equal(out["tf32_on"], out["tf32_off"]), "fid-inception: the features depend on the caller's TF32 flags")
+    with torch.no_grad(), cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=True):
+        inside = extractor.model(images, extractor.feature)
+    gap = (inside.double() - out["tf32_off"].double()).abs()
+    scale = out["tf32_off"].double().abs().max()
+    return out["tf32_off"], {"max_abs": float(gap.max()), "max_rel_of_max": float(gap.max() / scale)}
+
+
+def fid_inception_phase(torch, ops, card, tm):
+    """fid-inception: config 5b through FrechetInceptionDistance(2048),
+    KernelInceptionDistance(subset_size=1000) and InceptionScore(), eager
+    and fused, against exact=True; the TF32 independence of the features."""
+    t_phase = time.perf_counter()
+    base = free_card(torch)
+    directory = tempfile.mkdtemp(prefix="chip_smoke_inception_")
+    try:
+        path = inception_weights(torch, directory)
+        batches = fid_batches(torch)
+        torch.cuda.synchronize()
+        makers = {
+            "FID": lambda: tm.FrechetInceptionDistance(2048, feature_extractor_weights_path=path),
+            "KID": lambda: tm.KernelInceptionDistance(2048, subset_size=KID_SUBSET, seed=0, feature_extractor_weights_path=path),
+            "IS": lambda: tm.InceptionScore(feature_extractor_weights_path=path),
+        }
+        fake_only = [b for b in batches if not b[1]]
+        report, eager_values, metrics = {}, {}, {}
+        for name, make in makers.items():
+            stream, update = (fake_only, is_update) if name == "IS" else (batches, fid_update)
+            legs = fused_legs(torch, ops, f"fid-inception ({name})", lambda: tm.MetricCollection([make()]), stream, {}, update=update)
+            metric = next(iter(legs["eager"]["collection"].values()))
+            eager_values[name] = next(iter(legs["eager"]["values"].values()))
+            metrics[name] = metric
+            # compute over the whole stream (leg_report resets the states)
+            compute_ms = median_ms(torch, metric._compute, repeats=3)
+            leg_reports = {leg: leg_report(torch, ops, legs[leg], update, stream) for leg in legs}
+            fused = leg_reports["fused"]
+            check(not fused["eager_leg"] and not fused["declined"], f"fid-inception ({name}): {fused['declined']}")
+            check(fused["host_syncs_per_update"] == 0, f"fid-inception ({name}): the fused update reads the card")
+            report[name] = {
+                leg: {**r, "images_per_s": FID_BATCH / (r["ms_per_update"] / 1e3)} for leg, r in leg_reports.items()
+            }
+            report[name]["compute_ms"] = compute_ms
+            report[name]["state_bytes"] = state_bytes(metric)
+            report[name]["value"] = [float(v) for v in flat_outputs(eager_values[name])]
+            del legs, leg_reports, fused
+            gc.collect()  # the fused leg's graphs (a handle-collection cycle)
+        # exact=True on the same batches: the features are the same bits
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            exact = tm.MetricCollection(
+                [
+                    tm.FrechetInceptionDistance(2048, feature_extractor_weights_path=path, exact=True),
+                    tm.KernelInceptionDistance(2048, subset_size=KID_SUBSET, seed=0, feature_extractor_weights_path=path, exact=True),
+                ]
+            )
+        for batch in batches:
+            fid_update(exact, batch)
+        exact_values, exact_ms = timed(torch, exact.compute)
+        fid_exact = float(exact_values["FrechetInceptionDistance"])
+        fid_rel = abs(float(eager_values["FID"]) - fid_exact) / abs(fid_exact)
+        check(fid_rel <= FID_RTOL, f"fid-inception: streaming FID {float(eager_values['FID'])} off exact float64 {fid_exact} by {fid_rel}")
+        kid_exact = exact_values["KernelInceptionDistance"]
+        check(
+            all(torch.equal(a, b) for a, b in zip(eager_values["KID"], kid_exact)),
+            f"fid-inception: KID in its window {[float(v) for v in eager_values['KID']]} differs from exact=True {[float(v) for v in kid_exact]}",
+        )
+        features, tf32_gap = tf32_gate(torch, metrics["FID"].inception, batches[1][0])
+        check(tuple(features.shape) == (FID_BATCH, 2048) and bool(torch.isfinite(features).all()), "fid-inception: bad features")
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    emit(
+        {
+            "phase": "fid-inception",
+            "card": card,
+            "batch": FID_BATCH,
+            "real_batches": FID_BATCHES,
+            "fake_batches": FID_BATCHES,
+            "metrics": report,
+            "fid_exact_float64": fid_exact,
+            "fid_rel_diff_streaming_exact": fid_rel,
+            "kid_exact": [float(v) for v in kid_exact],
+            "exact_compute_ms": exact_ms,
+            "tf32_gap_if_on_inside": tf32_gap,
+            "peak_memory_bytes": peak,
+            "memory_at_start_bytes": base,
+            "seconds": time.perf_counter() - t_phase,
+        }
+    )
+
+
+def lpips_weights(torch, net_type, directory):
+    """An ``.npz`` of seeded random LPIPS weights in the JAX package's
+    layout, as tests/image/test_lpips.py makes its mirror's: the default
+    initialisation under seed 1, the heads uniform in [0, 0.2]."""
+    from metrics_tpu_torch.convert import lpips_to_flax
+    from metrics_tpu_torch.models.lpips import LPIPSNet
+
+    torch.manual_seed(1)
+    model = LPIPSNet(net_type).eval()
+    with torch.no_grad():
+        for k in range(5):
+            getattr(model, f"lin{k}").model[1].weight.uniform_(0.0, 0.2)
+    path = os.path.join(directory, f"lpips_{net_type}.npz")
+    np.savez(path, variables=np.asarray(lpips_to_flax(model.state_dict(), net_type), dtype=object))
+    return path
+
+
+def lpips_phase(torch, ops, card, tm):
+    """lpips: alex and vgg over 64 pairs of 3 x 256 x 256, eager and fused,
+    against the port on the CPU."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=IMAGE_DEVICE).manual_seed(LPIPS_SEED)
+    shape = (LPIPS_PAIRS,) + LPIPS_SHAPE
+    img1 = torch.rand(shape, generator=gen, device=IMAGE_DEVICE) * 2 - 1
+    img2 = (img1 + LPIPS_NOISE * torch.randn(shape, generator=gen, device=IMAGE_DEVICE)).clamp_(-1.0, 1.0)
+    per = LPIPS_PAIRS // LPIPS_UPDATES
+    batches = [(img1[i * per : (i + 1) * per], img2[i * per : (i + 1) * per]) for i in range(LPIPS_UPDATES)]
+    directory = tempfile.mkdtemp(prefix="chip_smoke_lpips_")
+    report = {}
+    try:
+        for net_type in ("alex", "vgg"):
+            path = lpips_weights(torch, net_type, directory)
+
+            def make(device=None):
+                return tm.LearnedPerceptualImagePatchSimilarity(net_type=net_type, net_weights_path=path, device=device)
+
+            base = free_card(torch)
+            legs = fused_legs(torch, ops, f"lpips ({net_type})", lambda: tm.MetricCollection([make()]), batches, {})
+            leg_reports = {leg: leg_report(torch, ops, legs[leg], update_args, batches) for leg in legs}
+            fused = leg_reports["fused"]
+            check(not fused["eager_leg"] and not fused["declined"], f"lpips ({net_type}): {fused['declined']}")
+            check(fused["host_syncs_per_update"] == 0, f"lpips ({net_type}): the fused update reads the card")
+            # the first update's pairs on the card and on the CPU
+            card_metric, cpu_metric = make(), make("cpu")
+            card_metric.update(*batches[0])
+            cpu_metric.update(batches[0][0].cpu(), batches[0][1].cpu())
+            head, cpu = float(card_metric.compute()), float(cpu_metric.compute())
+            rel_cpu = abs(head - cpu) / abs(cpu)
+            check(rel_cpu <= LPIPS_RTOL, f"lpips ({net_type}): card {head} and CPU {cpu} differ by {rel_cpu} (relative)")
+            value = float(next(iter(legs["eager"]["values"].values())))
+            check(math.isfinite(value) and value > 0, f"lpips ({net_type}): value {value}")
+            report[net_type] = {
+                **{leg: {**r, "pairs_per_s": per / (r["ms_per_update"] / 1e3)} for leg, r in leg_reports.items()},
+                "value": value,
+                "first_update_value": head,
+                "first_update_cpu": cpu,
+                "rel_diff_card_cpu": rel_cpu,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "memory_at_start_bytes": base,
+            }
+            del legs, leg_reports, fused
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    emit(
+        {
+            "phase": "lpips",
+            "card": card,
+            "pairs": LPIPS_PAIRS,
+            "shape": list(LPIPS_SHAPE),
+            "updates": LPIPS_UPDATES,
+            "nets": report,
+            "seconds": time.perf_counter() - t_phase,
+        }
+    )
+
+
+# ---------------------------------------------------------------------------
 # cross-process sync: ranks spawned on the one card, joined in a gloo group
 # ---------------------------------------------------------------------------
 
@@ -5435,6 +5871,11 @@ def main():
     # cross-process sync: 2 ranks (the families), 8 (the bundle), NCCL alone
     sync_launches = sync_phases(torch, card)
     nccl_world1_phase(torch, card)
+    # the image family: SSIM/MS-SSIM/UQI (config 5), FID/KID/IS on the
+    # InceptionV3 (config 5b), LPIPS; no kernel of ours on their paths
+    ssim_phase(torch, ops, card, tm)
+    fid_inception_phase(torch, ops, card, tm)
+    lpips_phase(torch, ops, card, tm)
     # K5 is reached by 2-D boxes through the entry point ops.box_iou
     gen = torch.Generator(device="cpu").manual_seed(5)
     k5_inputs = [(iou_boxes(torch, gen, n).cuda(), iou_boxes(torch, gen, m).cuda()) for n, m in K5_PARITY_SHAPES]

@@ -20,7 +20,12 @@ table and their exact mode), the regression family
 ``SymmetricMeanAbsolutePercentageError``, ``MeanSquaredLogError``,
 ``TweedieDevianceScore``, ``CosineSimilarity``, ``ExplainedVariance``,
 ``R2Score``, ``PearsonCorrCoef``, ``SpearmanCorrCoef`` with its rank
-sketch) and its functionals, ``PeakSignalNoiseRatio``, the per-slice and windowed wrappers
+sketch) and its functionals, the image family (``PeakSignalNoiseRatio``,
+``StructuralSimilarityIndexMeasure``, ``MultiScaleStructuralSimilarityIndexMeasure``,
+``UniversalImageQualityIndex``, ``FrechetInceptionDistance``,
+``KernelInceptionDistance``, ``InceptionScore`` on the InceptionV3 of
+:mod:`metrics_tpu_torch.models`, ``LearnedPerceptualImagePatchSimilarity``,
+``image_gradients``), the per-slice and windowed wrappers
 ``SlicedMetric`` (:mod:`metrics_tpu_torch.sliced`) and ``WindowedMetric``
 (:mod:`metrics_tpu_torch.windowed`), the quantile sketch, the keyed
 and Gumbel reservoirs, the rank sketch and the streaming moments (:mod:`metrics_tpu_torch.sketches`)
@@ -62,7 +67,16 @@ from metrics_tpu_torch.classification import (  # noqa: F401
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
 from metrics_tpu_torch.core.metric import CompositionalMetric, Metric  # noqa: F401
 from metrics_tpu_torch.detection import MeanAveragePrecision  # noqa: F401
-from metrics_tpu_torch.image import PeakSignalNoiseRatio  # noqa: F401
+from metrics_tpu_torch.image import (  # noqa: F401
+    FrechetInceptionDistance,
+    InceptionScore,
+    KernelInceptionDistance,
+    LearnedPerceptualImagePatchSimilarity,
+    MultiScaleStructuralSimilarityIndexMeasure,
+    PeakSignalNoiseRatio,
+    StructuralSimilarityIndexMeasure,
+    UniversalImageQualityIndex,
+)
 from metrics_tpu_torch.regression import (  # noqa: F401
     CosineSimilarity,
     ExplainedVariance,

@@ -23,9 +23,20 @@ metric in place: its own states, every child's (wrappers and compositions,
 by their ``_iter_child_metrics`` names), ``MinMaxMetric``'s extremes and
 ``BootStrapper``'s ``RandomState``, so an epoch started in the JAX package
 continues here bit for bit.
+
+Weights cross the other way too. The image extractors of both packages
+read one ``.npz`` file, the JAX package's Flax variable tree (nested dicts
+of numpy arrays, ``np.load(path, allow_pickle=True)["variables"].item()``):
+:func:`inception_from_flax` and :func:`lpips_from_flax` turn that tree into
+the port's ``state_dict`` (HWIO kernels to OIHW, a Dense ``[in, out]``
+kernel to a Linear ``[out, in]`` weight, BatchNorm ``scale``/``bias``/
+``mean``/``var`` to ``weight``/``bias``/``running_mean``/``running_var``),
+and :func:`inception_to_flax` and :func:`lpips_to_flax` write the tree from
+a torch-fidelity or ``lpips`` state dict (which the port's models share),
+as the JAX package's converters do.
 """
 from enum import Enum
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -123,3 +134,135 @@ def _leaf(value: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def _host_value(value: Any) -> Any:
     return value.value if isinstance(value, Enum) else value
+
+
+# ---------------------------------------------------------------------------
+# extractor weights: the JAX package's Flax variable tree <-> torch
+# ---------------------------------------------------------------------------
+
+
+def _weight(x: Any) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32, order="C"))
+
+
+def _host(x: Any) -> np.ndarray:
+    return np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x, dtype=np.float32)
+
+
+def _oihw(kernel: Any) -> torch.Tensor:
+    """A Flax HWIO kernel as a torch OIHW weight."""
+    return _weight(np.asarray(kernel).transpose(3, 2, 0, 1))
+
+
+def _hwio(weight: Any) -> np.ndarray:
+    """A torch OIHW weight as a Flax HWIO kernel."""
+    return _host(weight).transpose(2, 3, 1, 0)
+
+
+def _inception_convs():
+    """``(flax path, torch module name)`` of every BasicConv2d of the FID
+    InceptionV3, in the JAX package's creation order."""
+    from metrics_tpu_torch.models.inception import _BLOCK_LAYOUT, _STEM_CONVS
+
+    for i, torch_name in enumerate(_STEM_CONVS):
+        yield (f"BasicConv2d_{i}",), torch_name
+    for flax_name, torch_name, branch_order in _BLOCK_LAYOUT:
+        for j, branch in enumerate(branch_order):
+            yield (flax_name, f"BasicConv2d_{j}"), f"{torch_name}.{branch}"
+
+
+def _path_get(tree: Mapping, path: Tuple[str, ...]) -> Any:
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _path_set(tree: Dict, path: Tuple[str, ...], value: Any) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def inception_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The state dict of :class:`~metrics_tpu_torch.models.inception.InceptionV3FID`
+    from the JAX package's InceptionV3 variables (``{"params": ...,
+    "batch_stats": ...}``). ``fc`` is there only when the tree has
+    ``Dense_0``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: Dict[str, torch.Tensor] = {}
+    for path, name in _inception_convs():
+        p, s = _path_get(params, path), _path_get(stats, path)
+        out[f"{name}.conv.weight"] = _oihw(p["Conv_0"]["kernel"])
+        out[f"{name}.bn.weight"] = _weight(p["BatchNorm_0"]["scale"])
+        out[f"{name}.bn.bias"] = _weight(p["BatchNorm_0"]["bias"])
+        out[f"{name}.bn.running_mean"] = _weight(s["BatchNorm_0"]["mean"])
+        out[f"{name}.bn.running_var"] = _weight(s["BatchNorm_0"]["var"])
+        out[f"{name}.bn.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+    if "Dense_0" in params:
+        out["fc.weight"] = _weight(np.asarray(params["Dense_0"]["kernel"]).T)
+        out["fc.bias"] = _weight(params["Dense_0"]["bias"])
+    return out
+
+
+def inception_to_flax(state_dict: Mapping[str, Any]) -> Dict[str, Dict]:
+    """The JAX package's InceptionV3 variables from a torch-fidelity state
+    dict (the port model's too): what its ``convert_torch_fidelity_weights``
+    returns. Save with ``np.savez(path, variables=np.asarray(tree, dtype=object))``."""
+    params: Dict = {}
+    stats: Dict = {}
+    for path, name in _inception_convs():
+        _path_set(params, path, {
+            "Conv_0": {"kernel": _hwio(state_dict[f"{name}.conv.weight"])},
+            "BatchNorm_0": {"scale": _host(state_dict[f"{name}.bn.weight"]), "bias": _host(state_dict[f"{name}.bn.bias"])},
+        })
+        _path_set(stats, path, {
+            "BatchNorm_0": {"mean": _host(state_dict[f"{name}.bn.running_mean"]), "var": _host(state_dict[f"{name}.bn.running_var"])},
+        })
+    if "fc.weight" in state_dict:
+        params["Dense_0"] = {"kernel": _host(state_dict["fc.weight"]).T, "bias": _host(state_dict["fc.bias"])}
+    return {"params": params, "batch_stats": stats}
+
+
+def _lpips_convs(net_type: str):
+    """``(flax conv name, torch module name)`` of every backbone conv of an
+    LPIPS net, in order."""
+    from torch import nn
+
+    from metrics_tpu_torch.models.lpips import _backbone_layers
+
+    convs = [(k, i) for k, i, layer in _backbone_layers(net_type) if isinstance(layer, nn.Conv2d)]
+    for c, (k, i) in enumerate(convs):
+        yield f"Conv_{c}", f"net.slice{k + 1}.{i}"
+
+
+def lpips_from_flax(variables: Mapping[str, Any], net_type: str = "alex") -> Dict[str, torch.Tensor]:
+    """The state dict of :class:`~metrics_tpu_torch.models.lpips.LPIPSNet`
+    from the JAX package's LPIPS variables (``{"params": ...}``), with the
+    scaling layer's constants."""
+    from metrics_tpu_torch.models.lpips import _NET_STAGES, _SCALE, _SHIFT
+
+    params = variables["params"]
+    out: Dict[str, torch.Tensor] = {
+        "scaling_layer.shift": _weight(np.asarray(_SHIFT).reshape(1, 3, 1, 1)),
+        "scaling_layer.scale": _weight(np.asarray(_SCALE).reshape(1, 3, 1, 1)),
+    }
+    for flax_name, name in _lpips_convs(net_type):
+        conv = params["_Backbone_0"][flax_name]
+        out[f"{name}.weight"] = _oihw(conv["kernel"])
+        out[f"{name}.bias"] = _weight(conv["bias"])
+    for k in range(len(_NET_STAGES[net_type])):
+        out[f"lin{k}.model.1.weight"] = _oihw(params[f"lin{k}"]["kernel"])
+    return out
+
+
+def lpips_to_flax(state_dict: Mapping[str, Any], net_type: str = "alex") -> Dict[str, Dict]:
+    """The JAX package's LPIPS variables from an ``lpips`` state dict (the
+    port model's too): what its ``convert_lpips_weights`` returns."""
+    from metrics_tpu_torch.models.lpips import _NET_STAGES
+
+    params: Dict = {"_Backbone_0": {}}
+    for flax_name, name in _lpips_convs(net_type):
+        params["_Backbone_0"][flax_name] = {"kernel": _hwio(state_dict[f"{name}.weight"]), "bias": _host(state_dict[f"{name}.bias"])}
+    for k in range(len(_NET_STAGES[net_type])):
+        params[f"lin{k}"] = {"kernel": _hwio(state_dict[f"lin{k}.model.1.weight"])}
+    return {"params": params}

@@ -1,5 +1,6 @@
-"""Rank-zero-only warnings, keyed on the ``torch.distributed`` rank (0 when
+"""Rank-zero-only warnings and info logs, keyed on the ``torch.distributed`` rank (0 when
 no process group is initialised)."""
+import logging
 import warnings
 from functools import wraps
 from typing import Any, Callable
@@ -7,6 +8,8 @@ from typing import Any, Callable
 # a module import: the distributed module imports (through the sketches)
 # modules that warn, so it may still be initialising here
 import metrics_tpu_torch.parallel.distributed as _distributed
+
+log = logging.getLogger("metrics_tpu_torch")
 
 
 def rank_zero_only(fn: Callable) -> Callable:
@@ -22,3 +25,8 @@ def rank_zero_only(fn: Callable) -> Callable:
 @rank_zero_only
 def rank_zero_warn(message: str, *args: Any, **kwargs: Any) -> None:
     warnings.warn(message, *args, stacklevel=kwargs.pop("stacklevel", 3), **kwargs)
+
+
+@rank_zero_only
+def rank_zero_info(message: str, *args: Any, **kwargs: Any) -> None:
+    log.info(message, *args, **kwargs)

@@ -27,10 +27,15 @@ for name in ("core.fused", "core.pipeline", "observability.freshness", "classifi
              "wrappers", "wrappers.bootstrapping", "wrappers.classwise", "wrappers.minmax", "wrappers.multioutput",
              "wrappers.tracker", "functional.pairwise", "functional.pairwise.helpers", "functional.pairwise.cosine",
              "functional.pairwise.euclidean", "functional.pairwise.linear", "functional.pairwise.manhattan",
-             "parallel", "parallel.distributed"):
+             "parallel", "parallel.distributed", "functional.image.helper", "functional.image.gradients",
+             "functional.image.ssim", "functional.image.uqi", "image.ssim", "image.uqi", "image.fid", "image.kid",
+             "image.inception", "image.lpip", "models", "models.inception", "models.lpips", "ops.sqrtm"):
     assert "metrics_tpu_torch." + name in names, name
 from metrics_tpu_torch import BootStrapper, CompositionalMetric, MeanMetric, MetricTracker  # noqa: F401
 from metrics_tpu_torch.parallel import class_reduce, gather_all_arrays, sync_pytree  # noqa: F401
+from metrics_tpu_torch import FrechetInceptionDistance, KernelInceptionDistance, InceptionScore  # noqa: F401
+from metrics_tpu_torch import LearnedPerceptualImagePatchSimilarity, UniversalImageQualityIndex  # noqa: F401
+from metrics_tpu_torch.convert import inception_from_flax, lpips_from_flax  # noqa: F401
 import chip_smoke
 assert not any(k == "jax" or k.startswith(("jax.", "metrics_tpu.")) for k, v in sys.modules.items() if v is not None)
 print(len(names))
