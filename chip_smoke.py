@@ -372,7 +372,31 @@ Phases, each printed as one JSON line:
    through convert.lpips_to_flax), eager and fused; gates: states and values
    bit-equal between the legs, nothing declined, 0 host syncs per fused
    update, the first update's value within rtol 1e-5 of the port's CPU run;
-   pairs/s, device ms and idle share per update, peak memory;
+   pairs/s, device ms and idle share per update, peak memory; (ssim also
+   checks that uint8 images are refused with a TypeError by each
+   functional and each class's update, on the card);
+18q. sliced-probability -- SlicedMetric(Accuracy(num_classes=10), 1000)
+   over 8 updates of 4096 softmax rows made on the card from a seed (the
+   vmapped top-1 mask of probability rows); gate: the per-tenant values
+   bit-equal to the port's CPU run; ms per update, launches per update;
+18r. text-corpus -- a synthetic corpus of WMT newstest size (3000 pairs,
+   see TEXT_SEED) in batches of 64 through BLEU, SacreBLEU (13a and char),
+   chrF, chrF++, TER and EED (their first 512 pairs), ROUGE (rouge1, rouge2,
+   rougeL), WER, CER, MER, WIL and WIP on the first reference, and SQuAD on
+   a seeded QA set of 3000 questions; CPU workers spawned at the phase's
+   start run the same metrics with device="cpu"; gates: every value and
+   state on the card bit-equal to theirs, one host-to-device copy per
+   update (counted at the dispatcher), 0 host syncs per update, no launch
+   of a kernel of ours; sentences/s, ms per update, compute ms, device ms
+   per update, state bytes;
+18s. bertscore-base -- BASELINE config 5c: bert_score over 24 batches of
+   64 seeded sequences of 128 tokens on the port's BERT at BertConfig()'s
+   widths (BERT-base, seeded weights from a generator on the card, full
+   float32); gates: 1536 finite precision/recall/F1 values, the first
+   batch's within 1e-4 of a float64 copy of the encoder on the card, no
+   launch of a kernel of ours; pairs/s, ms and device ms per encoder batch,
+   idle share, the encoder's share of the float32 peak, the gap TF32 inside
+   would make on the last hidden state (information), peak memory;
 19. the kernels line: per kernel its launches on its main path (flagship for
    K1, sketch-binary for K3, map-coco for K6, the entry point ops.box_iou
    on 2-D boxes for K5, retrieval-mslr for K4, sliced-psnr for K2 and
@@ -692,6 +716,52 @@ LPIPS_SHAPE = (3, 256, 256)
 LPIPS_UPDATES = 4
 LPIPS_NOISE = 0.2
 LPIPS_RTOL = 1e-5
+# sliced-probability: SlicedMetric(Accuracy(num_classes=10), 1000) on
+# softmax rows (the vmapped top-1 mask): 8 updates of 4096 rows made on the
+# card from a seed, the per-tenant values bit-equal to the port's CPU run
+SLICED_PROB_SEED = 18000
+SLICED_PROB_ROWS = 4096
+SLICED_PROB_UPDATES = 8
+SLICED_PROB_CLASSES = 10
+SLICED_PROB_TENANTS = 1000
+# text-corpus: a synthetic corpus of a WMT newstest set's size (3000
+# sentence pairs), made from a seed: hypotheses of 10-40 words drawn from a
+# Zipf vocabulary of 5000 seeded pseudo-words (a capital first letter, a
+# full stop), two references each made from the hypothesis by seeded
+# substitutions (10%), deletions (5%), insertions and one shifted span of
+# 2-4 words; batches of 64; a seeded QA set of the same size for SQuAD.
+# TER and EED (pure-Python dynamic programs on the host: about 12 and 38 ms a
+# pair on this corpus on the CPU) take the first TEXT_SLOW_PAIRS pairs. The same metrics run on the CPU in
+# TEXT_CPU_WORKERS spawned processes while the card leg runs; every value
+# and state on the card bit-equal to theirs.
+TEXT_SEED = 19000
+TEXT_PAIRS = 3000
+TEXT_VOCAB = 5000
+TEXT_WORDS = (10, 40)
+TEXT_BATCH = 64
+TEXT_SLOW_PAIRS = 512
+TEXT_CPU_WORKERS = 4
+TEXT_TIMEOUT_S = 300
+#: where the sliced-probability, text and BERTScore phases run (the CPU
+#: only for a rehearsal)
+TEXT_DEVICE = "cuda"
+# bertscore-base: BASELINE config 5c, BERTScore on the port's BERT at
+# BertConfig()'s widths (BERT-base: vocab 30522, hidden 768, 12 layers, 12
+# heads, intermediate 3072, 512 positions; seeded weights, about 440 MB in
+# float32) over 24 batches of 64 seeded sequences of 128 tokens (lengths
+# 24-128, the rest padding) through bert_score on pre-tokenized input_ids /
+# attention_mask dicts; precision, recall and F1 of the first batch within
+# BERT_ATOL of a float64 copy of the same module on the card
+BERT_SEED = 20000
+BERT_BATCH = 64
+BERT_BATCHES = 24
+BERT_SEQ = 128
+BERT_ATOL = 1e-4
+#: BertConfig overrides (none: BERT-base; a rehearsal on the CPU shrinks it)
+BERT_WIDTHS = {}
+#: the float32 rate of one H100 outside the tensor cores (SXM data sheet):
+#: the encoder runs at full float32 with TF32 off
+FP32_FLOPS_PER_S = 67e12
 # sketch-bf16: |bfloat16 - float32| of AUROC() over curve-binary's stream;
 # 1.70e-5 measured on the CPU (scripts/reference_properties.py)
 BF16_SKETCH_BOUND = 1e-4
@@ -4764,9 +4834,21 @@ def ssim_phase(torch, ops, card, tm):
         check(rel_cpu[name] <= SSIM_RTOL, f"ssim: {name} card and CPU differ by {rel_cpu[name]} (relative)")
         check(rel_f64[name] <= SSIM_RTOL, f"ssim: {name} {float(values[name])} off float64 {float64[name]} by {rel_f64[name]}")
     cpu_s = time.perf_counter() - t0
+    # integer images are refused on the card before anything is computed
+    refused = {}
+    as_int = (preds * 255).to(torch.uint8), (target * 255).to(torch.uint8)
+    for name, (make, functional) in metrics.items():
+        for how, call in (("functional", lambda: functional(*as_int)), ("update", lambda: make().update(*as_int))):
+            try:
+                call()
+            except TypeError as err:
+                refused[f"{name} {how}"] = str(err)[:60]
+            else:
+                check(False, f"ssim: the {name} {how} accepted uint8 images")
     emit(
         {
             "phase": "ssim",
+            "integer_images_refused": refused,
             "card": card,
             "images": SSIM_IMAGES,
             "shape": list(SSIM_SHAPE),
@@ -5637,6 +5719,422 @@ def nccl_world1_phase(torch, card):
     emit({"phase": "nccl-world1", "card": card, "backend": "nccl", "world": 1, "dtypes": results, "multi_rank_nccl": "not measured: one card"})
 
 
+# ---------------------------------------------------------------------------
+# sliced-probability (the vmapped top-1 mask on the card)
+# ---------------------------------------------------------------------------
+
+
+def sliced_probability_phase(torch, ops, card, tm):
+    """sliced-probability: SlicedMetric(Accuracy(10), 1000) over softmax rows
+    made on the card from a seed, against the port's CPU run bit for bit."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=TEXT_DEVICE).manual_seed(SLICED_PROB_SEED)
+    batches = []
+    for _ in range(SLICED_PROB_UPDATES):
+        logits = torch.randn(SLICED_PROB_ROWS, SLICED_PROB_CLASSES, generator=gen, device=TEXT_DEVICE)
+        target = torch.randint(0, SLICED_PROB_CLASSES, (SLICED_PROB_ROWS,), generator=gen, device=TEXT_DEVICE)
+        ids = torch.randint(0, SLICED_PROB_TENANTS, (SLICED_PROB_ROWS,), generator=gen, device=TEXT_DEVICE)
+        batches.append((ids, torch.softmax(logits, dim=1), target))
+    metric = tm.SlicedMetric(tm.Accuracy(num_classes=SLICED_PROB_CLASSES, device=TEXT_DEVICE), SLICED_PROB_TENANTS)
+    metric.update(*batches[0])  # the first update builds the vmapped update
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for batch in batches[1:]:
+        metric.update(*batch)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) / (SLICED_PROB_UPDATES - 1) * 1e3
+    launches = {k: n for k, n in ops.launch_counts().items() if n}
+    value, compute_ms = timed(torch, metric.compute)
+    cpu = tm.SlicedMetric(tm.Accuracy(num_classes=SLICED_PROB_CLASSES, device="cpu"), SLICED_PROB_TENANTS)
+    for batch in batches:
+        cpu.update(*(x.cpu() for x in batch))
+    want = cpu.compute()
+    check(value.dtype == want.dtype == torch.float32, f"sliced-probability: dtypes {value.dtype} and {want.dtype}")
+    check(bitwise_rows_differ(torch, value.cpu().reshape(-1, 1), want.reshape(-1, 1)) == 0, "sliced-probability: card and CPU differ")
+    emit(
+        {
+            "phase": "sliced-probability",
+            "card": card,
+            "tenants": SLICED_PROB_TENANTS,
+            "rows_per_update": SLICED_PROB_ROWS,
+            "updates": SLICED_PROB_UPDATES,
+            "ms_per_update": update_ms,
+            "compute_ms": compute_ms,
+            "launches_per_update": {k: n / (SLICED_PROB_UPDATES - 1) for k, n in launches.items()},
+            "mean_accuracy": float(value.nanmean()),
+            "seconds": time.perf_counter() - t_phase,
+        }
+    )
+
+
+# ---------------------------------------------------------------------------
+# text-corpus and bertscore-base
+# ---------------------------------------------------------------------------
+
+
+def text_corpus():
+    """``(hypotheses, references, qa_preds, qa_targets)`` of the text-corpus
+    phase, from TEXT_SEED (see the constants)."""
+    rng = np.random.default_rng(TEXT_SEED)
+    letters = rng.integers(0, 26, (TEXT_VOCAB, 10))
+    sizes = rng.integers(2, 11, TEXT_VOCAB)
+    vocab = ["".join(chr(97 + c) for c in letters[i, : sizes[i]]) for i in range(TEXT_VOCAB)]
+    cdf = np.cumsum(1.0 / np.arange(1, TEXT_VOCAB + 1))
+    cdf /= cdf[-1]
+
+    def draw(k):
+        return list(np.minimum(np.searchsorted(cdf, rng.random(k)), TEXT_VOCAB - 1))
+
+    def sentence(ids):
+        words = [vocab[i] for i in ids]
+        return " ".join([words[0].capitalize()] + words[1:]) + "."
+
+    lengths = rng.integers(TEXT_WORDS[0], TEXT_WORDS[1] + 1, TEXT_PAIRS)
+    ids = draw(int(lengths.sum()))
+    starts = np.concatenate([[0], np.cumsum(lengths)])
+    hyps, refs = [], []
+    for k in range(TEXT_PAIRS):
+        hyp = ids[starts[k] : starts[k + 1]]
+        pair = []
+        for _ in range(2):
+            ref = [w if rng.random() >= 0.1 else draw(1)[0] for w in hyp]
+            ref = [w for w in ref if rng.random() >= 0.05]
+            for _ in range(rng.binomial(3, 0.3)):
+                ref.insert(int(rng.integers(len(ref) + 1)), draw(1)[0])
+            at, size = int(rng.integers(0, len(ref) - 4)), int(rng.integers(2, 5))
+            span = ref[at : at + size]
+            del ref[at : at + size]
+            to = int(rng.integers(len(ref) + 1))
+            ref[to:to] = span
+            pair.append(sentence(ref))
+        hyps.append(sentence(hyp))
+        refs.append(pair)
+    qa_preds, qa_targets = [], []
+    for k in range(TEXT_PAIRS):
+        answers = [" ".join(vocab[i] for i in draw(int(rng.integers(1, 6)))) for _ in range(int(rng.integers(1, 4)))]
+        pick = rng.random()
+        if pick < 0.3:
+            pred = "The " + answers[0] + "."
+        elif pick < 0.8:
+            words = answers[-1].split()
+            pred = " ".join(words[: max(1, len(words) - 1)] + [vocab[i] for i in draw(2)])
+        else:
+            pred = " ".join(vocab[i] for i in draw(3))
+        qa_preds.append({"prediction_text": pred, "id": str(k)})
+        qa_targets.append({"answers": {"answer_start": [0] * len(answers), "text": answers}, "id": str(k)})
+    return hyps, refs, qa_preds, qa_targets
+
+
+#: label -> (class name, keyword arguments, inputs: "refs", "first" or "squad")
+TEXT_METRICS = {
+    "TER": ("TranslationEditRate", {}, "refs"),
+    "EED": ("ExtendedEditDistance", {}, "refs"),
+    "chrF++": ("CHRFScore", {"n_word_order": 2}, "refs"),
+    "chrF": ("CHRFScore", {"n_word_order": 0}, "refs"),
+    "SacreBLEU-char": ("SacreBLEUScore", {"tokenize": "char"}, "refs"),
+    "CER": ("CharErrorRate", {}, "first"),
+    "ROUGE": ("ROUGEScore", {"rouge_keys": ("rouge1", "rouge2", "rougeL")}, "refs"),
+    "BLEU": ("BLEUScore", {}, "refs"),
+    "SacreBLEU-13a": ("SacreBLEUScore", {"tokenize": "13a"}, "refs"),
+    "WER": ("WordErrorRate", {}, "first"),
+    "MER": ("MatchErrorRate", {}, "first"),
+    "WIL": ("WordInfoLost", {}, "first"),
+    "WIP": ("WordInfoPreserved", {}, "first"),
+    "SQuAD": ("SQuAD", {}, "squad"),
+}
+
+
+def text_batches(corpus, label):
+    """The update batches of one text metric (TER and EED over the first
+    TEXT_SLOW_PAIRS pairs)."""
+    hyps, refs, qa_preds, qa_targets = corpus
+    kind = TEXT_METRICS[label][2]
+    n = TEXT_SLOW_PAIRS if label in ("TER", "EED") else TEXT_PAIRS
+    if kind == "squad":
+        preds, targets = qa_preds[:n], qa_targets[:n]
+    else:
+        preds, targets = hyps[:n], (refs[:n] if kind == "refs" else [r[0] for r in refs[:n]])
+    return [(preds[lo : lo + TEXT_BATCH], targets[lo : lo + TEXT_BATCH]) for lo in range(0, n, TEXT_BATCH)]
+
+
+def text_result(torch, metric, value):
+    """A text metric's value and states as CPU tensors (a list state by its
+    concatenation)."""
+    states = {}
+    for name in metric._defaults:
+        state = getattr(metric, name)
+        states[name] = torch.cat([s.reshape(-1) for s in state]).cpu() if isinstance(state, list) else state.cpu()
+    if isinstance(value, dict):
+        value = {k: v.cpu() for k, v in value.items()}
+    else:
+        value = value.cpu()
+    return {"value": value, "states": states}
+
+
+def text_cpu_worker(index, labels, out_dir):
+    """A spawned process: the text metrics ``labels[index::TEXT_CPU_WORKERS]``
+    on the CPU over the same corpus."""
+    import torch
+
+    import metrics_tpu_torch as tm
+
+    torch.set_num_threads(1)
+    corpus = text_corpus()
+    out = {}
+    for label in labels[index::TEXT_CPU_WORKERS]:
+        name, kwargs, _ = TEXT_METRICS[label]
+        metric = getattr(tm, name)(device="cpu", **kwargs)
+        for batch in text_batches(corpus, label):
+            metric.update(*batch)
+        out[label] = text_result(torch, metric, metric.compute())
+    torch.save(out, os.path.join(out_dir, f"worker{index}.pt"))
+
+
+def h2d_copies_per_update(torch, update, batches):
+    """Host-to-device copies per ``update(batch)``, counted at PyTorch's
+    dispatcher (every ``_to_copy``/``copy_`` from a CPU tensor to a CUDA
+    one), with the device time per update and the memcpy rows that
+    torch.profiler saw (a profiler window may miss an event, so it gates
+    nothing)."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    to_copy, copy_ = torch.ops.aten._to_copy.default, torch.ops.aten.copy_.default
+
+    class CountCopies(TorchDispatchMode):
+        copies = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is to_copy or func is copy_:
+                src, dst = (args[1], args[0]) if func is copy_ else (args[0], out)
+                if isinstance(src, torch.Tensor) and src.device.type == "cpu" and dst.device.type == "cuda":
+                    CountCopies.copies += 1
+            return out
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, CountCopies():
+        for batch in batches:
+            update(batch)
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    seen = sum(evt.count for evt in rows if "HtoD" in evt.key)
+    device_us = sum(_self_device_us(evt) for evt in rows if evt.self_cpu_time_total == 0)
+    n = len(batches)
+    return CountCopies.copies / n, device_us / n / 1e3, seen / n
+
+
+def same_text_result(torch, label, got, want):
+    def same(a, b):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+    value, cpu_value = got["value"], want["value"]
+    if isinstance(cpu_value, dict):
+        ok = set(value) == set(cpu_value) and all(same(value[k], cpu_value[k]) for k in cpu_value)
+    else:
+        ok = same(value, cpu_value)
+    check(ok, f"text-corpus: {label}'s value on the card {value} differs from the CPU's {cpu_value}")
+    for name, state in want["states"].items():
+        check(same(got["states"][name], state), f"text-corpus: {label}'s state {name} differs between the card and the CPU")
+
+
+def text_corpus_phase(torch, ops, card, tm):
+    """text-corpus: BLEU, SacreBLEU (13a, char), chrF, chrF++, TER, EED,
+    ROUGE, the WER family and SQuAD over the corpus on the card; each value
+    and state bit-equal to the CPU run of spawned workers."""
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    labels = list(TEXT_METRICS)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_text_")
+    workers = mp.start_processes(
+        text_cpu_worker, args=(labels, out_dir), nprocs=TEXT_CPU_WORKERS, join=False, start_method="spawn"
+    )
+    try:
+        t0 = time.perf_counter()
+        corpus = text_corpus()
+        corpus_s = time.perf_counter() - t0
+        base = free_card(torch)
+        ops.reset_launch_counts()
+        report, results = {}, {}
+        for label in labels:
+            name, kwargs, _ = TEXT_METRICS[label]
+            batches = text_batches(corpus, label)
+            metric = getattr(tm, name)(device=TEXT_DEVICE, **kwargs)
+            # the first two updates count host syncs, the next two the
+            # copies (under the profiler); the rest are timed
+            syncs = syncs_per_update(torch, lambda b: metric.update(*b), batches[:2])
+            copies, device_ms, profiled = h2d_copies_per_update(torch, lambda b: metric.update(*b), batches[2:4])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for batch in batches[4:]:
+                metric.update(*batch)
+            torch.cuda.synchronize()
+            update_s = time.perf_counter() - t0
+            value, compute_ms = timed(torch, metric.compute)
+            sentences = sum(len(b[0]) for b in batches[4:])
+            results[label] = text_result(torch, metric, value)
+            shown = {k: float(v) for k, v in value.items()} if isinstance(value, dict) else float(value)
+            report[label] = {
+                "sentences": sum(len(b[0]) for b in batches),
+                "timed_sentences": sentences,
+                "sentences_per_s": sentences / (update_s + compute_ms / 1e3),
+                "update_ms": update_s / (len(batches) - 4) * 1e3,
+                "compute_ms": compute_ms,
+                "h2d_copies_per_update": copies,
+                "profiler_htod_rows_per_update": profiled,
+                "host_syncs_per_update": syncs,
+                "device_ms_per_update": device_ms,
+                "state_bytes": state_bytes(metric),
+                "value": shown,
+            }
+            check(syncs == 0, f"text-corpus: a {label} update synchronised {syncs} times")
+            check(copies == 1, f"text-corpus: a {label} update made {copies} host-to-device copies, expected 1")
+        card_s = time.perf_counter() - t_phase
+        launches = {k: n for k, n in ops.launch_counts().items() if n}
+        check(not launches, f"text-corpus: launches {launches}, expected none (no kernel of ours on this path)")
+        peak = torch.cuda.max_memory_allocated()
+        deadline = time.monotonic() + TEXT_TIMEOUT_S
+        while not workers.join(timeout=2.0):
+            check(time.monotonic() < deadline, f"text-corpus: the CPU workers still run after {TEXT_TIMEOUT_S} s")
+    finally:
+        for proc in workers.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(10)
+    cpu = {}
+    for index in range(TEXT_CPU_WORKERS):
+        cpu.update(torch.load(os.path.join(out_dir, f"worker{index}.pt")))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    check(set(cpu) == set(labels), f"text-corpus: the CPU workers returned {sorted(cpu)}")
+    for label in labels:
+        same_text_result(torch, label, results[label], cpu[label])
+    emit(
+        {
+            "phase": "text-corpus",
+            "card": card,
+            "pairs": TEXT_PAIRS,
+            "slow_pairs": TEXT_SLOW_PAIRS,
+            "batch": TEXT_BATCH,
+            "corpus_seconds": corpus_s,
+            "metrics": report,
+            "card_leg_seconds": card_s,
+            "cpu_workers_wait_seconds": time.perf_counter() - t_phase - card_s,
+            "peak_memory_bytes": peak,
+            "memory_at_start_bytes": base,
+            "bit_equal_to_cpu": True,
+            "seconds": time.perf_counter() - t_phase,
+        }
+    )
+
+
+def bert_inputs(torch, vocab):
+    """BASELINE config 5c's inputs on the card: 24 x 64 sequences of 128
+    token ids ([CLS], 22-126 word pieces from ids 1000 up, [SEP], padding)
+    and, as the references, the same sequences with 15% of the word pieces
+    redrawn."""
+    gen = torch.Generator(device=TEXT_DEVICE).manual_seed(BERT_SEED)
+    n = BERT_BATCH * BERT_BATCHES
+    lengths = torch.randint(24, BERT_SEQ + 1, (n,), generator=gen, device=TEXT_DEVICE)
+    pos = torch.arange(BERT_SEQ, device=TEXT_DEVICE)[None]
+    mask = (pos < lengths[:, None]).to(torch.int64)
+    ids = torch.randint(1000, vocab, (n, BERT_SEQ), generator=gen, device=TEXT_DEVICE)
+    ids = torch.where(pos == 0, 101, ids)
+    ids = torch.where(pos == lengths[:, None] - 1, 102, ids)
+    ids = ids * mask
+    redraw = (torch.rand(ids.shape, generator=gen, device=TEXT_DEVICE) < 0.15) & (ids >= 1000)
+    other = torch.randint(1000, vocab, ids.shape, generator=gen, device=TEXT_DEVICE)
+    target = torch.where(redraw, other, ids)
+    return {"input_ids": ids, "attention_mask": mask}, {"input_ids": target, "attention_mask": mask}
+
+
+def bert_flops(config, batch, seq):
+    """Multiply-adds x 2 of one encoder batch: the four projections and the
+    two feed-forward products per token and layer, and the two attention
+    products per sequence and layer."""
+    h, i, layers = config.hidden_size, config.intermediate_size, config.num_hidden_layers
+    per_layer = batch * seq * 2 * (4 * h * h + 2 * h * i) + batch * 4 * seq * seq * h
+    return layers * per_layer
+
+
+def bertscore_phase(torch, ops, card, tm):
+    """bertscore-base: BERTScore at BERT-base widths on the card; the first
+    batch against a float64 copy of the encoder on the card."""
+    import copy
+
+    from metrics_tpu_torch.functional.text.bert import bert_score
+    from metrics_tpu_torch.models.bert import BertConfig, bert_forward, build_bert
+
+    t_phase = time.perf_counter()
+    base = free_card(torch)
+    config = BertConfig(**BERT_WIDTHS)
+    model, build_ms = timed(torch, lambda: build_bert(config, seed=BERT_SEED, device=torch.device(TEXT_DEVICE)))
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    preds, target = bert_inputs(torch, config.vocab_size)
+    first = {k: v[:BERT_BATCH] for k, v in preds.items()}, {k: v[:BERT_BATCH] for k, v in target.items()}
+    bert_score(*first, model=model, batch_size=BERT_BATCH, device=TEXT_DEVICE)  # warm-up (cuBLAS handles, the allocator)
+    ops.reset_launch_counts()
+    out, score_ms = timed(torch, lambda: bert_score(preds, target, model=model, batch_size=BERT_BATCH, device=TEXT_DEVICE))
+    launches = {k: n for k, n in ops.launch_counts().items() if n}
+    check(not launches, f"bertscore-base: launches {launches}, expected none (no kernel of ours on this path)")
+    pairs = BERT_BATCH * BERT_BATCHES
+    for key in ("precision", "recall", "f1"):
+        check(len(out[key]) == pairs and all(math.isfinite(x) for x in out[key]), f"bertscore-base: {key} is not {pairs} finite values")
+    # the encoder alone, one batch: wall and device time
+    ids, mask = first[0]["input_ids"], first[0]["attention_mask"]
+    encoder_ms = median_ms(torch, lambda: bert_forward(model, ids, mask))
+    profile = device_profile(torch, lambda i: bert_forward(model, ids, mask), 3, host_ops=False)
+    flops = bert_flops(config, BERT_BATCH, BERT_SEQ)
+    bound_ms = flops / FP32_FLOPS_PER_S * 1e3
+    # the gate: the first batch against a float64 copy of the encoder on the card
+    model64 = copy.deepcopy(model).to(torch.float64)
+    exact = bert_score(*first, model=model64, batch_size=BERT_BATCH, device=TEXT_DEVICE)
+    del model64
+    gaps = {key: max(abs(a - b) for a, b in zip(out[key][:BERT_BATCH], exact[key])) for key in ("precision", "recall", "f1")}
+    for key, gap in gaps.items():
+        check(gap <= BERT_ATOL, f"bertscore-base: {key} of the first batch is {gap} off the float64 encoder's")
+    # information: the last hidden state with TF32 on inside the encoder
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    try:
+        matmul.allow_tf32 = True
+        with torch.no_grad():
+            tf32 = model(ids, mask).last_hidden_state
+    finally:
+        matmul.allow_tf32 = saved
+    full = bert_forward(model, ids, mask)[-1]
+    tf32_gap = (tf32.double() - full.double()).abs()
+    emit(
+        {
+            "phase": "bertscore-base",
+            "card": card,
+            "config": {"vocab": config.vocab_size, "hidden": config.hidden_size, "layers": config.num_hidden_layers,
+                       "heads": config.num_attention_heads, "intermediate": config.intermediate_size, "seq": BERT_SEQ},
+            "weight_bytes": weight_bytes,
+            "build_ms": build_ms,
+            "pairs": pairs,
+            "bert_score_ms": score_ms,
+            "pairs_per_s": pairs / (score_ms / 1e3),
+            "encoder_batches": 2 * BERT_BATCHES,
+            "encoder_ms_per_batch": encoder_ms,
+            "encoder_device_ms_per_batch": profile["device_busy_ms_per_step"],
+            "encoder_idle_share": 1 - profile["device_busy_ms_per_step"] / encoder_ms,
+            "encoder_top_device_us": profile["device_us_per_step_by_kernel"],
+            "encoder_gflop_per_batch": flops / 1e9,
+            "encoder_fp32_bound_ms": bound_ms,
+            "encoder_share_of_fp32_peak": bound_ms / profile["device_busy_ms_per_step"],
+            "first_batch_gap_to_float64": gaps,
+            "tolerance": BERT_ATOL,
+            "tf32_gap_last_hidden": {"max_abs": float(tf32_gap.max()), "max_rel_of_max": float(tf32_gap.max() / full.abs().max())},
+            "mean_f1": float(np.mean(out["f1"])),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "memory_at_start_bytes": base,
+            "seconds": time.perf_counter() - t_phase,
+        }
+    )
+
+
 def main():
     import torch
 
@@ -5876,6 +6374,12 @@ def main():
     ssim_phase(torch, ops, card, tm)
     fid_inception_phase(torch, ops, card, tm)
     lpips_phase(torch, ops, card, tm)
+    # sliced classification on probability rows (the vmapped top-1 mask)
+    sliced_probability_phase(torch, ops, card, tm)
+    # the text family: host string handling with float32 count states on
+    # the card (no kernel of ours), and BERTScore at BERT-base widths
+    text_corpus_phase(torch, ops, card, tm)
+    bertscore_phase(torch, ops, card, tm)
     # K5 is reached by 2-D boxes through the entry point ops.box_iou
     gen = torch.Generator(device="cpu").manual_seed(5)
     k5_inputs = [(iou_boxes(torch, gen, n).cuda(), iou_boxes(torch, gen, m).cuda()) for n, m in K5_PARITY_SHAPES]

@@ -36,7 +36,16 @@ and Gumbel reservoirs, the rank sketch and the streaming moments (:mod:`metrics_
 the operator algebra of ``Metric``, the pairwise functionals
 (:mod:`metrics_tpu_torch.functional.pairwise`) and the wrappers
 (``BootStrapper``, ``ClasswiseWrapper``, ``MinMaxMetric``,
-``MultioutputWrapper``, ``MetricTracker``).
+``MultioutputWrapper``, ``MetricTracker``), and the text family
+(``BLEUScore``, ``SacreBLEUScore``, ``CHRFScore``, ``TranslationEditRate``,
+``ExtendedEditDistance``, ``WordErrorRate``, ``CharErrorRate``,
+``MatchErrorRate``, ``WordInfoLost``, ``WordInfoPreserved``,
+``ROUGEScore``, ``SQuAD``, ``BERTScore`` on the BERT encoder of
+:mod:`metrics_tpu_torch.models.bert`) and its functionals: host string
+handling with float32 count states on the card. ``nltk`` (ROUGE's stemmer
+and sentence splitter), ``regex`` (SacreBLEU's ``intl`` tokenizer) and
+``transformers`` (BERTScore's ``model_name_or_path``) are imported only
+where they are used.
 """
 from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric  # noqa: F401
 from metrics_tpu_torch.classification import (  # noqa: F401
@@ -101,6 +110,21 @@ from metrics_tpu_torch.retrieval import (  # noqa: F401
     RetrievalRPrecision,
 )
 from metrics_tpu_torch.sliced import SlicedMetric  # noqa: F401
+from metrics_tpu_torch.text import (  # noqa: F401
+    BERTScore,
+    BLEUScore,
+    CharErrorRate,
+    CHRFScore,
+    ExtendedEditDistance,
+    MatchErrorRate,
+    ROUGEScore,
+    SacreBLEUScore,
+    SQuAD,
+    TranslationEditRate,
+    WordErrorRate,
+    WordInfoLost,
+    WordInfoPreserved,
+)
 from metrics_tpu_torch.windowed import WindowedMetric  # noqa: F401
 from metrics_tpu_torch.wrappers import (  # noqa: F401
     BootStrapper,

@@ -33,7 +33,13 @@ kernel to a Linear ``[out, in]`` weight, BatchNorm ``scale``/``bias``/
 ``mean``/``var`` to ``weight``/``bias``/``running_mean``/``running_var``),
 and :func:`inception_to_flax` and :func:`lpips_to_flax` write the tree from
 a torch-fidelity or ``lpips`` state dict (which the port's models share),
-as the JAX package's converters do.
+as the JAX package's converters do. ``build_fid_inception`` and
+``build_lpips`` also read a torch state dict (or its ``.pth`` file)
+directly (``_read_weights``).
+
+:func:`bert_from_flax` maps a ``transformers.FlaxBertModel``'s parameter
+tree onto the port's BERT (:mod:`metrics_tpu_torch.models.bert`), which
+BERTScore runs.
 """
 from enum import Enum
 from typing import Any, Dict, Mapping, Optional, Tuple
@@ -139,6 +145,17 @@ def _host_value(value: Any) -> Any:
 # ---------------------------------------------------------------------------
 # extractor weights: the JAX package's Flax variable tree <-> torch
 # ---------------------------------------------------------------------------
+
+
+def _read_weights(weights: Any, from_torch: Any) -> Mapping[str, Any]:
+    """A Flax variable tree from the JAX package's ``.npz`` file, or from a
+    torch state dict (a mapping, or a ``.pth``/``.pt`` file read with
+    ``torch.load(weights_only=True)``) through ``from_torch``."""
+    if isinstance(weights, Mapping):
+        return from_torch(weights)
+    if str(weights).endswith(".npz"):
+        return np.load(weights, allow_pickle=True)["variables"].item()
+    return from_torch(torch.load(weights, map_location="cpu", weights_only=True))
 
 
 def _weight(x: Any) -> torch.Tensor:
@@ -266,3 +283,35 @@ def lpips_to_flax(state_dict: Mapping[str, Any], net_type: str = "alex") -> Dict
     for k in range(len(_NET_STAGES[net_type])):
         params[f"lin{k}"] = {"kernel": _hwio(state_dict[f"lin{k}.model.1.weight"])}
     return {"params": params}
+
+
+# ---------------------------------------------------------------------------
+# BERT: a Flax BERT's parameter tree -> the port's BertModel
+# ---------------------------------------------------------------------------
+
+#: Flax leaf name -> torch parameter name; ``kernel`` is transposed
+_BERT_LEAVES = {"kernel": "weight", "embedding": "weight", "scale": "weight", "bias": "bias"}
+
+
+def bert_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The state dict of :class:`~metrics_tpu_torch.models.bert.BertModel`
+    from a ``transformers.FlaxBertModel``'s ``params`` (nested dicts of
+    numpy arrays; a ``{"params": ...}`` wrapper is taken off): a Dense
+    ``[in, out]`` kernel becomes a Linear ``[out, in]`` weight, a LayerNorm
+    ``scale`` its ``weight`` and an ``embedding`` table the Embedding's
+    ``weight``. The module paths are the same in both (``embeddings``,
+    ``encoder.layer.N....``, ``pooler.dense``)."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping[str, Any], prefix: str) -> None:
+        for key, value in tree.items():
+            if isinstance(value, Mapping):
+                walk(value, f"{prefix}{key}.")
+                continue
+            array = np.asarray(value, dtype=np.float32)
+            out[f"{prefix}{_BERT_LEAVES[key]}"] = _weight(array.T if key == "kernel" else array)
+
+    walk(params, "")
+    return out

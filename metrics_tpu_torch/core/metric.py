@@ -423,20 +423,20 @@ class Metric(ABC):
                 UserWarning,
             )
         synced = self._to_sync and (_dist_available() or self.dist_sync_fn is not None)
-        if (
-            self._computed is not None
-            and self._computed_epoch == self._write_epoch
-            and self._computed_synced == synced
-        ):
-            return self._computed
+        # one read of the cache: an update on another thread (the async
+        # pipeline's worker) may clear it between a check and a second read
+        cached = self._computed
+        if cached is not None and self._computed_epoch == self._write_epoch and self._computed_synced == synced:
+            return cached
         epoch0 = self._write_epoch
         with self.sync_context(
             dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
         ):
-            self._computed = self._undonated(_squeeze_if_scalar(self._compute()))
+            value = self._undonated(_squeeze_if_scalar(self._compute()))
+            self._computed = value
             self._computed_epoch = epoch0
             self._computed_synced = synced
-        return self._computed
+        return value
 
     def forward(self, *args: Any, **kwargs: Any) -> Any:
         """Update the accumulated states AND return the metric of this batch

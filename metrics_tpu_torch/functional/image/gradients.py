@@ -2,12 +2,15 @@
 
 Counterpart of ``metrics_tpu/functional/image/gradients.py``: forward
 differences along H and W, zero-padded at the far edge. Bit-equal to the
-JAX package (one subtraction per element).
+JAX package (one subtraction per element); float64 and int64 images
+give float32 and int32 gradients, as there with x64 off.
 """
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from metrics_tpu_torch.utils.data import _x64_off
 
 Tensor = torch.Tensor
 
@@ -43,4 +46,4 @@ def image_gradients(img: Tensor) -> Tuple[Tensor, Tensor]:
                 [0., 0., 0., 0.]])
     """
     _image_gradients_validate(img)
-    return _compute_image_gradients(img)
+    return _compute_image_gradients(_x64_off(img))

@@ -17,6 +17,18 @@ import torch.nn.functional as F
 Tensor = torch.Tensor
 
 
+def _check_floating_images(preds: Tensor, target: Tensor) -> None:
+    """SSIM, MS-SSIM and UQI take floating images: a Gaussian window in an
+    integer dtype wraps or rounds to integers. The JAX package raises on
+    integer images too, though only by accident of its internals (an
+    ``arange`` in uint8, a convolution over mixed dtypes)."""
+    if not (preds.is_floating_point() and target.is_floating_point()):
+        raise TypeError(
+            "Expected `preds` and `target` to be floating point images."
+            f" Got preds: {preds.dtype} and target: {target.dtype}."
+        )
+
+
 def _gaussian(kernel_size: int, sigma: float, dtype: torch.dtype, device=None) -> Tensor:
     """1D gaussian kernel of shape (1, kernel_size)."""
     dist = torch.arange((1 - kernel_size) / 2, (1 + kernel_size) / 2, 1.0, dtype=dtype, device=device)

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.parallel.distributed import reduce
-from metrics_tpu_torch.utils.data import _tree_sum, _widen_half, amax_ieee, amin_ieee
+from metrics_tpu_torch.utils.data import _tree_sum, _widen_half, _x64_off, amax_ieee, amin_ieee
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 Tensor = torch.Tensor
@@ -36,7 +36,7 @@ def _psnr_update(
     target: Tensor,
     dim: Optional[Union[int, Tuple[int, ...]]] = None,
 ) -> Tuple[Tensor, Tensor]:
-    diff = _widen_half(preds) - _widen_half(target)
+    diff = _widen_half(_x64_off(preds)) - _widen_half(_x64_off(target))
     squared = diff * diff
     if dim is None:
         return _tree_sum(squared.reshape(-1)), torch.full((), target.numel(), dtype=torch.int32, device=target.device)
@@ -75,7 +75,7 @@ def peak_signal_noise_ratio(
     if data_range is None:
         if dim is not None:
             raise ValueError("The `data_range` must be given when `dim` is not None.")
-        wide = _widen_half(target)
+        wide = _widen_half(_x64_off(target))
         data_range_t = amax_ieee(wide) - amin_ieee(wide)
     else:
         data_range_t = torch.tensor(float(data_range), dtype=torch.float32, device=target.device)

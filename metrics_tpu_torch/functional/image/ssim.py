@@ -13,14 +13,22 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from metrics_tpu_torch.functional.image.helper import _avg_pool2d, _depthwise_conv2d, _gaussian_kernel, _reflect_pad
+from metrics_tpu_torch.functional.image.helper import (
+    _avg_pool2d,
+    _check_floating_images,
+    _depthwise_conv2d,
+    _gaussian_kernel,
+    _reflect_pad,
+)
 from metrics_tpu_torch.parallel.distributed import reduce
 from metrics_tpu_torch.utils.checks import _check_same_shape
+from metrics_tpu_torch.utils.data import _x64_off
 
 Tensor = torch.Tensor
 
 
 def _ssim_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
+    _check_floating_images(preds, target)
     if preds.dtype != target.dtype:
         raise TypeError(
             "Expected `preds` and `target` to have the same data type."
@@ -32,7 +40,7 @@ def _ssim_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
             "Expected `preds` and `target` to have BxCxHxW shape."
             f" Got preds: {preds.shape} and target: {target.shape}."
         )
-    return preds, target
+    return _x64_off(preds), _x64_off(target)
 
 
 def _ssim_check_kernel(kernel_size: Sequence[int], sigma: Sequence[float]) -> None:

@@ -8,14 +8,17 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from metrics_tpu_torch.functional.image.helper import _check_floating_images
 from metrics_tpu_torch.functional.image.ssim import _crop, _local_moments, _ssim_check_kernel
 from metrics_tpu_torch.parallel.distributed import reduce
 from metrics_tpu_torch.utils.checks import _check_same_shape
+from metrics_tpu_torch.utils.data import _x64_off
 
 Tensor = torch.Tensor
 
 
 def _uqi_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
+    _check_floating_images(preds, target)
     if preds.dtype != target.dtype:
         raise TypeError(
             "Expected `preds` and `target` to have the same data type."
@@ -27,7 +30,7 @@ def _uqi_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
             "Expected `preds` and `target` to have BxCxHxW shape."
             f" Got preds: {preds.shape} and target: {target.shape}."
         )
-    return preds, target
+    return _x64_off(preds), _x64_off(target)
 
 
 def _uqi_compute(

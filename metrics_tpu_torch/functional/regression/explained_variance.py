@@ -10,7 +10,7 @@ from typing import Tuple
 import torch
 
 from metrics_tpu_torch.utils.checks import _check_same_shape
-from metrics_tpu_torch.utils.data import _tree_sum, _widen_half
+from metrics_tpu_torch.utils.data import _tree_sum, _widen_half, _x64_off
 
 Tensor = torch.Tensor
 
@@ -22,7 +22,7 @@ def _sum0(x: Tensor) -> Tensor:
 
 def _explained_variance_update(preds: Tensor, target: Tensor) -> Tuple[int, Tensor, Tensor, Tensor, Tensor]:
     _check_same_shape(preds, target)
-    preds, target = _widen_half(preds), _widen_half(target)
+    preds, target = _widen_half(_x64_off(preds)), _widen_half(_x64_off(target))
     n_obs = preds.shape[0]
     diff = target - preds
     return n_obs, _sum0(diff), _sum0(diff * diff), _sum0(target), _sum0(target * target)

@@ -10,14 +10,14 @@ from typing import Tuple
 import torch
 
 from metrics_tpu_torch.utils.checks import _check_same_shape
-from metrics_tpu_torch.utils.data import _tree_sum, _widen_half
+from metrics_tpu_torch.utils.data import _tree_sum, _widen_half, _x64_off
 
 Tensor = torch.Tensor
 
 
 def _mean_absolute_error_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, int]:
     _check_same_shape(preds, target)
-    return _tree_sum(torch.abs(_widen_half(preds) - _widen_half(target)).reshape(-1)), target.numel()
+    return _tree_sum(torch.abs(_widen_half(_x64_off(preds)) - _widen_half(_x64_off(target))).reshape(-1)), target.numel()
 
 
 def _mean_absolute_error_compute(sum_abs_error: Tensor, n_obs: Tensor) -> Tensor:

@@ -9,7 +9,7 @@ from typing import Tuple
 import torch
 
 from metrics_tpu_torch.utils.checks import _check_same_shape
-from metrics_tpu_torch.utils.data import _tree_sum, _widen_half
+from metrics_tpu_torch.utils.data import _tree_sum, _widen_half, _x64_off
 
 Tensor = torch.Tensor
 
@@ -18,7 +18,7 @@ def _mean_absolute_percentage_error_update(
     preds: Tensor, target: Tensor, epsilon: float = 1.17e-06
 ) -> Tuple[Tensor, int]:
     _check_same_shape(preds, target)
-    preds, target = _widen_half(preds), _widen_half(target)
+    preds, target = _widen_half(_x64_off(preds)), _widen_half(_x64_off(target))
     abs_per_error = torch.abs(preds - target) / torch.clamp(torch.abs(target), min=epsilon)
     return _tree_sum(abs_per_error.reshape(-1)), target.numel()
 

@@ -11,7 +11,7 @@ from typing import Tuple
 import torch
 
 from metrics_tpu_torch.utils.checks import _check_same_shape
-from metrics_tpu_torch.utils.data import _tree_sum, _widen_half
+from metrics_tpu_torch.utils.data import _tree_sum, _widen_half, _x64_off
 
 Tensor = torch.Tensor
 
@@ -28,8 +28,8 @@ def _pearson_corrcoef_update(
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
     """Streaming update of the six moment accumulators."""
     _check_same_shape(preds, target)
-    preds = _widen_half(preds).squeeze()
-    target = _widen_half(target).squeeze()
+    preds = _widen_half(_x64_off(preds)).squeeze()
+    target = _widen_half(_x64_off(target)).squeeze()
     if preds.ndim > 1 or target.ndim > 1:
         raise ValueError("Expected both predictions and target to be 1 dimensional tensors.")
     preds, target = preds.reshape(-1), target.reshape(-1)

@@ -13,7 +13,7 @@ from typing import Tuple
 import torch
 
 from metrics_tpu_torch.utils.checks import _check_same_shape, checks_read_nothing
-from metrics_tpu_torch.utils.data import _tree_sum, _widen_half
+from metrics_tpu_torch.utils.data import _tree_sum, _widen_half, _x64_off
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 Tensor = torch.Tensor
@@ -26,7 +26,7 @@ def _r2_score_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor, Ten
             "Expected both prediction and target to be 1D or 2D tensors,"
             f" but received tensors with dimension {preds.shape}"
         )
-    preds, target = _widen_half(preds), _widen_half(target)
+    preds, target = _widen_half(_x64_off(preds)), _widen_half(_x64_off(target))
     residual = target - preds
     sums = _tree_sum(torch.stack([target, target * target, residual * residual]).movedim(1, -1))
     n_obs = torch.full((), target.shape[0], dtype=torch.int32, device=target.device)

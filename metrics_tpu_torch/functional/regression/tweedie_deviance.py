@@ -12,7 +12,7 @@ from typing import Tuple
 import torch
 
 from metrics_tpu_torch.utils.checks import _check_same_shape, checks_read_nothing
-from metrics_tpu_torch.utils.data import _tree_sum, _widen_half
+from metrics_tpu_torch.utils.data import _tree_sum, _widen_half, _x64_off
 
 Tensor = torch.Tensor
 
@@ -43,7 +43,7 @@ def _tweedie_deviance_score_update(preds: Tensor, targets: Tensor, power: float 
     if 0 < power < 1:
         raise ValueError(f"Deviance Score is not defined for power={power}.")
     _validate_domain(preds, targets, power)
-    preds, targets = _widen_half(preds), _widen_half(targets)
+    preds, targets = _widen_half(_x64_off(preds)), _widen_half(_x64_off(targets))
     if power == 0:
         deviance_score = torch.square(targets - preds)
     elif power == 1:  # Poisson

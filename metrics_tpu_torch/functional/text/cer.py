@@ -1,0 +1,49 @@
+"""Char Error Rate.
+
+Counterpart of ``metrics_tpu/functional/text/cer.py``: the character edit
+distances on the host, the two float32 sums on the device in one copy.
+"""
+from typing import List, Optional, Tuple, Union
+
+import torch
+
+from metrics_tpu_torch.functional.text.helper import _edit_distance, _float32_sums
+from metrics_tpu_torch.utils.data import _resolve_device
+
+Tensor = torch.Tensor
+
+
+def _cer_update(
+    preds: Union[str, List[str]], target: Union[str, List[str]], device: Optional[torch.device] = None
+) -> Tuple[Tensor, Tensor]:
+    """Sum character-level edit operations and reference char counts."""
+    if isinstance(preds, str):
+        preds = [preds]
+    if isinstance(target, str):
+        target = [target]
+    errors = 0
+    total = 0
+    for pred, tgt in zip(preds, target):
+        errors += _edit_distance(list(pred), list(tgt))
+        total += len(tgt)
+    sums = _float32_sums([errors, total], _resolve_device(device))
+    return sums[0], sums[1]
+
+
+def _cer_compute(errors: Tensor, total: Tensor) -> Tensor:
+    return errors / total
+
+
+def char_error_rate(
+    preds: Union[str, List[str]], target: Union[str, List[str]], device: Optional[Union[str, torch.device]] = None
+) -> Tensor:
+    """Character error rate of transcription(s); 0 is perfect.
+
+    Example:
+        >>> preds = ["this is the prediction", "there is an other sample"]
+        >>> target = ["this is the reference", "there is another one"]
+        >>> char_error_rate(preds=preds, target=target, device="cpu")
+        tensor(0.3415)
+    """
+    errors, total = _cer_update(preds, target, device)
+    return _cer_compute(errors, total)

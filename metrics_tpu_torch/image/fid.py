@@ -95,7 +95,8 @@ class FrechetInceptionDistance(_ExtractorMixin, Metric):
             an int in (64, 192, 768, 2048) selecting the bundled
             InceptionV3 depth (requires local weights).
         feature_extractor_weights_path: npz checkpoint for the bundled
-            InceptionV3 (int ``feature`` only).
+            InceptionV3 (int ``feature`` only), or a torch-fidelity state
+            dict or its ``.pth`` file (``build_fid_inception``).
         feature_dim: feature width ``d`` for callable extractors (ignored
             for int ``feature``, whose depth fixes it); default 2048.
         exact: keep the feature lists and compute the statistics in float64

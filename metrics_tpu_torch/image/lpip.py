@@ -49,7 +49,8 @@ class LearnedPerceptualImagePatchSimilarity(Metric):
         reduction: 'mean' or 'sum' over all accumulated image pairs.
         net_weights_path: the JAX package's LPIPS ``.npz``
             (``metrics_tpu.models.lpips.convert_lpips_weights``, or
-            ``metrics_tpu_torch.convert.lpips_to_flax``).
+            ``metrics_tpu_torch.convert.lpips_to_flax``), or an ``lpips``
+            state dict or its ``.pth`` file (``build_lpips``).
     """
 
     is_differentiable = True

@@ -25,14 +25,14 @@ Weights are not bundled: :func:`build_fid_inception` reads the same
 tree, carried across by :func:`metrics_tpu_torch.convert.inception_from_flax`),
 and raises without one.
 """
-from typing import Any, Optional, Tuple, Union
+from typing import Any, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from metrics_tpu_torch.convert import inception_from_flax
+from metrics_tpu_torch.convert import _read_weights, inception_from_flax, inception_to_flax
 from metrics_tpu_torch.functional.pairwise.helpers import _matmul_t
 from metrics_tpu_torch.models import full_float32_convs
 from metrics_tpu_torch.utils.checks import checks_read_nothing
@@ -341,12 +341,36 @@ class FIDInceptionExtractor:
             _validate_max(float(pending))
 
 
+def convert_torch_fidelity_weights(state_dict: Mapping[str, Any]) -> dict:
+    """The JAX package's InceptionV3 variables (``{"params": ...,
+    "batch_stats": ...}``, nested dicts of numpy arrays) from a
+    torch-fidelity ``FeatureExtractorInceptionV3`` state dict, or any
+    torchvision-style inception with ``Mixed_*``/``Conv2d_*`` module names,
+    as ``metrics_tpu.models.inception.convert_torch_fidelity_weights``
+    returns them. A uniform key prefix (``"model."``, ...) is dropped."""
+    sd = dict(state_dict)
+    probe = f"{_STEM_CONVS[0]}.conv.weight"
+    if probe not in sd:
+        prefixes = {k[: -len(probe)] for k in sd if k.endswith(probe)}
+        if len(prefixes) != 1:
+            raise KeyError(f"Cannot locate '{probe}' (or a unique prefixed variant) in state_dict")
+        prefix = prefixes.pop()
+        sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    return inception_to_flax(sd)
+
+
 def build_fid_inception(
-    feature: Union[int, str] = 2048, weights_path: Optional[str] = None, device: Optional[Any] = None
+    feature: Union[int, str] = 2048,
+    weights_path: Optional[Union[str, Mapping[str, Any]]] = None,
+    device: Optional[Any] = None,
 ) -> FIDInceptionExtractor:
     """An ``imgs -> [N, d]`` extractor of the InceptionV3 on ``device``
-    (the card unless ``device="cpu"``), its weights read from the JAX
-    package's ``.npz``.
+    (the card unless ``device="cpu"``). ``weights_path`` is the JAX
+    package's ``.npz``, a torch ``.pth``/``.pt`` file of a torch-fidelity
+    state dict (read with ``torch.load(weights_only=True)``), or such a
+    state dict itself; a state dict goes through
+    :func:`convert_torch_fidelity_weights`, so both routes load the same
+    float32 values.
 
     Raises when no weights are given: FID/KID/IS values from a randomly
     initialised network are meaningless. Pass a callable ``feature`` to the
@@ -358,11 +382,10 @@ def build_fid_inception(
             " and none are bundled (no network access). Provide"
             " `feature_extractor_weights_path` (an .npz produced by"
             " `metrics_tpu.models.inception.convert_torch_fidelity_weights`, or by"
-            " `metrics_tpu_torch.convert.inception_to_flax` and `np.savez`),"
-            " or pass a callable `feature` extractor."
+            " `metrics_tpu_torch.convert.inception_to_flax` and `np.savez`; a torch-fidelity"
+            " state dict or its .pth file), or pass a callable `feature` extractor."
         )
-    variables = np.load(weights_path, allow_pickle=True)["variables"].item()
-    state = inception_from_flax(variables)
+    state = inception_from_flax(_read_weights(weights_path, convert_torch_fidelity_weights))
     model = InceptionV3FID()
     missing, unexpected = model.load_state_dict(state, strict=False)
     if unexpected or set(missing) - {"fc.weight", "fc.bias"}:

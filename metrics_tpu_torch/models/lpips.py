@@ -13,13 +13,13 @@ Weights are not bundled: :func:`build_lpips` reads the same ``.npz`` the
 JAX package's ``build_lpips`` reads (carried across by
 :func:`metrics_tpu_torch.convert.lpips_from_flax`), and raises without one.
 """
-from typing import Any, List, Optional, Tuple
+from typing import Any, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from metrics_tpu_torch.convert import lpips_from_flax
+from metrics_tpu_torch.convert import _read_weights, lpips_from_flax, lpips_to_flax
 from metrics_tpu_torch.models import full_float32_convs
 from metrics_tpu_torch.utils.data import _resolve_device
 
@@ -157,10 +157,24 @@ class LPIPSScorer:
             return self.model(img1, img2)
 
 
-def build_lpips(net_type: str = "alex", weights_path: Optional[str] = None, device: Optional[Any] = None) -> LPIPSScorer:
+def convert_lpips_weights(state_dict: Mapping[str, Any], net_type: str = "alex") -> dict:
+    """The JAX package's LPIPS variables (``{"params": ...}``) from an
+    ``lpips`` package ``LPIPS(net=...)`` state dict (``net.sliceK.I`` convs
+    and ``linK.model.1`` heads; a ``module.`` prefix is dropped), as
+    ``metrics_tpu.models.lpips.convert_lpips_weights`` returns them."""
+    if net_type not in _NET_STAGES:
+        raise ValueError(f"Argument `net_type` must be one of {tuple(_NET_STAGES)}, but got {net_type}.")
+    return lpips_to_flax({k.replace("module.", ""): v for k, v in dict(state_dict).items()}, net_type)
+
+
+def build_lpips(
+    net_type: str = "alex", weights_path: Optional[Union[str, Mapping[str, Any]]] = None, device: Optional[Any] = None
+) -> LPIPSScorer:
     """An ``(img1, img2) -> [N]`` LPIPS scorer on ``device`` (the card
-    unless ``device="cpu"``), its weights read from the JAX package's
-    ``.npz``."""
+    unless ``device="cpu"``). ``weights_path`` is the JAX package's
+    ``.npz``, a torch ``.pth``/``.pt`` file of an ``lpips`` state dict
+    (read with ``torch.load(weights_only=True)``), or such a state dict; a
+    state dict goes through :func:`convert_lpips_weights`."""
     if net_type not in _NET_STAGES:
         raise ValueError(f"Argument `net_type` must be one of {tuple(_NET_STAGES)}, but got {net_type}.")
     if weights_path is None:
@@ -168,9 +182,10 @@ def build_lpips(net_type: str = "alex", weights_path: Optional[str] = None, devi
             "The bundled LPIPS net needs pretrained weights for meaningful values and none"
             " are bundled (no network access). Provide `weights_path` (an .npz produced by"
             " `metrics_tpu.models.lpips.convert_lpips_weights`, or by"
-            " `metrics_tpu_torch.convert.lpips_to_flax` and `np.savez`), or pass a callable `net`."
+            " `metrics_tpu_torch.convert.lpips_to_flax` and `np.savez`; an `lpips` state dict"
+            " or its .pth file), or pass a callable `net`."
         )
-    variables = np.load(weights_path, allow_pickle=True)["variables"].item()
+    variables = _read_weights(weights_path, lambda sd: convert_lpips_weights(sd, net_type))
     model = LPIPSNet(net_type)
     model.load_state_dict(lpips_from_flax(variables, net_type))
     model.eval().requires_grad_(False)

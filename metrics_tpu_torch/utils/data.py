@@ -146,6 +146,18 @@ def _widen_half(x: Tensor) -> Tensor:
     return x
 
 
+def _x64_off(x: Tensor) -> Tensor:
+    """float64 as float32 and int64 as int32, anything else unchanged: the
+    dtypes the JAX package's arrays take with x64 off (``jnp.asarray``).
+    Updates that accumulate in their input's dtype round here first, so a
+    float64 batch leaves every state float32."""
+    if x.dtype == torch.float64:
+        return x.to(torch.float32)
+    if x.dtype == torch.int64:
+        return x.to(torch.int32)
+    return x
+
+
 def _tree_sum(x: Tensor) -> Tensor:
     """Sum over the last axis in a fixed pairwise order (zero padding to a
     power of two, then halving by elementwise adds): each addition is one
@@ -201,6 +213,24 @@ def _total_order_key(x: Tensor) -> Tensor:
     return torch.where(bits < 0, bits ^ flip, bits)
 
 
+def _rank_key(x: Tensor) -> Tensor:
+    """A key whose order is IEEE totalOrder of the floats in ``x``, for
+    ranking (argmax, top-k): :func:`_total_order_key`'s integer bits, or,
+    for a tensor batched by ``torch.func.vmap`` (whose batching of a dtype
+    view some torch versions lack), an equivalent float64 key: the value,
+    +-0 as +-2**-1074, +-inf as +-1e300 and NaN as +-1e301 by its sign. NaNs
+    of one sign then tie (the first index wins) where totalOrder ranks them
+    by payload, and a float64 input's +-0 ties with its smallest
+    subnormal."""
+    if not torch._C._functorch.is_batchedtensor(x):
+        return _total_order_key(x)
+    wide = x.to(torch.float64)
+    sign = torch.where(torch.signbit(wide), -1.0, 1.0).to(torch.float64)
+    key = torch.where(wide == 0, sign * 2.0**-1074, wide)
+    key = torch.where(torch.isinf(wide), sign * 1e300, key)
+    return torch.where(torch.isnan(wide), sign * 1e301, key)
+
+
 def to_onehot(label_tensor: Tensor, num_classes: Optional[int] = None) -> Tensor:
     """Integer labels ``(N, ...)`` to an int32 one-hot ``(N, C, ...)``.
 
@@ -219,18 +249,19 @@ def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
     """Int32 mask of the ``topk`` highest entries along ``dim``; ties go to
     the lower index and floats rank by IEEE totalOrder (``lax.top_k``)."""
     moved = prob_tensor.movedim(dim, -1)
-    key = _total_order_key(moved) if moved.is_floating_point() else moved
+    key = _rank_key(moved) if moved.is_floating_point() else moved
     if topk == 1:
         idx = key.argmax(dim=-1, keepdim=True)  # first maximum
     else:
         idx = torch.sort(key, dim=-1, descending=True, stable=True).indices[..., :topk]
-    mask = torch.zeros(moved.shape, dtype=torch.int32, device=moved.device).scatter_(-1, idx, 1)
+    # out of place: ``torch.func.vmap`` batches ``scatter`` but not ``scatter_``
+    mask = torch.zeros(moved.shape, dtype=torch.int32, device=moved.device).scatter(-1, idx, 1)
     return mask.movedim(-1, dim)
 
 
 def to_categorical(tensor: Tensor, argmax_dim: int = 1) -> Tensor:
     """Probabilities/logits to integer labels by argmax (totalOrder, first maximum)."""
-    key = _total_order_key(tensor) if tensor.is_floating_point() else tensor
+    key = _rank_key(tensor) if tensor.is_floating_point() else tensor
     return key.argmax(dim=argmax_dim)
 
 

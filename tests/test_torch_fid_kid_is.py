@@ -578,3 +578,29 @@ def test_full_float32_convs_threads_never_lose_the_callers_flags():
     assert after == (before[0], before[1], before[2], True)
     with full_float32_convs(torch.device("cpu")):  # the CPU: nothing changes
         assert cudnn.allow_tf32 == before[3]
+
+
+@pytest.mark.parametrize("route", ["state_dict", "prefixed", "pth"])
+def test_torch_weights_load_directly(inception_npz, route, tmp_path):
+    """A torch-fidelity state dict, as it is, with a key prefix, or saved to
+    a ``.pth`` file (read with ``torch.load(weights_only=True)``), gives the
+    features of the ``.npz`` route bit for bit; the port's
+    ``convert_torch_fidelity_weights`` returns the JAX package's tree, which
+    ``convert.inception_to_flax`` also writes."""
+    from metrics_tpu_torch.models.inception import convert_torch_fidelity_weights as port_convert
+
+    net, variables, path = inception_npz
+    state = net.state_dict()
+    weights = {"state_dict": state, "prefixed": {f"model.{k}": v for k, v in state.items()}, "pth": str(tmp_path / "w.pth")}[route]
+    if route == "pth":
+        torch.save(state, weights)
+    imgs = torch.from_numpy(np.random.RandomState(5).rand(2, 3, 96, 96).astype(np.float32))
+    for feature in (64, 2048, "logits"):
+        direct = build_fid_inception(feature, weights, device="cpu")(imgs)
+        assert torch.equal(direct, build_fid_inception(feature, path, device="cpu")(imgs))
+    tree = port_convert(state)
+    for other in (variables, inception_to_flax(state)):
+        assert jax.tree_util.tree_structure(tree) == jax.tree_util.tree_structure(other)
+        assert all(jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.array_equal, tree, other)))
+    fid = metrics_tpu_torch.FrechetInceptionDistance(64, feature_extractor_weights_path=weights, device="cpu")
+    assert torch.equal(fid.inception(imgs), build_fid_inception(64, path, device="cpu")(imgs))

@@ -177,3 +177,28 @@ def test_fused_update_bit_equal_to_eager(lpips_npz):
     f, e = fused["LearnedPerceptualImagePatchSimilarity"], eager["LearnedPerceptualImagePatchSimilarity"]
     for name in e._defaults:
         assert torch.equal(getattr(f, name), getattr(e, name)), name
+
+
+@pytest.mark.parametrize("route", ["state_dict", "pth"])
+def test_torch_weights_load_directly(lpips_npz, route, tmp_path):
+    """An ``lpips`` state dict, as it is or saved to a ``.pth`` file, scores
+    bit for bit as the ``.npz`` route; the port's ``convert_lpips_weights``
+    returns the JAX package's tree."""
+    from metrics_tpu.models.lpips import convert_lpips_weights as jax_convert
+    from metrics_tpu_torch.models.lpips import convert_lpips_weights
+
+    net_type, mirror, variables, path = lpips_npz
+    state = {(f"scaling_layer.{k}" if k in ("shift", "scale") else k): v for k, v in mirror.state_dict().items()}
+    weights = state if route == "state_dict" else str(tmp_path / "lpips.pth")
+    if route == "pth":
+        torch.save(state, weights)
+    img1, img2 = (torch.from_numpy(x) for x in _images(4))
+    with torch.no_grad():
+        direct = build_lpips(net_type, weights, device="cpu")(img1, img2)
+        assert torch.equal(direct, build_lpips(net_type, path, device="cpu")(img1, img2))
+    tree = convert_lpips_weights(state, net_type)
+    want = jax_convert(state, net_type)
+    assert jax.tree_util.tree_structure(tree) == jax.tree_util.tree_structure(want)
+    assert all(jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.array_equal, tree, want)))
+    metric = LearnedPerceptualImagePatchSimilarity(net_type=net_type, net_weights_path=weights, device="cpu")
+    assert torch.equal(metric.net(img1, img2), direct)
