@@ -45,9 +45,24 @@ the operator algebra of ``Metric``, the pairwise functionals
 handling with float32 count states on the card. ``nltk`` (ROUGE's stemmer
 and sentence splitter), ``regex`` (SacreBLEU's ``intl`` tokenizer) and
 ``transformers`` (BERTScore's ``model_name_or_path``) are imported only
-where they are used.
+where they are used. The audio family (``SignalNoiseRatio``,
+``ScaleInvariantSignalNoiseRatio``, ``SignalDistortionRatio``,
+``ScaleInvariantSignalDistortionRatio``, ``PermutationInvariantTraining``
+with its C++ Hungarian solver past six speakers, built with ``g++`` at
+first use (:mod:`metrics_tpu_torch.native`); and in
+:mod:`metrics_tpu_torch.audio`, as in the JAX package,
+``ShortTimeObjectiveIntelligibility`` and
+``PerceptualEvaluationSpeechQuality`` on the in-repo P.862 engine) and its
+functionals.
 """
 from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric  # noqa: F401
+from metrics_tpu_torch.audio import (  # noqa: F401
+    PermutationInvariantTraining,
+    ScaleInvariantSignalDistortionRatio,
+    ScaleInvariantSignalNoiseRatio,
+    SignalDistortionRatio,
+    SignalNoiseRatio,
+)
 from metrics_tpu_torch.classification import (  # noqa: F401
     AUC,
     AUROC,

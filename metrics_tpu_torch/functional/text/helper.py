@@ -13,6 +13,8 @@ from typing import List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from metrics_tpu_torch.utils.data import _host_to_device  # noqa: F401 (the text family's one copy)
+
 Tensor = torch.Tensor
 
 
@@ -86,16 +88,6 @@ def _lcs(pred_tokens: Sequence[str], target_tokens: Sequence[str]) -> int:
         np.maximum(prev[1:], prev[:-1] + eq, out=cand[1:])
         prev = np.maximum.accumulate(cand)
     return int(prev[m])
-
-
-def _host_to_device(values: np.ndarray, device: torch.device) -> Tensor:
-    """``values`` (a host array) on ``device`` after one copy. On the card
-    the copy goes from pinned memory without blocking the host, so an
-    update that ends in it makes no host sync."""
-    out = torch.from_numpy(np.ascontiguousarray(values))
-    if device.type == "cuda":
-        return out.pin_memory().to(device, non_blocking=True)
-    return out.to(device)
 
 
 def _float32_sums(values: Sequence, device: torch.device) -> Tensor:

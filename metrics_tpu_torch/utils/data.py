@@ -158,6 +158,25 @@ def _x64_off(x: Tensor) -> Tensor:
     return x
 
 
+def _host_to_device(values: np.ndarray, device: torch.device) -> Tensor:
+    """``values`` (a host array) on ``device`` after one copy. On the card
+    the copy goes from pinned memory without blocking the host, so an
+    update that ends in it makes no host sync."""
+    out = torch.from_numpy(np.ascontiguousarray(values))
+    if device.type == "cuda":
+        return out.pin_memory().to(device, non_blocking=True)
+    return out.to(device)
+
+
+def _host_float64(x: Any) -> np.ndarray:
+    """A tensor (read back from its device) or a host array as a float64
+    numpy array: the host DSP of STOI and PESQ works in float64, as the
+    JAX package's does."""
+    if isinstance(x, Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float64)
+
+
 def _tree_sum(x: Tensor) -> Tensor:
     """Sum over the last axis in a fixed pairwise order (zero padding to a
     power of two, then halving by elementwise adds): each addition is one

@@ -1,10 +1,11 @@
 """Optional-dependency probes.
 
 Counterpart of ``metrics_tpu/utils/imports.py``, with the probes that the
-text family needs. A probe only asks the import system whether a package
-could be found; nothing is imported here, so the port imports without
-``nltk``, ``regex`` or ``transformers``, and a metric that needs one raises
-where it is built or used.
+text and audio families need. A probe only asks the import system whether a
+package could be found; nothing is imported here, so the port imports
+without ``nltk``, ``regex``, ``transformers``, ``pesq`` or ``pystoi``, and a
+metric that needs one raises where it is built or used (PESQ takes the
+``pesq`` binding when it is installed and the in-repo engine otherwise).
 """
 from importlib.util import find_spec
 
@@ -16,6 +17,9 @@ def _package_available(name: str) -> bool:
         return False
 
 
+_SCIPY_AVAILABLE = _package_available("scipy")
 _NLTK_AVAILABLE = _package_available("nltk")
 _REGEX_AVAILABLE = _package_available("regex")
 _TRANSFORMERS_AVAILABLE = _package_available("transformers")
+_PESQ_AVAILABLE = _package_available("pesq")
+_PYSTOI_AVAILABLE = _package_available("pystoi")

@@ -889,6 +889,7 @@ _NEEDS = {
     "BinnedAveragePrecision": lambda: (3, 10),
     "BinnedPrecisionRecallCurve": lambda: (3, 10),
     "BinnedRecallAtFixedPrecision": lambda: (3, 0.5, 10),
+    "PermutationInvariantTraining": lambda: (tm.functional.signal_noise_ratio,),
 }
 
 

@@ -23,6 +23,12 @@ def test_examples_exist():
     # every retrieval functional shows its value
     retrieval = [name for name in _WITH_EXAMPLES if name.startswith("metrics_tpu_torch.functional.retrieval.")]
     assert len(retrieval) == 8
+    # the audio family shows its values: every functional module and every class module but STOI's and PESQ's
+    audio = [name for name in _WITH_EXAMPLES if ".audio." in name]
+    assert sorted(audio) == sorted(
+        [f"metrics_tpu_torch.functional.audio.{m}" for m in ("pesq", "pit", "sdr", "snr", "stoi")]
+        + [f"metrics_tpu_torch.audio.{m}" for m in ("pit", "sdr", "snr")]
+    )
 
 
 @pytest.mark.parametrize("module", _WITH_EXAMPLES)

@@ -38,7 +38,10 @@ for name in ("core.fused", "core.pipeline", "observability.freshness", "classifi
              "functional.text.bleu", "functional.text.sacre_bleu", "functional.text.chrf", "functional.text.ter",
              "functional.text.eed", "functional.text.rouge", "functional.text.squad", "functional.text.bert",
              "functional.text.wer", "functional.text.cer", "functional.text.mer", "functional.text.wil",
-             "functional.text.wip"):
+             "functional.text.wip", "audio", "audio.snr", "audio.sdr", "audio.pit", "audio.stoi",
+             "audio.pesq", "functional.audio", "functional.audio.snr", "functional.audio.sdr",
+             "functional.audio.pit", "functional.audio.stoi", "functional.audio.pesq",
+             "functional.audio._pesq_engine", "native"):
     assert "metrics_tpu_torch." + name in names, name
 from metrics_tpu_torch import BootStrapper, CompositionalMetric, MeanMetric, MetricTracker  # noqa: F401
 from metrics_tpu_torch.parallel import class_reduce, gather_all_arrays, sync_pytree  # noqa: F401
@@ -46,6 +49,9 @@ from metrics_tpu_torch import FrechetInceptionDistance, KernelInceptionDistance,
 from metrics_tpu_torch import LearnedPerceptualImagePatchSimilarity, UniversalImageQualityIndex  # noqa: F401
 from metrics_tpu_torch.convert import bert_from_flax, inception_from_flax, lpips_from_flax  # noqa: F401
 from metrics_tpu_torch import BERTScore, BLEUScore, ROUGEScore, SQuAD, TranslationEditRate  # noqa: F401
+from metrics_tpu_torch.audio import PerceptualEvaluationSpeechQuality, ShortTimeObjectiveIntelligibility  # noqa: F401
+from metrics_tpu_torch import PermutationInvariantTraining, SignalDistortionRatio  # noqa: F401
+from metrics_tpu_torch.native import lsap  # noqa: F401
 import chip_smoke
 assert not any(k == "jax" or k.startswith(("jax.", "metrics_tpu.")) for k, v in sys.modules.items() if v is not None)
 print(len(names))
@@ -63,7 +69,7 @@ def test_port_imports_with_jax_blocked():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 80  # every module of the port was imported (sliced and windowed included)
+    assert int(out.stdout.strip()) >= 95  # every module of the port was imported (sliced, windowed and audio included)
 
 
 def _imported_modules(path: Path):
