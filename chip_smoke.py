@@ -427,6 +427,34 @@ Phases, each printed as one JSON line:
    the first 256: utterances/s, one host-to-device copy per update, host
    syncs per update, STOI within 1e-5 and PESQ bit-equal to the CPU, STOI's
    host ms against its device ms per utterance;
+18v. telemetry-flagship -- the flagship collection (ConfusionMatrix(1000),
+   AUROC(num_classes=1000, capacity=65536)) over the 12 seed-42 batches,
+   eager and through compile_update(), with the telemetry recorder off and
+   then on (a TimeSeriesRegistry on the card attached); per leg ms and
+   device ms per update, idle share, host syncs per update, events per
+   update and the host microseconds spent in the recorder's hooks per
+   event; gates: every state bit-equal across the four legs, the fused
+   leg's launches per replay the same on and off, 0 host syncs per fused
+   update in both modes, one update event per member update (eager) and
+   one fused_update per replay with no member update event (fused), the
+   JSONL, Perfetto and Prometheus artifacts parse; then 4096 sampled top
+   scores a batch into the 128-row sketches of the "scores" series, whose
+   flushes compact through K3 and K1 (launches counted apart from the
+   metrics');
+18w. observatory -- examples/serving_loop.py's serving loop on injected
+   time: an async fused MetricCollection(AUROC(pos_label=1,
+   sketch_capacity=8192), MeanSquaredError()) (queue depth 8, drop policy),
+   SlicedMetric(MeanSquaredError(), 64), batches of 64, a HealthMonitor
+   with default_rules over a TimeSeriesRegistry of 8192-row sketches on
+   the card, a MemoryObservatory; 40 warm-up, 40 fault and 60 recovery
+   steps of 0.1 s with a probe every 0.5 s; deterministic faults (bursts
+   against the drop queue under a held state snapshot, ragged shapes, an
+   85%-hot tenant, shifted scores against the reference frozen after
+   warm-up, a stalled reader, a shrunk tenant budget, card memory held
+   outside every ledger, 20000 observations in one bucket); gates: the
+   twelve non-fleet alarm classes fire and clear, the drift histogram on
+   the card bit-equal to the CPU's and its scores within 1e-6; the K1/K3
+   launches the series made and the card's memory stats;
 19. the kernels line: per kernel its launches on its main path (flagship for
    K1, sketch-binary for K3, map-coco for K6, the entry point ops.box_iou
    on 2-D boxes for K5, retrieval-mslr for K4, sliced-psnr for K2 and
@@ -446,6 +474,9 @@ Phases, each printed as one JSON line:
    segment_sum_f32 at CalibrationError's [4111, 3] -> 15, K3 at
    curve-binary's compaction input; segment_sum_f32 and segment_sum_i32 at
    the per-condition SI-SDR's [16] -> 20, with audio-enhancement's eager
+   launches; K3 at the time series' [128 + 128, 2] (telemetry-flagship)
+   and [8192 + 8192, 2] (observatory) compactions and K1 at their sums and
+   at drift's histogram [8192] -> 10, with their phases' telemetry
    launches); each device time per wrapper call (every CUDA kernel
    the wrapper issues, merge passes and combines included, summed) with the
    number of profiler windows it took (a window that saw no launch is taken
@@ -471,6 +502,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -6728,6 +6760,508 @@ def enhancement_phase(torch, ops, card, tm):
     return sliced_launches, captured
 
 
+# ---------------------------------------------------------------------------
+# the telemetry plane (observability/): the recorder's hooks on the flagship
+# collection, and the serving observatory's alarms on injected times
+# ---------------------------------------------------------------------------
+
+#: the card's telemetry phases run on this device (the CPU for a rehearsal)
+TELEMETRY_DEVICE = "cuda"
+#: the recorder's hook methods whose host time the flagship phase sums
+RECORDER_HOOKS = (
+    "record_call", "track_signature", "record_fused_update", "record_memory_boundary", "record_read",
+    "record_event", "record_footprint", "record_sketch_fill", "record_compile", "record_async_event",
+    "record_sliced_scatter", "record_cache_plane", "record_sketch_merge", "record_sync", "record_scores",
+)
+#: scores sampled per flagship batch into the "scores" series (a bucket of
+#: the default 128-row sketches overflows: [128 + 128] compactions)
+TEL_SCORE_SAMPLES = 4096
+OBS_SEED = 22000
+OBS_BATCH = 64
+OBS_TENANTS = 64
+OBS_QUEUE_DEPTH = 8
+OBS_SKETCH_CAPACITY = 8192
+OBS_SERIES_CAPACITY = 8192
+OBS_BUCKET_S = 0.5
+OBS_WINDOW_S = 4.0
+OBS_STEP_S = 0.1
+OBS_PROBE_EVERY = 5
+OBS_WARMUP_STEPS = 40
+OBS_FAULT_STEPS = 40
+OBS_RECOVERY_STEPS = 60
+OBS_BURST = 30
+OBS_BURST_EVERY = 8
+OBS_HOT_SHARE = 0.85
+OBS_SERIES_BURST = 20000
+OBS_LEAK_CHUNK = 64 << 20
+OBS_LEAK_GROWTH = 32 << 20
+#: every alarm class of default_rules but the fleet collector's three
+OBS_ALARMS = (
+    "queue_saturation", "queue_saturation_critical", "staleness", "drop_rate", "recompile_storm",
+    "sketch_fill", "hot_slice_skew", "score_drift", "freshness_slo", "read_latency", "memory_budget",
+    "memory_leak",
+)
+
+
+class HookTimer:
+    """Sums the host time spent in the recorder's hook methods (outermost
+    calls only: a hook that calls another is timed once) while installed."""
+
+    def __init__(self, rec):
+        self.rec, self.seconds, self.calls, self._depth = rec, 0.0, 0, threading.local()
+        for name in RECORDER_HOOKS:
+            setattr(rec, name, self._wrap(getattr(rec, name)))
+
+    def _wrap(self, fn):
+        def timed(*args, **kwargs):
+            depth = getattr(self._depth, "n", 0)
+            self._depth.n = depth + 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self._depth.n = depth
+                if depth == 0:
+                    self.seconds += time.perf_counter() - t0
+                    self.calls += 1
+
+        return timed
+
+    def remove(self):
+        for name in RECORDER_HOOKS:
+            self.rec.__dict__.pop(name, None)
+
+
+class KernelTap:
+    """Counts the calls of kernel wrappers by argument shape inside its
+    ``with`` blocks, keeping the first call's arguments of each shape; a
+    kernel is reached by several modules' names (``(module, attribute,
+    label)``)."""
+
+    def __init__(self, targets):
+        self.targets, self.saved, self.calls = targets, [], {}
+
+    def __enter__(self):
+        for module_name, attr, label in self.targets:
+            module = import_module(module_name)
+            self.saved.append((module, attr, getattr(module, attr)))
+            setattr(module, attr, self._wrap(label, getattr(module, attr)))
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in reversed(self.saved):
+            setattr(module, attr, fn)
+        self.saved = []
+
+    def _wrap(self, label, fn):
+        def tapped(*args, **kwargs):
+            key = (label, tuple(tuple(a.shape) if hasattr(a, "shape") else a for a in args))
+            entry = self.calls.setdefault(key, [0, args])
+            entry[0] += 1
+            return fn(*args, **kwargs)
+
+        return tapped
+
+    def busiest(self, label):
+        """(calls, args) of the shape ``label`` was called at most."""
+        found = [v for (name, _), v in self.calls.items() if name == label]
+        return max(found, key=lambda v: v[0]) if found else (0, None)
+
+
+def series_taps():
+    """The time series' kernels: K3 and the compaction's K1, and K1 of
+    ``qsketch_histogram`` (drift)."""
+    return KernelTap(
+        [
+            ("metrics_tpu_torch.ops.qsketch", "qsketch_sort_bucket", "qsketch_sort_bucket"),
+            ("metrics_tpu_torch.ops.qsketch", "segment_sum_f32", "compaction_segment_sum_f32"),
+            ("metrics_tpu_torch.ops.segment_sum", "segment_sum_f32", "histogram_segment_sum_f32"),
+        ]
+    )
+
+
+def parse_prometheus(text):
+    """Every sample line of a Prometheus page as (name, labels, value);
+    raises on a line that is not a comment or a sample."""
+    samples = []
+    pattern = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$')
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = pattern.match(line)
+        check(m is not None, f"unparsable Prometheus line {line!r}")
+        samples.append((m.group(1), m.group(2) or "", float(m.group(3))))
+    return samples
+
+
+def telemetry_exports(torch, rec, ops):
+    """Write the JSONL, Perfetto and Prometheus artifacts of ``rec`` and
+    parse each back; returns their sizes and the launches the page's
+    window queries made (series sketches merged on the card)."""
+    from metrics_tpu_torch.observability import export_jsonl, export_perfetto, write_prometheus
+
+    with tempfile.TemporaryDirectory() as d:
+        jsonl, trace, prom = (os.path.join(d, n) for n in ("t.jsonl", "t.perfetto.json", "t.prom"))
+        with ops.recording_launches() as launches:
+            export_jsonl(jsonl, rec)
+            export_perfetto(trace, rec)
+            write_prometheus(prom, rec)
+        rows = [json.loads(line) for line in open(jsonl)]
+        doc = json.load(open(trace))
+        samples = parse_prometheus(open(prom).read())
+    check(len(rows) == len(rec.events()) and rows, "telemetry: the JSONL artifact lost events")
+    check(any(e.get("ph") == "X" for e in doc["traceEvents"]), "telemetry: the Perfetto trace has no span")
+    families = sorted({name for name, _, _ in samples})
+    check("metrics_tpu_calls_total" in families and "metrics_tpu_window_quantile" in families,
+          f"telemetry: Prometheus families {families}")
+    return {"jsonl_events": len(rows), "trace_events": len(doc["traceEvents"]), "prometheus_samples": len(samples),
+            "prometheus_families": len(families), "export_launches": dict(launches)}
+
+
+def telemetry_flagship_phase(torch, ops, card, tm, preds_all, target_all):
+    """telemetry-flagship: the flagship collection (ConfusionMatrix(1000),
+    AUROC(num_classes=1000, capacity=65536)) over the 12 seed-42 batches,
+    eager and through compile_update(), with telemetry off and then on (a
+    TimeSeriesRegistry on the card attached). Per leg: ms and device ms per
+    update, idle share, host syncs per update, events per update and the
+    host microseconds spent in the recorder's hooks per event. Gates: every
+    state bit-equal across the four legs; the fused leg's launches per
+    replay the same on and off; 0 host syncs per fused update in both modes;
+    with telemetry on, one update event per member update on the eager leg
+    and one fused_update per replay (no member update events) on the fused
+    leg; the JSONL, Perfetto and Prometheus artifacts parse. Then the
+    flagship's top scores (4096 a batch) go into the "scores" series, whose
+    128-row bucket sketches compact through K3 and K1."""
+    from metrics_tpu_torch.observability import get_recorder
+    from metrics_tpu_torch.observability.recorder import SERIES_SCORES
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    batches = [(preds_all[i], target_all[i]) for i in range(STATEFUL_BATCHES)]
+
+    device = torch.device(TELEMETRY_DEVICE)
+
+    def make():
+        return tm.MetricCollection([tm.ConfusionMatrix(num_classes=NUM_CLASSES, device=device),
+                                    tm.AUROC(num_classes=NUM_CLASSES, capacity=CAPACITY, device=device)])
+
+    rec = get_recorder()
+    check(not rec.enabled, "telemetry-flagship: the recorder was on before the phase")
+    report, legs_by_mode = {}, {}
+    timer = None
+    try:
+        for mode in ("off", "on"):
+            if mode == "on":
+                rec.reset()
+                rec.enable()
+                rec.attach_timeseries(device=device)
+                timer = HookTimer(rec)
+            legs = fused_legs(torch, ops, f"telemetry-flagship {mode}", make, batches, {})
+            # late in the script a profiler window may miss a launch (PERF.md §7):
+            # every counted kernel must be seen, the misses are reported
+            rep = {leg: leg_report(torch, ops, legs[leg], update_args, batches, exact_profile=False) for leg in legs}
+            for leg in ("eager", "fused"):
+                # a counted pass over the batches: events per update, and the
+                # host time in the recorder's hooks per event
+                col = legs[leg]["collection"]
+                handle = legs[leg]["handle"]
+                col.reset()
+                torch.cuda.synchronize()
+                n0 = len(rec.events())
+                s0, c0 = (timer.seconds, timer.calls) if timer else (0.0, 0)
+                replays0 = sum(e.calls for e in handle._cache.values()) if handle is not None else 0
+                for b in batches[1:]:
+                    col.update(*b)
+                torch.cuda.synchronize()
+                events = rec.events()[n0:]
+                updates = len(batches) - 1
+                types = [e["type"] for e in events]
+                rep[leg]["events_per_update"] = len(events) / updates
+                rep[leg]["event_types"] = {t: types.count(t) for t in sorted(set(types))}
+                if mode == "on":
+                    rep[leg]["recorder_us_per_event"] = (timer.seconds - s0) / max(len(events), 1) * 1e6
+                    rep[leg]["recorder_hook_calls_per_update"] = (timer.calls - c0) / updates
+                    if leg == "eager":
+                        want = updates * len(col.compute_groups)
+                        check(types.count("update") == want and "fused_update" not in types,
+                              f"telemetry-flagship: {types.count('update')} update events on the eager leg, expected {want}")
+                    else:
+                        replays = sum(e.calls for e in handle._cache.values()) - replays0
+                        check(types.count("fused_update") == updates == replays and "update" not in types,
+                              f"telemetry-flagship: {types.count('fused_update')} fused_update events for {replays} replays")
+                else:
+                    check(not events, f"telemetry-flagship: {len(events)} events with telemetry off")
+                check(rep[leg]["host_syncs_per_update"] == 0 or leg == "eager",
+                      f"telemetry-flagship {mode}: {rep[leg]['host_syncs_per_update']} host syncs per fused update")
+            report[mode] = rep
+            legs_by_mode[mode] = legs
+        off, on = legs_by_mode["off"], legs_by_mode["on"]
+        for leg in ("eager", "fused"):
+            differ = state_bits_differ(torch, off[leg]["states"], on[leg]["states"])
+            check(not differ, f"telemetry-flagship: the {leg} leg's states differ with telemetry on in {differ}")
+        check(report["off"]["fused"]["launches_per_replay"] == report["on"]["fused"]["launches_per_replay"],
+              f"telemetry-flagship: launches per replay {report['off']['fused']['launches_per_replay']} off,"
+              f" {report['on']['fused']['launches_per_replay']} on")
+        # the flagship's top scores into the scores series (the host copy
+        # is the sampled-score feed's one read), then the window queries
+        taps = series_taps()
+        with taps, ops.recording_launches() as score_launches:
+            for preds, _ in batches:
+                rec.record_scores(preds.max(dim=1).values, max_samples=TEL_SCORE_SAMPLES)
+            rec.tick()
+            q = rec.timeseries.get(SERIES_SCORES).quantiles((0.5, 0.99))
+        with taps:
+            exports = telemetry_exports(torch, rec, ops)
+        check(q is not None and all(math.isfinite(v) for v in q), f"telemetry-flagship: score quantiles {q}")
+        series_launches = {k: score_launches.get(k, 0) + exports["export_launches"].get(k, 0)
+                           for k in set(score_launches) | set(exports["export_launches"])}
+        check(series_launches.get("qsketch_sort_bucket", 0) > 0, f"telemetry-flagship: the series made no compaction {series_launches}")
+        overhead = {leg: report["on"][leg]["ms_per_update"] - report["off"][leg]["ms_per_update"] for leg in ("eager", "fused")}
+        emit({"phase": "telemetry-flagship", "card": card, "updates": len(batches) - 1, **report,
+              "on_minus_off_ms_per_update": overhead, "series_launches": series_launches, "score_quantiles": q,
+              "exports": exports, "timeseries": rec.timeseries.names(), "seconds": time.perf_counter() - t_phase})
+        return {"launches": series_launches, "taps": taps}
+    finally:
+        if timer is not None:
+            timer.remove()
+        rec.disable()
+        rec.detach_timeseries()
+        rec.reset()
+
+
+def observatory_batch(torch, rng, device, drifted=False, hot=False):
+    """One serving batch (examples/serving_loop.py's shape): binary scores
+    and labels, per-tenant ids, and the scores' host copy for the sampled
+    score feed."""
+    n = OBS_BATCH
+    target = (rng.random(n) < 0.5).astype(np.int64)
+    if drifted:
+        preds = np.clip(target * 0.08 + rng.normal(0.86, 0.07, n), 0.0, 1.0)
+    else:
+        preds = np.clip(target * 0.7 + rng.normal(0.3, 0.25, n), 0.0, 1.0)
+    if hot:
+        ids = np.where(rng.random(n) < OBS_HOT_SHARE, 0, rng.integers(0, OBS_TENANTS, n))
+    else:
+        ids = rng.integers(0, OBS_TENANTS, n)
+    preds = preds.astype(np.float32)
+    return (torch.from_numpy(preds).to(device), torch.from_numpy(target).to(device),
+            torch.from_numpy(ids.astype(np.int64)).to(device), preds)
+
+
+def observatory_phase(torch, ops, card, tm):
+    """observatory: the JAX package's serving loop (examples/serving_loop.py)
+    driven on injected times: MetricCollection({"auroc": AUROC(pos_label=1,
+    sketch_capacity=8192), "mse": MeanSquaredError()}) through
+    compile_update_async(queue_depth=8, policy="drop"), SlicedMetric(
+    MeanSquaredError(), 64), batches of 64, a HealthMonitor with
+    default_rules (the DriftRule over record_scores among them) on a
+    TimeSeriesRegistry of 8192-row sketches on the card, a MemoryObservatory
+    and a probe every 0.5 s of injected time. Faults, each deterministic:
+    unpaced bursts against the drop queue while a reader holds the state
+    snapshot (queue saturation, staleness, drop rate), ragged shapes
+    (recompile storm), the AUROC sketch past half full (sketch fill), an
+    85%-hot tenant (hot-slice skew), shifted scores against the reference
+    frozen after warm-up (score drift), a stalled reader (freshness, read
+    latency), a shrunk tenant budget (memory budget), card memory held
+    outside every ledger (memory leak), and a burst of 20000 observations in
+    one bucket (a series sketch smaller than the burst). Gates: every alarm
+    class fires and then clears; the drift score on the card held to the
+    same histograms built on the CPU (counts bit-equal, scores within
+    1e-6); the K1/K3 launches the series made."""
+    from metrics_tpu_torch.observability import (
+        DriftRule,
+        HealthMonitor,
+        MemoryBudget,
+        MemoryLedger,
+        MemoryObservatory,
+        backend_memory_stats,
+        default_rules,
+        get_recorder,
+        histogram_drift,
+    )
+    from metrics_tpu_torch.observability.freshness import FreshnessStamp
+    from metrics_tpu_torch.observability.recorder import SERIES_SCORES
+    from metrics_tpu_torch.sketches.quantile import qsketch_histogram
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    device = torch.device(TELEMETRY_DEVICE)
+    rng = np.random.default_rng(OBS_SEED)
+    clock = [1_000_000.0]
+    rec = get_recorder()
+    check(not rec.enabled, "observatory: the recorder was on before the phase")
+    rec.reset()
+    rec.enable()
+    registry = rec.attach_timeseries(
+        bucket_seconds=OBS_BUCKET_S, n_buckets=max(int(3 * OBS_WINDOW_S / OBS_BUCKET_S), 16),
+        sketch_capacity=OBS_SERIES_CAPACITY, clock=lambda: clock[0], device=device,
+    )
+    rules = default_rules(
+        queue_depth_limit=3, staleness_limit_steps=OBS_QUEUE_DEPTH // 2, drop_budget=0.02, drop_burn_threshold=2.0,
+        recompiles_per_window=8, fill_ceiling=0.5, hot_share_limit=0.5, window_s=OBS_WINDOW_S,
+        drift_threshold=0.5, drift_freeze_after=6 * OBS_BATCH, freshness_bound_s=1.5, read_latency_limit_ms=400.0,
+        tenant_bytes_limit=16 * 1024, unaccounted_growth_bytes=OBS_LEAK_GROWTH,
+    )
+    monitor = HealthMonitor(rules, recorder=rec)
+    budget_rules = [r for r in monitor.rules if isinstance(r, MemoryBudget)]
+    drift_rule = next(r for r in monitor.rules if isinstance(r, DriftRule))
+    collection = tm.MetricCollection(
+        {"auroc": tm.AUROC(pos_label=1, sketch_capacity=OBS_SKETCH_CAPACITY, device=device), "mse": tm.MeanSquaredError(device=device)}
+    )
+    per_tenant = tm.SlicedMetric(tm.MeanSquaredError(device=device), OBS_TENANTS)
+    canary = tm.SumMetric(device=device)
+    observatory = MemoryObservatory(recorder=rec, ledger=MemoryLedger([collection["auroc"], collection["mse"], per_tenant]))
+    handle = collection.compile_update_async(queue_depth=OBS_QUEUE_DEPTH, policy="drop")
+    # warm-up outside the clock: the capture, the sliced scatter, the canary
+    preds, target, ids, _ = observatory_batch(torch, rng, device)
+    handle.update_async(preds, target)
+    handle.flush()
+    per_tenant.update(ids, preds, target.float())
+    canary.update(torch.ones(8, device=device))
+    telemetry_launches = {}
+    taps = series_taps()
+    leak, fired_at, stats = [], {}, {"steps": 0, "bursts": 0, "dropped": 0, "probes": 0}
+    last_stamp = collection.freshness()
+
+    def telemetry(fn):
+        """Telemetry's own device work, its launches counted apart and its
+        kernels' inputs tapped."""
+        with taps, ops.recording_launches() as launches:
+            out = fn()
+        for k, n in launches.items():
+            telemetry_launches[k] = telemetry_launches.get(k, 0) + n
+        return out
+
+    def probe(stalled):
+        nonlocal last_stamp
+        if stalled:
+            # the dashboard reader is stuck mid-read: its last stamp ages and
+            # its read's elapsed time grows, both on the injected clock
+            rec.record_async_event("snapshot", staleness_steps=handle.pending)
+            rec.record_read("probe", duration_s=0.9,
+                            freshness=FreshnessStamp(min_event_t=time.time() - 30.0, max_event_t=time.time() - 30.0))
+        else:
+            t0 = time.perf_counter()
+            handle.compute(max_staleness=OBS_QUEUE_DEPTH)
+            per_tenant.compute()
+            last_stamp = collection.freshness()
+            rec.record_read("probe", duration_s=time.perf_counter() - t0, freshness=last_stamp)
+        telemetry(rec.tick)
+        telemetry(lambda: observatory.observe())
+        snap = telemetry(lambda: monitor.evaluate(now=clock[0]))
+        for a in snap.firing:
+            fired_at.setdefault(a.name, clock[0])
+        stats["probes"] += 1
+
+    def step(phase, i):
+        fault = phase == "fault"
+        preds, target, ids, host_preds = observatory_batch(torch, rng, device, drifted=fault, hot=fault)
+        if fault and i % OBS_BURST_EVERY == 0:
+            # an unpaced burst while a reader holds the state snapshot: the
+            # queue fills and the drop policy sheds the rest
+            with handle.snapshot():
+                accepted = sum(bool(handle.update_async(preds, target)) for _ in range(OBS_BURST))
+                stats["dropped"] += OBS_BURST - accepted
+                rec.record_async_event("snapshot", staleness_steps=handle.pending)
+            stats["bursts"] += 1
+        else:
+            handle.update_async(preds, target)
+        handle.flush()
+        per_tenant.update(ids, preds, target.float())
+        rec.record_scores(host_preds)
+        if fault:
+            canary.update(torch.ones(1 + i % 16, device=device))  # ragged: a new signature each
+            if i % OBS_PROBE_EVERY == 0 and len(leak) < 8:
+                leak.append(torch.zeros(OBS_LEAK_CHUNK, dtype=torch.uint8, device=device))
+        else:
+            canary.update(torch.ones(8, device=device))
+        stats["steps"] += 1
+        clock[0] += OBS_STEP_S
+        if i % OBS_PROBE_EVERY == OBS_PROBE_EVERY - 1:
+            probe(stalled=fault)
+
+    try:
+        for i in range(OBS_WARMUP_STEPS):
+            step("warmup", i)
+        check(drift_rule.freeze_reference(registry, now=clock[0]), "observatory: the drift reference did not freeze")
+        saved = [(r, r.threshold) for r in budget_rules]
+        for r in budget_rules:
+            r.threshold = 1.0  # the tenant budget shrinks below the live state
+        for i in range(OBS_FAULT_STEPS):
+            step("fault", i)
+        # a burst of observations in one bucket, past the series' sketch
+        telemetry(lambda: [registry.observe("burst_ms", float(v)) for v in rng.random(OBS_SERIES_BURST)])
+        telemetry(rec.tick)
+        fault_end = clock[0]
+        for r, threshold in saved:
+            r.threshold = threshold
+        leak.clear()
+        for i in range(OBS_PROBE_EVERY):
+            step("recovery", i)  # the reader resumes: its first probe reads the full sketch
+        collection.reset()  # the epoch boundary: the sketch empties
+        handle = collection.compile_update_async(queue_depth=OBS_QUEUE_DEPTH, policy="drop")
+        for i in range(OBS_PROBE_EVERY, OBS_RECOVERY_STEPS):
+            step("recovery", i)
+        final = telemetry(lambda: monitor.evaluate(now=clock[0]))
+        cleared = monitor.fired_and_cleared()
+        missing = [a for a in OBS_ALARMS if a not in cleared]
+        check(not missing, f"observatory: alarms that did not fire and clear: {missing} (fired at {fired_at})")
+        check(final.status == "ok", f"observatory: still firing at the end: {[a.name for a in final.firing]}")
+        # the drift score on the card against the same histograms on the CPU
+        live = telemetry(lambda: registry.get(SERIES_SCORES).window_sketch(OBS_WINDOW_S, now=fault_end))
+        edges = torch.as_tensor(np.asarray(drift_rule._edges, np.float32))
+        card_hist = telemetry(lambda: qsketch_histogram(live, edges.to(device)))
+        cpu_hist = qsketch_histogram(live.cpu(), edges)
+        check(same_bits(torch, [card_hist.cpu()], [cpu_hist]), "observatory: the drift histogram on the card differs from the CPU's")
+        card_scores = telemetry(lambda: histogram_drift(drift_rule._ref_hist, card_hist))
+        cpu_scores = histogram_drift(drift_rule._ref_hist.cpu(), cpu_hist)
+        drift_err = max(abs(card_scores[k] - cpu_scores[k]) for k in card_scores)
+        check(drift_err <= 1e-6, f"observatory: drift scores on the card {card_scores}, on the CPU {cpu_scores}")
+        check(card_scores["psi"] >= 0.5, f"observatory: the fault window's drift {card_scores}")
+        check(telemetry_launches.get("qsketch_sort_bucket", 0) > 0 and telemetry_launches.get("segment_sum_f32", 0) > 0,
+              f"observatory: the series made no K3/K1 launch {telemetry_launches}")
+        memory = backend_memory_stats()
+        emit({"phase": "observatory", "card": card, **stats, "alarms_fired_and_cleared": cleared,
+              "fired_at_s": {k: round(v - 1_000_000.0, 3) for k, v in sorted(fired_at.items())},
+              "transitions": len(monitor.transitions()), "drift_fault_window": card_scores, "drift_max_abs_err_vs_cpu": drift_err,
+              "series_launches": telemetry_launches, "series": registry.names(), "backend_memory_stats": memory,
+              "async_totals": rec.async_totals(), "memory_totals": rec.memory_totals(),
+              "seconds": time.perf_counter() - t_phase})
+        return {"launches": telemetry_launches, "taps": taps}
+    finally:
+        handle.close()
+        rec.disable()
+        rec.detach_timeseries()
+        rec.reset()
+
+
+def telemetry_kernel_lines(torch, ops, flagship, observatory):
+    """Kernels-line entries of K3 and K1 at the time series' own inputs: the
+    [capacity + pending] compactions of the 128-row (telemetry-flagship) and
+    8192-row (observatory) sketches, their K1 sums, and qsketch_histogram's
+    K1 (drift) -- each with the launches of its phase's telemetry."""
+    lines = []
+    for path, run in (("telemetry-flagship", flagship), ("observatory", observatory)):
+        taps, launches = run["taps"], run["launches"]
+        calls, args = taps.busiest("qsketch_sort_bucket")
+        if args is not None:
+            rows, capacity = args
+            line = qsketch_line(torch, ops, path, launches, rows, capacity)
+            lines.append({**line, "launches_at_shape": calls})
+        for label in ("compaction_segment_sum_f32", "histogram_segment_sum_f32"):
+            calls, args = taps.busiest(label)
+            if args is None:
+                continue
+            vals, ids, s = args
+            line = segment_fold_line(
+                torch, ops, "segment_sum_f32", KERNEL_SOURCE, REPLACES, {"segment_sum_f32": launches.get("segment_sum_f32", 0)},
+                (vals, ids, s), ops.segment_sum_reference, library_index_add(torch, vals, ids, s), "segment_sum_f32_kernel",
+                exact_fn=lambda v, i, n: ops.segment_sum_reference(v.cpu(), i.cpu(), n).to(v.device),
+            )
+            lines.append({**line, "path": f"{path} ({label.split('_segment')[0]})", "launches_at_shape": calls})
+    return lines
+
+
 def main():
     import torch
 
@@ -6989,6 +7523,10 @@ def main():
     # per-condition SI-SDR through K1)
     separation_phase(torch, ops, card, tm)
     audio_launches, audio_k1 = enhancement_phase(torch, ops, card, tm)
+    # the telemetry plane: the recorder's hooks on the flagship collection
+    # (off and on), then the serving observatory's alarms on injected times
+    telemetry_flagship = telemetry_flagship_phase(torch, ops, card, tm, preds_all, target_all)
+    observatory = observatory_phase(torch, ops, card, tm)
     # K5 is reached by 2-D boxes through the entry point ops.box_iou
     gen = torch.Generator(device="cpu").manual_seed(5)
     k5_inputs = [(iou_boxes(torch, gen, n).cuda(), iou_boxes(torch, gen, m).cuda()) for n, m in K5_PARITY_SHAPES]
@@ -7135,6 +7673,9 @@ def main():
             exact_fn=lambda v, i, n: ops.segment_sum_reference(v.cpu(), i.cpu(), n).to(v.device),
         )
         kernels.append({**line, "path": "audio-enhancement"})
+    # K3 and K1 on the telemetry path: the series' compactions at 128 and
+    # 8192 rows and drift's histogram, with their phases' launches
+    kernels += telemetry_kernel_lines(torch, ops, telemetry_flagship, observatory)
     # each kernel's launches inside the sync phases' syncs, by phase and rank
     for entry in kernels:
         entry["sync_launches"] = sync_launches.get(entry["name"], {})

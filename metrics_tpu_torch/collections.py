@@ -7,10 +7,15 @@ kwarg filtering, prefix/postfix, clone, ``state_dict``, and compute groups
 states and shared hyperparameters are equal merge, and later updates touch
 only each group's leader), the fused update (``compile_update``: one CUDA
 graph per batch signature, ``core/fused.py``) and the async update pipeline
-(``compile_update_async``, ``core/pipeline.py``).
+(``compile_update_async``, ``core/pipeline.py``). With the default
+recorder enabled, ``update``/``forward``/``compute`` open spans that parent
+their members' spans, a group leader's update events carry the members
+they serve (``compute_group``), and ``freshness()`` folds the collection's
+ingest span, every member's stamp and the async handle's.
 """
 from collections import OrderedDict
 from copy import deepcopy
+import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -18,6 +23,8 @@ import torch
 
 from metrics_tpu_torch.core.metric import Metric
 from metrics_tpu_torch.observability.freshness import FreshnessStamp, merge_stamps
+from metrics_tpu_torch.observability.recorder import _DEFAULT_RECORDER as _TELEMETRY
+from metrics_tpu_torch.observability.trace import span as _span
 from metrics_tpu_torch.parallel.distributed import distributed_available as _dist_available
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -83,6 +90,9 @@ class MetricCollection:
         self._fused = None  # FusedUpdate handle once compile_update() is called
         self._async = None  # AsyncUpdateHandle once compile_update_async() is called
         self._bulk_insert = False
+        # wall clock of the first/last batch (telemetry-enabled updates only)
+        self._ingest_first_t: Optional[float] = None
+        self._ingest_last_t: Optional[float] = None
         self.add_metrics(metrics, *additional_metrics)
 
     # ------------------------------------------------------------------
@@ -143,6 +153,12 @@ class MetricCollection:
         """Call forward for each metric; kwargs are filtered per metric. An
         open async handle is drained first: forward reads and restores
         every state."""
+        if not _TELEMETRY.enabled:
+            return self._forward_impl(*args, **kwargs)
+        with _span("MetricCollection.forward", n_metrics=len(self._metrics)):
+            return self._forward_impl(*args, **kwargs)
+
+    def _forward_impl(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         self._drain_async()
         res = {k: m(*args, **m._filter_kwargs(**kwargs)) for k, m in self.items(keep_base=True)}
         res = _flatten_dict(res)
@@ -155,6 +171,18 @@ class MetricCollection:
         """Call update for each metric (only group leaders once groups are
         known); through the open async handle (FIFO with its queued
         batches) or the fused handle when there is one."""
+        if not _TELEMETRY.enabled:
+            self._update_impl(*args, **kwargs)
+            return
+        now = time.time()
+        if self._ingest_first_t is None:
+            self._ingest_first_t = now
+        self._ingest_last_t = now
+        # the collection span parents every member's own span
+        with _span("MetricCollection.update", n_metrics=len(self._metrics)):
+            self._update_impl(*args, **kwargs)
+
+    def _update_impl(self, *args: Any, **kwargs: Any) -> None:
         if self._async is not None and not self._async.closed:
             self._async.update_blocking(*args, **kwargs)
             return
@@ -164,7 +192,12 @@ class MetricCollection:
         if self._groups_checked:
             for cg in self._groups.values():
                 m0 = self._metrics[cg[0]]
-                m0.update(*args, **m0._filter_kwargs(**kwargs))
+                if _TELEMETRY.enabled and len(cg) > 1:
+                    # the leader's one update event names the members it serves
+                    with _TELEMETRY.group_attribution(cg):
+                        m0.update(*args, **m0._filter_kwargs(**kwargs))
+                else:
+                    m0.update(*args, **m0._filter_kwargs(**kwargs))
         else:
             for m in self._metrics.values():
                 m.update(*args, **m._filter_kwargs(**kwargs))
@@ -260,6 +293,12 @@ class MetricCollection:
         at most ``max_staleness`` accepted batches are unapplied, then read
         between whole batches; a compute that syncs across processes drains
         the handle first."""
+        if not _TELEMETRY.enabled:
+            return self._compute_impl()
+        with _span("MetricCollection.compute", n_metrics=len(self._metrics)):
+            return self._compute_impl()
+
+    def _compute_impl(self) -> Dict[str, Any]:
         handle = self._async if self._async is not None and not self._async.closed else None
         if handle is None:
             return self._compute_metrics()
@@ -279,11 +318,16 @@ class MetricCollection:
                     m._computed = None
 
     def freshness(self, now: Optional[float] = None) -> FreshnessStamp:
-        """The collection's freshness stamp: the async handle's (applied
-        span and in-flight age) when one is open; the members' own stamps
-        and the collection's ingest span come with the telemetry plane
-        (ROADMAP.md, queue A)."""
-        stamps = [self._async.freshness(now)] if self._async is not None and not self._async.closed else []
+        """The collection's freshness stamp: the merge of the collection's
+        ingest span, every member's own stamp and, with an async handle
+        open, the handle's (applied span and in-flight age). Ingest times
+        are stamped by telemetry-enabled updates only."""
+        stamps: List[FreshnessStamp] = [
+            FreshnessStamp(min_event_t=self._ingest_first_t, max_event_t=self._ingest_last_t)
+        ]
+        stamps.extend(m.freshness_stamp(now) for m in self._metrics.values())
+        if self._async is not None and not self._async.closed:
+            stamps.append(self._async.freshness(now))
         return merge_stamps(stamps)
 
     def _compute_metrics(self) -> Dict[str, Any]:
@@ -410,6 +454,8 @@ class MetricCollection:
         if self._async is not None:
             self._async.close(drain=False)
             self._async = None
+        self._ingest_first_t = None
+        self._ingest_last_t = None
         for m in self._metrics.values():
             m.reset()
 

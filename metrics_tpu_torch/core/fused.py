@@ -66,6 +66,15 @@ batch of a signature is one replay after its capture. The entries of a
 handle share one memory pool. On the CPU there is no graph: the handle runs
 the same fused function directly, its plain version.
 
+**Telemetry.** With the default recorder enabled, each dispatch records one
+``fused_update`` event (and no member ``update`` events: the fused function
+calls the members' ``_update``), the batch signature feeds the recompile
+detector under ``MetricCollection.fused_update``, and each new cache entry
+records one ``compile`` event: its warm-up and capture times and the bytes
+its capture reserved in the pool (``pool_nbytes``, also the
+``fused_compile`` cache plane). Nothing of it runs on the card or inside a
+capture; disabled, it costs one bool check per dispatch.
+
 Sliced metrics ride this path unchanged: their update is a fixed-shape
 segment scatter, and an edge-padded row repeats the last row's slice id,
 so the ``k * delta(last_row)`` correction lands in the slice the pad rows
@@ -73,7 +82,9 @@ polluted. Windowed metrics correct their pad rows in the live ring slot
 themselves (``windowed/metric.py``), through ``n_valid``.
 """
 import contextlib
+import time
 import traceback
+import weakref
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -81,8 +92,10 @@ from torch.overrides import TorchFunctionMode
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from metrics_tpu_torch.core.metric import _AUTO_COUNT, Metric, _to_device_inputs
+from metrics_tpu_torch.observability.memory import register_cache_plane
+from metrics_tpu_torch.observability.recorder import _DEFAULT_RECORDER as _TELEMETRY
 from metrics_tpu_torch.ops.dispatch import add_launches, recording_launches
-from metrics_tpu_torch.utils.checks import capturing_checks
+from metrics_tpu_torch.utils.checks import building_entry, capturing_checks
 from metrics_tpu_torch.utils.data import dim_zero_max, dim_zero_min, dim_zero_sum
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
@@ -95,6 +108,18 @@ _CACHE_WARN_ENTRIES = 16
 #: runs of the fused function on the side stream, on scratch states, before
 #: a capture (lazy library and allocator set-up happens outside the graph)
 _WARMUP_RUNS = 2
+
+#: the recompile detector's entry point for fused dispatches
+FUSED_ENTRY = "MetricCollection.fused_update"
+
+#: live handles, for the ``fused_compile`` cache plane
+_LIVE_FUSED: "weakref.WeakSet[FusedUpdate]" = weakref.WeakSet()
+
+
+def _fused_plane_nbytes() -> int:
+    """Bytes the live handles' graphs hold on the card (their entries'
+    ``pool_nbytes``)."""
+    return sum(e.pool_nbytes for h in list(_LIVE_FUSED) for e in list(h._cache.values()))
 
 
 class _HostReadError(RuntimeError):
@@ -236,7 +261,7 @@ class _Entry:
     """One cache entry: the fused function and, on the card, its graph with
     the static buffers it reads and writes."""
 
-    __slots__ = ("fn", "graph", "inputs", "n_valid", "states", "launches", "calls")
+    __slots__ = ("fn", "graph", "inputs", "n_valid", "states", "launches", "calls", "pool_nbytes")
 
     def __init__(self, fn: Any) -> None:
         self.fn = fn
@@ -246,6 +271,9 @@ class _Entry:
         self.states: Dict[str, Dict[str, Tensor]] = {}
         self.launches: Dict[str, int] = {}
         self.calls = 0
+        #: bytes the capture reserved in the handle's pool plus the static
+        #: inputs (0 without a graph)
+        self.pool_nbytes = 0
 
 
 class FusedUpdate:
@@ -289,6 +317,7 @@ class FusedUpdate:
         #: why the probe declined each of them (the first error it met),
         #: and the wrappers and compositions (members with child metrics)
         self.declined: Dict[str, str] = {}
+        _LIVE_FUSED.add(self)
 
     # graphs, buffers and the collection back-reference are not copied:
     # MetricCollection.clone() drops the handle and the clone captures anew
@@ -418,6 +447,9 @@ class FusedUpdate:
         synchronises is one-time (the probe, a capture, the first call's
         compute-group discovery) or belongs to the eager leg."""
         col = self._collection
+        # one read of the flag: a recorder enabled mid-call records nothing
+        recording = _TELEMETRY.enabled
+        t0 = time.perf_counter() if recording else 0.0
         for m in col._metrics.values():
             # the synced states are the cross-rank reduction; the graphs'
             # static buffers wait in the metric's cache for unsync
@@ -436,18 +468,35 @@ class FusedUpdate:
         sig = tuple(_leaf_sig(x, self._device) for x in dyn)
 
         fused_names = [n for n in leaders if self._is_fusible(n, args, kwargs, sig)]
-        for name in leaders:
-            if name not in fused_names:
-                m = col._metrics[name]
-                m.update(*args, **m._filter_kwargs(**kwargs))
+        fallback_names = [n for n in leaders if n not in fused_names]
+        for name in fallback_names:
+            m = col._metrics[name]
+            m.update(*args, **m._filter_kwargs(**kwargs))
+        bucket, cache_hit = None, False
         if fused_names:
-            self._run_fused(fused_names, spec, dyn_idx, dyn, static, sig)
+            bucket, cache_hit = self._run_fused(fused_names, spec, dyn_idx, dyn, static, sig)
 
         if not col._groups_checked and col._enable_compute_groups:
             # first-call group discovery on the concrete states (the eager
             # path's semantics); the next call fuses the leaders only
             col._merge_compute_groups()
             col._groups_checked = True
+
+        if recording:
+            _TELEMETRY.record_fused_update(
+                n_metrics=len(col._metrics),
+                n_fused=len(fused_names),
+                n_fallback=len(fallback_names),
+                duration_s=time.perf_counter() - t0,
+                # the batch's leading-axis rows (a shape read): the windowed
+                # ingest_rows series turns it into a rows/sec rate
+                batch_rows=next((int(x.shape[0]) for x in dyn if isinstance(x, Tensor) and x.ndim >= 1), None),
+                n_groups=len(col._groups) if col._groups_checked else None,
+                bucket=bucket,
+                cache_entries=len(self._cache),
+                cache_hit=cache_hit,
+                n_sliced=sum(1 for n in fused_names if getattr(col._metrics[n], "num_slices", None) is not None),
+            )
 
     def _pick_bucket(self, dyn: List[Any], names: List[str]) -> Optional[int]:
         if not self._buckets:
@@ -472,7 +521,9 @@ class FusedUpdate:
 
     def _run_fused(
         self, names: List[str], spec: Any, dyn_idx: List[int], dyn: List[Any], static: Tuple, sig: Tuple
-    ) -> None:
+    ) -> Tuple[Optional[int], bool]:
+        """One fused update of the fusible leaders ``names``; returns the
+        bucket it ran at and whether its cache entry existed."""
         col = self._collection
         bucket = self._pick_bucket(dyn, names)
         n_rows = None
@@ -486,15 +537,36 @@ class FusedUpdate:
         key = (tuple(names), spec, sig, static_sig, state_sig, bucket)
 
         entry = self._cache.get(key)
+        cache_hit = entry is not None
         if entry is None:
             entry = _Entry(self._build(names, spec, dyn_idx, static, bucket))
+            times = (0.0, 0.0)
             if self._device.type == "cuda":
                 # a member that passed the probe but cannot be captured
                 # raises here; it is not moved to the eager leg
-                self._capture(entry, names, state_sig, dyn, bucket, n_rows)
+                times = self._capture(entry, names, state_sig, dyn, bucket, n_rows)
             self._cache[key] = entry
             self.n_compiles += 1
+            if _TELEMETRY.enabled:
+                # one compile event per cache entry, priced entry by entry
+                _TELEMETRY.record_compile(
+                    f"{FUSED_ENTRY}[{self.n_compiles - 1}]",
+                    trace_s=times[0],
+                    compile_s=times[1],
+                    memory={"pool_bytes": entry.pool_nbytes} if entry.graph is not None else None,
+                    n_fused_metrics=len(names),
+                    bucket=bucket,
+                    donated=self._donate and entry.graph is not None,
+                    captured=entry.graph is not None,
+                )
             if len(self._cache) == _CACHE_WARN_ENTRIES:
+                if _TELEMETRY.enabled:
+                    _TELEMETRY.record_cache_plane(
+                        "fused_compile",
+                        entries=len(self._cache),
+                        nbytes=sum(e.pool_nbytes for e in self._cache.values()),
+                        reason="growth_warning",
+                    )
                 rank_zero_warn(
                     f"compile_update: the fused cache now holds {_CACHE_WARN_ENTRIES} entries -- shape-varying"
                     " batches (or a per-batch static argument such as a Python int) are capturing the fused"
@@ -502,6 +574,10 @@ class FusedUpdate:
                     " and pass per-batch scalars as floats or 0-d tensors.",
                     UserWarning,
                 )
+        if _TELEMETRY.enabled:
+            # bucketed shapes collapse to one signature here; un-bucketed
+            # ragged batches accumulate and trip the recompile warning
+            _TELEMETRY.track_signature(FUSED_ENTRY, signature=(sig, static_sig, bucket))
         entry.calls += 1
         if entry.graph is not None:
             new_states = self._replay(entry, names, dyn, n_rows)
@@ -512,8 +588,9 @@ class FusedUpdate:
                 torch.tensor(x, dtype=torch.float32, device=self._device) if type(x) is float else x for x in padded
             ]
             n_valid = None if bucket is None else torch.tensor(n_rows, dtype=torch.int32, device=self._device)
-            # the plain version decides as the captured program does
-            with capturing_checks():
+            # the plain version decides as the captured program does; its
+            # first run builds the entry (once-per-entry hooks fire there)
+            with capturing_checks(), building_entry() if entry.calls == 1 else contextlib.nullcontext():
                 new_states = entry.fn(states, padded, n_valid)
 
         member_of = {cg[0]: cg for cg in col._groups.values()} if col._groups_checked else {}
@@ -525,6 +602,7 @@ class FusedUpdate:
                 for k, v in new_states[name].items():
                     object.__setattr__(m, k, v)
                 m._mark_fused_written(self._donate)
+        return bucket, cache_hit
 
     def _build(self, names: List[str], spec: Any, dyn_idx: List[int], static: Tuple, bucket: Optional[int]) -> Any:
         """The fused ``(states, dyn leaves, n_valid) -> states`` function."""
@@ -584,9 +662,12 @@ class FusedUpdate:
         dyn: List[Any],
         bucket: Optional[int],
         n_rows: Optional[int],
-    ) -> None:
+    ) -> Tuple[float, float]:
+        """Warm up and capture a new entry's graph; returns the warm-ups'
+        and the capture's wall seconds."""
         col = self._collection
         device = self._device
+        t0 = time.perf_counter()
         buf_key = (tuple(names), state_sig)
         bufs = self._state_bufs.get(buf_key)
         if bufs is None:
@@ -616,8 +697,10 @@ class FusedUpdate:
                     entry.fn(scratch, entry.inputs, entry.n_valid)
             del scratch
             side.synchronize()  # the warm-ups' memory is free before the capture
+            t1 = time.perf_counter()
+            reserved = torch.cuda.memory_stats(device).get("reserved_bytes.all.current", 0)
             graph = torch.cuda.CUDAGraph()
-            with recording_launches() as launches:
+            with recording_launches() as launches, building_entry():
                 with _capturing(graph, side, pool=self._pool):
                     new = entry.fn(bufs, entry.inputs, entry.n_valid)
                     for n in names:
@@ -632,8 +715,12 @@ class FusedUpdate:
                                 buf.copy_(v)
                 del new
         caller.wait_stream(side)
+        t2 = time.perf_counter()
         entry.graph = graph
         entry.launches = dict(launches)
+        grown = torch.cuda.memory_stats(device).get("reserved_bytes.all.current", 0) - reserved
+        entry.pool_nbytes = max(int(grown), 0) + sum(t.numel() * t.element_size() for t in entry.inputs)
+        return t1 - t0, t2 - t1
 
     def _fill_inputs(self, entry: _Entry, dyn: List[Any], n_rows: Optional[int]) -> None:
         """Copy a batch into the entry's static inputs (edge-padded)."""
@@ -683,3 +770,8 @@ def _leaf_sig(x: Any, device: torch.device, bucket: Optional[int] = None) -> Tup
     if bucket is not None and x.ndim >= 1:
         shape = (bucket,) + shape[1:]
     return (shape, x.dtype, x.device)
+
+
+# one plane per cache kind (see observability/memory.py): the graphs' pool
+# bytes, summed over every live handle's entries
+register_cache_plane("fused_compile", _fused_plane_nbytes)

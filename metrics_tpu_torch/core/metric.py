@@ -42,8 +42,18 @@ back. ``update`` and ``forward`` raise while synced. A ``dist_sync_fn``
 (``fn(x, group=...) -> [one tensor per rank]``) replaces the gather, which
 is how a simulated world drives it. In a real group every rank must compute
 in step: each sync is a series of collectives that every rank enters in
-the same order. Not in this slice: the observability hooks (see
-``ROADMAP.md``).
+the same order.
+
+**Telemetry** (``metrics_tpu_torch.observability``): with the default
+recorder enabled, ``update``/``compute``/``forward``/``sync`` record typed
+events inside spans, stamp the ingest times behind
+:meth:`freshness_stamp`, count call signatures, report the footprint
+(``footprint_warn_bytes``), sketch fill on a cold compute and the memory
+boundaries. Disabled, each hook site costs one bool check
+(``_TELEMETRY.enabled``): no clock read, no allocation, no lock.
+``enable_profiling`` wraps update and compute in
+``torch.profiler.record_function`` ranges, so they show in a torch
+profile.
 
 A metric defines ``__eq__`` (it builds a composition), so code that
 compares metrics compares them by identity (``is``), never with ``==``,
@@ -51,18 +61,25 @@ compares metrics compares them by identity (``is``), never with ``==``,
 metric is never iterated: ``iter(metric)`` raises ``TypeError``.
 """
 from abc import ABC, abstractmethod
+import contextlib
 from contextlib import contextmanager
 from copy import deepcopy
 import inspect
 import operator
+import time
 from typing import Any, Callable, Dict, Generator, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from metrics_tpu_torch.observability.freshness import FreshnessStamp
+from metrics_tpu_torch.observability.memory import _track_metric
+from metrics_tpu_torch.observability.recorder import _DEFAULT_RECORDER as _TELEMETRY
+from metrics_tpu_torch.observability.trace import span as _span
 from metrics_tpu_torch.parallel.distributed import distributed_available as _dist_available
 from metrics_tpu_torch.parallel.distributed import gather_all_arrays
+from metrics_tpu_torch.parallel.distributed import world_size as _world_size
 from metrics_tpu_torch.sketches.quantile import (
     _FILL_BOUND,
     fill_bound,
@@ -234,10 +251,17 @@ class Metric(ABC):
         # set while the states may be a donating fused update's static
         # buffers, which its next replay overwrites in place
         self._states_donated = False
+        # wall clock of the first/last ingested batch (telemetry-enabled
+        # updates only: the disabled hot path stays one bool check)
+        self._ingest_first_t: Optional[float] = None
+        self._ingest_last_t: Optional[float] = None
         self._defaults: Dict[str, StateValue] = {}
         self._persistent: Dict[str, bool] = {}
         self._reductions: Dict[str, Optional[Callable]] = {}
         self._cat_states: Dict[str, bool] = {}
+        # weak registration with the memory observatory: the default
+        # MemoryLedger walks every live metric's states
+        _track_metric(self)
 
     # ------------------------------------------------------------------
     # child-metric registry (wrappers and compositions)
@@ -352,6 +376,24 @@ class Metric(ABC):
     def _compute(self) -> Any:
         """Compute the final value from the accumulated states."""
 
+    #: set True (class- or instance-level) to wrap update and compute in
+    #: ``torch.profiler.record_function`` ranges named ``<Metric>.<phase>``
+    enable_profiling: bool = False
+
+    def _profiler_annotation(self, phase: str) -> Any:
+        return torch.profiler.record_function(f"{type(self).__name__}.{phase}")
+
+    def _trace_annotation(self, phase: str) -> Any:
+        """The telemetry span of a phase, with the profiler range inside it
+        when ``enable_profiling`` is set (telemetry-enabled path only)."""
+        sp = _span(f"{type(self).__name__}.{phase}")
+        if not self.enable_profiling:
+            return sp
+        stack = contextlib.ExitStack()
+        stack.enter_context(sp)
+        stack.enter_context(self._profiler_annotation(phase))
+        return stack
+
     def _bump_auto_count(self, eager: bool) -> None:
         """Increment the mean-merge update counter (no-op without mean
         states). A negative counter stays negative. The eager path keeps
@@ -409,8 +451,45 @@ class Metric(ABC):
         self._write_epoch += 1
         self._computed = None
         self._update_called = True
-        self._update(*_to_device_inputs(args, self._device), **_to_device_inputs(kwargs, self._device))
-        self._bump_auto_count(eager=True)
+        if not _TELEMETRY.enabled:  # disabled telemetry costs this ONE check
+            if self.enable_profiling:
+                with self._profiler_annotation("update"):
+                    self._update(*_to_device_inputs(args, self._device), **_to_device_inputs(kwargs, self._device))
+            else:
+                self._update(*_to_device_inputs(args, self._device), **_to_device_inputs(kwargs, self._device))
+            self._bump_auto_count(eager=True)
+            return
+        self._recorded_update(args, kwargs)
+
+    def _recorded_update(self, args: Tuple, kwargs: Dict[str, Any]) -> None:
+        """``update`` with the telemetry hooks: the ingest stamp, the update
+        event inside its span (signature from the arguments as given), the
+        capture bill of a new signature (``profile_compiles``), the
+        footprint (``footprint_warn_bytes``) and the memory boundary."""
+        t0 = time.perf_counter()
+        now = time.time()
+        if self._ingest_first_t is None:
+            self._ingest_first_t = now
+        self._ingest_last_t = now
+        dev_args = _to_device_inputs(args, self._device)
+        dev_kwargs = _to_device_inputs(kwargs, self._device)
+        with self._trace_annotation("update"):
+            self._update(*dev_args, **dev_kwargs)
+            self._bump_auto_count(eager=True)
+            # recorded INSIDE the span so the update event carries its id
+            is_new_sig = _TELEMETRY.record_call("update", self, time.perf_counter() - t0, args, kwargs)
+        if is_new_sig and _TELEMETRY.profile_compiles:
+            from metrics_tpu_torch.observability.profiling import metric_compile_cost
+
+            metric_compile_cost(self, dev_args, dev_kwargs, phase="update")
+        if _TELEMETRY.footprint_warn_bytes is not None:
+            fp = self.state_footprint()
+            _TELEMETRY.record_footprint(
+                self, fp, theoretical_bytes=int(self.theoretical_state_bytes()), live_bytes=int(sum(fp.values()))
+            )
+        # the boundary counter is exact; the event row (with a state walk)
+        # is paced inside the recorder
+        _TELEMETRY.record_memory_boundary("update", self, live_bytes=self.total_state_bytes)
 
     def compute(self) -> Any:
         """Compute (and cache) the metric from the accumulated states,
@@ -427,16 +506,62 @@ class Metric(ABC):
         # pipeline's worker) may clear it between a check and a second read
         cached = self._computed
         if cached is not None and self._computed_epoch == self._write_epoch and self._computed_synced == synced:
+            if _TELEMETRY.enabled:  # the disabled read path stays ONE bool check
+                _TELEMETRY.record_read(
+                    "compute", self, cache_hit=True, leaves=len(self._defaults), freshness=self.freshness_stamp()
+                )
             return cached
+        if not _TELEMETRY.enabled:
+            return self._compute_cold(synced)
+        # the compute span wraps the whole cycle, the sync included, so
+        # `<Metric>.sync` and its transport spans nest under it
+        t0 = time.perf_counter()
+        with _span(f"{type(self).__name__}.compute"):
+            value = self._compute_cold(synced)
+            dt = time.perf_counter() - t0
+            _TELEMETRY.record_call("compute", self, dt)
+            _TELEMETRY.record_read(
+                "compute",
+                self,
+                duration_s=dt,
+                leaves=len(self._defaults),
+                freshness=self.freshness_stamp(),
+                **self._read_extras(),
+            )
+            # sketch occupancy is read on the cold compute path only (it
+            # reads the card); no-op for metrics without sketch leaves
+            ratios = self.sketch_fill_ratios()
+            if ratios:
+                _TELEMETRY.record_sketch_fill(self, ratios)
+            _TELEMETRY.record_memory_boundary("compute", self, live_bytes=self.total_state_bytes)
+        return value
+
+    def _compute_cold(self, synced: bool) -> Any:
+        """Sync where asked, compute, cache the value and put the local states back."""
         epoch0 = self._write_epoch
         with self.sync_context(
             dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
         ):
-            value = self._undonated(_squeeze_if_scalar(self._compute()))
+            if self.enable_profiling:
+                with self._profiler_annotation("compute"):
+                    value = self._undonated(_squeeze_if_scalar(self._compute()))
+            else:
+                value = self._undonated(_squeeze_if_scalar(self._compute()))
             self._computed = value
             self._computed_epoch = epoch0
             self._computed_synced = synced
         return value
+
+    def freshness_stamp(self, now: Optional[float] = None) -> FreshnessStamp:
+        """The :class:`~metrics_tpu_torch.observability.freshness.FreshnessStamp`
+        of the accumulated states: wall clock of the first/last ingested
+        batch. The identity until a telemetry-enabled ``update`` runs."""
+        return FreshnessStamp(min_event_t=self._ingest_first_t, max_event_t=self._ingest_last_t)
+
+    def _read_extras(self) -> Dict[str, Any]:
+        """Extra ``record_read`` fields a subclass' ``_compute`` wants on
+        the read event (e.g. a retrieval metric's table rows unpacked)."""
+        return {}
 
     def forward(self, *args: Any, **kwargs: Any) -> Any:
         """Update the accumulated states AND return the metric of this batch
@@ -445,6 +570,17 @@ class Metric(ABC):
         states too, so a wrapper keeps its children's accumulation. With
         ``dist_sync_on_step`` the batch value is synced across processes."""
         self._raise_if_synced()
+        if not _TELEMETRY.enabled:  # disabled telemetry costs this ONE check
+            return self._forward_impl(args, kwargs)
+        # the forward span contains both inner update spans and the batch
+        # compute span; its event's duration covers the whole cycle
+        t0 = time.perf_counter()
+        with _span(f"{type(self).__name__}.forward"):
+            value = self._forward_impl(args, kwargs)
+            _TELEMETRY.record_call("forward", self, time.perf_counter() - t0, args, kwargs)
+        return value
+
+    def _forward_impl(self, args: Tuple, kwargs: Dict[str, Any]) -> Any:
         self.update(*args, **kwargs)
         snapshot = self._snapshot_state()
         self._to_sync = self.dist_sync_on_step
@@ -470,11 +606,15 @@ class Metric(ABC):
         self._forward_cache = None
         self._is_synced = False
         self._cache = None
+        self._ingest_first_t = None
+        self._ingest_last_t = None
         self._mark_state_written()
         for attr, default in self._defaults.items():
             object.__setattr__(self, attr, [] if isinstance(default, list) else _clone_state(default))
         for _, child in self._iter_child_metrics():
             child.reset()
+        if _TELEMETRY.enabled:  # the disabled reset path stays ONE bool check
+            _TELEMETRY.record_memory_boundary("reset", self, live_bytes=self.total_state_bytes)
 
     # ------------------------------------------------------------------
     # cross-process sync
@@ -497,6 +637,9 @@ class Metric(ABC):
             else:
                 stacked = stack_with_fill_bounds(dist_sync_fn(value, group=group))
                 synced = stacked if reduction_fn is None else reduction_fn(stacked)
+                if _TELEMETRY.enabled and getattr(reduction_fn, "merge_like", False):
+                    n_ranks = stacked.shape[0] if stacked.ndim >= 3 else 1
+                    _TELEMETRY.record_sketch_merge(max(n_ranks - 1, 1))
             object.__setattr__(self, attr, synced)
 
     def _sync_list(
@@ -546,8 +689,24 @@ class Metric(ABC):
         if dist_sync_fn is None:
             dist_sync_fn = gather_all_arrays
         self._cache = {attr: getattr(self, attr) for attr in self._defaults}
-        self._sync_dist(dist_sync_fn, process_group=process_group)
-        self._is_synced = True
+        if not _TELEMETRY.enabled:
+            self._sync_dist(dist_sync_fn, process_group=process_group)
+            self._is_synced = True
+            return
+        t0 = time.perf_counter()
+        state_bytes = sum(self.state_footprint(include_children=False).values())
+        with _span(f"{type(self).__name__}.sync"):
+            self._sync_dist(dist_sync_fn, process_group=process_group)
+            self._is_synced = True
+            # the metric-level event (its own type tag): the transport's
+            # "sync" events own the gather-byte accounting
+            _TELEMETRY.record_event(
+                "metric_sync",
+                metric=type(self).__name__,
+                local_state_bytes=state_bytes,
+                world_size=_world_size(process_group or self.process_group),
+                dur_ms=round((time.perf_counter() - t0) * 1e3, 4),
+            )
 
     def unsync(self, should_unsync: bool = True) -> None:
         """Put back the local states that :meth:`sync` kept (the same objects)."""
@@ -681,6 +840,8 @@ class Metric(ABC):
                 # sketch states merge through their own reducer, given the
                 # stacked states as a distributed sync would give them
                 out[name] = red(torch.stack([va, vb]))
+                if _TELEMETRY.enabled:
+                    _TELEMETRY.record_sketch_merge(1)
             elif getattr(red, "inner_reduce", None) == "sum":
                 # windowed ring rows and decayed sums add pairwise
                 out[name] = va + vb
@@ -836,6 +997,17 @@ class Metric(ABC):
             self._computed_epoch = self._write_epoch
         for _, child in self._iter_child_metrics():
             child.set_dtype(dst_type)
+        if _TELEMETRY.enabled:
+            # footprint events straddling a dtype flip reflect the NEW leaf
+            # dtypes; theoretical and live bytes agree for fixed shapes
+            fp = self.state_footprint()
+            _TELEMETRY.record_footprint(
+                self,
+                fp,
+                theoretical_bytes=int(self.theoretical_state_bytes()),
+                live_bytes=int(sum(fp.values())),
+                cast_to=str(dst_type).replace("torch.", ""),
+            )
         return self
 
     def to_device(self, device: Union[str, torch.device]) -> "Metric":

@@ -36,9 +36,15 @@ work inline. :meth:`MetricCollection.compile_update_async` returns an
 * :meth:`AsyncUpdateHandle.freshness` gives the pipeline's
   :class:`~metrics_tpu_torch.observability.freshness.FreshnessStamp`.
 
-The JAX package's telemetry events (enqueue, dequeue, drop, flush,
-snapshot) and the in-flight byte count that its recorder reads are not
-ported with the recorder (ROADMAP.md, queue A).
+With the default recorder enabled the handle records the JAX package's
+async events: exactly one ``enqueue`` per accepted batch (before its put,
+so the worker's ``dequeue`` never precedes it), one ``dequeue`` per
+applied batch (recorded by the worker thread, with its apply time and the
+batch's enqueue-to-apply age), one ``flush`` per drain (``flush()`` and a
+draining ``close()``), and the counter-only ``drop`` and ``snapshot``
+(a bounded-staleness compute); queue depth and in-flight bytes ride along.
+The recorder's locks make recording from the worker safe; nothing it does
+touches the card. Disabled, each site costs one bool check.
 
 Single-producer contract: ``update_async`` is called from one thread at a
 time. The worker is the only thread that changes metric state between
@@ -55,6 +61,7 @@ import torch
 from torch.utils._pytree import tree_flatten
 
 from metrics_tpu_torch.observability.freshness import FreshnessStamp
+from metrics_tpu_torch.observability.recorder import _DEFAULT_RECORDER as _TELEMETRY
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 
 #: queue sentinel: the worker exits (close())
@@ -313,6 +320,14 @@ class AsyncUpdateHandle:
             self._pending_wall[idx] = time.time()
         return (idx, args, kwargs, ready, nbytes)
 
+    def _record_enqueue(self, idx: int) -> None:
+        """Exactly one ``enqueue`` event per accepted batch."""
+        if _TELEMETRY.enabled:
+            with self._cond:
+                depth = self._pending
+                inflight = self._in_flight_bytes
+            _TELEMETRY.record_async_event("enqueue", batch_index=idx, queue_depth=depth, in_flight_bytes=inflight)
+
     def _reject(self, item: Tuple) -> None:
         with self._cond:
             self._enqueued -= 1
@@ -336,6 +351,10 @@ class AsyncUpdateHandle:
                 )
             with self._cond:
                 self._dropped += 1
+                inflight = self._in_flight_bytes
+            if _TELEMETRY.enabled:
+                # counter-only: the one-enqueue-per-accepted-batch count stays exact
+                _TELEMETRY.record_async_event("drop", batch_index=item[0], in_flight_bytes=inflight)
             return False
         self._enqueue_lossless(item)
         return True
@@ -352,6 +371,8 @@ class AsyncUpdateHandle:
                         " (was the interpreter shutting down?)"
                     )
                 self._cond.wait(timeout=0.1)
+        # recorded before the put: the worker's dequeue event follows it
+        self._record_enqueue(item[0])
         self._queue.put(item)
 
     def update_blocking(self, *args: Any, **kwargs: Any) -> None:
@@ -369,7 +390,18 @@ class AsyncUpdateHandle:
         """Block until every accepted batch is applied. Returns how many
         were pending; raises any worker error, including one raised during
         this flush."""
-        return self._wait_drained(timeout)
+        if not _TELEMETRY.enabled:
+            return self._wait_drained(timeout)
+        t0 = time.perf_counter()
+        waited = self._wait_drained(timeout)
+        _TELEMETRY.record_async_event(
+            "flush",
+            batches_drained=waited,
+            dur_ms=round((time.perf_counter() - t0) * 1e3, 4),
+            queue_depth=0,
+            in_flight_bytes=self.in_flight_bytes,
+        )
+        return waited
 
     def _wait_drained(self, timeout: Optional[float] = None) -> int:
         self._raise_pending_error()
@@ -418,7 +450,10 @@ class AsyncUpdateHandle:
                         "async update worker thread is not running; compute() cannot reach its staleness bound"
                     )
                 self._cond.wait(timeout=0.1)
+            staleness = self._pending
         self._raise_pending_error()
+        if _TELEMETRY.enabled:
+            _TELEMETRY.record_async_event("snapshot", staleness_steps=staleness)
 
     def close(self, drain: bool = True) -> None:
         """Stop the worker. ``drain=True`` applies every queued batch
@@ -450,9 +485,16 @@ class AsyncUpdateHandle:
             except queue.Full:
                 if not self._thread.is_alive():
                     break
+        waited = 0
+        if drain and _TELEMETRY.enabled:
+            with self._cond:
+                waited = self._pending
         self._thread.join(timeout=60.0)
         self._finalizer.detach()
         self._join_worker_stream()
+        # only a draining close is a flush
+        if drain and _TELEMETRY.enabled:
+            _TELEMETRY.record_async_event("flush", batches_drained=waited, queue_depth=0, in_flight_bytes=0, closed=True)
 
     # ------------------------------------------------------------------
     # worker
@@ -478,9 +520,13 @@ class AsyncUpdateHandle:
             self._cond.notify_all()  # a slot is free: wake a blocked producer
         err: Optional[BaseException] = None
         donated = 0
+        recording = False
+        t0 = 0.0
         poisoned = self._error is not None or self._discard
         if not poisoned:
             try:
+                recording = _TELEMETRY.enabled
+                t0 = time.perf_counter() if recording else 0.0
                 if self._fused.donating:
                     # the update writes the current state buffers in place
                     # until it ends: they count as in flight meanwhile
@@ -510,4 +556,18 @@ class AsyncUpdateHandle:
                     if self._first_apply_wall is None:
                         self._first_apply_wall = t_wall
                     self._last_apply_wall = t_wall
+            depth = self._pending
+            inflight = self._in_flight_bytes
             self._cond.notify_all()
+        if recording and err is None and not poisoned:
+            # no staleness_steps here: that gauge is the compute snapshot's
+            _TELEMETRY.record_async_event(
+                "dequeue",
+                batch_index=idx,
+                queue_depth=depth,
+                in_flight_bytes=inflight,
+                dur_ms=round((time.perf_counter() - t0) * 1e3, 4),
+                # enqueue-to-apply age, from the accept wall time the
+                # freshness stamp keeps anyway
+                age_ms=round((time.time() - t_wall) * 1e3, 4) if t_wall is not None else None,
+            )

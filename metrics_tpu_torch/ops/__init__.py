@@ -12,7 +12,9 @@ from metrics_tpu_torch.ops.dispatch import (  # noqa: F401
     count_launch,
     launch_counts,
     on_card,
+    recording_launches,
     reset_launch_counts,
+    route,
 )
 from metrics_tpu_torch.ops.qsketch import (  # noqa: F401
     compact_rows_reference,

@@ -26,7 +26,7 @@ from typing import Tuple
 import torch
 
 from metrics_tpu_torch.ops.build import load
-from metrics_tpu_torch.ops.dispatch import check_cuda, launch, on_card
+from metrics_tpu_torch.ops.dispatch import check_cuda, launch, route
 
 Tensor = torch.Tensor
 
@@ -183,6 +183,6 @@ def box_iou(boxes1: Tensor, boxes2: Tensor) -> Tensor:
     version for CPU tensors. Other shapes raise ``ValueError``."""
     pairwise = boxes1.ndim == 2 and boxes2.ndim == 2
     _check_boxes("box_iou", boxes1, boxes2, 2 if pairwise else 3)
-    if not on_card(boxes1, boxes2):
+    if not route("box_iou", boxes1, boxes2):
         return box_iou_reference(boxes1, boxes2)
     return box_iou_pairwise(boxes1, boxes2) if pairwise else box_iou_batched(boxes1, boxes2)

@@ -26,6 +26,7 @@ import torch
 
 __all__ = [
     "on_card",
+    "route",
     "check_cuda",
     "launch",
     "count_launch",
@@ -51,6 +52,28 @@ def on_card(*tensors: torch.Tensor) -> bool:
     if device.type == "cpu":
         return False
     raise ValueError(f"metrics_tpu_torch kernels run on CUDA or CPU tensors, got device {device}")
+
+
+_RECORDER: Any = None
+
+
+def route(op: str, *tensors: torch.Tensor) -> bool:
+    """:func:`on_card`, counted per op and backend (``cuda`` or ``plain``)
+    in the default telemetry recorder when it is enabled (the
+    ``metrics_tpu_ops_dispatch_total`` family). A captured graph replays
+    its kernels without routing, so a fused update's traffic counts once
+    per capture."""
+    card = on_card(*tensors)
+    global _RECORDER
+    if _RECORDER is None:
+        # imported at the first route: the recorder's package imports the
+        # sketches, which import this module
+        from metrics_tpu_torch.observability.recorder import _DEFAULT_RECORDER
+
+        _RECORDER = _DEFAULT_RECORDER
+    if _RECORDER.enabled:
+        _RECORDER.record_ops_dispatch(op, "cuda" if card else "plain")
+    return card
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -38,7 +38,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 from metrics_tpu_torch.ops.build import load
-from metrics_tpu_torch.ops.dispatch import check_cuda, launch, on_card
+from metrics_tpu_torch.ops.dispatch import check_cuda, launch, route
 from metrics_tpu_torch.ops.segment_sum import segment_sum_f32, segment_sum_reference
 
 Tensor = torch.Tensor
@@ -276,7 +276,7 @@ def qsketch_compact_dispatch(rows: Tensor, capacity: int) -> Tensor:
     dtype = rows.dtype
     if dtype in (torch.float16, torch.bfloat16):
         rows = rows.to(torch.float32)
-    if not on_card(rows):
+    if not route("qsketch_compact", rows):
         out = compact_rows_reference(rows, capacity)
     elif rows.dtype != torch.float32:
         raise TypeError(f"the sketch kernels compact float32 or half-precision rows on the card, got {rows.dtype}")

@@ -42,7 +42,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 from metrics_tpu_torch.ops.build import load
-from metrics_tpu_torch.ops.dispatch import check_cuda, launch, on_card
+from metrics_tpu_torch.ops.dispatch import check_cuda, launch, route
 from metrics_tpu_torch.ops.qsketch import TILE, merge_passes, next_pow2
 from metrics_tpu_torch.utils.checks import checks_read_nothing
 
@@ -254,6 +254,6 @@ def row_topk(
     """Per-row top-``k`` with payload and validity (see the module
     docstring): the kernel for CUDA tensors (float32; other dtypes raise),
     the plain version for CPU tensors."""
-    if not on_card(preds, payload, valid, *(() if rows is None else (rows,))):
+    if not route("row_topk", preds, payload, valid, *(() if rows is None else (rows,))):
         return row_topk_reference(preds, payload, valid, k, rows)
     return row_topk_f32(preds, payload, valid, k, rows)

@@ -27,7 +27,7 @@ import ctypes
 import torch
 
 from metrics_tpu_torch.ops.build import load
-from metrics_tpu_torch.ops.dispatch import on_card
+from metrics_tpu_torch.ops.dispatch import route
 from metrics_tpu_torch.ops.segment_sum import FOLD_ARGS, segment_fold_launch
 from metrics_tpu_torch.utils.data import _is_integer, _total_order_key
 
@@ -111,7 +111,7 @@ def segment_extremum_reference(vals: Tensor, ids: Tensor, num_segments: int, is_
 
 
 def _segment_extremum(vals: Tensor, ids: Tensor, num_segments: int, is_max: bool) -> Tensor:
-    if not on_card(vals, ids):
+    if not route("segment_extremum", vals, ids):
         if ids.is_floating_point():
             raise TypeError(f"segment ids must be integer-typed, got dtype {ids.dtype}")
         return segment_extremum_reference(vals, ids, num_segments, is_max)

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.ops.build import load
-from metrics_tpu_torch.ops.dispatch import check_cuda, launch, on_card
+from metrics_tpu_torch.ops.dispatch import check_cuda, launch, route
 from metrics_tpu_torch.utils.data import _as_tensor, _is_integer
 
 Tensor = torch.Tensor
@@ -270,7 +270,7 @@ def segment_sum(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
     tensors (``segment_sum_f32`` for float32, ``segment_sum_i32`` for int32;
     other dtypes raise), the plain version for CPU tensors (any dtype,
     result in the values' dtype)."""
-    if not on_card(vals, ids):
+    if not route("segment_sum", vals, ids):
         if ids.is_floating_point():
             raise TypeError(f"segment ids must be integer-typed, got dtype {ids.dtype}")
         return segment_sum_reference(vals, ids, num_segments)
@@ -321,6 +321,6 @@ def bincount_dispatch(x: Any, minlength: int, device: Optional[Any] = None) -> T
             f"bincount indices must be integer-typed, got dtype {x.dtype};"
             " cast labels to an integer dtype at the call site"
         )
-    if on_card(x):
+    if route("bincount", x):
         return bincount_i32(x, minlength)
     return bincount_reference(x, minlength)

@@ -28,12 +28,20 @@ takes the place of the JAX package's mesh axis:
   signed-zero semantics.
 
 Every collective counts in :func:`collective_counts` (rounds, bytes
-received and host reads), as the kernels count their launches.
+received and host reads), as the kernels count their launches. With the
+default telemetry recorder enabled, each gather and each ``sync_pytree``
+is a span and records one ``sync`` event: the bytes it brought in (its
+rounds' ``bytes_received``), the world size and, for an uneven gather, the
+pad-to-max bytes that carried no data. A ``sync_pytree`` owns the event of
+the gathers it makes.
 """
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from metrics_tpu_torch.observability.recorder import _DEFAULT_RECORDER as _TELEMETRY
+from metrics_tpu_torch.observability.trace import span as _span
 from metrics_tpu_torch.sketches.quantile import _FILL_BOUND, fill_bound, with_fill_bound, with_rank_fill_bounds
 from metrics_tpu_torch.utils.data import dim_zero_cat, maximum_ieee, minimum_ieee
 
@@ -61,6 +69,10 @@ _MAX_DIMS = 8
 _HEAD = 3
 
 _COUNTS = {"rounds": 0, "bytes_received": 0, "host_reads": 0}
+
+#: set while a sync_pytree runs on this thread: it records the sync event
+#: of the gathers it makes
+_PYTREE_SYNC = threading.local()
 
 
 def collective_counts() -> Dict[str, int]:
@@ -145,9 +157,26 @@ def gather_all_arrays(result: Tensor, group: Optional[Any] = None) -> List[Tenso
     """
     if not distributed_available():
         return [result]
+    if not _TELEMETRY.enabled or getattr(_PYTREE_SYNC, "active", False):
+        return _gather_all_arrays(result, group)[0]
+    before = _COUNTS["bytes_received"]
+    world = world_size(group)
+    with _span("gather_all_arrays", world_size=world):
+        out, pad_waste = _gather_all_arrays(result, group)
+        _TELEMETRY.record_sync(
+            "gather_all_arrays",
+            gather_bytes=_COUNTS["bytes_received"] - before,
+            world_size=world,
+            pad_waste_bytes=pad_waste,
+        )
+    return out
+
+
+def _gather_all_arrays(result: Tensor, group: Optional[Any]) -> Tuple[List[Tensor], int]:
+    """The gather, and the padding bytes it moved (header bytes excluded)."""
     if result.ndim == 0:
         raw = _all_gather_even(_as_bytes(result), group)
-        return [_from_bytes(r, result.dtype, ()) for r in raw]
+        return [_from_bytes(r, result.dtype, ()) for r in raw], 0
 
     bound = fill_bound(result) if hasattr(result, _FILL_BOUND) else -1
     head = torch.tensor(_header(result, bound), dtype=torch.int64, device=result.device)
@@ -181,7 +210,7 @@ def gather_all_arrays(result: Tensor, group: Optional[Any] = None) -> List[Tenso
         if row[2] >= 0:
             with_fill_bound(tensor, row[2])
         out.append(tensor)
-    return out
+    return out, width * len(table) - sum(nbytes) if width else 0
 
 
 # ---------------------------------------------------------------------------
@@ -281,8 +310,39 @@ def sync_pytree(
     ``dist_sync_fn(x, group=...)`` replaces the gather (a simulated world
     returns every rank's ``x``); by default the process group's.
     """
-    even = dist_sync_fn or (lambda x, group=None: _all_gather_even(x, group))
-    gather = dist_sync_fn or gather_all_arrays
+    if not _TELEMETRY.enabled:
+        return _sync_pytree(state, reductions, group, dist_sync_fn)
+    moved = [0]
+
+    def counted(fn: Callable) -> Callable:
+        def gather_counted(x: Tensor, group: Optional[Any] = None) -> List[Tensor]:
+            out = fn(x, group=group)
+            moved[0] += sum(t.numel() * t.element_size() for t in out)
+            return out
+
+        return gather_counted
+
+    world = world_size(group)
+    _PYTREE_SYNC.active = True
+    try:
+        with _span("sync_pytree", world_size=world):
+            out = _sync_pytree(state, reductions, group, dist_sync_fn, wrap=counted)
+            n_leaves = sum(1 for _ in _iter_state_leaves(state))
+            _TELEMETRY.record_sync("sync_pytree", gather_bytes=moved[0], world_size=world, n_leaves=n_leaves)
+    finally:
+        _PYTREE_SYNC.active = False
+    return out
+
+
+def _sync_pytree(
+    state: Dict[str, Any],
+    reductions: Dict[str, Any],
+    group: Optional[Any],
+    dist_sync_fn: Optional[Callable],
+    wrap: Callable = lambda fn: fn,
+) -> Dict[str, Any]:
+    even = wrap(dist_sync_fn or (lambda x, group=None: _all_gather_even(x, group)))
+    gather = wrap(dist_sync_fn or gather_all_arrays)
     groups: Dict[Tuple, List[Tuple]] = {}
     merge_groups: Dict[torch.dtype, List[Tuple]] = {}
     fallback: List[Tuple] = []

@@ -25,15 +25,18 @@ Subclasses name their padded row kernel in ``_padded_metric``
 A subclass that only implements ``_metric`` falls back to a host group loop
 in either mode.
 
-Not in this slice (``ROADMAP.md``): the JAX package's read telemetry
-(read events, the layout memo's cache-plane report and ``_read_extras``)
-and its pre-lowered subset readers (``ReaderCache``), which belong to the
-observability plane; there are no calls to them here, and
+With the default telemetry recorder enabled, ``compute()``'s read event
+carries the table rows unpacked, whether the layout memo served it
+(``cache_hit``) and the memo's size (``_read_extras``), and
+``table_rows_layout`` records a ``table`` read event. Not in this slice
+(``ROADMAP.md``, A.6): the pre-lowered subset readers (``ReaderCache``)
+and the layout memo's cache plane (its eviction events);
 ``table_rows_layout`` is a plain row gather. Cross-process sync of the
 table is a later slice too. The table default runs inside the fused update
 (``core/fused.py``): its insert has fixed shapes and reads nothing under
 the capture rule of ``utils/checks.py``.
 """
+import time
 import weakref
 from abc import ABC, abstractmethod
 from collections import OrderedDict
@@ -43,6 +46,7 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.observability.recorder import _DEFAULT_RECORDER as _TELEMETRY
 from metrics_tpu_torch.functional.retrieval.padded import (
     _padded_compute_fn,
     _padded_compute_fn_raw,
@@ -99,22 +103,22 @@ def _table_id(qtable: Tensor) -> tuple:
 
 
 def _table_layout_cached(qtable: Tensor, epoch_key: tuple):
-    """The memoized padded unpack of ``qtable``: reused when the owner's
-    epoch key matches (same write clock, same table) or a sibling's entry
-    holds the same table, unpacked otherwise."""
+    """The memoized padded unpack of ``qtable`` and whether the memo served
+    it: reused when the owner's epoch key matches (same write clock, same
+    table) or a sibling's entry holds the same table, unpacked otherwise."""
     tid = _table_id(qtable)
     hit = _LAYOUT_CACHE.get(epoch_key)
     if hit is not None and hit[0] == tid:
         _LAYOUT_CACHE.move_to_end(epoch_key)
-        return hit[1]
+        return hit[1], True
     for key, (tid2, layout2, _) in _LAYOUT_CACHE.items():
         if tid2 == tid:
             _LAYOUT_CACHE.move_to_end(key)
             _layout_cache_store(epoch_key, qtable, layout2)
-            return layout2
+            return layout2, True
     layout = retrieval_table_layout(qtable)
     _layout_cache_store(epoch_key, qtable, layout)
-    return layout
+    return layout, False
 
 
 class RetrievalMetric(Metric, ABC):
@@ -217,6 +221,15 @@ class RetrievalMetric(Metric, ABC):
             return self._compute_padded()
         return self._compute_host_loop()
 
+    def _read_extras(self) -> dict:
+        # on the read event of Metric.compute: the table rows unpacked and
+        # whether the layout memo served them
+        return {
+            "table_rows": getattr(self, "_last_table_rows", 0),
+            "cache_hit": getattr(self, "_last_layout_cache_hit", False),
+            "layout_entries": len(_LAYOUT_CACHE),
+        }
+
     def table_rows_layout(self, rows: Any):
         """Subset unpack: the padded layout of just the given TABLE rows, in
         the caller's order (no cross-row qid sort): ``(padded_preds,
@@ -229,7 +242,13 @@ class RetrievalMetric(Metric, ABC):
         rows = torch.as_tensor(np.asarray(rows) if not isinstance(rows, Tensor) else rows).reshape(-1)
         if rows.numel() == 0:
             raise ValueError("table_rows_layout() needs at least one row id")
-        return retrieval_table_layout_rows(self.qtable, rows)
+        if not _TELEMETRY.enabled:
+            return retrieval_table_layout_rows(self.qtable, rows)
+        t0 = time.perf_counter()
+        out = retrieval_table_layout_rows(self.qtable, rows)
+        n = int(rows.numel())
+        _TELEMETRY.record_read("table", self, duration_s=time.perf_counter() - t0, table_rows=n, fanin=n)
+        return out
 
     # ------------------------------------------------------------------
     # table-state compute (the fixed-capacity default)
@@ -246,8 +265,10 @@ class RetrievalMetric(Metric, ABC):
             )
         # keyed on this metric's write epoch: repeated reads of an unwritten
         # table are hits whatever its identity
-        layout = _table_layout_cached(qtable, (id(self), self._write_epoch))
+        layout, self._last_layout_cache_hit = _table_layout_cached(qtable, (id(self), self._write_epoch))
         padded_preds, padded_target, mask, row_valid, pos_mass, neg_count, _ = layout
+        if _TELEMETRY.enabled:
+            self._last_table_rows = int(row_valid.sum())
         empty = self._table_empty_rows(pos_mass, neg_count)
         if self.empty_target_action == "error" and bool((empty & row_valid).any()):
             raise ValueError(self._empty_error_message())

@@ -160,7 +160,9 @@ def qsketch_insert(
     ``key`` is ``[B]``; ``payload`` is ``[B, payload_cols]`` (or None for a
     payload-less sketch); ``weights`` default to 1. ``n_valid`` masks
     trailing rows to weight 0 (the pad-and-mask contract of bucketed
-    updates). Batches larger than ``capacity`` are absorbed in
+    updates); given as a Python int it also bounds the rows the insert can
+    occupy, so a padded chunk whose valid rows fit packs without a
+    compaction. Batches larger than ``capacity`` are absorbed in
     capacity-sized chunks. Host inputs go to the sketch's device.
     """
     device = sketch.device
@@ -182,8 +184,10 @@ def qsketch_insert(
             )
         rows = torch.cat([w[:, None], key[:, None], payload], dim=1)
     capacity = sketch.shape[0]
+    valid = n_valid if isinstance(n_valid, int) else None
     for lo in range(0, b, capacity):
-        sketch = _absorb(sketch, rows[lo : lo + capacity])
+        bound = None if valid is None else max(0, min(capacity, valid - lo))
+        sketch = _absorb(sketch, rows[lo : lo + capacity], new_bound=bound)
     return sketch
 
 

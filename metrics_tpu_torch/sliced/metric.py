@@ -31,11 +31,18 @@ Slice ids are a 1-D integer tensor aligned with the batch's leading axis;
 ids outside ``[0, num_slices)`` are dropped. The ``_slice_rows`` counter
 counts rows per slice and drives ``compute(top_k=)`` and ``hot_slices``.
 A sliced metric runs inside the fused update (``core/fused.py``)
-unchanged. Left out of this slice (ROADMAP.md, queue A): the partition
-specs of ``sliced/sharding.py``, the telemetry and read-event hooks and
-the pre-lowered readers (``ReaderCache``).
+unchanged. With the default telemetry recorder enabled, each eager update
+records a ``sliced_scatter`` event (with an attached time series, the
+batch's hottest-slice row count too: one host read of a bincount); inside
+a fused update the event is recorded once per cache entry (``in_jit``),
+with no host read. A read with ``slice_ids=``/``top_k=`` records a
+``sliced`` read event, and a full ``compute()`` carries the number of
+slices it refolded (``fanin``). Left out (ROADMAP.md, queue A): the
+partition specs of ``sliced/sharding.py`` and the pre-lowered readers
+(``ReaderCache``) with their sliced-value cache plane.
 """
 from copy import deepcopy
+import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -43,10 +50,11 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from metrics_tpu_torch.core.metric import _AUTO_COUNT, Metric
+from metrics_tpu_torch.observability.recorder import _DEFAULT_RECORDER as _TELEMETRY
 from metrics_tpu_torch.ops.segment_extremum import segment_max_dispatch, segment_min_dispatch
 from metrics_tpu_torch.ops.segment_sum import segment_sum_dispatch
 from metrics_tpu_torch.sketches.quantile import _FILL_BOUND, fill_bound, with_fill_bound
-from metrics_tpu_torch.utils.checks import capturing_checks
+from metrics_tpu_torch.utils.checks import capturing_checks, checks_read_nothing, in_entry_build
 from metrics_tpu_torch.utils.data import (
     _as_tensor,
     _is_integer,
@@ -269,6 +277,25 @@ class SlicedMetric(Metric):
         # dropped ids land in the sink entry
         in_range = (slice_ids >= 0) & (slice_ids < num)
         self._dirty.index_fill_(0, torch.where(in_range, slice_ids, num).long(), True)
+        if _TELEMETRY.enabled:
+            self._record_scatter(slice_ids, n_rows, len(m._reductions))
+
+    def _record_scatter(self, slice_ids: Tensor, n_rows: int, n_leaves: int) -> None:
+        """The ``sliced_scatter`` event. Inside a fused update (the value
+        checks read nothing) it is recorded once per cache entry, as the
+        JAX package records it once per trace, and reads nothing; an eager
+        update with a time series attached reads the batch's hottest-slice
+        row count (one host read) for the hot-slice-skew series."""
+        in_jit = checks_read_nothing()
+        if in_jit and not in_entry_build():
+            return  # the probe, the warm-ups, later plain runs
+        hot_rows = None
+        if not in_jit and _TELEMETRY.timeseries is not None and n_rows:
+            ids = torch.clamp(slice_ids, 0, self.num_slices - 1).long()
+            hot_rows = int(torch.bincount(ids, minlength=1).max())
+        _TELEMETRY.record_sliced_scatter(
+            self, n_rows=n_rows, n_slices=self.num_slices, n_leaves=n_leaves, in_jit=in_jit, hot_rows=hot_rows
+        )
 
     def _mark_state_written(self) -> None:
         # out-of-band installs (reset, restore, load, a compute group's
@@ -330,8 +357,13 @@ class SlicedMetric(Metric):
             # accumulation that the dirty bitmap and the kept values
             # describe: fold every slice, and touch neither
             return self._fold({name: getattr(self, name) for name in self._template._defaults})
-        values, _ = self._fold_slices(np.arange(self.num_slices))
+        values, n_folded = self._fold_slices(np.arange(self.num_slices))
+        self._last_fold_fanin = n_folded
         return values
+
+    def _read_extras(self) -> Dict[str, Any]:
+        # the refolded slices of the last cold compute, on its read event
+        return {"fanin": getattr(self, "_last_fold_fanin", None)}
 
     def compute(self, *, slice_ids: Optional[Any] = None, top_k: Optional[int] = None) -> Any:
         """Per-slice values.
@@ -347,6 +379,7 @@ class SlicedMetric(Metric):
             return super().compute()
         if slice_ids is not None and top_k is not None:
             raise MetricsUserError("pass either `slice_ids` or `top_k`, not both")
+        t0 = time.perf_counter() if _TELEMETRY.enabled else 0.0
         if top_k is not None:
             if not isinstance(top_k, int) or isinstance(top_k, bool) or top_k <= 0:
                 raise MetricsUserError(f"`top_k` must be a positive int, got {top_k!r}")
@@ -364,15 +397,27 @@ class SlicedMetric(Metric):
                     f"`slice_ids` out of range for num_slices={self.num_slices}:"
                     f" min {int(host_ids.min())}, max {int(host_ids.max())}"
                 )
+        n_folded = int(host_ids.size)
         if host_ids.size and self._is_synced:
             index = torch.as_tensor(host_ids, device=self.device).long()
             values = self._fold({name: getattr(self, name)[index] for name in self._template._defaults})
         elif host_ids.size:
-            values, _ = self._fold_slices(host_ids)
+            values, n_folded = self._fold_slices(host_ids)
         else:  # an empty subset: the fold of one slice, cut to none
             one = self._fold({name: getattr(self, name)[:1] for name in self._template._defaults})
             flat, spec = tree_flatten(one)
             values = tree_unflatten([v[:0] for v in flat], spec)
+        if _TELEMETRY.enabled:
+            # leaves folded = wrapped leaves gathered per selected slice
+            _TELEMETRY.record_read(
+                "sliced",
+                self,
+                duration_s=time.perf_counter() - t0,
+                leaves=len(self._template._defaults) * int(host_ids.size),
+                cache_hit=n_folded == 0,
+                fanin=n_folded,
+                freshness=self.freshness_stamp(),
+            )
         return self._undonated((ids, values) if top_k is not None else values)
 
     def _top_ids(self, k: int) -> Tensor:

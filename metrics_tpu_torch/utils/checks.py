@@ -62,6 +62,26 @@ def capturing_checks() -> Iterator[None]:
         _CAPTURE.on = prev
 
 
+@contextlib.contextmanager
+def building_entry() -> Iterator[None]:
+    """Within this context (this thread only) a fused update is building a
+    cache entry: the capture of its graph on the card, its first plain run
+    on the CPU. Hooks that the JAX package fires once per trace (the
+    sliced scatter's ``in_jit`` telemetry event) fire here, once per
+    entry, and not in the probe, the warm-ups or later runs."""
+    prev = getattr(_CAPTURE, "entry", False)
+    _CAPTURE.entry = True
+    try:
+        yield
+    finally:
+        _CAPTURE.entry = prev
+
+
+def in_entry_build() -> bool:
+    """True inside :func:`building_entry`."""
+    return getattr(_CAPTURE, "entry", False)
+
+
 def checks_read_nothing() -> bool:
     """True under :func:`capturing_checks` or while the current CUDA stream
     captures a graph."""

@@ -41,9 +41,19 @@ read folds the window's rows oldest first with the wrapped merge (the
 quantile sketch's compaction, K3 and K1 on the card, or the reservoir's
 top ``k``). Inside each sketch's lossless window a read equals a fresh
 metric fed the window's batches bit for bit. Decay mode refuses sketch
-leaves: their weights must not be scaled. Left out (ROADMAP.md, queue A):
-the telemetry, freshness and read-event hooks.
+leaves: their weights must not be scaled.
+
+**Telemetry.** With the default recorder enabled, an eager ring update
+stamps its bucket's first-write wall time (from a host mirror of the ring
+clock, read once from the card after an out-of-band write such as a fused
+update), so ``freshness_stamp()`` reports the live ring's reach
+(``ring_span_s``); ``window_state()`` records a ``window`` read event with
+the buckets it folded, and ``compute()``'s read event carries them too.
+Left out (ROADMAP.md, queue A): the fold memos and pre-lowered fold
+(``ReaderCache``) with their cache planes; every read is a cold fold
+(``cache_hit`` false).
 """
+import time
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -51,7 +61,10 @@ from torch.utils._pytree import tree_flatten
 
 from metrics_tpu_torch.core.fused import pad_correct
 from metrics_tpu_torch.core.metric import _AUTO_COUNT, Metric
+from metrics_tpu_torch.observability.freshness import FreshnessStamp
+from metrics_tpu_torch.observability.recorder import _DEFAULT_RECORDER as _TELEMETRY
 from metrics_tpu_torch.sliced.metric import _reducer_name, _template_of
+from metrics_tpu_torch.utils.checks import checks_read_nothing
 from metrics_tpu_torch.utils.data import _squeeze_if_scalar, dim_zero_max, dim_zero_min, dim_zero_sum
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 from metrics_tpu_torch.windowed.reducers import ring_merge_fx
@@ -160,6 +173,13 @@ class WindowedMetric(Metric):
         # the pad-and-mask contract: this wrapper takes `n_valid` and
         # corrects the pad rows in the live slot itself (_pad_correct)
         self.__fused_mask_valid__ = True
+        # host-side ring clock for freshness stamps (telemetry-enabled eager
+        # updates only): each live bucket's first-write wall time, and a
+        # host mirror of the ring count (None: read it from the card once)
+        self._bucket_wall: List[Optional[float]] = [None] * max(self.window, 1)
+        self._host_count: Optional[int] = 0
+        self._last_fold_buckets = 0
+        self._last_fold_oldest_wall: Optional[float] = None
 
     @staticmethod
     def _validate_windowable(metric: Metric, mode: str) -> None:
@@ -271,6 +291,8 @@ class WindowedMetric(Metric):
 
         count = getattr(self, RING_COUNT)
         k, r = self.updates_per_bucket, self.window
+        if _TELEMETRY.enabled and not checks_read_nothing():
+            self._stamp_bucket(count)
         # the slot and the bucket's start, on the device: no host read
         slot = ((count // k) % r).reshape(1).long()
         fresh = (count % k) == 0
@@ -292,6 +314,32 @@ class WindowedMetric(Metric):
         setattr(self, RING_ROWS, rows.index_copy(0, slot, filled))
         setattr(self, RING_COUNT, count + 1)
 
+    def _stamp_bucket(self, count: Tensor) -> None:
+        """Stamp the live bucket's first write (eager, telemetry on). The
+        ring clock comes from the host mirror; after an out-of-band write
+        it is read from the card once."""
+        c = self._host_count
+        if c is None:
+            c = int(count)
+        k, r = self.updates_per_bucket, self.window
+        s = (c // k) % r
+        if c % k == 0 or self._bucket_wall[s] is None:
+            self._bucket_wall[s] = time.time()
+        self._host_count = c + 1
+
+    def _mark_state_written(self) -> None:
+        # an install (a fused replay, a restore) moves the ring clock
+        # without the host seeing it
+        super()._mark_state_written()
+        self._host_count = None
+
+    def reset(self) -> None:
+        super().reset()
+        self._bucket_wall = [None] * max(self.window, 1)
+        self._host_count = 0
+        self._last_fold_buckets = 0
+        self._last_fold_oldest_wall = None
+
     # ------------------------------------------------------------------
     # window folds / compute
     # ------------------------------------------------------------------
@@ -312,14 +360,34 @@ class WindowedMetric(Metric):
                 f" ring span ({r} buckets); those buckets were already evicted"
             )
         counts = getattr(self, RING_ROWS).tolist()
-        return [
-            {name: getattr(self, name)[b % r] for name in m._defaults} for b in range(lo, cur + 1) if counts[b % r] > 0
-        ]
+        live = [b for b in range(lo, cur + 1) if counts[b % r] > 0]
+        # read-event side channel: the buckets this fold covered and how
+        # far back (wall clock) the oldest one reaches
+        walls = [self._bucket_wall[b % r] for b in live if self._bucket_wall[b % r] is not None]
+        self._last_fold_buckets = len(live)
+        self._last_fold_oldest_wall = min(walls) if walls else None
+        return [{name: getattr(self, name)[b % r] for name in m._defaults} for b in live]
 
     def window_state(self, window: Optional[int] = None, *, before: int = 0) -> Dict[str, Tensor]:
         """The wrapped metric's state folded over the last ``window`` buckets
         (default: the whole ring) ending ``before`` buckets back: rows fold
-        oldest first through the wrapped ``merge_states``."""
+        oldest first through the wrapped ``merge_states``. With telemetry
+        enabled, a ``window`` read event."""
+        if not _TELEMETRY.enabled:  # the disabled read path stays ONE bool check
+            return self._window_state_impl(window, before=before)
+        t0 = time.perf_counter()
+        state = self._window_state_impl(window, before=before)
+        _TELEMETRY.record_read(
+            "window",
+            self,
+            duration_s=time.perf_counter() - t0,
+            ring_buckets=self._last_fold_buckets,
+            fanin=self._last_fold_buckets,
+            freshness=self._window_freshness(),
+        )
+        return state
+
+    def _window_state_impl(self, window: Optional[int] = None, *, before: int = 0) -> Dict[str, Tensor]:
         if self.mode != "ring":
             raise MetricsUserError("window_state() is a ring-mode query; decay mode keeps one decayed state")
         w = self.window if window is None else window
@@ -345,7 +413,9 @@ class WindowedMetric(Metric):
         m = self._template
         if self.mode == "decay":
             return m.compute_state({name: getattr(self, name) for name in m._defaults})
-        return m.compute_state(self.window_state())
+        # the un-instrumented fold: Metric.compute() records the read and
+        # takes the fold size from _read_extras()
+        return m.compute_state(self._window_state_impl())
 
     def compute(self, *, window: Optional[int] = None, before: Optional[int] = None) -> Any:
         """The wrapped metric over the window.
@@ -361,6 +431,40 @@ class WindowedMetric(Metric):
         return self._undonated(
             _squeeze_if_scalar(self._template.compute_state(self.window_state(window, before=before or 0)))
         )
+
+    def _window_freshness(self, now: Optional[float] = None) -> FreshnessStamp:
+        """Stamp of the last window fold: the oldest folded bucket's first
+        write bounds the window's reach (``ring_span_s``)."""
+        now = time.time() if now is None else now
+        oldest = self._last_fold_oldest_wall
+        return FreshnessStamp(
+            min_event_t=oldest,
+            max_event_t=self._ingest_last_t,
+            ring_span_s=max(0.0, now - oldest) if oldest is not None else 0.0,
+        )
+
+    def freshness_stamp(self, now: Optional[float] = None) -> FreshnessStamp:
+        """Ring-aware stamp: data older than the live ring was evicted, so
+        ``min_event_t`` is the oldest live bucket's first write and
+        ``ring_span_s`` the ring's wall-clock reach."""
+        base = super().freshness_stamp(now)
+        if self.mode != "ring":
+            return base
+        walls = [w for w in self._bucket_wall if w is not None]
+        if not walls:
+            return base
+        oldest = min(walls)
+        now = time.time() if now is None else now
+        return FreshnessStamp(
+            min_event_t=oldest if base.min_event_t is None else max(base.min_event_t, oldest),
+            max_event_t=base.max_event_t,
+            ring_span_s=max(0.0, now - oldest),
+        )
+
+    def _read_extras(self) -> Dict[str, Any]:
+        if self.mode != "ring":
+            return {}
+        return {"ring_buckets": self._last_fold_buckets, "fanin": self._last_fold_buckets}
 
     def state_footprint(self, include_children: bool = True) -> Dict[str, int]:
         """Bytes per state, every key under ``"windowed/"``."""

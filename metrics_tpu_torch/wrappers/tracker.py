@@ -1,10 +1,10 @@
 """MetricTracker: a metric (or collection) copied afresh per step, every
 step kept.
 
-Counterpart of ``metrics_tpu/wrappers/tracker.py``, without its telemetry
-event on ``increment`` (the port has no recorder yet). Every step's states
+Counterpart of ``metrics_tpu/wrappers/tracker.py``. Every step's states
 stay alive: :meth:`state_footprint` and :meth:`total_state_bytes` count
-them per step.
+them per step, and with the default telemetry recorder enabled each
+``increment`` records a ``tracker_increment`` event with the running total.
 """
 from copy import deepcopy
 from typing import Any, Dict, List, Optional, Tuple, Union
@@ -13,6 +13,7 @@ import torch
 
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.observability.recorder import _DEFAULT_RECORDER as _TELEMETRY
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 Tensor = torch.Tensor
@@ -58,6 +59,12 @@ class MetricTracker:
         self._increment_called = True
         self._steps.append(deepcopy(self._base_metric))
         self._steps[-1].reset()
+        if _TELEMETRY.enabled:
+            # every increment keeps the old step: the tracker is a per-step
+            # memory multiplier, so the event carries the running total
+            _TELEMETRY.record_event(
+                "tracker_increment", n_steps=len(self._steps), total_state_bytes=self.total_state_bytes()
+            )
 
     def state_footprint(self) -> Dict[str, Any]:
         """Each kept step's footprint, under ``step0`` ... ``stepN``."""

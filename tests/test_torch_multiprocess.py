@@ -6,7 +6,8 @@ one run: ``gather_all_arrays`` (a scalar, even and uneven shapes, a rank
 with zero rows, ``bool`` and ``bfloat16`` NaN payloads bit for bit), the
 MSE and capacity ``AUROC`` lifecycles, an ``exact=True`` metric with an
 empty rank (no rank waits), a sketched ``AUROC`` past its capacity and
-``sync_pytree`` over a collection. The workers import no JAX: they write
+``sync_pytree`` over a collection, and the telemetry aggregate
+(``aggregate_across_hosts``). The workers import no JAX: they write
 what they synced to a file, and this process holds it against the JAX
 package's sync of the same shards (a simulated world of two).
 """
@@ -125,6 +126,20 @@ reset_collective_counts()
 out["pytree"] = sync_pytree(state, col.state_reductions())
 out["pytree_counts"] = collective_counts()
 out["pytree_inputs"] = {"x": x, "labels": labels}
+
+# telemetry: every rank's counters merged on every rank, the payloads as
+# bytes through gather_all_arrays
+from metrics_tpu_torch.observability import aggregate_across_hosts, get_recorder
+rec = get_recorder()
+rec.reset()
+rec.enable()
+rec.attach_timeseries(device="cpu", clock=lambda: 1000.0)
+tel = tm.SumMetric(device="cpu")
+for _ in range(rank + 1):
+    tel.update(torch.tensor(1.0))
+rec.timeseries.observe("lat", float(rank + 1), t=1000.0)
+out["aggregate"] = aggregate_across_hosts(rec)
+rec.disable()
 
 torch.save(out, os.path.join(os.environ["OUT"], f"rank{rank}.pt"))
 dist.barrier()
@@ -279,3 +294,18 @@ def test_sync_pytree_across_processes_matches_jax(worker_results):
                     np.testing.assert_array_equal(v.numpy(), w)
         # float32 sums, int32 sums and the max: three groups, one gather each
         assert out["pytree_counts"]["rounds"] == 3 and out["pytree_counts"]["host_reads"] == 0
+
+
+def test_aggregate_across_hosts_merges_both_ranks_like_jax(worker_results):
+    from metrics_tpu.observability import merge_payloads as jax_merge_payloads
+
+    aggs = [out["aggregate"] for out in worker_results]
+    for agg in aggs:
+        assert agg["world_size"] == 2
+        assert [p["process"] for p in agg["processes"]] == [0, 1]
+        assert agg["call_counts"] == {("SumMetric", "update"): 3}
+        (bucket,) = agg["timeseries"]["lat"]["buckets"]
+        assert bucket["c"] == 2 and bucket["s"] == 3.0 and sorted(r[1] for r in bucket["sk"]) == [1.0, 2.0]
+    # every rank merged the same payloads, as the JAX package merges them
+    assert aggs[0]["processes"] == aggs[1]["processes"]
+    assert aggs[0] == jax_merge_payloads(aggs[0]["processes"])

@@ -41,7 +41,10 @@ for name in ("core.fused", "core.pipeline", "observability.freshness", "classifi
              "functional.text.wip", "audio", "audio.snr", "audio.sdr", "audio.pit", "audio.stoi",
              "audio.pesq", "functional.audio", "functional.audio.snr", "functional.audio.sdr",
              "functional.audio.pit", "functional.audio.stoi", "functional.audio.pesq",
-             "functional.audio._pesq_engine", "native"):
+             "functional.audio._pesq_engine", "native", "observability", "observability.recorder",
+             "observability.trace", "observability.exporters", "observability.aggregate",
+             "observability.memory", "observability.profiling", "observability.timeseries",
+             "observability.drift", "observability.health"):
     assert "metrics_tpu_torch." + name in names, name
 from metrics_tpu_torch import BootStrapper, CompositionalMetric, MeanMetric, MetricTracker  # noqa: F401
 from metrics_tpu_torch.parallel import class_reduce, gather_all_arrays, sync_pytree  # noqa: F401
@@ -52,6 +55,7 @@ from metrics_tpu_torch import BERTScore, BLEUScore, ROUGEScore, SQuAD, Translati
 from metrics_tpu_torch.audio import PerceptualEvaluationSpeechQuality, ShortTimeObjectiveIntelligibility  # noqa: F401
 from metrics_tpu_torch import PermutationInvariantTraining, SignalDistortionRatio  # noqa: F401
 from metrics_tpu_torch.native import lsap  # noqa: F401
+from metrics_tpu_torch.observability import HealthMonitor, MetricRecorder, TimeSeriesRegistry, get_recorder  # noqa: F401
 import chip_smoke
 assert not any(k == "jax" or k.startswith(("jax.", "metrics_tpu.")) for k, v in sys.modules.items() if v is not None)
 print(len(names))
@@ -69,7 +73,9 @@ def test_port_imports_with_jax_blocked():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 95  # every module of the port was imported (sliced, windowed and audio included)
+    # every module of the port was imported (sliced, windowed, audio and the
+    # nine telemetry modules of observability/ included)
+    assert int(out.stdout.strip()) >= 104
 
 
 def _imported_modules(path: Path):

@@ -31,6 +31,16 @@ torch.set_num_threads(2)
 
 _SLOW = 0.05
 
+_WORKER_NAME = "metrics-tpu-torch-async-update"
+
+
+def _threads_since(before):
+    """The live threads that were not in ``before`` (a set taken from
+    ``threading.enumerate()``). Threads that other tests in the same process
+    left behind, or that end meanwhile, do not change the answer; a worker
+    this test started and leaked does."""
+    return [t for t in threading.enumerate() if t not in before]
+
 
 def _cls_batch(rng, n=64, c=3):
     preds = rng.rand(n, c).astype(np.float32)
@@ -406,18 +416,18 @@ def test_compute_reraises_and_reset_recovers():
 
 def test_flush_is_idempotent_and_close_joins_the_worker():
     rng = np.random.RandomState(10)
-    before = threading.active_count()
+    before = set(threading.enumerate())
     col = _reducer_collection()
     col.update(*_cls_batch(rng))
     handle = col.compile_update_async()
-    assert threading.active_count() == before + 1
+    assert _threads_since(before) == [handle._thread] and handle._thread.name == _WORKER_NAME
     for _ in range(3):
         handle.update_async(*_cls_batch(rng))
     assert handle.flush() >= 0
     assert handle.flush() == 0 and handle.applied == 3
     handle.close()
     handle.close()
-    assert threading.active_count() == before
+    assert not handle._thread.is_alive() and _threads_since(before) == []
 
 
 def test_close_drains_by_default_and_discards_when_flagged():
@@ -441,17 +451,18 @@ def test_close_drains_by_default_and_discards_when_flagged():
 
 def test_abandoned_handle_does_not_leak_its_worker():
     rng = np.random.RandomState(33)
-    before = threading.active_count()
+    before = set(threading.enumerate())
     col = _reducer_collection()
     col.update(*_cls_batch(rng))
     handle = col.compile_update_async()
     handle.update_async(*_cls_batch(rng))
     handle.flush()
     thread = handle._thread
+    assert thread.name == _WORKER_NAME and _threads_since(before) == [thread]
     del handle, col
     gc.collect()
     thread.join(timeout=5.0)
-    assert not thread.is_alive() and threading.active_count() == before
+    assert not thread.is_alive() and _threads_since(before) == []
 
 
 def test_closed_handle_rejects_updates_and_the_collection_goes_on():
@@ -469,15 +480,17 @@ def test_closed_handle_rejects_updates_and_the_collection_goes_on():
 
 def test_reset_invalidates_and_discards():
     rng = np.random.RandomState(14)
-    before = threading.active_count()
+    before = set(threading.enumerate())
     col = MetricCollection([_SlowSum()])
     col.update(*_cls_batch(rng))
     handle = col.compile_update_async(queue_depth=8)
+    assert handle._thread.name == _WORKER_NAME and _threads_since(before) == [handle._thread]
     fused = col.fused_update
     for _ in range(4):
         handle.update_async(*_cls_batch(rng))
     col.reset()
-    assert col.async_update is None and handle.closed and threading.active_count() == before
+    assert col.async_update is None and handle.closed
+    assert not handle._thread.is_alive() and _threads_since(before) == []
     assert col.fused_update is fused  # reset keeps the fused handle
     with pytest.raises(MetricsUserError):
         handle.update_async(*_cls_batch(rng))
