@@ -20,13 +20,16 @@ would. Past capacity the weighted kernels
 (``functional/classification/sketch_curve.py``) take over, within the
 sketch's rank-error bound. The update reads nothing back from the card
 (beyond the input checks' one read); compute reads the fill count once.
+``AUROC``'s weighted read goes through a
+:class:`~metrics_tpu_torch.core.readers.ReaderCache` (``_readers``): one
+reader per shape bucket of the padded rows, a CUDA graph on the card.
 """
 from typing import Any, Mapping, Optional, Tuple
 
 import torch
 
 from metrics_tpu_torch.classification._capacity import CapacityCurveMixin
-from metrics_tpu_torch.core.readers import round_up_bucket
+from metrics_tpu_torch.core.readers import ReaderCache, round_up_bucket
 from metrics_tpu_torch.sketches.compat import register_exact_list_states, warn_exact_buffer
 from metrics_tpu_torch.sketches.quantile import qsketch_fill, qsketch_init, qsketch_insert, sketch_merge_fx
 from metrics_tpu_torch.utils.data import dim_zero_cat
@@ -57,6 +60,8 @@ class SketchCurveMixin:
             raise ValueError(f"Argument `sketch_capacity` must be a positive int, got {sketch_capacity}")
         self._sketch_capacity = sketch_capacity
         self._shape_stable_reads = bool(shape_stable_reads)
+        # the weighted compute's readers, one per shape bucket
+        self._readers = ReaderCache()
         self._register_sketch(num_classes if (num_classes is not None and num_classes >= 2) else None)
         self.add_state("n_seen", default=torch.zeros((), dtype=torch.int32), dist_reduce_fx="sum")
 

@@ -167,14 +167,23 @@ class AUROC(SketchCurveMixin, CapacityCurveMixin, Metric):
                 "Partial AUC computation not available in multilabel/multiclass setting,"
                 f" 'max_fpr' must be set to `None`, received `{self.max_fpr}`."
             )
-        if self.mode == DataType.BINARY:
-            if self.max_fpr is not None and self.max_fpr < 1:
-                return binary_auroc_max_fpr_weighted(scores, y, w, self.max_fpr)
-            return binary_auroc_weighted(scores, y, w)
-        if self.mode == DataType.MULTILABEL and self.average == AverageMethod.MICRO:
-            flat_w = w[:, None].expand(y.shape).reshape(-1)
-            return binary_auroc_weighted(scores.reshape(-1), y.reshape(-1), flat_w)
-        per_class = binary_auroc_weighted(scores.T, y.T, w[None, :].expand(y.shape[1], -1))
-        supports = weighted_class_supports(y, w)
-        average = None if self.average == AverageMethod.NONE else self.average
-        return average_class_scores(per_class, supports, average)
+        mode, average, max_fpr = self.mode, self.average, self.max_fpr
+
+        def build():
+            def read(scores: Tensor, y: Tensor, w: Tensor) -> Tensor:
+                if mode == DataType.BINARY:
+                    if max_fpr is not None and max_fpr < 1:
+                        return binary_auroc_max_fpr_weighted(scores, y, w, max_fpr)
+                    return binary_auroc_weighted(scores, y, w)
+                if mode == DataType.MULTILABEL and average == AverageMethod.MICRO:
+                    flat_w = w[:, None].expand(y.shape).reshape(-1)
+                    return binary_auroc_weighted(scores.reshape(-1), y.reshape(-1), flat_w)
+                per_class = binary_auroc_weighted(scores.T, y.T, w[None, :].expand(y.shape[1], -1))
+                supports = weighted_class_supports(y, w)
+                return average_class_scores(per_class, supports, None if average == AverageMethod.NONE else average)
+
+            return read
+
+        reader = self._readers.get(f"auroc_weighted:{mode}:{average}:{max_fpr}", build, scores, y, w, bucket=int(w.shape[0]))
+        # a copy: the reader's next replay overwrites its output
+        return reader(scores, y, w).clone()

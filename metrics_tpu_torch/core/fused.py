@@ -82,6 +82,7 @@ polluted. Windowed metrics correct their pad rows in the live ring slot
 themselves (``windowed/metric.py``), through ``n_valid``.
 """
 import contextlib
+import gc
 import time
 import traceback
 import weakref
@@ -162,18 +163,27 @@ class _NoHostReads(TorchFunctionMode):
 def _capturing(graph: Any, stream: Any, pool: Optional[Any] = None) -> Iterator[None]:
     """Capture the block into ``graph`` on ``stream``, for this thread only
     (other threads may run and synchronise meanwhile). The caller's current
-    stream is restored whether the capture succeeds or not."""
-    with torch.cuda.stream(stream):
-        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-        try:
-            yield
-        except BaseException:
+    stream is restored whether the capture succeeds or not. Python's cyclic
+    collector is off for the capture: a collection there could destroy an
+    unreachable CUDA graph (a fused handle and its collection form a cycle),
+    and destroying a graph is a call that invalidates the capture."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
-                graph.capture_end()
-            except RuntimeError:
-                pass  # the error being raised invalidated the capture
-            raise
-        graph.capture_end()
+                yield
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass  # the error being raised invalidated the capture
+                raise
+            graph.capture_end()
+    finally:
+        if collecting:
+            gc.enable()
 
 
 def _reason(err: BaseException) -> str:

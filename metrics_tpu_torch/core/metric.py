@@ -839,7 +839,9 @@ class Metric(ABC):
             elif getattr(red, "merge_like", False):
                 # sketch states merge through their own reducer, given the
                 # stacked states as a distributed sync would give them
-                out[name] = red(torch.stack([va, vb]))
+                # the stack lends each side its occupancy bound, so a
+                # union that fits the capacity packs without a compaction
+                out[name] = red(stack_with_fill_bounds([va, vb]))
                 if _TELEMETRY.enabled:
                     _TELEMETRY.record_sketch_merge(1)
             elif getattr(red, "inner_reduce", None) == "sum":

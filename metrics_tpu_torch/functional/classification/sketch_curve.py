@@ -83,7 +83,8 @@ def _weighted_sorted_cumulants(
     """Descending-score sort (zero-weight rows last) with weighted run-end
     cumulants; the weighted twin of ``exact_curve._masked_sorted_cumulants``."""
     valid = w > 0
-    neg_inf = torch.tensor(float("-inf"), device=scores.device)
+    # torch.full: no host-to-device copy, so the read captures as a graph
+    neg_inf = torch.full((), float("-inf"), dtype=torch.float32, device=scores.device)
     key = torch.where(valid, scores.to(torch.float32), neg_inf)
     sorted_key, sorted_wy, sorted_w = stable_sort_with_payloads(
         key, (w * y).to(torch.float32), torch.where(valid, w, 0.0).to(torch.float32), descending=True

@@ -6,6 +6,10 @@ the CPU give the same bits; counts are int32, as in the JAX package with
 x64 off; the data range of an image batch is ``max - min`` with the JAX
 package's extremum semantics (:func:`~metrics_tpu_torch.utils.data.amax_ieee`).
 bfloat16 and float16 inputs are widened to float32 before the difference.
+The logs of the value are taken in float64 and the result rounded once to
+float32: the card's and the CPU's float32 logs differ in the last bit on a
+share of inputs, their rounded float64 ones agree (the JAX package takes
+them in float32, within 1e-6 relative of these).
 """
 from typing import Optional, Tuple, Union
 
@@ -26,8 +30,15 @@ def _psnr_compute(
     base: float = 10.0,
     reduction: str = "elementwise_mean",
 ) -> Tensor:
-    psnr_base_e = 2 * torch.log(data_range) - torch.log(sum_squared_error / n_obs)
-    psnr_vals = psnr_base_e * (10 / torch.log(torch.tensor(base, dtype=torch.float32, device=psnr_base_e.device)))
+    # the value keeps the dtype of the states' own formula (times a 0-d
+    # float32 factor)
+    in_dtype = (2 * torch.log(data_range) - torch.log(sum_squared_error / n_obs)).dtype
+    out_dtype = torch.promote_types(in_dtype, torch.float32) if sum_squared_error.ndim == 0 and data_range.ndim == 0 else in_dtype
+    sse, n, dr = sum_squared_error.double(), n_obs.double(), data_range.double()
+    psnr_base_e = 2 * torch.log(dr) - torch.log(sse / n)
+    # the base's log on the host: no tensor is made from it (a read
+    # captured as a CUDA graph may hold no copy from the host)
+    psnr_vals = (psnr_base_e * (10 / np.log(base))).to(out_dtype)
     return reduce(psnr_vals, reduction=reduction)
 
 
@@ -78,6 +89,6 @@ def peak_signal_noise_ratio(
         wide = _widen_half(_x64_off(target))
         data_range_t = amax_ieee(wide) - amin_ieee(wide)
     else:
-        data_range_t = torch.tensor(float(data_range), dtype=torch.float32, device=target.device)
+        data_range_t = torch.full((), float(data_range), dtype=torch.float32, device=target.device)
     sum_squared_error, n_obs = _psnr_update(preds, target, dim=dim)
     return _psnr_compute(sum_squared_error, n_obs, data_range_t, base=base, reduction=reduction)

@@ -26,16 +26,20 @@ entry points append their events to that one file
 ``METRICS_TPU_TELEMETRY``, so a process that imports both packages switches
 each on separately.
 
-Not in this package yet (ROADMAP.md, A.6): the fleet plane -- ``wire.py``
-(``Snapshot``, ``WireError``, ``encode_snapshot``/``decode_snapshot``,
-``manifest_fingerprint``, ``members_of``, ``snapshot_states``,
-``states_key``) and ``collector.py`` (``FleetCollector``,
-``PublisherStatus``, ``SnapshotQueue``, ``SnapshotSink``).
+The fleet plane: ``wire.py`` serializes metric states and telemetry
+payloads into versioned, dtype-stable snapshots (the JAX package's bytes;
+the card's leaves leave in one copy per publish), and ``collector.py``
+folds the snapshots of many publishers into one job's answer
+(:class:`FleetCollector`: exactly-once dedup, a watermark and late window,
+liveness, the three fleet alarm classes' feed, a merge tree of collectors).
+``PeriodicExporter(snapshot_sink=...)`` publishes one snapshot per tick,
+and ``export_perfetto(collector=...)`` draws one track per publisher.
 """
 import os
 from typing import Dict
 
 from metrics_tpu_torch.observability.aggregate import aggregate_across_hosts, counter_payload, merge_payloads
+from metrics_tpu_torch.observability.collector import FleetCollector, PublisherStatus, SnapshotQueue, SnapshotSink
 from metrics_tpu_torch.observability.drift import (
     categorical_drift,
     histogram_drift,
@@ -95,6 +99,16 @@ from metrics_tpu_torch.observability.timeseries import (
     series_from_payload,
 )
 from metrics_tpu_torch.observability.trace import current_span_context, export_perfetto, span
+from metrics_tpu_torch.observability.wire import (
+    Snapshot,
+    WireError,
+    decode_snapshot,
+    encode_snapshot,
+    manifest_fingerprint,
+    members_of,
+    snapshot_states,
+    states_key,
+)
 
 __all__ = [
     "MetricRecorder",
@@ -157,10 +171,6 @@ __all__ = [
     "sketch_drift",
     "state_drift",
     "total_variation",
-]
-
-#: the JAX package's observability names that wait for the fleet plane
-FLEET_NAMES_NOT_PORTED = (
     "FleetCollector",
     "PublisherStatus",
     "SnapshotQueue",
@@ -173,7 +183,7 @@ FLEET_NAMES_NOT_PORTED = (
     "members_of",
     "snapshot_states",
     "states_key",
-)
+]
 
 _RECORDERS: Dict[str, MetricRecorder] = {"default": _DEFAULT_RECORDER}
 

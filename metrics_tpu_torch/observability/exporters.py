@@ -12,8 +12,9 @@ the target directory), so a concurrent scrape or a crash mid-write never
 observes a truncated artifact. The windowed families query the attached
 time series on the calling thread (the exporter's own, for a
 :class:`PeriodicExporter`): sketch folds there run on that thread's
-current stream. Fleet publishing (the JAX package's ``snapshot_sink``)
-comes with the fleet plane (ROADMAP.md, A.6).
+current stream. A :class:`PeriodicExporter` with a ``snapshot_sink``
+publishes one fleet snapshot per tick (its states leave the card in one
+copy, on the exporter's thread).
 """
 from __future__ import annotations
 
@@ -835,6 +836,22 @@ class PeriodicExporter:
     ``health`` and every tick evaluates it (firing/clearing alarms on
     schedule even when no new events arrive — clearing is time passing)
     and appends its Prometheus families to the Prometheus artifact.
+
+    **Fleet publishing**: pass a
+    :class:`~metrics_tpu_torch.observability.collector.SnapshotSink` as
+    ``snapshot_sink`` and every tick also publishes one fleet snapshot: the
+    recorder's counter payload, plus the states returned by ``states_fn``
+    when given (a zero-arg callable returning the
+    :func:`~metrics_tpu_torch.observability.wire.snapshot_states` dict, or
+    the metric or collection itself, which also embeds the layout key the
+    collector validates; with a bare dict pass the metric or collection as
+    ``states_template``). Published on every tick, idle ones too: the
+    snapshot is the publisher's heartbeat, whose absence the collector's
+    ``publisher_stale`` alarm watches. ``snapshot_mode`` is ``"state"``
+    (cumulative) or ``"delta"`` (the caller resets after each tick). The
+    tick runs on the exporter's thread: the encode's device work (one
+    packing and one copy to the host) goes on the states' device's default
+    stream, ordered both ways with that thread's current stream.
     """
 
     def __init__(
@@ -844,15 +861,23 @@ class PeriodicExporter:
         jsonl_path: Optional[str] = None,
         recorder: Optional[Any] = None,
         health: Optional[Any] = None,
+        snapshot_sink: Optional[Any] = None,
+        states_fn: Optional[Any] = None,
+        states_template: Optional[Any] = None,
+        snapshot_mode: str = "state",
     ) -> None:
-        if prometheus_path is None and jsonl_path is None:
-            raise ValueError("PeriodicExporter needs a prometheus_path and/or a jsonl_path")
+        if prometheus_path is None and jsonl_path is None and snapshot_sink is None:
+            raise ValueError("PeriodicExporter needs a prometheus_path, a jsonl_path, and/or a snapshot_sink")
         if interval_s <= 0:
             raise ValueError(f"interval_s must be positive, got {interval_s}")
         self.interval_s = float(interval_s)
         self.prometheus_path = prometheus_path
         self.jsonl_path = jsonl_path
         self.health = health
+        self.snapshot_sink = snapshot_sink
+        self.states_fn = states_fn
+        self.states_template = states_template
+        self.snapshot_mode = snapshot_mode
         self.export_errors = 0
         self._recorder = recorder
         self._thread: Optional[threading.Thread] = None
@@ -926,6 +951,10 @@ class PeriodicExporter:
             # sketch math) and unconditionally: alarms must clear on
             # schedule even when the job records nothing new
             snapshot = self.health.evaluate()
+        if self.snapshot_sink is not None:
+            # every tick, idle ones too: the snapshot is the publisher's
+            # heartbeat for the collector's liveness tracking
+            self._publish_snapshot(rec)
         with self._lock:
             state = (len(events), rec.dropped_events())
             live_window = self.health is not None or rec.timeseries is not None
@@ -941,6 +970,31 @@ class PeriodicExporter:
                     self.jsonl_path, "".join(json.dumps(e) + "\n" for e in events)
                 )
             self._exported_state = state
+
+    def _publish_snapshot(self, rec: Any) -> None:
+        """One fleet snapshot into the sink: the counter payload and, with
+        ``states_fn``, the metric states."""
+        from metrics_tpu_torch.observability.aggregate import counter_payload
+        from metrics_tpu_torch.observability.collector import _device_work, _template_device
+        from metrics_tpu_torch.observability.wire import snapshot_states
+
+        states = None
+        template = self.states_template
+        if self.states_fn is not None:
+            obj = self.states_fn()
+            if obj is not None:
+                if isinstance(obj, dict):
+                    # a bare dict carries no structure: the explicit
+                    # states_template supplies the layout key
+                    states = obj
+                else:
+                    states = snapshot_states(obj)
+                    template = obj
+        device = _template_device(template) if template is not None else None
+        with _device_work(device):
+            self.snapshot_sink.publish(
+                states=states, states_template=template, telemetry=counter_payload(rec), mode=self.snapshot_mode
+            )
 
     def stop(self) -> None:
         """Stop the thread and perform one final export. Idempotent."""

@@ -11,11 +11,11 @@ dtypes; this module asks what is resident:
   breakdown. It reads tensor metadata only (``numel * element_size``),
   never values.
 * A **cache-plane registry**: every byte-holding cache registers a
-  ``nbytes()`` callback under a stable plane name (in the port so far:
-  ``fused_compile``, the memory pools of the fused update's CUDA graphs)
-  into one global inventory. The JAX package's reader-cache, retrieval
-  layout, sliced value and windowed fold-memo planes come with
-  ``ReaderCache`` (ROADMAP.md, A.6).
+  ``nbytes()`` callback under a stable plane name into one global
+  inventory: ``fused_compile`` (the memory pools of the fused update's CUDA
+  graphs), ``reader_cache`` (the read plane's graphs), ``sliced_value_cache``
+  (kept per-slice values and dirty bitmaps), ``windowed_fold_memo`` (the
+  window fold memos) and ``retrieval_layout`` (the memoized table unpacks).
 * :class:`MemoryObservatory` polls ``torch.cuda.memory_stats`` for each
   visible card (allocated bytes in use and their peak, reserved bytes,
   the card's total memory; nothing on a machine without a card, where the

@@ -27,9 +27,9 @@ record_function``).
 ``export_perfetto(path)`` renders the span log as trace-event JSON that
 ``chrome://tracing`` / https://ui.perfetto.dev load directly; the async
 worker's rows land on their own labeled track
-(``metrics-tpu-torch-async-update``). The fleet mode of the JAX package's
-exporter (per-publisher tracks from a ``FleetCollector``) comes with the
-fleet plane (ROADMAP.md, A.6).
+(``metrics-tpu-torch-async-update``). Given a ``FleetCollector`` it also
+draws one track per publisher, stitched to the collector's folds through
+the span contexts that the snapshots' headers carry (wire schema v2).
 """
 from __future__ import annotations
 
@@ -131,7 +131,7 @@ def current_span_context(recorder: Optional[Any] = None) -> Optional[Dict[str, A
     }
 
 
-def export_perfetto(path: str, recorder: Optional[Any] = None) -> Optional[str]:
+def export_perfetto(path: str, recorder: Optional[Any] = None, collector: Optional[Any] = None) -> Optional[str]:
     """Write the recorded span log as Chrome/Perfetto trace-event JSON.
 
     Every ``span`` event becomes one complete ("X") trace event with
@@ -146,10 +146,19 @@ def export_perfetto(path: str, recorder: Optional[Any] = None) -> Optional[str]:
     land on their own LABELED track (``metrics-tpu-torch-async-update``)
     instead of interleaving with the main thread. Rank-zero gated: returns
     the path written, or ``None`` on non-zero ranks.
+
+    **Fleet mode**: given ``collector`` (a
+    :class:`~metrics_tpu_torch.observability.collector.FleetCollector`), the
+    per-publisher publish-span contexts from the snapshots' headers render
+    as one labelled process track per publisher (publish instants), and
+    each ``fleet_fold`` span's ``links`` become flow arrows from the
+    publish in the publisher's process to the fold in the collector's.
     """
     if _process_index() != 0:
         return None
     rec = _resolve(recorder)
+    if collector is not None and recorder is None and getattr(collector, "_recorder", None) is not None:
+        rec = collector._recorder
     pid = _process_index()
     all_events = rec.events()
     # spans carry the real thread id; other rows only carry the enclosing
@@ -211,6 +220,8 @@ def export_perfetto(path: str, recorder: Optional[Any] = None) -> Optional[str]:
                 "args": args,
             }
         )
+    if collector is not None:
+        trace_events.extend(_fleet_trace_events(collector, rec, pid, all_events))
     doc = {
         "traceEvents": trace_events,
         "displayTimeUnit": "ms",
@@ -218,6 +229,55 @@ def export_perfetto(path: str, recorder: Optional[Any] = None) -> Optional[str]:
     }
     _atomic_write(path, json.dumps(doc))
     return path
+
+
+def _fleet_trace_events(
+    collector: Any, rec: Any, collector_pid: int, all_events: List[Dict[str, Any]]
+) -> List[Dict[str, Any]]:
+    """Per-publisher tracks and publish->fold flow arrows (fleet mode).
+
+    Publisher span contexts carry wall-clock publish times; the collector
+    recorder's rows are relative to its start (``rec._t0``), so the
+    publish instants are moved onto the same timeline. Flows pair by
+    ``(publisher, seq)``: the ``s`` end on the publish instant in the
+    publisher's process, the ``f`` end on the matching ``fleet_fold`` span."""
+    t0_wall = float(getattr(rec, "_t0", 0.0))
+    out: List[Dict[str, Any]] = []
+    spans_by_pub = collector.publisher_spans()
+    # small stable pids per publisher, clear of real process indices
+    pub_pid = {name: 1000 + i for i, name in enumerate(sorted(spans_by_pub))}
+    flow_ids = itertools.count(1_000_000)
+    flow_of: Dict[Any, int] = {}
+    for name, ctxs in sorted(spans_by_pub.items()):
+        ppid = pub_pid[name]
+        out.append({"name": "process_name", "ph": "M", "pid": ppid, "tid": 0, "args": {"name": f"publisher {name}"}})
+        for ctx in ctxs:
+            ts = round(max((float(ctx.get("t", t0_wall)) - t0_wall) * 1e6, 0.0), 3)
+            seq = ctx.get("seq")
+            fid = next(flow_ids)
+            flow_of[(name, seq)] = fid
+            out.append(
+                {"name": f"publish[{seq}]", "cat": "fleet", "ph": "i", "s": "p", "ts": ts, "pid": ppid, "tid": 0,
+                 "args": {k: v for k, v in ctx.items() if _json_safe(v)}}
+            )
+            out.append({"name": "publish->fold", "cat": "fleet", "ph": "s", "id": fid, "ts": ts, "pid": ppid, "tid": 0})
+    for ev in all_events:
+        if ev.get("type") != "span" or ev.get("name") != "fleet_fold":
+            continue
+        links = (ev.get("attributes") or {}).get("links") or []
+        dur_ms = float(ev.get("dur_ms") or 0.0)
+        end_us = float(ev.get("t", 0.0)) * 1e6
+        ts = round(max(end_us - dur_ms * 1e3, 0.0), 3)
+        tid = int(ev.get("tid") or 0)
+        for link in links:
+            fid = flow_of.get((link.get("publisher"), link.get("seq")))
+            if fid is None:
+                continue
+            out.append(
+                {"name": "publish->fold", "cat": "fleet", "ph": "f", "bp": "e", "id": fid, "ts": ts,
+                 "pid": collector_pid, "tid": tid}
+            )
+    return out
 
 
 def _json_safe(value: Any) -> bool:

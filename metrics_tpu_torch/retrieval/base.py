@@ -25,14 +25,21 @@ Subclasses name their padded row kernel in ``_padded_metric``
 A subclass that only implements ``_metric`` falls back to a host group loop
 in either mode.
 
-With the default telemetry recorder enabled, ``compute()``'s read event
-carries the table rows unpacked, whether the layout memo served it
-(``cache_hit``) and the memo's size (``_read_extras``), and
-``table_rows_layout`` records a ``table`` read event. Not in this slice
-(``ROADMAP.md``, A.6): the pre-lowered subset readers (``ReaderCache``)
-and the layout memo's cache plane (its eviction events);
-``table_rows_layout`` is a plain row gather. Cross-process sync of the
-table is a later slice too. The table default runs inside the fused update
+**The read plane.** ``compute()`` memoizes the table's padded unpack per
+owner and write epoch (a compute group's members share one), at most
+``_LAYOUT_CACHE_MAX`` entries, each dropped with its table (a weakref
+finalizer) or by LRU overflow; :func:`layout_cache_totals` gives the
+memo's entries, bytes and lifetime evictions, its bytes are the
+``retrieval_layout`` memory plane, and each eviction records a
+``cache_plane`` event (never raising out of a finalizer).
+``table_rows_layout`` pads its host row ids to a bucket and reads through
+the ``table_subset`` reader of a
+:class:`~metrics_tpu_torch.core.readers.ReaderCache` (on the card a CUDA
+graph of the unpack over gathered rows). With the default telemetry
+recorder enabled, ``compute()``'s read event carries the table rows
+unpacked, whether the layout memo served it (``cache_hit``), the memo's
+size and its evictions (``_read_extras``), and ``table_rows_layout``
+records a ``table`` read event. The table default runs inside the fused update
 (``core/fused.py``): its insert has fixed shapes and reads nothing under
 the capture rule of ``utils/checks.py``.
 """
@@ -46,6 +53,8 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.core.readers import ReaderCache, pad_ids, round_up_bucket
+from metrics_tpu_torch.observability.memory import register_cache_plane
 from metrics_tpu_torch.observability.recorder import _DEFAULT_RECORDER as _TELEMETRY
 from metrics_tpu_torch.functional.retrieval.padded import (
     _padded_compute_fn,
@@ -60,6 +69,7 @@ from metrics_tpu_torch.retrieval.table import (
     retrieval_table_layout,
     retrieval_table_layout_rows,
     retrieval_table_merge_fx,
+    _layout_of,
 )
 from metrics_tpu_torch.sketches.compat import register_exact_list_states, warn_exact_buffer
 from metrics_tpu_torch.utils.checks import _check_retrieval_inputs, _check_retrieval_inputs_static
@@ -82,11 +92,62 @@ _LAYOUT_CACHE_MAX = 8
 #: (finalizers) or by LRU eviction.
 _LAYOUT_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
 
+#: lifetime eviction totals of the layout memo (process-wide, like the
+#: memo): count and bytes dropped
+_LAYOUT_EVICTIONS = 0
+_LAYOUT_EVICTED_BYTES = 0
+
+
+def _layout_nbytes(layout: tuple) -> int:
+    """Bytes of one memoized layout (its tensors)."""
+    return sum(x.numel() * x.element_size() for x in layout if isinstance(x, Tensor))
+
+
+def _layout_cache_nbytes() -> int:
+    """Bytes in the layout memo, each layout counted once (a compute-group
+    sibling's entry aliases the same tensors)."""
+    seen: set = set()
+    total = 0
+    for _tid, layout, _fin in list(_LAYOUT_CACHE.values()):
+        if id(layout) not in seen:
+            seen.add(id(layout))
+            total += _layout_nbytes(layout)
+    return total
+
+
+def layout_cache_totals() -> dict:
+    """The layout memo's inventory and lifetime eviction totals:
+    ``{"entries", "nbytes", "evictions", "evicted_bytes"}``."""
+    return {
+        "entries": len(_LAYOUT_CACHE),
+        "nbytes": _layout_cache_nbytes(),
+        "evictions": _LAYOUT_EVICTIONS,
+        "evicted_bytes": _LAYOUT_EVICTED_BYTES,
+    }
+
 
 def _layout_cache_evict(key: tuple) -> None:
+    """Drop one entry and count it. Runs from the LRU overflow and from
+    weakref finalizers (at collection time): nothing may raise out of it."""
+    global _LAYOUT_EVICTIONS, _LAYOUT_EVICTED_BYTES
     entry = _LAYOUT_CACHE.pop(key, None)
-    if entry is not None:
-        entry[2].detach()
+    if entry is None:
+        return
+    entry[2].detach()
+    dropped = _layout_nbytes(entry[1])
+    _LAYOUT_EVICTIONS += 1
+    _LAYOUT_EVICTED_BYTES += dropped
+    if _TELEMETRY.enabled:
+        try:
+            _TELEMETRY.record_cache_plane(
+                "retrieval_layout",
+                entries=len(_LAYOUT_CACHE),
+                nbytes=_layout_cache_nbytes(),
+                evictions=1,
+                evicted_bytes=dropped,
+            )
+        except Exception:  # noqa: BLE001 — never out of a finalizer
+            pass
 
 
 def _layout_cache_store(key: tuple, qtable: Tensor, layout: tuple) -> None:
@@ -96,6 +157,10 @@ def _layout_cache_store(key: tuple, qtable: Tensor, layout: tuple) -> None:
     _LAYOUT_CACHE[key] = (_table_id(qtable), layout, weakref.finalize(qtable, _layout_cache_evict, key))
     while len(_LAYOUT_CACHE) > _LAYOUT_CACHE_MAX:
         _layout_cache_evict(next(iter(_LAYOUT_CACHE)))
+
+
+# process-wide memory plane of the layout memo (one memo, one plane)
+register_cache_plane("retrieval_layout", _layout_cache_nbytes)
 
 
 def _table_id(qtable: Tensor) -> tuple:
@@ -164,6 +229,8 @@ class RetrievalMetric(Metric, ABC):
                 default=retrieval_table_init(max_queries, max_docs, self.device),
                 dist_reduce_fx=retrieval_table_merge_fx(),
             )
+        # the subset-unpack readers (table-state reads)
+        self._readers = ReaderCache()
 
     def _update(self, preds: Tensor, target: Tensor, indexes: Tensor, n_valid: Optional[Any] = None) -> None:
         if indexes is None:
@@ -221,6 +288,16 @@ class RetrievalMetric(Metric, ABC):
             return self._compute_padded()
         return self._compute_host_loop()
 
+    def set_dtype(self, dst_type: torch.dtype) -> "RetrievalMetric":
+        # the readers were captured for the old dtype's table
+        out = super().set_dtype(dst_type)
+        self._readers.clear()
+        return out
+
+    def to_device(self, device: Any) -> "RetrievalMetric":
+        self._readers.clear()
+        return super().to_device(device)
+
     def _read_extras(self) -> dict:
         # on the read event of Metric.compute: the table rows unpacked and
         # whether the layout memo served them
@@ -228,26 +305,41 @@ class RetrievalMetric(Metric, ABC):
             "table_rows": getattr(self, "_last_table_rows", 0),
             "cache_hit": getattr(self, "_last_layout_cache_hit", False),
             "layout_entries": len(_LAYOUT_CACHE),
+            "layout_evictions": _LAYOUT_EVICTIONS,
         }
 
     def table_rows_layout(self, rows: Any):
         """Subset unpack: the padded layout of just the given TABLE rows, in
         the caller's order (no cross-row qid sort): ``(padded_preds,
         padded_target, mask, row_valid, pos_mass, neg_count, n_seen, qid)``,
-        each leading with ``len(rows)``. Table-state mode only."""
+        each leading with ``len(rows)``. Table-state mode only.
+
+        Host row ids are padded to a bucket (repeating the last row) and
+        read through the ``table_subset`` reader, one per bucket; the pad
+        rows are cut off, and the result is a copy (the reader's next replay
+        overwrites its outputs). Row ids already on the card are a plain
+        gather."""
         if self._exact:
             raise ValueError(
                 "table_rows_layout() reads the fixed-capacity table state; exact=True metrics keep cat-state lists"
             )
-        rows = torch.as_tensor(np.asarray(rows) if not isinstance(rows, Tensor) else rows).reshape(-1)
-        if rows.numel() == 0:
-            raise ValueError("table_rows_layout() needs at least one row id")
-        if not _TELEMETRY.enabled:
+        if isinstance(rows, Tensor) and rows.device.type != "cpu":
+            if rows.numel() == 0:
+                raise ValueError("table_rows_layout() needs at least one row id")
             return retrieval_table_layout_rows(self.qtable, rows)
-        t0 = time.perf_counter()
-        out = retrieval_table_layout_rows(self.qtable, rows)
-        n = int(rows.numel())
-        _TELEMETRY.record_read("table", self, duration_s=time.perf_counter() - t0, table_rows=n, fanin=n)
+        rows = np.asarray(rows.numpy() if isinstance(rows, Tensor) else rows, dtype=np.int32).reshape(-1)
+        if rows.size == 0:
+            raise ValueError("table_rows_layout() needs at least one row id")
+        t0 = time.perf_counter() if _TELEMETRY.enabled else 0.0
+        n = rows.size
+        bucket = round_up_bucket(n, self.max_queries)
+        index = torch.as_tensor(pad_ids(rows, bucket), dtype=torch.long).to(self.qtable.device)
+        reader = self._readers.fast("table_subset", bucket)
+        if reader is None:
+            reader = self._readers.get("table_subset", lambda: _layout_of, self.qtable.index_select(0, index), bucket=bucket)
+        out = tuple(x[:n].clone() for x in reader.gather([self.qtable], index))
+        if _TELEMETRY.enabled:
+            _TELEMETRY.record_read("table", self, duration_s=time.perf_counter() - t0, table_rows=n, fanin=n)
         return out
 
     # ------------------------------------------------------------------

@@ -21,11 +21,20 @@ scatters each batch row's contribution into its slice:
 * **Reads** fold only the slices written since their last read. A bool
   dirty bitmap on the metric's device is set by each update with no host
   read, and read once per ``compute()``; the per-slice values of earlier
-  folds are kept on the device. ``compute_state(state)`` always folds the
-  state it is given and never serves those values. A synced read (the
-  cross-rank states, inside ``sync_context``) folds every slice that any
-  rank wrote, i.e. all of them, and leaves the bitmap and the kept values
-  to the local states.
+  folds are kept on the device (the ``sliced_value_cache`` memory plane).
+  The dirty ids are padded (:func:`~metrics_tpu_torch.core.readers.pad_ids`)
+  to a bucket of :func:`~metrics_tpu_torch.core.readers.round_up_bucket`
+  and folded through the ``sliced_subset`` reader of a
+  :class:`~metrics_tpu_torch.core.readers.ReaderCache`: on the card a CUDA
+  graph of the vmapped compute over static row buffers, which the slices'
+  rows are gathered into; ``top_k`` takes the ``sliced_topk`` reader (a
+  stable descending sort of the row counts, at a bucketed ``k``). A
+  padded read equals the unpadded cold fold bit for bit: the wrapped
+  compute of one slice does not depend on the others in the batch.
+  ``compute_state(state)`` always folds the state it is given and never
+  serves the kept values. A synced read (the cross-rank states, inside
+  ``sync_context``) folds every slice that any rank wrote, i.e. all of
+  them, and leaves the bitmap and the kept values to the local states.
 
 Slice ids are a 1-D integer tensor aligned with the batch's leading axis;
 ids outside ``[0, num_slices)`` are dropped. The ``_slice_rows`` counter
@@ -37,12 +46,12 @@ batch's hottest-slice row count too: one host read of a bincount); inside
 a fused update the event is recorded once per cache entry (``in_jit``),
 with no host read. A read with ``slice_ids=``/``top_k=`` records a
 ``sliced`` read event, and a full ``compute()`` carries the number of
-slices it refolded (``fanin``). Left out (ROADMAP.md, queue A): the
-partition specs of ``sliced/sharding.py`` and the pre-lowered readers
-(``ReaderCache``) with their sliced-value cache plane.
+slices it refolded (``fanin``). Left out (ROADMAP.md, A.4): the
+partition specs of ``sliced/sharding.py``.
 """
 from copy import deepcopy
 import time
+import weakref
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -50,6 +59,8 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from metrics_tpu_torch.core.metric import _AUTO_COUNT, Metric
+from metrics_tpu_torch.core.readers import ReaderCache, pad_ids, round_up_bucket
+from metrics_tpu_torch.observability.memory import register_cache_plane
 from metrics_tpu_torch.observability.recorder import _DEFAULT_RECORDER as _TELEMETRY
 from metrics_tpu_torch.ops.segment_extremum import segment_max_dispatch, segment_min_dispatch
 from metrics_tpu_torch.ops.segment_sum import segment_sum_dispatch
@@ -83,6 +94,26 @@ def _reducer_name(red: Any) -> str:
     if red is None:
         return "None"
     return _SLICEABLE.get(red) or getattr(red, "__name__", repr(red))
+
+
+#: every live SlicedMetric (weak); the ``sliced_value_cache`` memory plane
+#: sums the kept per-slice values and the dirty bitmap over this set
+_LIVE_SLICED: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def _svc_plane_nbytes() -> int:
+    total = 0
+    for m in list(_LIVE_SLICED):
+        dirty = getattr(m, "_dirty", None)
+        if dirty is not None:
+            total += dirty.numel() * dirty.element_size()
+        kept = getattr(m, "_values", None)
+        if kept is not None:
+            total += sum(v.numel() * v.element_size() for v in kept[0])
+    return total
+
+
+register_cache_plane("sliced_value_cache", _svc_plane_nbytes)
 
 
 def _template_of(metric: Metric) -> Metric:
@@ -151,6 +182,9 @@ class SlicedMetric(Metric):
         # per-slice values of earlier folds: ([S, ...] tensors, tree spec),
         # trusted where the dirty bit is clear
         self._values: Optional[Tuple[list, Any]] = None
+        # the subset-fold and top-k readers (core/readers.py)
+        self._readers = ReaderCache()
+        _LIVE_SLICED.add(self)
 
     # ------------------------------------------------------------------
     # construction-time sliceability validation
@@ -310,12 +344,16 @@ class SlicedMetric(Metric):
         # refolds (the cast marked them all dirty)
         out = super().set_dtype(dst_type)
         self._values = None
+        # the readers were captured for the old dtype's rows; the
+        # signature-free probe must never see them
+        self._readers.clear()
         return out
 
     def to_device(self, device: Any) -> "SlicedMetric":
         # the dirty bitmap moves with the states, and every slice refolds
         self._dirty = self._dirty.to(_resolve_device(device))
         self._values = None
+        self._readers.clear()
         return super().to_device(device)
 
     # ------------------------------------------------------------------
@@ -331,22 +369,42 @@ class SlicedMetric(Metric):
         ``compute()`` describe this metric's own states, not ``state``."""
         return self._fold({name: state[name] for name in self._template._defaults})
 
+    def _subset_reader(self, bucket: int, index: Tensor) -> Any:
+        """The ``sliced_subset`` reader at ``bucket`` rows: the vmapped
+        wrapped compute over gathered slice rows."""
+        reader = self._readers.fast("sliced_subset", bucket)
+        if reader is not None:
+            return reader
+        names = tuple(self._template._defaults)
+        rows = {name: getattr(self, name).index_select(0, index) for name in names}
+        # the reader holds the template, not this metric: no reference
+        # cycle keeps a metric's graphs alive past the metric
+        template = self._template
+        return self._readers.get("sliced_subset", lambda: torch.func.vmap(template.compute_state), rows, bucket=bucket)
+
     def _fold_slices(self, req: np.ndarray) -> Tuple[Any, int]:
         """Values of the slices ``req`` (host ids): the dirty ones among them
-        are folded and kept, the others come from the kept values. Returns ``(values, n_folded)``.
-        The dirty bitmap is read to the host once."""
+        are folded (padded to a bucket, through the ``sliced_subset``
+        reader) and kept, the others come from the kept values. Returns
+        ``(values, n_folded)``. The dirty bitmap is read to the host once."""
         m = self._template
         dirty = self._dirty[: self.num_slices].cpu().numpy()
         fold = np.unique(req[dirty[req]])
         if fold.size:
-            folded = torch.as_tensor(fold, device=self.device).long()
-            flat, spec = tree_flatten(self._fold({name: getattr(self, name)[folded] for name in m._defaults}))
+            bucket = round_up_bucket(fold.size, self.num_slices)
+            index = torch.as_tensor(pad_ids(fold, bucket), device=self.device).long()
+            reader = self._subset_reader(bucket, index)
+            # the rows dict's order is the reader's flattened argument order
+            sources = [getattr(self, name) for name in m._defaults]
+            flat, spec = tree_flatten(reader.gather(sources, index))
             if self._values is None:
                 cache = [torch.zeros((self.num_slices,) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device) for v in flat]
                 self._values = (cache, spec)
             for kept, value in zip(self._values[0], flat):
-                kept[folded] = value
-            self._dirty[folded] = False
+                # a copy: the reader's next replay overwrites its outputs
+                # (the pad rows repeat the last id with its own value)
+                kept[index] = value
+            self._dirty[index] = False
         index = torch.as_tensor(req, device=self.device).long()
         cache, spec = self._values
         return tree_unflatten([kept[index] for kept in cache], spec), int(fold.size)
@@ -423,9 +481,23 @@ class SlicedMetric(Metric):
     def _top_ids(self, k: int) -> Tensor:
         """Ids (int32) of the ``k`` fullest slices, in descending count with
         ties to the lower id (``lax.top_k``'s order; ``torch.topk`` promises
-        no order on ties, a stable descending sort does)."""
-        order = torch.sort(self.slice_counts, descending=True, stable=True).indices
-        return order[:k].to(torch.int32)
+        no order on ties, a stable descending sort does), through the
+        ``sliced_topk`` reader at ``k`` rounded up to a bucket: the
+        ``k``-prefix of a larger ``k``'s order is the ``k`` order."""
+        kb = round_up_bucket(k, self.num_slices)
+        counts = self.slice_counts
+        reader = self._readers.fast("sliced_topk", kb)
+        if reader is None:
+
+            def build():
+                def read(c: Tensor) -> Tensor:
+                    return torch.sort(c, descending=True, stable=True).indices[:kb].to(torch.int32)
+
+                return read
+
+            reader = self._readers.get("sliced_topk", build, counts, bucket=kb)
+        # a copy: the reader's next replay overwrites its output
+        return reader(counts)[:k].clone()
 
     def hot_slices(self, k: int = 10) -> Tuple[Tensor, Tensor]:
         """The ``k`` slices with the most ingested rows and each one's share

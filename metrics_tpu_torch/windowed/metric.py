@@ -20,10 +20,28 @@ Counterpart of ``metrics_tpu/windowed/metric.py``, with two state layouts:
 
 Per-tenant windows are ``WindowedMetric(SlicedMetric(...))``: the leaves
 become ``[R, S, ...]`` and each update runs the sliced scatter (and its
-kernels) on the live slot. Every read is the cold oldest-first fold of the
-JAX package; its fold memos and pre-lowered fold are not ported. A synced
-read folds the synced rows the same way; the ring clock syncs by ``"max"``
-(the furthest clock wins) and same-bucket rows add.
+kernels) on the live slot. A synced read folds the synced rows the same
+way, cold; the ring clock syncs by ``"max"`` (the furthest clock wins) and
+same-bucket rows add.
+
+**Fold memos** (the incremental read plane). A local read of buckets
+``[lo, cur]`` splits at the live bucket: the completed buckets ``[lo,
+cur-1]`` cannot change until the ring wraps past them (a window never
+reaches that far), so their oldest-first prefix fold is memoized per
+window start (``_fold_memo``, at most ``_FOLD_MEMO_MAX`` starts) and
+extended only by newly completed buckets, and the live bucket merges on
+top at each read. A repeat read at an idle clock returns the memoized
+state (``_wstate_memo``: fan-in 0, ``cache_hit`` true, no host read). The
+memos key on the host mirror of the ring clock (read from the card once
+after an out-of-band write such as a fused replay), keep copies (never
+views of the ring), and are cleared by ``reset``, ``set_dtype``,
+``load_state_dict`` and ``sync``; a fused update keeps them (it rotates
+the ring exactly as the eager update does). The merge sequence is the cold
+fold's, so every read is bit-equal to it. A pure sum/max/min template
+refolds two or more completed buckets at once through the ``window_fold``
+reader (one CUDA graph of the unrolled fold over the gathered rows); sketch
+leaves fold through ``merge_states`` one bucket at a time. The memos'
+bytes are the ``windowed_fold_memo`` memory plane.
 
 **The pad-and-mask contract** of a bucketed fused update
 (``core/fused.py``): the wrapper declares ``__fused_mask_valid__``, takes
@@ -48,12 +66,12 @@ stamps its bucket's first-write wall time (from a host mirror of the ring
 clock, read once from the card after an out-of-band write such as a fused
 update), so ``freshness_stamp()`` reports the live ring's reach
 (``ring_span_s``); ``window_state()`` records a ``window`` read event with
-the buckets it folded, and ``compute()``'s read event carries them too.
-Left out (ROADMAP.md, queue A): the fold memos and pre-lowered fold
-(``ReaderCache``) with their cache planes; every read is a cold fold
-(``cache_hit`` false).
+the buckets it folded, whether a memo served it (``cache_hit``) and the
+buckets merged (``fanin``), and ``compute()``'s read event carries them too.
 """
 import time
+import weakref
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -61,11 +79,20 @@ from torch.utils._pytree import tree_flatten
 
 from metrics_tpu_torch.core.fused import pad_correct
 from metrics_tpu_torch.core.metric import _AUTO_COUNT, Metric
+from metrics_tpu_torch.core.readers import ReaderCache
 from metrics_tpu_torch.observability.freshness import FreshnessStamp
+from metrics_tpu_torch.observability.memory import register_cache_plane
 from metrics_tpu_torch.observability.recorder import _DEFAULT_RECORDER as _TELEMETRY
 from metrics_tpu_torch.sliced.metric import _reducer_name, _template_of
 from metrics_tpu_torch.utils.checks import checks_read_nothing
-from metrics_tpu_torch.utils.data import _squeeze_if_scalar, dim_zero_max, dim_zero_min, dim_zero_sum
+from metrics_tpu_torch.utils.data import (
+    _squeeze_if_scalar,
+    dim_zero_max,
+    dim_zero_min,
+    dim_zero_sum,
+    maximum_ieee,
+    minimum_ieee,
+)
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 from metrics_tpu_torch.windowed.reducers import ring_merge_fx
 
@@ -83,6 +110,28 @@ WINDOWED_FOOTPRINT_PREFIX = "windowed/"
 
 _RESERVED = (RING_ROWS, RING_COUNT, DECAY_WEIGHT)
 _MODES = ("ring", "decay")
+
+#: LRU bound on each fold memo: one entry per distinct (window, before)
+#: read pattern or window start; serving loops use one or two
+_FOLD_MEMO_MAX = 8
+
+#: every live WindowedMetric (weak); the ``windowed_fold_memo`` memory
+#: plane sums both memos' tensors over this set
+_LIVE_WINDOWED: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def _fold_memo_nbytes() -> int:
+    total = 0
+    for m in list(_LIVE_WINDOWED):
+        for memo in (getattr(m, "_fold_memo", None), getattr(m, "_wstate_memo", None)):
+            for entry in list((memo or {}).values()):
+                leaves = tree_flatten(entry)[0]
+                total += sum(x.numel() * x.element_size() for x in leaves if isinstance(x, torch.Tensor))
+    return total
+
+
+register_cache_plane("windowed_fold_memo", _fold_memo_nbytes)
+
 
 class WindowedMetric(Metric):
     """Track ``metric`` over a sliding window (ring) or with exponential decay.
@@ -180,6 +229,15 @@ class WindowedMetric(Metric):
         self._host_count: Optional[int] = 0
         self._last_fold_buckets = 0
         self._last_fold_oldest_wall: Optional[float] = None
+        self._last_fold_fanin = 0
+        self._last_read_cache_hit = False
+        # the fold memos: window start -> (last completed bucket folded,
+        # prefix state); (window, before) -> (ring clock, state, buckets,
+        # oldest wall)
+        self._fold_memo: "OrderedDict[int, tuple]" = OrderedDict()
+        self._wstate_memo: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._readers = ReaderCache()
+        _LIVE_WINDOWED.add(self)
 
     @staticmethod
     def _validate_windowable(metric: Metric, mode: str) -> None:
@@ -291,8 +349,8 @@ class WindowedMetric(Metric):
 
         count = getattr(self, RING_COUNT)
         k, r = self.updates_per_bucket, self.window
-        if _TELEMETRY.enabled and not checks_read_nothing():
-            self._stamp_bucket(count)
+        if not checks_read_nothing():
+            self._advance_clock(count)
         # the slot and the bucket's start, on the device: no host read
         slot = ((count // k) % r).reshape(1).long()
         fresh = (count % k) == 0
@@ -314,24 +372,75 @@ class WindowedMetric(Metric):
         setattr(self, RING_ROWS, rows.index_copy(0, slot, filled))
         setattr(self, RING_COUNT, count + 1)
 
-    def _stamp_bucket(self, count: Tensor) -> None:
-        """Stamp the live bucket's first write (eager, telemetry on). The
-        ring clock comes from the host mirror; after an out-of-band write
-        it is read from the card once."""
+    def _advance_clock(self, count: Tensor) -> None:
+        """Advance the host mirror of the ring clock by an eager update and,
+        with telemetry on, stamp the live bucket's first write. An unknown
+        mirror (after an out-of-band write) is read from the card only when
+        telemetry needs the bucket now; otherwise the next read reads it."""
         c = self._host_count
-        if c is None:
-            c = int(count)
-        k, r = self.updates_per_bucket, self.window
-        s = (c // k) % r
-        if c % k == 0 or self._bucket_wall[s] is None:
-            self._bucket_wall[s] = time.time()
-        self._host_count = c + 1
+        if _TELEMETRY.enabled:
+            if c is None:
+                c = int(count)
+            k, r = self.updates_per_bucket, self.window
+            s = (c // k) % r
+            if c % k == 0 or self._bucket_wall[s] is None:
+                self._bucket_wall[s] = time.time()
+        self._host_count = None if c is None else c + 1
+
+    def _ring_clock(self) -> int:
+        """The ring clock from its host mirror (one read of the card after
+        an out-of-band write)."""
+        if self._host_count is None:
+            self._host_count = int(getattr(self, RING_COUNT))
+        return self._host_count
+
+    def update_state(self, state: Dict[str, Any], *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        # a pure update writes another state: this metric's ring clock and
+        # bucket stamps stay as they are
+        saved = (self._host_count, list(self._bucket_wall))
+        try:
+            return super().update_state(state, *args, **kwargs)
+        finally:
+            self._host_count, self._bucket_wall = saved
+
+    def _clear_memos(self) -> None:
+        memo = getattr(self, "_fold_memo", None)
+        if memo is not None:
+            memo.clear()
+            self._wstate_memo.clear()
 
     def _mark_state_written(self) -> None:
-        # an install (a fused replay, a restore) moves the ring clock
-        # without the host seeing it
+        # an install (a restore, a load, a group borrow) moves the ring
+        # clock without the host seeing it, and replaces the rows the memos
+        # describe
         super()._mark_state_written()
         self._host_count = None
+        self._clear_memos()
+
+    def _mark_fused_written(self, donated: bool) -> None:
+        # a fused update rotates the ring exactly as the eager update does:
+        # completed buckets stay as they were, so the memos stay (they hold
+        # copies, not the buffers); the clock's mirror lapses
+        self._update_called = True
+        self._states_donated = donated
+        self._write_epoch += 1
+        self._computed = None
+        self._host_count = None
+
+    def sync(self, *args: Any, **kwargs: Any) -> None:
+        # synced rows describe another stream than the local memos
+        self._clear_memos()
+        super().sync(*args, **kwargs)
+
+    def set_dtype(self, dst_type: torch.dtype) -> "WindowedMetric":
+        out = super().set_dtype(dst_type)
+        self._clear_memos()
+        self._readers.clear()
+        return out
+
+    def to_device(self, device: Any) -> "WindowedMetric":
+        self._readers.clear()
+        return super().to_device(device)
 
     def reset(self) -> None:
         super().reset()
@@ -346,7 +455,7 @@ class WindowedMetric(Metric):
     def _window_rows(self, window: int, before: int) -> List[Dict[str, Tensor]]:
         """The row states of the last ``window`` buckets ending ``before``
         buckets back, oldest first (buckets never filled are skipped). Reads
-        the ring clock and bucket counts to the host."""
+        the (synced) ring clock and bucket counts to the host."""
         m = self._template
         count = int(getattr(self, RING_COUNT))
         k, r = self.updates_per_bucket, self.window
@@ -382,7 +491,8 @@ class WindowedMetric(Metric):
             self,
             duration_s=time.perf_counter() - t0,
             ring_buckets=self._last_fold_buckets,
-            fanin=self._last_fold_buckets,
+            cache_hit=self._last_read_cache_hit,
+            fanin=self._last_fold_fanin,
             freshness=self._window_freshness(),
         )
         return state
@@ -401,13 +511,136 @@ class WindowedMetric(Metric):
         if not isinstance(before, int) or isinstance(before, bool) or before < 0:
             raise MetricsUserError(f"`before` must be a non-negative int, got {before!r}")
         m = self._template
+        if not self._is_synced:
+            return self._window_state_incremental(w, before)
+        # synced rows describe another stream than the local memos: fold
+        # cold, reading and writing neither
         rows = self._window_rows(w, before)
+        self._last_fold_fanin = len(rows)
+        self._last_read_cache_hit = False
         if not rows:
             return m.init_state()
         state = rows[0]
         for row in rows[1:]:
             state = m.merge_states(state, row)
         return state
+
+    def _row(self, slot: int) -> Dict[str, Tensor]:
+        return {name: getattr(self, name)[slot] for name in self._template._defaults}
+
+    def _window_state_incremental(self, w: int, before: int) -> Dict[str, Tensor]:
+        """The memoized window fold of the local states (see the module
+        docstring): the same merges, in the same order, as the cold fold."""
+        m = self._template
+        count = self._ring_clock()
+        k, r = self.updates_per_bucket, self.window
+        cur = (count - 1) // k - before
+        self._last_read_cache_hit = False
+        if count == 0 or cur < 0:
+            self._last_fold_buckets, self._last_fold_oldest_wall, self._last_fold_fanin = 0, None, 0
+            return m.init_state()
+        lo = max(cur - w + 1, 0)
+        if (count - 1) // k - lo >= r:
+            raise MetricsUserError(
+                f"window of {w} bucket(s) ending {before} back reaches past the"
+                f" ring span ({r} buckets); those buckets were already evicted"
+            )
+        # a repeat read at an idle clock: the same rows, the same fold
+        hit = self._wstate_memo.get((w, before))
+        if hit is not None and hit[0] == count:
+            self._wstate_memo.move_to_end((w, before))
+            _, state, self._last_fold_buckets, self._last_fold_oldest_wall = hit
+            self._last_fold_fanin = 0
+            self._last_read_cache_hit = True
+            return dict(state)
+        counts = getattr(self, RING_ROWS).tolist()
+        live = [b for b in range(lo, cur + 1) if counts[b % r] > 0]
+        walls = [self._bucket_wall[b % r] for b in live if self._bucket_wall[b % r] is not None]
+        self._last_fold_buckets = len(live)
+        self._last_fold_oldest_wall = min(walls) if walls else None
+        if not live:
+            self._last_fold_fanin = 0
+            return m.init_state()
+        # the prefix fold over the completed buckets [lo, cur-1]
+        stored = self._fold_memo.get(lo)
+        if stored is not None and stored[0] <= cur - 1:
+            prev_hi, prefix = stored
+        else:
+            # no memo for this start, or a `before`-shifted read that ends
+            # before the stored prefix does: fold this read from scratch
+            prev_hi, prefix = lo - 1, None
+        fold = [b for b in live if prev_hi < b <= cur - 1]
+        fanin = len(fold)
+        if fold:
+            if prefix is None and len(fold) >= 2 and self._aot_foldable():
+                prefix = self._fold_rows_aot([b % r for b in fold])
+            else:
+                for b in fold:
+                    row = self._row(b % r)
+                    # a lone row is a view of the ring: the memo keeps a copy
+                    prefix = _copied(row) if prefix is None else m.merge_states(prefix, row)
+        if cur - 1 >= lo and (stored is None or stored[0] < cur - 1):
+            self._fold_memo[lo] = (cur - 1, prefix)
+            self._fold_memo.move_to_end(lo)
+            while len(self._fold_memo) > _FOLD_MEMO_MAX:
+                self._fold_memo.popitem(last=False)
+        state = prefix
+        if counts[cur % r] > 0:
+            row = self._row(cur % r)
+            state = _copied(row) if state is None else m.merge_states(state, row)
+            fanin += 1
+        self._last_fold_fanin = fanin
+        self._wstate_memo[(w, before)] = (count, state, self._last_fold_buckets, self._last_fold_oldest_wall)
+        self._wstate_memo.move_to_end((w, before))
+        while len(self._wstate_memo) > _FOLD_MEMO_MAX:
+            self._wstate_memo.popitem(last=False)
+        # the caller's dict is its own; the memoized tensors are never
+        # written in place
+        return dict(state)
+
+    def _aot_foldable(self) -> bool:
+        """Pure sum/max/min templates refold through one reader; sketch
+        leaves (and the mean counter's merge rule) fold through
+        ``merge_states``."""
+        m = self._template
+        return _AUTO_COUNT not in m._reductions and all(
+            red in (dim_zero_sum, dim_zero_max, dim_zero_min) for red in m._reductions.values()
+        )
+
+    def _fold_rows_aot(self, slots: List[int]) -> Dict[str, Tensor]:
+        """Fold ``n`` completed buckets oldest first through the
+        ``window_fold`` reader: the left-associated per-leaf merges of
+        ``merge_states`` unrolled over the gathered rows (on the card one
+        CUDA graph per ``n``, at most the ring span), bit-equal to the
+        eager loop. Returns copies."""
+        m = self._template
+        n = len(slots)
+        names = list(m._defaults)
+        index = torch.as_tensor(slots, dtype=torch.long).to(self.device)
+        reader = self._readers.fast("window_fold", n)
+        if reader is None:
+            reds = dict(m._reductions)
+
+            def build():
+                def fold(stacked: Dict[str, Tensor]) -> Dict[str, Tensor]:
+                    state = {name: v[0] for name, v in stacked.items()}
+                    for i in range(1, n):
+                        for name, red in reds.items():
+                            a, b = state[name], stacked[name][i]
+                            if red is dim_zero_sum:
+                                state[name] = a + b
+                            elif red is dim_zero_max:
+                                state[name] = maximum_ieee(a, b)
+                            else:
+                                state[name] = minimum_ieee(a, b)
+                    return state
+
+                return fold
+
+            stacked = {name: getattr(self, name).index_select(0, index) for name in names}
+            reader = self._readers.get("window_fold", build, stacked, bucket=n)
+        # a copy: the reader's next replay overwrites its outputs
+        return _copied(reader.gather([getattr(self, name) for name in names], index))
 
     def _compute(self) -> Any:
         m = self._template
@@ -464,7 +697,11 @@ class WindowedMetric(Metric):
     def _read_extras(self) -> Dict[str, Any]:
         if self.mode != "ring":
             return {}
-        return {"ring_buckets": self._last_fold_buckets, "fanin": self._last_fold_buckets}
+        return {
+            "ring_buckets": self._last_fold_buckets,
+            "cache_hit": self._last_read_cache_hit,
+            "fanin": self._last_fold_fanin,
+        }
 
     def state_footprint(self, include_children: bool = True) -> Dict[str, int]:
         """Bytes per state, every key under ``"windowed/"``."""
@@ -476,3 +713,7 @@ class WindowedMetric(Metric):
         if self.mode == "decay":
             return f"{type(self).__name__}({inner}(), mode='decay', decay={self._alpha})"
         return f"{type(self).__name__}({inner}(), window={self.window}, updates_per_bucket={self.updates_per_bucket})"
+
+
+def _copied(state: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    return {name: v.clone() for name, v in state.items()}

@@ -44,7 +44,8 @@ for name in ("core.fused", "core.pipeline", "observability.freshness", "classifi
              "functional.audio._pesq_engine", "native", "observability", "observability.recorder",
              "observability.trace", "observability.exporters", "observability.aggregate",
              "observability.memory", "observability.profiling", "observability.timeseries",
-             "observability.drift", "observability.health"):
+             "observability.drift", "observability.health", "observability.wire",
+             "observability.collector", "core.readers"):
     assert "metrics_tpu_torch." + name in names, name
 from metrics_tpu_torch import BootStrapper, CompositionalMetric, MeanMetric, MetricTracker  # noqa: F401
 from metrics_tpu_torch.parallel import class_reduce, gather_all_arrays, sync_pytree  # noqa: F401
@@ -56,6 +57,9 @@ from metrics_tpu_torch.audio import PerceptualEvaluationSpeechQuality, ShortTime
 from metrics_tpu_torch import PermutationInvariantTraining, SignalDistortionRatio  # noqa: F401
 from metrics_tpu_torch.native import lsap  # noqa: F401
 from metrics_tpu_torch.observability import HealthMonitor, MetricRecorder, TimeSeriesRegistry, get_recorder  # noqa: F401
+from metrics_tpu_torch.observability import FleetCollector, SnapshotSink, decode_snapshot, encode_snapshot  # noqa: F401
+from metrics_tpu_torch.core.readers import ReaderCache, pad_ids  # noqa: F401
+from metrics_tpu_torch.retrieval.base import layout_cache_totals  # noqa: F401
 import chip_smoke
 assert not any(k == "jax" or k.startswith(("jax.", "metrics_tpu.")) for k, v in sys.modules.items() if v is not None)
 print(len(names))
@@ -73,9 +77,9 @@ def test_port_imports_with_jax_blocked():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    # every module of the port was imported (sliced, windowed, audio and the
-    # nine telemetry modules of observability/ included)
-    assert int(out.stdout.strip()) >= 104
+    # every module of the port was imported (sliced, windowed, audio, the
+    # nine telemetry modules of observability/ and the fleet plane's two)
+    assert int(out.stdout.strip()) >= 221
 
 
 def _imported_modules(path: Path):
