@@ -220,7 +220,13 @@ Phases, each printed as one JSON line:
    update eager: it forms the compute groups), every state and value bit
    for bit, ms per update, device ms per update and idle share (three
    updates under torch.profiler), host syncs per update, launches, captures,
-   each graph's launches per replay and the members on the eager leg:
+   each graph's launches per replay, the members on the eager leg, and the
+   fusibility manifest's seeding (``manifest_probe_skips``, ``n_probes``,
+   ``declined``; every fused phase, the regression, image, audio and
+   telemetry ones too, runs seeded, and a stale-manifest warning fails the
+   run); after each fused leg every member whose class the manifest calls
+   ``fusible`` (whose probe the leg skipped) is probed on the card and must
+   pass, the trial capture included; the others' probes ran in the leg:
    fused-classification -- classification-collection's 30 updates with
    buckets=(2048,): one capture, 0 host syncs per fused update, and
    bincount_i32 launched as the graph recorded it times its replays (2 per
@@ -482,6 +488,20 @@ Phases, each printed as one JSON line:
    read bit-equal to a cold read and to the CPU, no declined reader, the
    four read-plane memory planes non-zero; read us first, replayed,
    memoized and cold per bucket;
+18z. manifest -- fused-flagship's collection (ConfusionMatrix(1000) and
+   AUROC(1000, capacity=65536), 12 flagship batches) and
+   fused-classification's (eight metrics, buckets=(2048,), 12 of
+   bench_fused's batches), each eager and twice each through
+   compile_update() (seeded by the manifest) and
+   compile_update(use_manifest=False) (probed), first calls in the order
+   seeded, probed, probed, seeded: states bit-equal between the five after
+   every batch, launches per replay equal, probes skipped on the seeded
+   handles and none on the probed ones; the first call's wall ms and peak
+   bytes above the live ones, and the steady ms per update, per handle;
+   then a handle on each with
+   METRICS_TPU_TORCH_VERIFY_MANIFEST=1 (every member probed, no warning),
+   and every class the fused phases used with its verdict and probe
+   results;
 19. the kernels line: per kernel its launches on its main path (flagship for
    K1, sketch-binary for K3, map-coco for K6, the entry point ops.box_iou
    on 2-D boxes for K5, retrieval-mslr for K4, sliced-psnr for K2 and
@@ -2867,19 +2887,73 @@ def update_args(collection, batch):
     collection.update(*batch)
 
 
+#: every class a fused phase put in a collection, by module path: its
+#: manifest verdict, the phases and whether the probe passed it there
+VERIFIED = {}
+
+
+def record_first_dispatch(handle):
+    """Wrap ``handle.dispatch`` to keep the ``(args, kwargs)`` of the first
+    batch it receives (the verification probes the members on it)."""
+    seen = []
+    dispatch = handle.dispatch
+
+    def recording(args, kwargs):
+        if not seen:
+            seen.append((args, kwargs))
+        return dispatch(args, kwargs)
+
+    handle.dispatch = recording
+    return seen
+
+
+def verify_verdicts(name, handle, batch):
+    """Hold each fused member's class to its manifest verdict on the card:
+    a ``fusible`` class, whose probe the leg skipped, is probed now (a
+    scratch copy of the states, the run under the host-read mode, the
+    trial capture), as with ``METRICS_TPU_TORCH_VERIFY_MANIFEST=1``, and
+    must pass; the leg probed every other class itself, and its outcome is
+    recorded. Recorded in ``VERIFIED``; ``handle.declined`` is left as the
+    leg saw it."""
+    from metrics_tpu_torch.analysis.manifest import manifest_verdict
+
+    args, kwargs = batch
+    col = handle._collection
+    declined = dict(handle.declined)
+    leaders = [cg[0] for cg in col._groups.values()] if col._groups_checked else list(col._metrics)
+    for member in leaders:
+        m = col._metrics[member]
+        if handle._static_unfusible(m) is not None:
+            continue
+        verdict = manifest_verdict(type(m))
+        record = VERIFIED.setdefault(f"{type(m).__module__}.{type(m).__name__}", {"verdict": verdict, "phases": {}})
+        if verdict != "fusible":
+            record["phases"][name] = "probed in the leg: " + (declined[member][:300] if member in declined else "fused")
+            continue
+        ok = handle._probe(member, m, args, kwargs)
+        record["phases"][name] = ok or handle.declined.get(member, "declined")[:300]
+        check(ok, f"{name}: `{type(m).__name__}` reads fusible in the manifest but fails the probe on the card: {handle.declined.get(member)}")
+    handle.declined.clear()
+    handle.declined.update(declined)
+
+
 def fused_legs(torch, ops, name, make, batches, compile_kw, update=update_args):
     """The eager and the fused leg of one phase over the same batches. Each
     leg is a fresh collection whose first update runs eagerly (it forms the
-    compute groups); the fused leg then calls ``compile_update(**compile_kw)``.
-    The launch counters are reset before the second update, whose time (on
-    the fused leg: the probe, the capture and one replay) is kept apart from
-    the steady updates after it. Every state of the two legs is held bit for
-    bit, and every computed value. Returns ``{leg: record}``."""
+    compute groups); the fused leg then calls ``compile_update(**compile_kw)``,
+    seeded by the fusibility manifest. The launch counters are reset before
+    the second update, whose time (on the fused leg: the probes of the
+    members the manifest does not prove fusible, the capture and one replay)
+    is kept apart from the steady updates after it. Every state of the two
+    legs is held bit for bit, and every computed value; then every fused
+    member's class is held to its manifest verdict (``verify_verdicts``).
+    Returns ``{leg: record}``."""
     legs = {}
     for leg in ("eager", "fused"):
         collection = make()
         update(collection, batches[0])
         handle = collection.compile_update(**compile_kw) if leg == "fused" else None
+        first_batch = record_first_dispatch(handle) if handle is not None else None
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2904,6 +2978,13 @@ def fused_legs(torch, ops, name, make, batches, compile_kw, update=update_args):
             "values": values,
             "states": collection_states(torch, collection),
         }
+        if handle is not None:
+            legs[leg]["seeding"] = {
+                "manifest_probe_skips": handle.manifest_probe_skips,
+                "n_probes": handle.n_probes,
+                "declined": dict(handle.declined),
+            }
+            verify_verdicts(name, handle, first_batch[0])
     eager, fused = legs["eager"], legs["fused"]
     differ = state_bits_differ(torch, eager["states"], fused["states"])
     check(not differ, f"{name}: the fused leg's states differ from the eager leg's in {differ}")
@@ -2973,7 +3054,7 @@ def leg_report(torch, ops, leg, update, batches, profiled=3):
             launches_per_replay=[dict(entry.launches) for entry in entries],
             replays=sum(entry.calls for entry in entries),
             eager_leg=sorted(handle._eager_names),
-            declined=dict(handle.declined),
+            **leg["seeding"],
         )
     return out
 
@@ -3147,6 +3228,7 @@ def fused_sliced_windowed_phase(torch, ops, card, tm, SlicedMetric, WindowedMetr
         check(handle.cache_size == 1 and not handle._eager_names, f"fused-windowed {mode}: cache {handle.cache_size}, {handle.declined}")
         out[mode] = {leg: {"ms_per_update": legs[leg]["ms_per_update"], "first_update_ms": legs[leg]["first_update_ms"]} for leg in legs}
         out[mode]["captures"] = handle.n_compiles
+        out[mode].update(legs["fused"]["seeding"])
         out[mode]["value"] = float(legs["fused"]["values"]["WindowedMetric"])
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
@@ -3256,11 +3338,138 @@ def async_phase(torch, ops, card, tm):
     check(not differ, f"async: the async side's states differ from the blocking side's in {differ}")
     kept = check_kept_values(torch, "async", handle.compute, lambda b: handle.update_async(*b), pool[:4], asynchronous)
     handle.close()
-    emit({"phase": "async", "card": card, "kept_values_unchanged": kept, "steps": ASYNC_STEPS, "epochs": ASYNC_EPOCHS, "batch": ASYNC_BATCH,
+    seeding = {
+        side: {"manifest_probe_skips": h.manifest_probe_skips, "n_probes": h.n_probes, "declined": dict(h.declined)}
+        for side, h in (("blocking", blocking.fused_update), ("async", asynchronous.fused_update))
+    }
+    emit({"phase": "async", "card": card, "kept_values_unchanged": kept, "seeding": seeding, "steps": ASYNC_STEPS, "epochs": ASYNC_EPOCHS, "batch": ASYNC_BATCH,
           "request_wait_ms": wait_s * 1e3, "blocking_steps_per_s": best["blocking"], "async_steps_per_s": best["async"],
           "async_vs_blocking": best["async"] / best["blocking"], "dropped": handle.dropped,
           "enqueue_us_p50": float(np.percentile(enqueue_us, 50)), "enqueue_us_p99": float(np.percentile(enqueue_us, 99)),
           "seconds": time.perf_counter() - t_phase})
+
+
+MANIFEST_BATCHES = 12
+
+
+def leader_states(torch, collection):
+    """``collection_states`` of the compute groups' leaders."""
+    leaders = {cg[0] for cg in collection._groups.values()} if collection._groups_checked else set(collection.keys())
+    return {k: v for k, v in collection_states(torch, collection).items() if k.split(".", 1)[0] in leaders}
+
+
+def manifest_legs(torch, ops, name, make, batches, compile_kw):
+    """One collection five times over the same batches: eager, and twice
+    each through ``compile_update(**compile_kw)`` (seeded by the manifest)
+    and ``compile_update(use_manifest=False, **compile_kw)`` (probed), the
+    four handles' first calls in the order seeded, probed, probed, seeded
+    (so that what the first fused call of a process pays weighs on both).
+    Every leader's state bit-equal between the five after every batch;
+    launches per replay equal between the handles. Per handle: the first
+    call's wall ms and peak bytes above the live ones (the probes' scratch
+    copies, the warm-ups and the capture), probes run and skipped, and the
+    steady ms per update."""
+    order = ("seeded", "probed", "probed_2", "seeded_2")
+    cols = {mode: make() for mode in ("eager",) + order}
+    for col in cols.values():
+        col.update(*batches[0])  # eager: forms the compute groups
+    handles = {mode: cols[mode].compile_update(use_manifest=not mode.startswith("probed"), **compile_kw) for mode in order}
+    out = {}
+    for mode in order:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        cols[mode].update(*batches[1])
+        torch.cuda.synchronize()
+        handle = handles[mode]
+        out[mode] = {
+            "first_call_ms": (time.perf_counter() - t0) * 1e3,
+            "first_call_peak_bytes": torch.cuda.max_memory_allocated() - live,
+            "manifest_probe_skips": handle.manifest_probe_skips,
+            "n_probes": handle.n_probes,
+            "declined": dict(handle.declined),
+        }
+    cols["eager"].update(*batches[1])
+    steady = {mode: 0.0 for mode in cols}
+    for i, batch in enumerate(batches[1:]):
+        if i:
+            for mode, col in cols.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                col.update(*batch)
+                torch.cuda.synchronize()
+                steady[mode] += time.perf_counter() - t0
+        # the group leaders own the states (an eager member refreshes from
+        # its leader at compute)
+        states = {mode: leader_states(torch, col) for mode, col in cols.items()}
+        for mode in order:
+            differ = state_bits_differ(torch, states["eager"], states[mode])
+            check(not differ, f"{name}: after batch {i + 1} the {mode} handle's states differ from eager in {differ}")
+    per_replay = {mode: [dict(e.launches) for e in h._cache.values()] for mode, h in handles.items()}
+    check(all(v == per_replay["seeded"] for v in per_replay.values()), f"{name}: launches per replay differ: {per_replay}")
+    for mode in order:
+        seeded = mode.startswith("seeded")
+        check((out[mode]["manifest_probe_skips"] > 0) == seeded, f"{name}: the {mode} handle skipped {out[mode]['manifest_probe_skips']} probes")
+        check(out[mode]["declined"] == {}, f"{name}: the {mode} handle declined {out[mode]['declined']}")
+    for mode in cols:
+        out.setdefault(mode, {})["steady_ms_per_update"] = steady[mode] / (len(batches) - 2) * 1e3
+    out["first_call_ms_mean"] = {
+        kind: (out[kind]["first_call_ms"] + out[kind + "_2"]["first_call_ms"]) / 2 for kind in ("seeded", "probed")
+    }
+    out["launches_per_replay"] = per_replay["seeded"]
+    out["first_call_order"] = list(order)
+    return out
+
+
+def manifest_phase(torch, ops, card, tm, preds_all, target_all):
+    """manifest: the fused update seeded by the port's fusibility manifest
+    against the probed one, on fused-flagship's collection
+    (ConfusionMatrix(1000) + AUROC(num_classes=1000, capacity=65536), 4096
+    x 1000 batches) and fused-classification's (eight metrics, bench_fused's
+    batches, buckets=(2048,)), each through ``manifest_legs``. Then, with
+    ``METRICS_TPU_TORCH_VERIFY_MANIFEST=1``, a third handle on each probes
+    every member (the trial capture included) and would warn where a
+    ``fusible`` verdict fails (a warning fails the run); and every class the
+    fused phases used is listed with its verdict and probe results."""
+    from metrics_tpu_torch.analysis.manifest import ENV_VERIFY_MANIFEST
+
+    t_phase = time.perf_counter()
+    flagship = [(preds_all[i], target_all[i]) for i in range(MANIFEST_BATCHES)]
+
+    def make_flagship():
+        return tm.MetricCollection([tm.ConfusionMatrix(num_classes=NUM_CLASSES), tm.AUROC(num_classes=NUM_CLASSES, capacity=CAPACITY)])
+
+    fused = fused_batches()
+    classification = [tuple(torch.from_numpy(x).cuda() for x in fused[i % len(fused)]) for i in range(MANIFEST_BATCHES)]
+
+    def make_classification():
+        return fused_collection(tm, "cuda")
+
+    runs = {
+        "flagship": (make_flagship, flagship, {}),
+        "classification": (make_classification, classification, {"buckets": (FUSED_BUCKET,)}),
+    }
+    out = {"phase": "manifest", "card": card, "batches": MANIFEST_BATCHES}
+    for label, (make, batches, kw) in runs.items():
+        out[label] = manifest_legs(torch, ops, f"manifest ({label})", make, batches, kw)
+        free_card(torch)
+    # every member probed once more, under the verification switch
+    os.environ[ENV_VERIFY_MANIFEST] = "1"
+    try:
+        for label, (make, batches, kw) in runs.items():
+            col = make()
+            col.update(*batches[0])
+            handle = col.compile_update(**kw)
+            col.update(*batches[1])
+            check(handle.manifest_probe_skips == 0 and not handle.declined, f"manifest ({label}) verified: {handle.manifest_probe_skips} skips, declined {handle.declined}")
+            out[label]["verified"] = {"n_probes": handle.n_probes, "manifest_probe_skips": handle.manifest_probe_skips}
+            del col, handle
+    finally:
+        del os.environ[ENV_VERIFY_MANIFEST]
+    out["verified_classes"] = VERIFIED
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
 
 
 def segment_fold_line(torch, ops, name, source, replaces, launches, args, plain_fn, library_fn, device_name, exact_fn=None):
@@ -6455,12 +6664,13 @@ def separation_phase(torch, ops, card, tm):
         check(sdr_reports[leg]["host_syncs_per_update"] == 0, f"audio-separation: a {leg} PIT(SDR)/SDR(CG) update synchronised")
         sdr_reports[leg]["mixtures_per_s"] = SEP_BATCH / sdr_reports[leg]["ms_per_update"] * 1e3
     # the CG path's transforms capture; the batched LU of the direct solve
-    # may not (a MAGMA route cannot be captured): the probe then names
-    # PIT(SDR) and its reason, and it runs on the eager leg
+    # does not (MAGMA's route cannot be captured): the manifest reads PIT
+    # unsafe, so the probe runs, names PIT(SDR) and its reason, and it runs
+    # on the eager leg
     declined = sdr_reports["fused"]["declined"]
     check("sdr_cg" not in sdr_reports["fused"]["eager_leg"], "audio-separation: SDR(CG) did not fuse")
-    check(set(declined) <= {"pit_sdr"} and all("capturing" in why for why in declined.values()),
-          f"audio-separation: the probe declined {declined}")
+    check(set(declined) == {"pit_sdr"} and all("capturing" in why for why in declined.values()),
+          f"audio-separation: the probe declined {declined}, expected PIT(SDR) alone")
     sdr_values = {k: float(v) for k, v in sdr_legs["eager"]["values"].items()}
 
     # the FFTs and the solve alone, at one PIT(SDR) call's shape ([16, 32000], 512 taps, float64)
@@ -7969,6 +8179,9 @@ def main():
         print("chip_smoke: CUDA is not available; this script needs a CUDA card", file=sys.stderr)
         return 2
     card = card_line()
+    # a stale-manifest warning of the fused update (a seeded build failed,
+    # or a fusible verdict failed its verification probe) fails the run
+    warnings.filterwarnings("error", message=".*fusibility manifest")
 
     from metrics_tpu_torch import (
         AUROC,
@@ -8233,6 +8446,10 @@ def main():
     # the layout memo)
     fleet = fleet_phase(torch, ops, card, tm)
     read_plane_phase(torch, ops, card, tm)
+    # the fused update seeded by the fusibility manifest against the probed
+    # one, and every class the fused phases used held to its verdict
+    free_card(torch)
+    manifest_phase(torch, ops, card, tm, preds_all, target_all)
     # K5 is reached by 2-D boxes through the entry point ops.box_iou
     gen = torch.Generator(device="cpu").manual_seed(5)
     k5_inputs = [(iou_boxes(torch, gen, n).cuda(), iou_boxes(torch, gen, m).cuda()) for n, m in K5_PARITY_SHAPES]

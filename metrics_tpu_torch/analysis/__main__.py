@@ -1,0 +1,7 @@
+"""``python -m metrics_tpu_torch.analysis`` -- the port's tracelint CLI."""
+import sys
+
+from .cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -106,7 +106,7 @@ class CapacityCurveMixin:
         if pos_label is not None and num_cols is None:
             target = (target == pos_label).to(torch.int32)
         if checks_read_nothing():
-            self._capacity_write_dropping(preds, target, count_t.to(torch.int32))
+            self._capacity_update_dropping(preds, target, count_t.to(torch.int32))
             return
         if check_range and target.numel():
             tmin, tmax, count = torch.stack([target.min().to(torch.int64), target.max().to(torch.int64), count_t]).tolist()
@@ -134,7 +134,7 @@ class CapacityCurveMixin:
         self.target = self.target.index_copy(0, idx, target.to(torch.int32))
         self.valid = self.valid.index_fill(0, idx, True)
 
-    def _capacity_write_dropping(self, preds: Tensor, target: Tensor, count: Tensor) -> None:
+    def _capacity_update_dropping(self, preds: Tensor, target: Tensor, count: Tensor) -> None:
         """The update without a host read: the batch fills the first free
         slots (a permutation, so no slot twice); a sample whose slot is
         already occupied is dropped, as by the JAX package's ``mode="drop"``

@@ -32,6 +32,7 @@ from metrics_tpu_torch.classification._capacity import CapacityCurveMixin
 from metrics_tpu_torch.core.readers import ReaderCache, round_up_bucket
 from metrics_tpu_torch.sketches.compat import register_exact_list_states, warn_exact_buffer
 from metrics_tpu_torch.sketches.quantile import qsketch_fill, qsketch_init, qsketch_insert, sketch_merge_fx
+from metrics_tpu_torch.utils.checks import checks_read_nothing
 from metrics_tpu_torch.utils.data import dim_zero_cat
 
 Tensor = torch.Tensor
@@ -62,7 +63,13 @@ class SketchCurveMixin:
         self._shape_stable_reads = bool(shape_stable_reads)
         # the weighted compute's readers, one per shape bucket
         self._readers = ReaderCache()
-        self._register_sketch(num_classes if (num_classes is not None and num_classes >= 2) else None)
+        self._sketch_cols = num_classes if (num_classes is not None and num_classes >= 2) else None
+        payload = 1 if self._sketch_cols is None else 2 * self._sketch_cols
+        self.add_state(
+            "csketch",
+            default=qsketch_init(sketch_capacity, payload_cols=payload, device=self.device),
+            dist_reduce_fx=sketch_merge_fx(),
+        )
         self.add_state("n_seen", default=torch.zeros((), dtype=torch.int32), dist_reduce_fx="sum")
 
     def _register_sketch(self, num_cols: Optional[int]) -> None:
@@ -77,8 +84,10 @@ class SketchCurveMixin:
         """Re-register the sketch for the case the first batch has. Legal
         only before any row landed: the case lock (set by the first insert)
         refuses afterwards, and so does a non-empty sketch (one restored
-        from a checkpoint, say), which costs one host read."""
-        if self._sketch_case_locked or int(qsketch_fill(self.csketch)) > 0:
+        from a checkpoint, say), which costs one host read; under the
+        capture rule of ``utils/checks.py`` that read is skipped, as the
+        JAX package skips it on a tracer."""
+        if self._sketch_case_locked or (not checks_read_nothing() and int(qsketch_fill(self.csketch)) > 0):
             raise ValueError(_MODE_CHANGED)
         self._register_sketch(num_cols)
         self._sketch_tgt_kind = None

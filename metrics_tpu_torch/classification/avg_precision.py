@@ -50,6 +50,9 @@ class AveragePrecision(CurveModesMixin, Metric):
     is_differentiable = False
     higher_is_better = True
     __jit_unsafe__ = False  # sketch default: fixed-shape update, fusible
+    #: the static analysis classifies the default mode: branches on
+    #: ``self._exact`` belong to the opt-in exact (list-state) mode
+    __exact_mode_attr__ = "_exact"
     __fused_mask_valid__ = True  # bucketed pads mask out via n_valid
 
     def __init__(

@@ -45,6 +45,9 @@ class CalibrationError(Metric):
     DISTANCES = {"l1", "l2", "max"}
     is_differentiable = False
     __jit_unsafe__ = False  # binned default: fixed-shape update, fusible
+    #: the static analysis classifies the default mode: branches on
+    #: ``self._exact`` belong to the opt-in exact (list-state) mode
+    __exact_mode_attr__ = "_exact"
 
     def __init__(self, n_bins: int = 15, norm: str = "l1", exact: bool = False, **kwargs: Any) -> None:
         super().__init__(**kwargs)

@@ -368,8 +368,9 @@ class MetricCollection:
         ragged batches pad to the nearest bucket and share its graph.
         ``donate`` -- install the graphs' static state buffers as the states
         (default on the card): callers must not hold state tensors across an
-        update. ``use_manifest`` has no effect until the port has a
-        fusibility manifest.
+        update. ``use_manifest`` (default on) seeds fusibility from the
+        static analysis' manifest: a class proved ``fusible`` skips the
+        probe; ``use_manifest=False`` probes every member.
 
         A matching handle is kept (warm reuse after ``reset()``);
         ``forward`` keeps the eager semantics; ``clone()`` and

@@ -45,7 +45,21 @@ few copies and one replay:
   "thread_local"``), so other threads may synchronise meanwhile, which a
   process-wide ``set_sync_debug_mode("error")`` would forbid them. A member
   that passes the probe but then fails to capture raises; it is not moved
-  to the eager leg.
+  to the eager leg. ``n_probes`` counts the probes run.
+* **Manifest seeding** (``use_manifest``, default on): a member whose class
+  the static analysis proved ``fusible``
+  (``analysis/fusibility_manifest.json``) skips the probe -- the scratch
+  state copy, the probe run and the trial capture -- for every signature;
+  ``manifest_probe_skips`` counts the skips. ``unsafe``/``unknown`` classes
+  and classes outside the package keep the probe. If a build that trusted
+  the manifest fails (the capture on the card; on the CPU the entry's
+  first run, which runs under the probe's function mode in its place), the
+  handle warns that the manifest is stale, stops trusting it, re-probes
+  the seeded members, runs the refuted ones on the eager leg (named in
+  ``declined``) and retries the build once.
+  ``METRICS_TPU_TORCH_VERIFY_MANIFEST=1`` probes every member anyway and
+  warns where a ``fusible`` verdict fails its probe;
+  ``METRICS_TPU_TORCH_NO_MANIFEST=1`` disables the seeding.
 
 The ``_n_updates`` mean-merge counter is bumped inside the program. A graph
 replays device work only, so the handle does each replay's host
@@ -64,7 +78,8 @@ scratch copies of the states (never the live ones), with
 (``core/pipeline.py``) can capture; capture executes nothing, so the first
 batch of a signature is one replay after its capture. The entries of a
 handle share one memory pool. On the CPU there is no graph: the handle runs
-the same fused function directly, its plain version.
+the same fused function directly, its plain version (an entry's first run
+under the probe's function mode, as a capture refuses host reads).
 
 **Telemetry.** With the default recorder enabled, each dispatch records one
 ``fused_update`` event (and no member ``update`` events: the fused function
@@ -83,6 +98,7 @@ themselves (``windowed/metric.py``), through ``n_valid``.
 """
 import contextlib
 import gc
+import os
 import time
 import traceback
 import weakref
@@ -92,6 +108,8 @@ import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from metrics_tpu_torch.analysis.interp import VERDICT_FUSIBLE
+from metrics_tpu_torch.analysis.manifest import ENV_VERIFY_MANIFEST, manifest_verdict
 from metrics_tpu_torch.core.metric import _AUTO_COUNT, Metric, _to_device_inputs
 from metrics_tpu_torch.observability.memory import register_cache_plane
 from metrics_tpu_torch.observability.recorder import _DEFAULT_RECORDER as _TELEMETRY
@@ -294,9 +312,9 @@ class FusedUpdate:
     axis 0. ``donate`` (default: on the card) installs the static state
     buffers themselves as the members' states; ``donate=False`` installs
     copies, so a caller may keep references across updates.
-    ``use_manifest`` is kept for the JAX package's signature and has no
-    effect until the port has a fusibility manifest (ROADMAP.md, queue A):
-    the probe decides alone.
+    ``use_manifest`` (default on) seeds fusibility from the static
+    analysis' manifest: a ``fusible`` class skips the probe (see the module
+    docstring); ``use_manifest=False`` probes every member.
     """
 
     def __init__(
@@ -312,8 +330,19 @@ class FusedUpdate:
             raise ValueError(f"bucket sizes must be positive, got {self._buckets}")
         self._device = next(iter(collection.values())).device if len(collection) else torch.device("cpu")
         self._donate = self._device.type == "cuda" if donate is None else bool(donate)
+        # manifest seeding, default on; `_use_manifest` drops to False when a
+        # seeded build fails, while `_requested_manifest` keeps the request,
+        # so warm reuse keeps matching (and an epoch loop does not rebuild a
+        # manifest-trusting handle that re-hits the stale manifest)
+        self._use_manifest = True if use_manifest is None else bool(use_manifest)
+        self._requested_manifest = self._use_manifest
         self._cache: Dict[Tuple, _Entry] = {}
         self._fusible: Dict[Tuple, bool] = {}
+        #: (name, sig) keys whose fusibility came from the manifest without
+        #: a probe: the stale-manifest retry re-probes exactly these
+        self._manifest_seeded: set = set()
+        self.manifest_probe_skips = 0
+        self.n_probes = 0
         self._bucket_ok: Dict[Tuple[str, ...], bool] = {}
         self._bucket_warned = False
         #: static state buffers, shared by the entries of one member set and
@@ -352,10 +381,16 @@ class FusedUpdate:
     ) -> bool:
         """True when a ``compile_update(...)`` request resolves to this
         handle's config: the warm reuse that keeps the captured graphs.
-        ``use_manifest`` has no effect yet, so it never breaks a match."""
+        ``use_manifest`` matches the request the handle was built with (a
+        stale-manifest demotion does not break the match)."""
         want_buckets = tuple(sorted(int(b) for b in buckets)) if buckets else ()
         want_donate = self._device.type == "cuda" if donate is None else bool(donate)
-        return self._buckets == want_buckets and self._donate == want_donate
+        want_manifest = True if use_manifest is None else bool(use_manifest)
+        return (
+            self._buckets == want_buckets
+            and self._donate == want_donate
+            and self._requested_manifest == want_manifest
+        )
 
     def donated_state_bytes(self) -> int:
         """State bytes a donating update owns: the group leaders that can
@@ -397,8 +432,31 @@ class FusedUpdate:
         cached = self._fusible.get(key)
         if cached is not None:
             return cached
-        # one probe run on a copy of the state: host-dependent updates
-        # (value reads, data-dependent shapes) surface here
+        verify = bool(os.environ.get(ENV_VERIFY_MANIFEST))
+        if self._use_manifest and not verify and manifest_verdict(type(m)) == VERDICT_FUSIBLE:
+            # the static analysis proved the class fusible: no probe
+            self._fusible[key] = True
+            self._manifest_seeded.add(key)
+            self.manifest_probe_skips += 1
+            return True
+        ok = self._probe(name, m, args, kwargs)
+        if verify and self._use_manifest and not ok and manifest_verdict(type(m)) == VERDICT_FUSIBLE:
+            rank_zero_warn(
+                f"fusibility manifest says `{type(m).__name__}` is fusible but the probe declines it"
+                f" ({self.declined.get(name)}); the committed manifest is stale -- regenerate it with"
+                " `python -m metrics_tpu_torch.analysis --manifest`.",
+                UserWarning,
+            )
+        self._fusible[key] = ok
+        if not ok:
+            self._eager_names.add(name)
+        return ok
+
+    def _probe(self, name: str, m: Metric, args: Tuple, kwargs: Dict[str, Any]) -> bool:
+        """One probe run on a copy of the state (and, on the card, a trial
+        capture): host-dependent updates (value reads, data-dependent
+        shapes) surface here. A refusal is named in ``declined``."""
+        self.n_probes += 1
         try:
             fkw = m._filter_kwargs(**kwargs)
             with recording_launches(), capturing_checks():
@@ -409,14 +467,10 @@ class FusedUpdate:
                     self._side_stream().wait_stream(torch.cuda.current_stream(m.device))
                     with _capturing(torch.cuda.CUDAGraph(), self._side_stream()):
                         _pure_update(m, state, args, fkw)
-            ok = True
+            return True
         except Exception as e:
-            ok = False
             self.declined.setdefault(name, _reason(e))
-        self._fusible[key] = ok
-        if not ok:
-            self._eager_names.add(name)
-        return ok
+            return False
 
     def _bucket_eligible(self, names: List[str]) -> bool:
         key = tuple(names)
@@ -484,7 +538,34 @@ class FusedUpdate:
             m.update(*args, **m._filter_kwargs(**kwargs))
         bucket, cache_hit = None, False
         if fused_names:
-            bucket, cache_hit = self._run_fused(fused_names, spec, dyn_idx, dyn, static, sig)
+            try:
+                bucket, cache_hit = self._run_fused(fused_names, spec, dyn_idx, dyn, static, sig)
+            except Exception:
+                if not any((n, sig) in self._manifest_seeded for n in fused_names):
+                    raise  # no static seed involved: a genuine failure, not a stale manifest
+                # the stale-manifest retry: the build trusted a `fusible`
+                # verdict that the capture refuted. Stop trusting the
+                # manifest for this handle, re-probe the seeded members, run
+                # the refuted ones on the eager leg and retry once.
+                rank_zero_warn(
+                    "fused update build failed for a manifest-seeded member set; the committed"
+                    " fusibility manifest is stale. Probing every member of this collection from"
+                    " now on -- regenerate it with `python -m metrics_tpu_torch.analysis --manifest`.",
+                    UserWarning,
+                )
+                self._use_manifest = False
+                for key in list(self._manifest_seeded):
+                    self._fusible.pop(key, None)
+                self._manifest_seeded.clear()
+                retry = [n for n in fused_names if self._is_fusible(n, args, kwargs, sig)]
+                for name in fused_names:
+                    if name not in retry:
+                        m = col._metrics[name]
+                        m.update(*args, **m._filter_kwargs(**kwargs))
+                fallback_names = fallback_names + [n for n in fused_names if n not in retry]
+                fused_names = retry
+                if fused_names:
+                    bucket, cache_hit = self._run_fused(fused_names, spec, dyn_idx, dyn, static, sig)
 
         if not col._groups_checked and col._enable_compute_groups:
             # first-call group discovery on the concrete states (the eager
@@ -600,8 +681,18 @@ class FusedUpdate:
             n_valid = None if bucket is None else torch.tensor(n_rows, dtype=torch.int32, device=self._device)
             # the plain version decides as the captured program does; its
             # first run builds the entry (once-per-entry hooks fire there)
-            with capturing_checks(), building_entry() if entry.calls == 1 else contextlib.nullcontext():
-                new_states = entry.fn(states, padded, n_valid)
+            # and, as a capture would, refuses host reads
+            building = entry.calls == 1
+            try:
+                with capturing_checks(), building_entry() if building else contextlib.nullcontext():
+                    with _NoHostReads() if building else contextlib.nullcontext():
+                        new_states = entry.fn(states, padded, n_valid)
+            except Exception:
+                if building:
+                    # a failed build leaves no entry, as a failed capture
+                    del self._cache[key]
+                    self.n_compiles -= 1
+                raise
 
         member_of = {cg[0]: cg for cg in col._groups.values()} if col._groups_checked else {}
         for name in names:
@@ -684,6 +775,24 @@ class FusedUpdate:
             bufs = self._state_bufs[buf_key] = {
                 name: {k: v.clone() for k, v in _states_of(col._metrics[name]).items()} for name in names
             }
+            try:
+                return self._capture_into(entry, names, bufs, dyn, bucket, n_rows, t0)
+            except BaseException:
+                del self._state_bufs[buf_key]  # a failed capture keeps no buffers
+                raise
+        return self._capture_into(entry, names, bufs, dyn, bucket, n_rows, t0)
+
+    def _capture_into(
+        self,
+        entry: _Entry,
+        names: List[str],
+        bufs: Dict[str, Dict[str, Tensor]],
+        dyn: List[Any],
+        bucket: Optional[int],
+        n_rows: Optional[int],
+        t0: float,
+    ) -> Tuple[float, float]:
+        device = self._device
         entry.states = bufs
         entry.inputs = [
             torch.empty(

@@ -965,6 +965,48 @@ class Metric(ABC):
             setattr(self, name, value)
 
     # ------------------------------------------------------------------
+    # static analysis (the port's fusibility manifest)
+    # ------------------------------------------------------------------
+    @classmethod
+    def static_fusibility(cls) -> Optional[Dict[str, Any]]:
+        """This class's entry in the port's fusibility manifest, or None.
+
+        The manifest (``metrics_tpu_torch/analysis/fusibility_manifest.json``,
+        regenerated by ``python -m metrics_tpu_torch.analysis --manifest``)
+        carries the abstract interpreter's verdict -- ``fusible`` /
+        ``unsafe`` (with its reason: ``cat-growth`` / ``host-sync`` /
+        ``data-dependent-shape``) / ``unknown`` -- and the abstract
+        shape/dtype/reduction of every registered state leaf.
+        ``FusedUpdate`` consults the same entry to skip its probe for
+        ``fusible`` classes; here a user can ask a metric why it does or
+        does not fuse. Classes outside ``metrics_tpu_torch`` (user
+        subclasses) have no entry.
+        """
+        from metrics_tpu_torch.analysis.manifest import lookup_class
+
+        return lookup_class(cls)
+
+    def static_sliceability(self) -> Optional[Dict[str, bool]]:
+        """Per-leaf ``sliceable`` verdicts from the manifest, or None when
+        the class has no entry (user subclasses).
+
+        A leaf is statically sliceable when the abstract interpreter found a
+        ``sum``/``max``/``min`` reducer over a tensor state -- the leaves
+        :class:`metrics_tpu_torch.sliced.SlicedMetric` can segment-scatter
+        along a leading slice axis. ``SlicedMetric`` puts the reason in its
+        rejection error; the runtime ``_reductions`` registry stays the
+        authority (an instance method because reducers can depend on the
+        configuration: StatScores' ``"cat"``-or-``"sum"`` idiom).
+        """
+        entry = type(self).static_fusibility()
+        if not entry:
+            return None
+        states = entry.get("states")
+        if not isinstance(states, dict):
+            return None
+        return {name: bool(isinstance(leaf, dict) and leaf.get("sliceable")) for name, leaf in states.items()}
+
+    # ------------------------------------------------------------------
     # misc
     # ------------------------------------------------------------------
     @property

@@ -184,6 +184,9 @@ class MeanAveragePrecision(Metric):
         0.6
     """
 
+    #: the static analysis classifies the default mode: branches on
+    #: ``self._exact`` belong to the opt-in exact (list-state) mode
+    __exact_mode_attr__ = "_exact"
     is_differentiable = False
     higher_is_better = True
     __fused_mask_valid__ = True
@@ -334,7 +337,7 @@ class MeanAveragePrecision(Metric):
             return
         if not isinstance(preds, dict):
             _input_validator(preds, target)
-            if not preds:
+            if not preds:  # tracelint: disable=TL-TRACE (the list-of-dicts input: its length, not a tensor)
                 return
             preds, target = self._pack_images(preds, target)
         device = self.device

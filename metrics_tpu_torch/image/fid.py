@@ -104,6 +104,10 @@ class FrechetInceptionDistance(_ExtractorMixin, Metric):
     """
 
     __exact_mode_attr__ = "_exact"
+    #: ``self.inception(imgs)`` is a fixed-shape tensor program (the static
+    #: analysis models it as a torch op; a user extractor that is not is
+    #: caught by the fused update's stale-manifest retry)
+    __traced_callable_attrs__ = ("inception",)
     is_differentiable = False
     higher_is_better = False
 

@@ -75,6 +75,10 @@ class KernelInceptionDistance(_ExtractorMixin, Metric):
     """Computes KID (mean and std of polynomial MMD over random subsets)."""
 
     __exact_mode_attr__ = "_exact"
+    #: ``self.inception(imgs)`` is a fixed-shape tensor program (the static
+    #: analysis models it as a torch op; a user extractor that is not is
+    #: caught by the fused update's stale-manifest retry)
+    __traced_callable_attrs__ = ("inception",)
     is_differentiable = False
     higher_is_better = False
 

@@ -93,8 +93,8 @@ class LearnedPerceptualImagePatchSimilarity(Metric):
             raise ValueError(
                 "Expected both input arguments to be normalized tensors (all values in range [-1,1])"
                 f" and to have shape [N, 3, H, W] but `img1` have shape {img1.shape} with values in"
-                f" range {[float(img1.min()), float(img1.max())]} and `img2` have shape {img2.shape}"
-                f" with value in range {[float(img2.min()), float(img2.max())]}"
+                f" range {[float(img1.min()), float(img1.max())]} and `img2` have shape {img2.shape}"  # tracelint: disable=TL-TRACE (the rejected batch's message)
+                f" with value in range {[float(img2.min()), float(img2.max())]}"  # tracelint: disable=TL-TRACE (the rejected batch's message)
             )
         loss = torch.squeeze(self.net(img1, img2))
         self.sum_scores = self.sum_scores + torch.sum(loss)

@@ -29,11 +29,15 @@ as ``'<V2'`` (its decoder returns raw ``|V2`` bytes). The port writes
 void leaf as bfloat16 (the only two-byte torch dtype without a numpy
 name), which is bit-exact.
 
-**The manifest fingerprint** is ``""`` (unknown: collectors fold anyway)
-until the port has manifests of its own; the JAX package's manifest
-describes the JAX classes.
+**The manifest fingerprint** is the JAX package's formula over the port's
+own analyzer manifests (``analysis/fusibility_manifest.json`` and
+``analysis/layout_manifest.json``): two port builds that agree on it
+serialize the same state schemas and reshard each leaf the same way, and a
+collector counts a mismatch as version skew. ``""`` (unknown: collectors
+fold anyway) when the port's fusibility manifest is absent.
 """
 import base64
+import hashlib
 import json
 import threading
 import time
@@ -250,10 +254,32 @@ def states_key(obj: Any) -> Dict[str, Any]:
     return {name: one(m) for name, m in members_of(obj).items()}
 
 
+_MANIFEST_FP_CACHE: Optional[str] = None
+
+
 def manifest_fingerprint() -> str:
-    """The fingerprint of the port's state-layout manifests: ``""`` (unknown,
-    fold anyway) until the port has manifests of its own."""
-    return ""
+    """Short sha256 fingerprint of the port's analyzer manifests:
+    ``sha256(fusibility + b"\\x00" + layout)[:16]`` over the two files'
+    bytes (the layout file reads as empty when absent), ``""`` when the
+    fusibility manifest is absent. Cached for the process: a collector
+    consults it per ingested snapshot."""
+    global _MANIFEST_FP_CACHE
+    if _MANIFEST_FP_CACHE is not None:
+        return _MANIFEST_FP_CACHE
+    from metrics_tpu_torch.analysis.layout import default_layout_manifest_path
+    from metrics_tpu_torch.analysis.manifest import default_manifest_path
+
+    try:
+        data = default_manifest_path().read_bytes()
+    except OSError:  # an absent manifest is a legal deployment
+        _MANIFEST_FP_CACHE = ""
+        return _MANIFEST_FP_CACHE
+    try:
+        layout = default_layout_manifest_path().read_bytes()
+    except OSError:
+        layout = b""
+    _MANIFEST_FP_CACHE = hashlib.sha256(data + b"\x00" + layout).hexdigest()[:16]
+    return _MANIFEST_FP_CACHE
 
 
 # ---------------------------------------------------------------------------

@@ -192,6 +192,9 @@ class RetrievalMetric(Metric, ABC):
 
     higher_is_better = True
     __jit_unsafe__ = False  # table-state default: fixed-shape update, fusible
+    #: the static analysis classifies the default mode: branches on
+    #: ``self._exact`` belong to the opt-in exact (list-state) mode
+    __exact_mode_attr__ = "_exact"
     # bucketed pads: the insert masks rows past n_valid out of the table
     __fused_mask_valid__ = True
 

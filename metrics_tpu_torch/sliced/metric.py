@@ -206,6 +206,7 @@ class SlicedMetric(Metric):
                 f" {sorted(dict(metric._iter_child_metrics()))}); slice the inner"
                 " metric directly instead of the wrapper."
             )
+        static = metric.static_sliceability() or {}
         for name, red in metric._reductions.items():
             if isinstance(metric._defaults[name], list):
                 raise MetricsUserError(
@@ -218,7 +219,11 @@ class SlicedMetric(Metric):
                     f"`{cls_name}` state `{name}` collides with the reserved sliced row-counter state name"
                 )
             if red not in _SLICEABLE:
-                hint = " (the auto mean-merge counter has no per-slice scatter)" if name == _AUTO_COUNT else ""
+                hint = ""
+                if name == _AUTO_COUNT:
+                    hint = " (the auto mean-merge counter has no per-slice scatter)"
+                elif static.get(name) is False:
+                    hint = " (the fusibility manifest's per-leaf `sliceable` verdict agrees)"
                 raise MetricsUserError(
                     f"`{cls_name}` state `{name}` has reducer"
                     f" `{_reducer_name(red)}`; only sum/max/min-reduced array states"

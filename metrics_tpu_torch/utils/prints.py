@@ -2,7 +2,7 @@
 no process group is initialised)."""
 import logging
 import warnings
-from functools import wraps
+from functools import partial, wraps
 from typing import Any, Callable
 
 # a module import: the distributed module imports (through the sketches)
@@ -30,3 +30,11 @@ def rank_zero_warn(message: str, *args: Any, **kwargs: Any) -> None:
 @rank_zero_only
 def rank_zero_info(message: str, *args: Any, **kwargs: Any) -> None:
     log.info(message, *args, **kwargs)
+
+
+@rank_zero_only
+def rank_zero_debug(message: str, *args: Any, **kwargs: Any) -> None:
+    log.debug(message, *args, **kwargs)
+
+
+rank_zero_print = rank_zero_only(partial(print, flush=True))

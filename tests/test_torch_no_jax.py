@@ -45,7 +45,9 @@ for name in ("core.fused", "core.pipeline", "observability.freshness", "classifi
              "observability.trace", "observability.exporters", "observability.aggregate",
              "observability.memory", "observability.profiling", "observability.timeseries",
              "observability.drift", "observability.health", "observability.wire",
-             "observability.collector", "core.readers"):
+             "observability.collector", "core.readers", "analysis", "analysis.engine", "analysis.baseline",
+             "analysis.reporters", "analysis.rules", "analysis.interp", "analysis.stateflow", "analysis.manifest",
+             "analysis.layout", "analysis.layout_rules", "analysis.cli", "analysis.__main__"):
     assert "metrics_tpu_torch." + name in names, name
 from metrics_tpu_torch import BootStrapper, CompositionalMetric, MeanMetric, MetricTracker  # noqa: F401
 from metrics_tpu_torch.parallel import class_reduce, gather_all_arrays, sync_pytree  # noqa: F401

@@ -522,12 +522,14 @@ def test_compile_update_config_change_rejected_while_async_open():
     col.update(*_cls_batch(rng))
     handle = col.compile_update_async()
     assert col.compile_update() is col.fused_update
-    # use_manifest has no effect yet: it keeps the warm handle
-    assert col.compile_update(use_manifest=False) is col.fused_update
+    # use_manifest is part of the config, as in the JAX package
+    with pytest.raises(MetricsUserError):
+        col.compile_update(use_manifest=False)
     with pytest.raises(MetricsUserError):
         col.compile_update(buckets=(64,))
     handle.close()
     assert col.compile_update(buckets=(64,)) is col.fused_update
+    assert col.compile_update(buckets=(64,), use_manifest=False) is col.fused_update
 
 
 def test_async_compute_hands_out_no_donated_state():

@@ -13,6 +13,7 @@ decodes raw ``|V2`` bytes; the port writes the same bytes and decodes them
 as bfloat16).
 """
 import base64
+import hashlib
 import json
 
 import numpy as np
@@ -134,14 +135,19 @@ class TestHeader:
 
     def test_manifest_hash_rides_the_header(self):
         snap = decode_snapshot(encode_snapshot(publisher="p", seq=0, t=1.0))
-        assert snap.manifest_hash == manifest_fingerprint() == ""
+        assert snap.manifest_hash == manifest_fingerprint() != ""
 
     def test_manifest_fingerprint_stable_and_empty_until_the_port_has_manifests(self):
-        assert manifest_fingerprint() == manifest_fingerprint() == ""
-        # the JAX package's is a 16-digit hash or "" (which both read as
-        # "unknown, fold anyway")
-        fp = jwire.manifest_fingerprint()
-        assert fp == "" or (len(fp) == 16 and int(fp, 16) >= 0)
+        # the port has its own manifests now: the JAX package's formula over
+        # the port's two files, stable, and not the JAX package's
+        from metrics_tpu_torch.analysis.layout import default_layout_manifest_path
+        from metrics_tpu_torch.analysis.manifest import default_manifest_path
+
+        fp = manifest_fingerprint()
+        assert fp == manifest_fingerprint() and len(fp) == 16 and int(fp, 16) >= 0
+        data = default_manifest_path().read_bytes() + b"\x00" + default_layout_manifest_path().read_bytes()
+        assert fp == hashlib.sha256(data).hexdigest()[:16]
+        assert fp != jwire.manifest_fingerprint()
 
     def test_mode_validated(self):
         with pytest.raises(ValueError, match="mode"):
