@@ -345,6 +345,25 @@ Phases, each printed as one JSON line:
    call over the collection's state_reductions(), 3 + 20 times each: p50 and
    p95 ms per rank, bytes and rounds; the synced bundle equal on every rank
    and between the two paths;
+18l'. sync-sharded -- per-tenant image quality across a job: two gloo
+   ranks on cuda:0, each with SlicedMetric(PeakSignalNoiseRatio(), 10**6)
+   sharded by shard_sliced_states (500,000 slices per rank) over 16
+   updates of 4096 rows of 3 x 32 x 32 image pairs, tenant ids Zipf(1.2)
+   from a seed per rank; gates: each rank's block against one process's
+   unsharded metric fed each step's rows in rank order (counts, min and
+   max bit-equal, float sums bit-equal or within rtol 1e-6 with the reason
+   printed), compute() with the same digest on both ranks and within rtol
+   1e-6 of the one process's, sync_pytree(partition_specs=) with 0 rounds
+   and 0 bytes, the divisibility fallback at 999,999 slices (replicated
+   specs, a sync that reduces), compute(slice_ids=) and top_k read while
+   synced (passed through and gathered) within rtol 1e-6 of compute(),
+   16 x (1 segment_sum_f32, 2
+   segment_sum_i32, 1 segment_max_f32, 1 segment_min_f32) launches, and
+   each of them at the shard's shapes ([8192] -> 500,000) against its
+   plain version on the card; ms per routed update (p50, p95), device ms
+   per update, rounds and bytes received per update, state bytes per rank
+   against the unsharded metric's, compute ms, peak memory per rank of
+   the sharded job (and, apart, of the one-process check), spawn seconds;
 18m. nccl-world1 -- the NCCL transport in a one-process group: card
    tensors of every state dtype (bfloat16 NaN payloads of both signs
    among them) all-gathered as bytes, the same bits back (multi-rank NCCL
@@ -7512,6 +7531,16 @@ FLEET_LATE_TICK = 38
 FLEET_LATE_WINDOW_S = 10.0
 FLEET_RETRIEVAL_DELTA_CHUNKS = 4
 FLEET_SKETCH_ATOL = 5e-3
+SHARD_SLICES = 1_000_000
+SHARD_FALLBACK_SLICES = 999_999
+SHARD_UPDATES = 16
+SHARD_BATCH = 4096
+SHARD_IMAGE = (3, 32, 32)
+SHARD_FALLBACK_UPDATES = 2
+SHARD_FALLBACK_BATCH = 256
+SHARD_PROFILED_UPDATES = 3
+SHARD_SEED = 25000
+SHARD_TIMEOUT_S = 300
 READ_DEVICE = "cuda"
 READ_SEED = 24000
 READ_SLICES = 100_000
@@ -7982,6 +8011,236 @@ def fleet_kernel_lines(torch, ops, fleet):
     return lines
 
 
+def shard_batch(torch, rank, step, rows=SHARD_BATCH, slices=SHARD_SLICES):
+    """Rank ``rank``'s update ``step`` of sync-sharded: image pairs made on
+    the card from a seed (targets uniform, preds plus 0.05 N(0, 1) noise)
+    and tenant ids Zipf(1.2) over ``slices`` from a numpy seed."""
+    seed = SHARD_SEED + 1000 * rank + step
+    gen = torch.Generator(device=SYNC_DEVICE).manual_seed(seed)
+    shape = (rows,) + SHARD_IMAGE
+    target = torch.rand(shape, generator=gen, device=SYNC_DEVICE)
+    preds = target + PSNR_NOISE * torch.randn(shape, generator=gen, device=SYNC_DEVICE)
+    ids = (np.random.default_rng(seed).zipf(READ_ZIPF, rows) - 1) % slices
+    return torch.from_numpy(ids).to(SYNC_DEVICE), preds, target
+
+
+SHARD_KERNELS = {"segment_sum_f32": 1, "segment_sum_i32": 2, "segment_max_f32": 1, "segment_min_f32": 1}
+
+
+def sync_sharded_rank(rank, world, port, out_dir):
+    """One rank of sync-sharded: the sharded SlicedMetric's routed updates,
+    reads and pass-through sync against one process's unsharded metric."""
+    import torch
+
+    join_gloo(torch, rank, world, port)
+    try:
+        from metrics_tpu_torch import ops
+
+        tm = import_module("metrics_tpu_torch")
+        dist_mod = import_module("metrics_tpu_torch.parallel.distributed")
+        sharding = import_module("metrics_tpu_torch.sliced.sharding")
+        from metrics_tpu_torch.utils.data import dim_zero_sum
+
+        torch.cuda.reset_peak_memory_stats()
+        out = {"rank": rank}
+        batches = [shard_batch(torch, rank, step) for step in range(SHARD_UPDATES)]
+        # a warm-up on a throwaway metric: the kernels' inputs at the shard's shapes
+        warm = tm.SlicedMetric(tm.PeakSignalNoiseRatio(), SHARD_SLICES)
+        sharding.shard_sliced_states(warm, None)
+        captured = capture_calls(
+            [("metrics_tpu_torch.ops.segment_sum", "segment_sum_f32"), ("metrics_tpu_torch.ops.segment_sum", "segment_sum_i32"),
+             ("metrics_tpu_torch.ops.segment_extremum", "segment_max_f32"), ("metrics_tpu_torch.ops.segment_extremum", "segment_min_f32")],
+            lambda: warm.update(*batches[0]),
+        )
+        warm.compute()
+        del warm
+
+        metric = tm.SlicedMetric(tm.PeakSignalNoiseRatio(), SHARD_SLICES)
+        shardings = sharding.shard_sliced_states(metric, None)
+        check(all(tuple(s.spec) == (sharding.SLICE_AXIS,) for s in shardings.values()), f"sync-sharded: not sharded {shardings}")
+        check(metric.sum_squared_error.shape[0] == SHARD_SLICES // world, "sync-sharded: the block has the wrong size")
+        times, rounds, received, launches = [], [], [], {}
+        for batch in batches:
+            _, ms, step_launches, coll = timed_collective(torch, ops, dist_mod, lambda b=batch: metric.update(*b))
+            times.append(ms)
+            rounds.append(coll["rounds"])
+            received.append(coll["bytes_received"])
+            for k, v in step_launches.items():
+                launches[k] = launches.get(k, 0) + v
+        for name, per_update in SHARD_KERNELS.items():
+            want = per_update * SHARD_UPDATES
+            check(launches.get(name, 0) == want, f"sync-sharded: {name} launched {launches.get(name, 0)} times, expected {want}")
+        out.update(
+            {
+                "update_ms": times,
+                "update_ms_p50": float(np.percentile(times, 50)),
+                "update_ms_p95": float(np.percentile(times, 95)),
+                "rounds_per_update": rounds,
+                "bytes_received_per_update": received,
+                "launches": launches,
+                "state_bytes": metric.total_state_bytes(),
+            }
+        )
+        # device time of a routed update, on a copy (its updates are collective too)
+        twin = metric.clone()
+        torch.distributed.barrier()
+        prof = device_profile(torch, lambda i: twin.update(*batches[i]), SHARD_PROFILED_UPDATES, host_ops=False)
+        del twin
+        out["profiled_update"] = {
+            "wall_ms": prof["profiled_wall_ms_per_step"],
+            "device_ms": prof["device_busy_ms_per_step"],
+            "device_us_by_kernel": prof["device_us_per_step_by_kernel"],
+        }
+        block = {k: getattr(metric, k).clone() for k in metric._defaults}
+        out["block_digest"] = digest(torch, *block.values())
+        value, compute_ms, _, compute_coll = timed_collective(torch, ops, dist_mod, metric.compute)
+        out["compute_ms"] = compute_ms
+        out["compute_collectives"] = compute_coll
+        out["values_digest"] = digest(torch, value)
+        out["compute_refolded_slices"] = metric._last_fold_fanin
+        # the sharded job's peak: its batches, the warm-up, the metric, the
+        # profiled twin and compute(); the checks below are not in it
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+
+        # pass-through: every leaf of the metric is a block
+        specs = sharding.sliced_partition_specs(metric, None)
+        state = {k: getattr(metric, k) for k in metric._defaults}
+        torch.distributed.barrier()
+        dist_mod.reset_collective_counts()
+        passed = dist_mod.sync_pytree(state, metric.state_reductions(), partition_specs=specs)
+        coll = dist_mod.collective_counts()
+        check(coll["rounds"] == 0 and coll["bytes_received"] == 0, f"sync-sharded: the pass-through sync moved {coll}")
+        check(all(passed[k] is state[k] for k in state), "sync-sharded: the pass-through sync changed a leaf")
+        out["passthrough_collectives"] = coll
+
+        # reads while synced: blocks passed through take the owner route,
+        # a full sync's [S] states are indexed by the global ids
+        probe = torch.as_tensor(np.random.default_rng(SHARD_SEED).choice(SHARD_SLICES, 64, replace=False), device=SYNC_DEVICE)
+        synced_reads = {}
+        for how, kwargs in (("passthrough", {"partition_specs": specs}), ("full", {})):
+            metric.sync(**kwargs)
+            try:
+                sub = metric.compute(slice_ids=probe)
+                top_ids, top = metric.compute(top_k=10)
+            finally:
+                metric.unsync()
+            errs = []
+            for got, want in ((sub, value[probe.long()]), (top, value[top_ids.long()])):
+                check(torch.equal(torch.isnan(got), torch.isnan(want)), f"sync-sharded: a {how}-synced read differs in its NaNs")
+                ok = ~torch.isnan(want)
+                errs.append(float(((got[ok].double() - want[ok].double()).abs() / want[ok].double().abs()).max()) if bool(ok.any()) else 0.0)
+            check(max(errs) <= 1e-6, f"sync-sharded: a {how}-synced read off compute() by rtol {max(errs)}")
+            synced_reads[how] = max(errs)
+        out["synced_read_max_rel_err"] = synced_reads
+
+        # the divisibility fallback: 999,999 slices stay replicated and reduce
+        fallback = tm.SlicedMetric(tm.PeakSignalNoiseRatio(), SHARD_FALLBACK_SLICES)
+        fb_shardings = sharding.shard_sliced_states(fallback, None)
+        fb_specs = sharding.sliced_partition_specs(fallback, None)
+        check(all(tuple(s.spec) == () for s in fb_shardings.values()) and all(tuple(v) == () for v in fb_specs.values()),
+              f"sync-sharded: 999,999 slices not replicated {fb_specs}")
+        for step in range(SHARD_FALLBACK_UPDATES):
+            fallback.update(*shard_batch(torch, rank, 100 + step, SHARD_FALLBACK_BATCH, SHARD_FALLBACK_SLICES))
+        fb_state = {k: getattr(fallback, k) for k in fallback._defaults}
+        torch.distributed.barrier()
+        dist_mod.reset_collective_counts()
+        fb_synced = dist_mod.sync_pytree(fb_state, fallback.state_reductions(), partition_specs=fb_specs)
+        fb_coll = dist_mod.collective_counts()
+        rows = int(fb_synced["_slice_rows"].sum())
+        check(fb_coll["rounds"] > 0 and rows == world * SHARD_FALLBACK_UPDATES * SHARD_FALLBACK_BATCH,
+              f"sync-sharded: the fallback sync did not reduce ({fb_coll}, {rows} rows)")
+        out["fallback"] = {"slices": SHARD_FALLBACK_SLICES, "specs": sorted({repr(v) for v in fb_specs.values()}), "collectives": fb_coll, "synced_rows": rows}
+        del fallback, fb_state, fb_synced
+
+        # the one-process reference: each step's rows in rank order, unsharded
+        torch.cuda.reset_peak_memory_stats()
+        ref = tm.SlicedMetric(tm.PeakSignalNoiseRatio(), SHARD_SLICES, dist_sync_fn=alone)
+        for step in range(SHARD_UPDATES):
+            parts = [batches[step] if r == rank else shard_batch(torch, r, step) for r in range(world)]
+            ref.update(*(torch.cat(xs) for xs in zip(*parts)))
+        lo, hi = rank * SHARD_SLICES // world, (rank + 1) * SHARD_SLICES // world
+        worst, reasons = 0.0, []
+        for name, red in metric._reductions.items():
+            got, want = block[name], getattr(ref, name)[lo:hi]
+            if torch.equal(bits(torch, got), bits(torch, want)):
+                continue
+            check(got.is_floating_point() and red is dim_zero_sum, f"sync-sharded: {name} differs from one process")
+            rel = float(((got.double() - want.double()).abs() / want.double().abs().clamp(min=1e-30)).max())
+            worst = max(worst, rel)
+            reasons.append(f"{name}: float sums off one process by rtol {rel} (the fold's order differs)")
+            check(rel <= 1e-6, f"sync-sharded: {name} off one process by rtol {rel}")
+        for line in reasons:
+            print(f"sync-sharded rank {rank}: {line}", file=sys.stderr, flush=True)
+        out["float_sum_max_rel_err"] = worst
+        out["blocks_bit_equal_to_one_process"] = not reasons
+        want_value = ref.compute()
+        same_nan = torch.equal(torch.isnan(value), torch.isnan(want_value))
+        ok = ~torch.isnan(want_value)
+        rel = float(((value[ok].double() - want_value[ok].double()).abs() / want_value[ok].double().abs()).max()) if bool(ok.any()) else 0.0
+        check(same_nan and rel <= 1e-6, f"sync-sharded: compute() off one process by rtol {rel}")
+        out["value_max_rel_err"] = rel
+        out["values_bit_equal_to_one_process"] = torch.equal(bits(torch, value), bits(torch, want_value))
+        out["unsharded_state_bytes"] = ref.total_state_bytes()
+        out["reference_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        del ref
+
+        # each kernel at the shard's shapes against its plain version (rank 0)
+        lines = []
+        if rank == 0:
+            for name, source, replaces, plain, library, exact in (
+                ("segment_sum_f32", KERNEL_SOURCE, REPLACES, ops.segment_sum_reference, library_index_add,
+                 lambda v, i, n: ops.segment_sum_reference(v.cpu(), i.cpu(), n).to(v.device)),
+                ("segment_sum_i32", KERNEL_SOURCE, REPLACES, ops.segment_sum_reference, library_index_add, None),
+                ("segment_max_f32", SEGEXT_SOURCE, K2_REPLACES, lambda v, i, n: ops.segment_extremum_reference(v, i, n, True),
+                 lambda t, v, i, n: library_extremum(t, v, i, n, True), None),
+                ("segment_min_f32", SEGEXT_SOURCE, K2_REPLACES, lambda v, i, n: ops.segment_extremum_reference(v, i, n, False),
+                 lambda t, v, i, n: library_extremum(t, v, i, n, False), None),
+            ):
+                vals, ids, n = captured[name][0]
+                line = segment_fold_line(
+                    torch, ops, name, source, replaces, launches, (vals, ids, n), plain, library(torch, vals, ids, n),
+                    f"{name}_kernel", exact_fn=exact,
+                )
+                check(line["max_abs_err"] == 0.0, f"sync-sharded: {name} at the shard's shapes off its plain version")
+                lines.append({**line, "path": "sync-sharded"})
+        out["kernel_lines"] = lines
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def sync_sharded_phase(torch, card):
+    """sync-sharded in two spawned gloo ranks on the card; returns the
+    kernels-line entries at the shard's shapes and each kernel's launches
+    by rank."""
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(sync_sharded_rank, SYNC_WORLD, (), SHARD_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    check(all(r["values_digest"] == ranks[0]["values_digest"] for r in ranks), "sync-sharded: compute() differs across ranks")
+    per_rank = [{k: v for k, v in r.items() if k != "kernel_lines"} for r in ranks]
+    emit(
+        {
+            "phase": "sync-sharded",
+            "card": card,
+            "world": SYNC_WORLD,
+            "backend": "gloo",
+            "device": f"{SYNC_DEVICE}:0",
+            "slices": SHARD_SLICES,
+            "updates": SHARD_UPDATES,
+            "rows_per_rank_and_update": SHARD_BATCH,
+            "image": list(SHARD_IMAGE),
+            "zipf": READ_ZIPF,
+            "route": "all_gather of every rank's ids and per-row states, one round per update",
+            "ranks": per_rank,
+            "spawn_seconds": spawn_s,
+        }
+    )
+    launches = {name: [r["launches"].get(name, 0) for r in ranks] for name in SHARD_KERNELS}
+    return ranks[0]["kernel_lines"], launches
+
+
 def read_plane_phase(torch, ops, card, tm):
     """read-plane: the incremental reads on the card. Sliced: SlicedMetric(
     PeakSignalNoiseRatio(), num_slices=100_000) over Zipf-skewed tenants,
@@ -8419,6 +8678,10 @@ def main():
     pairwise_embeddings_phase(torch, ops, card, tm)
     # cross-process sync: 2 ranks (the families), 8 (the bundle), NCCL alone
     sync_launches = sync_phases(torch, card)
+    # sharded slice state: the routed update over two gloo ranks
+    sharded_lines, sharded_launches = sync_sharded_phase(torch, card)
+    for name, counts in sharded_launches.items():
+        sync_launches.setdefault(name, {})["sync-sharded"] = counts
     nccl_world1_phase(torch, card)
     # the image family: SSIM/MS-SSIM/UQI (config 5), FID/KID/IS on the
     # InceptionV3 (config 5b), LPIPS; no kernel of ours on their paths
@@ -8602,6 +8865,9 @@ def main():
     # K3 and K1 at the fleet fold's [16384, 2002] sketch compaction and K4
     # at its table merge, with the folds' launches
     kernels += fleet_kernel_lines(torch, ops, fleet)
+    # K1 and K2 at the sharded slice state's [8192] -> 500,000, with
+    # sync-sharded's launches on rank 0
+    kernels += sharded_lines
     # each kernel's launches inside the sync phases' syncs, by phase and rank
     for entry in kernels:
         entry["sync_launches"] = sync_launches.get(entry["name"], {})

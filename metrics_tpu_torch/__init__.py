@@ -148,5 +148,97 @@ from metrics_tpu_torch.wrappers import (  # noqa: F401
     MinMaxMetric,
     MultioutputWrapper,
 )
+from metrics_tpu_torch import functional  # noqa: F401,E402
+from metrics_tpu_torch.observability import MetricRecorder, get_recorder  # noqa: F401,E402
 
 __version__ = "0.1.0"
+
+__all__ = [
+    "Accuracy",
+    "AUC",
+    "AUROC",
+    "AveragePrecision",
+    "BERTScore",
+    "BinnedAveragePrecision",
+    "BinnedPrecisionRecallCurve",
+    "BinnedRecallAtFixedPrecision",
+    "BLEUScore",
+    "BootStrapper",
+    "CalibrationError",
+    "CatMetric",
+    "CharErrorRate",
+    "CHRFScore",
+    "ClasswiseWrapper",
+    "CohenKappa",
+    "CompositionalMetric",
+    "ConfusionMatrix",
+    "CosineSimilarity",
+    "ExplainedVariance",
+    "ExtendedEditDistance",
+    "F1Score",
+    "FBetaScore",
+    "FrechetInceptionDistance",
+    "functional",
+    "get_recorder",
+    "HammingDistance",
+    "HingeLoss",
+    "InceptionScore",
+    "JaccardIndex",
+    "KernelInceptionDistance",
+    "KLDivergence",
+    "LearnedPerceptualImagePatchSimilarity",
+    "MatchErrorRate",
+    "MatthewsCorrCoef",
+    "MaxMetric",
+    "MeanAbsoluteError",
+    "MeanAbsolutePercentageError",
+    "MeanAveragePrecision",
+    "MeanMetric",
+    "MeanSquaredError",
+    "MeanSquaredLogError",
+    "Metric",
+    "MetricCollection",
+    "MetricRecorder",
+    "MetricTracker",
+    "MinMaxMetric",
+    "MinMetric",
+    "MultioutputWrapper",
+    "MultiScaleStructuralSimilarityIndexMeasure",
+    "PeakSignalNoiseRatio",
+    "PearsonCorrCoef",
+    "PermutationInvariantTraining",
+    "Precision",
+    "PrecisionRecallCurve",
+    "R2Score",
+    "Recall",
+    "RetrievalFallOut",
+    "RetrievalHitRate",
+    "RetrievalMAP",
+    "RetrievalMRR",
+    "RetrievalNormalizedDCG",
+    "RetrievalPrecision",
+    "RetrievalRecall",
+    "RetrievalRPrecision",
+    "ROC",
+    "ROUGEScore",
+    "SacreBLEUScore",
+    "ScaleInvariantSignalDistortionRatio",
+    "ScaleInvariantSignalNoiseRatio",
+    "SignalDistortionRatio",
+    "SignalNoiseRatio",
+    "SlicedMetric",
+    "SpearmanCorrCoef",
+    "Specificity",
+    "SQuAD",
+    "StatScores",
+    "StructuralSimilarityIndexMeasure",
+    "SumMetric",
+    "SymmetricMeanAbsolutePercentageError",
+    "TranslationEditRate",
+    "TweedieDevianceScore",
+    "UniversalImageQualityIndex",
+    "WindowedMetric",
+    "WordErrorRate",
+    "WordInfoLost",
+    "WordInfoPreserved",
+]

@@ -592,9 +592,37 @@ class MetricCollection:
                             f" collection. Please make sure that {self._enable_compute_groups} matches"
                             f" {list(self.keys(keep_base=True))}"
                         )
+                self._check_explicit_group(v)
             self._groups_checked = True
         else:
             self._groups = {i: [str(k)] for i, k in enumerate(self._metrics.keys())}
+
+    def _check_explicit_group(self, group: List[str]) -> None:
+        """Every member of an explicit group must take the leader's states
+        as they are: each of its states registered by the leader with the
+        same shape and dtype. Otherwise ``compute`` would install states of
+        another layout into the member (a macro average reading a micro
+        leader's 0-d counts computes the micro value). The JAX package
+        raises at ``compute``, by accident of an axis check; here the
+        construction raises."""
+        leader = self._metrics[group[0]]
+        wrong = []
+        for name in group[1:]:
+            member = self._metrics[name]
+            for key, default in member._defaults.items():
+                lead = leader._defaults.get(key)
+                if (
+                    key not in leader._defaults
+                    or isinstance(default, list) != isinstance(lead, list)
+                    or (isinstance(default, torch.Tensor) and (default.shape != lead.shape or default.dtype != lead.dtype))
+                ):
+                    wrong.append(name)
+                    break
+        if wrong:
+            raise ValueError(
+                f"Explicit compute group {group} cannot share the states of its leader {group[0]!r}:"
+                f" the states of {wrong} differ from the leader's in name, shape or dtype"
+            )
 
     @property
     def compute_groups(self) -> Dict[int, List[str]]:

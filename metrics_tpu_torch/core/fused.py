@@ -30,10 +30,11 @@ few copies and one replay:
   ``__fused_bucket_unsafe__`` flag decline bucketing.
 * **Compute-group dedup** -- once groups are known, only group leaders run.
 * **The eager leg** -- members flagged ``__jit_unsafe__``, wrappers and
-  compositions (members with child metrics), list ("cat") states and
+  compositions (members with child metrics), list ("cat") states, sharded
+  members (``Metric.shard_states``: their update is a collective) and
   members that fail the probe run their ordinary update in the same call,
   on the same card with the same kernels; ``declined`` names the probe's
-  refusals and the members with child metrics.
+  refusals, the members with child metrics and the sharded ones.
 * **The probe** stands in for ``jax.eval_shape``: a member's update runs
   once per batch signature, on a copy of its state, under the capture rule
   of ``utils/checks.py`` and a function mode that raises on every call that
@@ -404,9 +405,13 @@ class FusedUpdate:
     @staticmethod
     def _static_unfusible(m: Metric) -> Optional[str]:
         """Why ``m`` never fuses, or None: ``__jit_unsafe__``, child metrics
-        (a wrapper or a composition), list states."""
+        (a wrapper or a composition), list states, sharded states (their
+        update is a collective: gloo cannot be captured, and a graph of
+        NCCL ranks needs a card per rank)."""
         if m._children:
             return f"child metrics {sorted(dict(m._iter_child_metrics()))}"
+        if m._shardings:
+            return f"sharded states {sorted(m._shardings)} (a collective update)"
         if getattr(m, "__jit_unsafe__", False):
             return "__jit_unsafe__"
         if any(isinstance(v, list) for v in m._defaults.values()) or any(
@@ -425,7 +430,7 @@ class FusedUpdate:
         m = self._collection._metrics[name]
         static = self._static_unfusible(m)
         if static is not None:
-            if m._children:
+            if m._children or m._shardings:
                 self.declined.setdefault(name, static)
             return False
         key = (name, sig)

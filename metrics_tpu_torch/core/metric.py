@@ -44,6 +44,23 @@ is how a simulated world drives it. In a real group every rank must compute
 in step: each sync is a series of collectives that every rank enters in
 the same order.
 
+**Sharded state** (:meth:`Metric.shard_states`, ``sliced/sharding.py``):
+the process group is the mesh axis. A leaf whose
+:class:`~metrics_tpu_torch.parallel.distributed.RankSharding` names the
+axis on its leading dimension is held by rank ``r`` of ``W`` as its block
+of rows ``[r*N/W, (r+1)*N/W)``, and so are its reset defaults. Only sum,
+max and min leaves may take a named axis. The update of a sharded metric
+is collective, as a sync is: every rank calls it in the same order with
+batches of the same shapes. It runs the update on a full-shape scratch
+state that starts at each reducer's identity (the delta), gathers every
+rank's delta in one round and folds its own block in rank order. Its
+``compute()`` is collective too: the blocks are gathered into the full
+state, computed and dropped (a sharded ``forward`` computes the whole
+world's batch, as the JAX package's does). ``state_dict`` holds the rank's
+block and makes no collective, so a rank-0-only checkpoint cannot wait on
+the other ranks. ``sync(partition_specs=, axis_name=)`` passes a leaf
+whose spec names the axis through as it is.
+
 **Telemetry** (``metrics_tpu_torch.observability``): with the default
 recorder enabled, ``update``/``compute``/``forward``/``sync`` record typed
 events inside spans, stamp the ingest times behind
@@ -77,6 +94,7 @@ from metrics_tpu_torch.observability.freshness import FreshnessStamp
 from metrics_tpu_torch.observability.memory import _track_metric
 from metrics_tpu_torch.observability.recorder import _DEFAULT_RECORDER as _TELEMETRY
 from metrics_tpu_torch.observability.trace import span as _span
+from metrics_tpu_torch.parallel.distributed import RankSharding, _fold, _spec_shards_axis, gather_parts
 from metrics_tpu_torch.parallel.distributed import distributed_available as _dist_available
 from metrics_tpu_torch.parallel.distributed import gather_all_arrays
 from metrics_tpu_torch.parallel.distributed import world_size as _world_size
@@ -259,6 +277,8 @@ class Metric(ABC):
         self._persistent: Dict[str, bool] = {}
         self._reductions: Dict[str, Optional[Callable]] = {}
         self._cat_states: Dict[str, bool] = {}
+        #: the sharded leaves: name -> RankSharding (see shard_states)
+        self._shardings: Dict[str, RankSharding] = {}
         # weak registration with the memory observatory: the default
         # MemoryLedger walks every live metric's states
         _track_metric(self)
@@ -454,9 +474,9 @@ class Metric(ABC):
         if not _TELEMETRY.enabled:  # disabled telemetry costs this ONE check
             if self.enable_profiling:
                 with self._profiler_annotation("update"):
-                    self._update(*_to_device_inputs(args, self._device), **_to_device_inputs(kwargs, self._device))
+                    self._apply_update(_to_device_inputs(args, self._device), _to_device_inputs(kwargs, self._device))
             else:
-                self._update(*_to_device_inputs(args, self._device), **_to_device_inputs(kwargs, self._device))
+                self._apply_update(_to_device_inputs(args, self._device), _to_device_inputs(kwargs, self._device))
             self._bump_auto_count(eager=True)
             return
         self._recorded_update(args, kwargs)
@@ -474,7 +494,7 @@ class Metric(ABC):
         dev_args = _to_device_inputs(args, self._device)
         dev_kwargs = _to_device_inputs(kwargs, self._device)
         with self._trace_annotation("update"):
-            self._update(*dev_args, **dev_kwargs)
+            self._apply_update(dev_args, dev_kwargs)
             self._bump_auto_count(eager=True)
             # recorded INSIDE the span so the update event carries its id
             is_new_sig = _TELEMETRY.record_call("update", self, time.perf_counter() - t0, args, kwargs)
@@ -491,6 +511,49 @@ class Metric(ABC):
         # is paced inside the recorder
         _TELEMETRY.record_memory_boundary("update", self, live_bytes=self.total_state_bytes)
 
+    #: True on classes whose ``_update`` routes a sharded state itself
+    #: (``SlicedMetric``: the batch rows go to the ranks that own them)
+    _routes_sharded_update: bool = False
+
+    def _apply_update(self, args: Tuple, kwargs: Dict[str, Any]) -> None:
+        if self._shardings and not self._routes_sharded_update:
+            self._sharded_update(args, kwargs)
+        else:
+            self._update(*args, **kwargs)
+
+    def _sharded_update(self, args: Tuple, kwargs: Dict[str, Any]) -> None:
+        """The update of a sharded metric: ``_update`` on a full-shape
+        scratch of each sharded leaf, filled with its reducer's identity
+        (the batch's delta), every rank's deltas gathered in one round, and
+        this rank's block folded in rank order. Replicated leaves update in
+        place, as in any metric."""
+        blocks = {name: getattr(self, name) for name in self._shardings}
+        world = self._shard_mesh().world_size
+        for name, block in blocks.items():
+            shape = (block.shape[0] * world,) + tuple(block.shape[1:])
+            fill = _fold_identity(self._reductions[name], block.dtype)
+            object.__setattr__(self, name, torch.full(shape, fill, dtype=block.dtype, device=block.device))
+        try:
+            self._update(*args, **kwargs)
+            deltas = [getattr(self, name) for name in blocks]
+        finally:
+            for name, block in blocks.items():
+                object.__setattr__(self, name, block)
+        stacks = gather_parts(deltas, self._shard_mesh().group, self.dist_sync_fn)
+        for (name, block), stack in zip(blocks.items(), stacks):
+            lo, hi = self._shardings[name].block(stack.shape[1])
+            red = _SHARDABLE[self._reductions[name]]
+            mine = _fold(red, stack[:, lo:hi])
+            if red == "sum":
+                new = block + mine
+            else:
+                new = (maximum_ieee if red == "max" else minimum_ieee)(block, mine)
+            object.__setattr__(self, name, new)
+
+    def _shard_mesh(self) -> Any:
+        """The one mesh of this metric's sharded leaves."""
+        return next(iter(self._shardings.values())).mesh
+
     def compute(self) -> Any:
         """Compute (and cache) the metric from the accumulated states,
         synced across processes first where there are several (or a
@@ -501,7 +564,7 @@ class Metric(ABC):
                 " the ``update`` method which may lead to errors, as metric states have not yet been updated.",
                 UserWarning,
             )
-        synced = self._to_sync and (_dist_available() or self.dist_sync_fn is not None)
+        synced = self._syncs_compute() and (_dist_available() or self.dist_sync_fn is not None)
         # one read of the cache: an update on another thread (the async
         # pipeline's worker) may clear it between a check and a second read
         cached = self._computed
@@ -540,7 +603,7 @@ class Metric(ABC):
         """Sync where asked, compute, cache the value and put the local states back."""
         epoch0 = self._write_epoch
         with self.sync_context(
-            dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
+            dist_sync_fn=self.dist_sync_fn, should_sync=self._syncs_compute(), should_unsync=self._should_unsync
         ):
             if self.enable_profiling:
                 with self._profiler_annotation("compute"):
@@ -551,6 +614,12 @@ class Metric(ABC):
             self._computed_epoch = epoch0
             self._computed_synced = synced
         return value
+
+    def _syncs_compute(self) -> bool:
+        """Whether ``compute`` syncs: unless ``forward`` asked for the local
+        batch value, and always for a sharded metric (its update took the
+        whole world's batch; its blocks make one state together)."""
+        return self._to_sync or bool(self._shardings)
 
     def freshness_stamp(self, now: Optional[float] = None) -> FreshnessStamp:
         """The :class:`~metrics_tpu_torch.observability.freshness.FreshnessStamp`
@@ -619,16 +688,40 @@ class Metric(ABC):
     # ------------------------------------------------------------------
     # cross-process sync
     # ------------------------------------------------------------------
-    def _sync_dist(self, dist_sync_fn: Callable = gather_all_arrays, process_group: Optional[Any] = None) -> None:
+    def _sync_dist(
+        self,
+        dist_sync_fn: Callable = gather_all_arrays,
+        process_group: Optional[Any] = None,
+        *,
+        partition_specs: Optional[Dict[str, Any]] = None,
+        axis_name: Optional[str] = None,
+    ) -> None:
         """Replace every state by its cross-rank reduction: each tensor state
         is gathered (``dist_sync_fn``), stacked ``[world, ...]`` with the
         ranks' sketch occupancy bounds, and folded by its reducer (None
         keeps the stack). A list state is concatenated first, so it costs one
         gather whatever its length, and an empty one still gathers (zero
         rows). The eager ``_n_updates`` counter gathers as an int32 tensor.
-        Tensors are installed, never written in place."""
+        Tensors are installed, never written in place.
+
+        A state whose ``partition_specs`` entry names ``axis_name`` (None:
+        any axis) passes through as it is: no round, no bytes. The blocks of
+        the other sharded states are gathered in one round and laid end to
+        end in rank order: the full state."""
         group = process_group or self.process_group
+        passed = {
+            attr
+            for attr in self._defaults
+            if partition_specs is not None and _spec_shards_axis(partition_specs.get(attr), axis_name)
+        }
+        blocks = [attr for attr in self._shardings if attr not in passed]
+        if blocks:
+            stacks = gather_parts([getattr(self, a) for a in blocks], self._shard_mesh().group, dist_sync_fn)
+            for attr, stack in zip(blocks, stacks):
+                object.__setattr__(self, attr, stack.reshape((-1,) + tuple(stack.shape[2:])))
         for attr, reduction_fn in self._reductions.items():
+            if attr in passed or attr in self._shardings:
+                continue
             value = getattr(self, attr)
             if isinstance(value, int):
                 value = torch.tensor(value, dtype=torch.int32, device=self._device)
@@ -674,11 +767,16 @@ class Metric(ABC):
         process_group: Optional[Any] = None,
         should_sync: bool = True,
         distributed_available: Optional[Callable] = _dist_available,
+        *,
+        partition_specs: Optional[Dict[str, Any]] = None,
+        axis_name: Optional[str] = None,
     ) -> None:
         """Replace the states by their cross-process reduction (kept local
         states go back with :meth:`unsync`). Nothing happens with one
         process and no ``dist_sync_fn`` (this call's or the constructor's);
-        a ``dist_sync_fn`` alone makes a simulated world."""
+        a ``dist_sync_fn`` alone makes a simulated world. A state whose
+        ``partition_specs`` entry names ``axis_name`` passes through (see
+        :meth:`_sync_dist`)."""
         if self._is_synced and should_sync:
             raise MetricsUserError("The Metric has already been synced.")
         is_distributed = distributed_available() if callable(distributed_available) else None
@@ -689,14 +787,15 @@ class Metric(ABC):
         if dist_sync_fn is None:
             dist_sync_fn = gather_all_arrays
         self._cache = {attr: getattr(self, attr) for attr in self._defaults}
+        specs = {} if partition_specs is None else {"partition_specs": partition_specs, "axis_name": axis_name}
         if not _TELEMETRY.enabled:
-            self._sync_dist(dist_sync_fn, process_group=process_group)
+            self._sync_dist(dist_sync_fn, process_group=process_group, **specs)
             self._is_synced = True
             return
         t0 = time.perf_counter()
         state_bytes = sum(self.state_footprint(include_children=False).values())
         with _span(f"{type(self).__name__}.sync"):
-            self._sync_dist(dist_sync_fn, process_group=process_group)
+            self._sync_dist(dist_sync_fn, process_group=process_group, **specs)
             self._is_synced = True
             # the metric-level event (its own type tag): the transport's
             # "sync" events own the gather-byte accounting
@@ -742,6 +841,79 @@ class Metric(ABC):
             yield
         finally:
             self.unsync(should_unsync=self._is_synced and should_unsync)
+
+    # ------------------------------------------------------------------
+    # sharded state
+    # ------------------------------------------------------------------
+    def shard_states(self, shardings: Any) -> None:
+        """Shard states (and their reset defaults) over a process group.
+
+        ``shardings`` is one
+        :class:`~metrics_tpu_torch.parallel.distributed.RankSharding` for
+        every state (the children's too), or a dict from state names to
+        shardings (missing names stay as they are). A sharding whose spec
+        names no axis replicates: the state stays as it is. One that names
+        the axis on the leading dimension keeps this rank's block of rows;
+        the leading dimension must divide evenly over the group (else
+        :func:`~metrics_tpu_torch.sliced.sharding.get_naive_slice_sharding`
+        replicates it). Only sum, max and min states may take a named axis;
+        list states are skipped, as in the JAX package, and a ``cat``,
+        mean, merge or custom state with a named axis raises. A metric that
+        has taken batches folds every rank's accumulation into its blocks
+        (one round), so the call is collective where it shards.
+        """
+        plan: Dict[str, RankSharding] = {}
+        for name in self._defaults:
+            sharding = shardings.get(name) if isinstance(shardings, dict) else shardings
+            if sharding is None or isinstance(self._defaults[name], list) or isinstance(getattr(self, name), list):
+                continue
+            if not isinstance(sharding, RankSharding):
+                raise MetricsUserError(f"shard_states takes RankSharding objects, got {type(sharding).__name__} for {name!r}")
+            if sharding.axis is None:
+                continue
+            if self._reductions[name] not in _SHARDABLE:
+                raise MetricsUserError(
+                    f"state {name!r} of {type(self).__name__} is reduced by"
+                    f" {getattr(self._reductions[name], '__name__', self._reductions[name])!r}: only sum, max and"
+                    " min states can be sharded over a process group (their blocks fold exactly)"
+                )
+            if name in self._shardings:
+                raise MetricsUserError(f"state {name!r} of {type(self).__name__} is already sharded")
+            rows = getattr(self, name).shape[0] if getattr(self, name).ndim else 0
+            if rows < sharding.world_size or rows % sharding.world_size:
+                raise MetricsUserError(
+                    f"state {name!r} of {type(self).__name__} has {rows} leading rows, which a world of"
+                    f" {sharding.world_size} does not divide; get_naive_slice_sharding replicates such a state"
+                )
+            plan[name] = sharding
+        meshes = {s.mesh for s in list(plan.values()) + list(self._shardings.values())}
+        if len(meshes) > 1:
+            raise MetricsUserError(f"the states of {type(self).__name__} are sharded over more than one mesh: {meshes}")
+        if plan:
+            names = list(plan)
+            mesh = next(iter(meshes))
+            if self._update_called and mesh.world_size > 1:
+                # the replicated states held each rank's own accumulation
+                parts = [getattr(self, n) for n in names]
+                stacks = gather_parts(parts, mesh.group, self.dist_sync_fn)
+                for n, stack in zip(names, stacks):
+                    red = _SHARDABLE[self._reductions[n]]
+                    folded = _fold(red, stack - self._defaults[n]) + self._defaults[n] if red == "sum" else _fold(red, stack)
+                    object.__setattr__(self, n, folded)
+            for n in names:
+                lo, hi = plan[n].block(getattr(self, n).shape[0])
+                object.__setattr__(self, n, _clone_state(getattr(self, n)[lo:hi]))
+                self._defaults[n] = _clone_state(self._defaults[n][lo:hi])
+            self._shardings.update(plan)
+            self._on_sharded()
+            self._mark_state_written()
+        if not isinstance(shardings, dict):
+            for _, child in self._iter_child_metrics():
+                child.shard_states(shardings)
+
+    def _on_sharded(self) -> None:
+        """Hook: the states just became blocks (``SlicedMetric`` resizes its
+        read plane)."""
 
     # ------------------------------------------------------------------
     # pure-state API
@@ -1219,6 +1391,24 @@ class Metric(ABC):
 
     def __getitem__(self, idx: Any) -> "CompositionalMetric":
         return CompositionalMetric(lambda x: x[idx], self, None)
+
+
+#: the reducers a sharded state may have, by their fold's name
+_SHARDABLE = {dim_zero_sum: "sum", dim_zero_max: "max", dim_zero_min: "min"}
+
+
+def _fold_identity(red: Callable, dtype: torch.dtype) -> Any:
+    """The value a sharded update's scratch starts at: the identity of the
+    state's fold (0, or the dtype's lowest or highest value)."""
+    kind = _SHARDABLE[red]
+    if kind == "sum":
+        return 0
+    if dtype == torch.bool:
+        return kind == "min"
+    if dtype.is_floating_point:
+        return float("-inf") if kind == "max" else float("inf")
+    info = torch.iinfo(dtype)
+    return info.min if kind == "max" else info.max
 
 
 def _nbytes(value: Any) -> int:

@@ -10,9 +10,11 @@ still be missing: data accepted into the async queue but not yet applied
 (``ring_span_s``) and how far a fleet watermark trails the collector's
 clock (``watermark_lag_s``). Stamps form a commutative monoid under
 :meth:`FreshnessStamp.merge` (min over ``min_event_t``, max over everything
-else), with :data:`IDENTITY` as the identity. The async update handle
-(``core/pipeline.py``) is this slice's producer of stamps; the recorder,
-fleet and windowed producers are not ported yet (ROADMAP.md, queue A).
+else), with :data:`IDENTITY` as the identity. Stamps are made by the
+metrics (``core/metric.py``, ``sliced/metric.py``, ``windowed/metric.py``),
+the collection (``collections.py``), the async update handle
+(``core/pipeline.py``) and the fleet collector
+(``observability/collector.py``).
 """
 from __future__ import annotations
 

@@ -25,9 +25,8 @@ Three rule shapes cover the standard serving-loop failure modes:
   alarm.
 
 :func:`default_rules` wires the thirteen standard alarm classes -- seven
-serving-loop classes, the three fleet-collector classes (whose series a
-fleet collector feeds; the port's comes with the fleet plane, ROADMAP.md
-A.6, and until then they never fire, like any absent series), the
+serving-loop classes, the three fleet-collector classes (whose series
+the fleet collector, ``observability/collector.py``, feeds), the
 read-path freshness class with its ``read_latency`` companion, and the two
 memory-observatory classes (:class:`MemoryBudget`/:class:`MemoryLeak`).
 Every rule and the monitor take an injected ``now=``, so a caller can
@@ -416,8 +415,8 @@ class MemoryBudget(ThresholdRule):
     (:class:`~metrics_tpu_torch.observability.memory.MemoryObservatory`) feeds:
     the ledger's live SlicedMetric state bytes divided by the total slice
     (tenant) count. Firing means each tenant's state grew past the budget
-    the deployment provisioned — the ROADMAP item-3 headline number going
-    out of bounds, e.g. a window/sketch capacity misconfiguration
+    the deployment provisioned (the per-tenant state bytes going out of
+    bounds), e.g. a window/sketch capacity misconfiguration
     multiplying per-tenant bytes. The threshold is a plain attribute, so
     capacity tooling can tighten it live (``rule.threshold = ...``)."""
 
@@ -818,7 +817,7 @@ def default_rules(
       ``read_latency_limit_ms``.
     * ``memory_budget`` — the ledger's sliced state bytes per tenant
       (``mem_bytes_per_tenant``, fed by memory-observatory polls) against
-      ``tenant_bytes_limit`` — the ROADMAP item-3 capacity headline as an
+      ``tenant_bytes_limit`` — the per-tenant state capacity as an
       alarm.
     * ``memory_leak`` — monotone growth of the unaccounted residue
       (``mem_unaccounted_bytes`` = device in-use − ledger − cache planes)

@@ -42,3 +42,4 @@ from metrics_tpu_torch.ops.segment_sum import (  # noqa: F401
     segment_sum_i32,
     segment_sum_reference,
 )
+from metrics_tpu_torch.ops.sqrtm import NEWTON_SCHULZ_ITERS  # noqa: F401

@@ -27,6 +27,22 @@ takes the place of the JAX package's mesh axis:
   ``(r0 + r1) + r2 ...``; max and min fold with the JAX package's NaN and
   signed-zero semantics.
 
+* **Sharded state** (``sliced/sharding.py``, :meth:`Metric.shard_states
+  <metrics_tpu_torch.core.metric.Metric.shard_states>`). The process group
+  is the mesh axis: :class:`RankMesh` (a group, this rank, the world size)
+  takes the place of ``jax.sharding.Mesh`` and :class:`RankSharding` of
+  ``NamedSharding(mesh, PartitionSpec(...))``; :class:`PartitionSpec` is
+  the port's own tuple. Rank ``r`` of ``W`` owns the rows
+  ``[r*N/W, (r+1)*N/W)`` of a sharded leaf's leading dimension and holds
+  them as a tensor of that block's size. :func:`gather_parts` is the
+  routing gather of a sharded update: the bytes of fixed-shape parts in
+  one round, no header and no host read, so every rank passes the same
+  shapes. ``sync_pytree(partition_specs=, axis_name=)`` passes a leaf
+  whose spec names the axis through with no round and no bytes (the JAX
+  package's ``sliced_passthrough``); under
+  ``METRICS_TPU_TORCH_VERIFY_MANIFEST`` each such claim is checked against
+  the port's layout manifest (:func:`layout_verify_counters`).
+
 Every collective counts in :func:`collective_counts` (rounds, bytes
 received and host reads), as the kernels count their launches. With the
 default telemetry recorder enabled, each gather and each ``sync_pytree``
@@ -35,6 +51,7 @@ rounds' ``bytes_received``), the world size and, for an uneven gather, the
 pad-to-max bytes that carried no data. A ``sync_pytree`` owns the event of
 the gathers it makes.
 """
+import os
 import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -44,6 +61,7 @@ from metrics_tpu_torch.observability.recorder import _DEFAULT_RECORDER as _TELEM
 from metrics_tpu_torch.observability.trace import span as _span
 from metrics_tpu_torch.sketches.quantile import _FILL_BOUND, fill_bound, with_fill_bound, with_rank_fill_bounds
 from metrics_tpu_torch.utils.data import dim_zero_cat, maximum_ieee, minimum_ieee
+from metrics_tpu_torch.utils.exceptions import MetricsUserError
 
 Tensor = torch.Tensor
 
@@ -285,11 +303,221 @@ def _split_group(gathered: Tensor, parts: List[Tensor]) -> Tuple[List[Tensor], i
     return stacks, offset
 
 
+# ---------------------------------------------------------------------------
+# the process group as a mesh axis: specs, shardings, the routing gather
+# ---------------------------------------------------------------------------
+
+
+class PartitionSpec(tuple):
+    """The port's ``jax.sharding.PartitionSpec``: one entry per array
+    dimension, a mesh axis name or None; an empty spec replicates. It is a
+    tuple, and compares as one."""
+
+    def __new__(cls, *entries: Any) -> "PartitionSpec":
+        return tuple.__new__(cls, entries)
+
+    def __getnewargs__(self) -> Tuple:
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+class RankMesh:
+    """The port's one-axis mesh: a process group (None: the default one),
+    this process's rank in it and the group's size. Rank and size default
+    to the initialised group's (0 and 1 without one); a simulated world
+    gives them explicitly. Where the JAX package takes a ``mesh``, the port
+    takes a ``RankMesh``, a process group, a
+    ``torch.distributed.device_mesh.DeviceMesh`` with the named axis, or
+    None (:func:`rank_mesh`)."""
+
+    __slots__ = ("group", "rank", "world_size")
+
+    def __init__(self, group: Optional[Any] = None, rank: Optional[int] = None, world_size: Optional[int] = None) -> None:
+        dist = torch.distributed
+        live = dist.is_available() and dist.is_initialized()
+        self.group = group
+        self.rank = int(rank) if rank is not None else (dist.get_rank(group) if live else 0)
+        self.world_size = int(world_size) if world_size is not None else (dist.get_world_size(group) if live else 1)
+        if not 0 <= self.rank < self.world_size:
+            raise MetricsUserError(f"rank {self.rank} is outside a world of {self.world_size}")
+
+    def _key(self) -> Tuple:
+        return (id(self.group), self.rank, self.world_size)
+
+    def __eq__(self, other: Any) -> bool:
+        return isinstance(other, RankMesh) and self._key() == other._key()
+
+    def __hash__(self) -> int:
+        return hash(self._key())
+
+    # a process group cannot be copied: a cloned metric shares its mesh
+    def __deepcopy__(self, memo: Dict) -> "RankMesh":
+        return self
+
+    def __repr__(self) -> str:
+        return f"RankMesh(rank={self.rank}, world_size={self.world_size})"
+
+
+def rank_mesh(mesh: Any = None, axis_name: Optional[str] = None) -> RankMesh:
+    """The :class:`RankMesh` of a ``mesh`` argument: a ``RankMesh`` as it
+    is, a ``DeviceMesh``'s group of ``axis_name``, or a process group (None:
+    the default group)."""
+    if isinstance(mesh, RankMesh):
+        return mesh
+    try:
+        from torch.distributed.device_mesh import DeviceMesh
+    except ImportError:  # pragma: no cover - torch without distributed
+        DeviceMesh = ()
+    if isinstance(mesh, DeviceMesh):
+        names = tuple(mesh.mesh_dim_names or ())
+        if axis_name not in names:
+            raise MetricsUserError(f"the device mesh has no axis {axis_name!r} (its axes: {names})")
+        return RankMesh(mesh.get_group(axis_name))
+    return RankMesh(mesh)
+
+
+class RankSharding:
+    """The port's ``NamedSharding(mesh, spec)``: a :class:`RankMesh` and a
+    :class:`PartitionSpec`. A spec that names an axis on the leading
+    dimension shards it: rank ``r`` owns rows ``[r*N/W, (r+1)*N/W)``. A
+    spec that names none replicates. The process group is the one axis, so
+    any name stands for it; a name on another dimension is refused."""
+
+    def __init__(self, mesh: Any, spec: Sequence[Any]) -> None:
+        spec = PartitionSpec(*spec)
+        axis = _leading_axis(spec)
+        self.mesh = rank_mesh(mesh, axis)
+        self.spec = spec
+        self.axis = axis
+
+    @property
+    def group(self) -> Any:
+        return self.mesh.group
+
+    @property
+    def rank(self) -> int:
+        return self.mesh.rank
+
+    @property
+    def world_size(self) -> int:
+        return self.mesh.world_size
+
+    def block(self, n: int) -> Tuple[int, int]:
+        """The rows ``[lo, hi)`` of a leading dimension of ``n`` this rank owns."""
+        rows = n // self.world_size
+        return self.rank * rows, (self.rank + 1) * rows
+
+    def __eq__(self, other: Any) -> bool:
+        return isinstance(other, RankSharding) and (self.mesh, self.spec) == (other.mesh, other.spec)
+
+    def __hash__(self) -> int:
+        return hash((self.mesh, self.spec))
+
+    def __deepcopy__(self, memo: Dict) -> "RankSharding":
+        return self
+
+    def __repr__(self) -> str:
+        return f"RankSharding({self.mesh!r}, {self.spec!r})"
+
+
+def _leading_axis(spec: Sequence[Any]) -> Optional[str]:
+    """The axis name a spec puts on the leading dimension, or None; a name
+    on any other dimension raises (ownership is by leading rows)."""
+    named = [i for i, entry in enumerate(spec) if isinstance(entry, str) or (isinstance(entry, (tuple, list)) and entry)]
+    if any(i != 0 for i in named):
+        raise MetricsUserError(f"{spec!r} names a mesh axis past the leading dimension; the port shards leading rows only")
+    if not named:
+        return None
+    entry = spec[0]
+    return entry if isinstance(entry, str) else entry[0]
+
+
+def _even_gather(dist_sync_fn: Optional[Callable]) -> Callable:
+    """The fixed-shape gather: ``dist_sync_fn`` where one was given (a
+    simulated world), else one ``all_gather`` of the group."""
+    if dist_sync_fn is None or dist_sync_fn is gather_all_arrays:
+        return lambda x, group=None: _all_gather_even(x, group)
+    return dist_sync_fn
+
+
+def gather_parts(parts: List[Tensor], group: Optional[Any] = None, dist_sync_fn: Optional[Callable] = None) -> List[Tensor]:
+    """Every rank's ``parts`` in one round: their bytes back to back, one
+    ``all_gather``, then a ``[world, *part.shape]`` stack per part, in rank
+    order. No header and no host read: every rank must pass parts of the
+    same shapes and dtypes, in the same order."""
+    return _split_group(_gather_group(parts, None, _even_gather(dist_sync_fn), group), parts)[0]
+
+
+#: layout-manifest plausibility counters of the sharded claims a sync
+#: passes through (populated only under METRICS_TPU_TORCH_VERIFY_MANIFEST)
+_LAYOUT_VERIFY_COUNTERS = {"claims_checked": 0, "implausible_claims": 0}
+
+
+def layout_verify_counters() -> Dict[str, int]:
+    """The sync path's layout-manifest cross-check counters:
+    ``claims_checked`` (sharded-claimed leaves inspected under
+    ``METRICS_TPU_TORCH_VERIFY_MANIFEST``) and ``implausible_claims``
+    (claims the port's layout manifest says belong to replicated-only
+    leaves: the skipped-reduction fault; the claim is honoured, with a
+    warning)."""
+    return dict(_LAYOUT_VERIFY_COUNTERS)
+
+
+def reset_layout_verify_counters() -> None:
+    for key in _LAYOUT_VERIFY_COUNTERS:
+        _LAYOUT_VERIFY_COUNTERS[key] = 0
+
+
+def _verify_sharded_claims(sharded: List[Tuple]) -> None:
+    """Under ``METRICS_TPU_TORCH_VERIFY_MANIFEST``, check every leaf a sync
+    passes through as sharded against the layout manifest's shard-axis
+    index, and warn on a claim it refutes. Host-side string work; the spec
+    stays authoritative."""
+    from metrics_tpu_torch.analysis.layout import leaf_may_shard
+    from metrics_tpu_torch.analysis.manifest import ENV_VERIFY_MANIFEST
+    from metrics_tpu_torch.utils.prints import rank_zero_warn
+
+    if os.environ.get(ENV_VERIFY_MANIFEST, "").strip().lower() in ("", "0", "false", "no", "off"):
+        return
+    for path in sharded:
+        _LAYOUT_VERIFY_COUNTERS["claims_checked"] += 1
+        if leaf_may_shard("/".join(path)) is False:
+            _LAYOUT_VERIFY_COUNTERS["implausible_claims"] += 1
+            rank_zero_warn(
+                f"partition spec claims state leaf {'/'.join(path)!r} sharded, but the "
+                "layout manifest knows it only as replicated -- the sync is passing it "
+                "through WITHOUT its cross-rank reduction. Audit the spec (or regenerate "
+                "the manifest with `python -m metrics_tpu_torch.analysis --manifest`).",
+                UserWarning,
+            )
+
+
+def _spec_shards_axis(spec: Any, axis_name: Optional[str]) -> bool:
+    """True when a spec places ``axis_name`` on some dimension (with
+    ``axis_name`` None: any axis, the process group being the only one):
+    the leaf's rows are owned disjointly across the group and a reduction
+    would mix unrelated blocks."""
+    if spec is None:
+        return False
+    for entry in tuple(spec):
+        if axis_name is None and (isinstance(entry, str) or (isinstance(entry, (tuple, list)) and entry)):
+            return True
+        if entry == axis_name:
+            return True
+        if isinstance(entry, (tuple, list)) and axis_name in entry:
+            return True
+    return False
+
+
 def sync_pytree(
     state: Dict[str, Any],
     reductions: Dict[str, Any],
     group: Optional[Any] = None,
     dist_sync_fn: Optional[Callable] = None,
+    partition_specs: Optional[Dict[str, Any]] = None,
+    axis_name: Optional[str] = None,
 ) -> Dict[str, Any]:
     """Sync a whole (possibly nested) state across the process group in
     one collective round per group of leaves.
@@ -309,9 +537,25 @@ def sync_pytree(
 
     ``dist_sync_fn(x, group=...)`` replaces the gather (a simulated world
     returns every rank's ``x``); by default the process group's.
+
+    ``partition_specs``: a tree of specs nested like ``reductions``. A leaf
+    whose spec names ``axis_name`` (None: any axis) is owned disjointly by
+    the ranks (a block of a sharded leaf, see ``sliced/sharding.py``) and
+    passes through as it is: no round, no bytes. The other leaves reduce
+    as above. The sync event counts the passed leaves
+    (``sliced_passthrough``).
     """
+    sharded = []
+    if partition_specs is not None:
+        sharded = [
+            path
+            for path, _ in _iter_state_leaves(state)
+            if _spec_shards_axis(_path_get(partition_specs, path), axis_name)
+        ]
+        if sharded:
+            _verify_sharded_claims(sharded)
     if not _TELEMETRY.enabled:
-        return _sync_pytree(state, reductions, group, dist_sync_fn)
+        return _sync_pytree(state, reductions, group, dist_sync_fn, sharded=sharded)
     moved = [0]
 
     def counted(fn: Callable) -> Callable:
@@ -326,9 +570,15 @@ def sync_pytree(
     _PYTREE_SYNC.active = True
     try:
         with _span("sync_pytree", world_size=world):
-            out = _sync_pytree(state, reductions, group, dist_sync_fn, wrap=counted)
+            out = _sync_pytree(state, reductions, group, dist_sync_fn, wrap=counted, sharded=sharded)
             n_leaves = sum(1 for _ in _iter_state_leaves(state))
-            _TELEMETRY.record_sync("sync_pytree", gather_bytes=moved[0], world_size=world, n_leaves=n_leaves)
+            _TELEMETRY.record_sync(
+                "sync_pytree",
+                gather_bytes=moved[0],
+                world_size=world,
+                n_leaves=n_leaves,
+                sliced_passthrough=len(sharded),
+            )
     finally:
         _PYTREE_SYNC.active = False
     return out
@@ -340,15 +590,21 @@ def _sync_pytree(
     group: Optional[Any],
     dist_sync_fn: Optional[Callable],
     wrap: Callable = lambda fn: fn,
+    sharded: Sequence[Tuple] = (),
 ) -> Dict[str, Any]:
     even = wrap(dist_sync_fn or (lambda x, group=None: _all_gather_even(x, group)))
     gather = wrap(dist_sync_fn or gather_all_arrays)
     groups: Dict[Tuple, List[Tuple]] = {}
     merge_groups: Dict[torch.dtype, List[Tuple]] = {}
     fallback: List[Tuple] = []
+    out: Dict[str, Any] = {}
+    passed = set(sharded)
     for path, value in _iter_state_leaves(state):
         red = _path_get(reductions, path)
-        if isinstance(value, Tensor) and red in _ELEMENTWISE:
+        if path in passed:
+            # a block of a sharded leaf: each rank owns its rows
+            _path_set(out, path, value)
+        elif isinstance(value, Tensor) and red in _ELEMENTWISE:
             groups.setdefault((red, value.dtype), []).append(path)
         elif isinstance(value, Tensor) and getattr(red, "merge_like", False):
             merge_groups.setdefault(value.dtype, []).append(path)
@@ -356,7 +612,6 @@ def _sync_pytree(
             fallback.append(path)
 
     device = next((v.device for _, v in _iter_state_leaves(state) if isinstance(v, Tensor)), torch.device("cpu"))
-    out: Dict[str, Any] = {}
     for (red, _), paths in groups.items():
         parts = [_path_get(state, p) for p in paths]
         stacks, _ = _split_group(_gather_group(parts, None, even, group), parts)

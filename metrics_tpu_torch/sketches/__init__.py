@@ -50,3 +50,45 @@ from metrics_tpu_torch.sketches.reservoir import (  # noqa: F401
     reservoir_merge_fx,
     reservoir_rows,
 )
+
+__all__ = [
+    "detection_table_init",
+    "fill_bound",
+    "hist_bin_index",
+    "hist_init",
+    "hist_insert",
+    "hist_merge",
+    "mean_cov_from_moments",
+    "moments_init",
+    "moments_merge_fx",
+    "moments_update",
+    "qsketch_absorb_rows",
+    "qsketch_cdf",
+    "qsketch_fill",
+    "qsketch_histogram",
+    "qsketch_init",
+    "qsketch_insert",
+    "qsketch_merge",
+    "qsketch_merge_into",
+    "qsketch_quantile",
+    "qsketch_rank",
+    "QSKETCH_RANK_EPS",
+    "qsketch_total_weight",
+    "rank_error_bound",
+    "ranksketch_init",
+    "ranksketch_insert",
+    "ranksketch_merge",
+    "ranksketch_merge_fx",
+    "ranksketch_spearman",
+    "register_exact_list_states",
+    "reservoir_fill",
+    "reservoir_init",
+    "reservoir_insert",
+    "reservoir_insert_keyed",
+    "reservoir_key",
+    "reservoir_merge",
+    "reservoir_merge_fx",
+    "reservoir_rows",
+    "sketch_merge_fx",
+    "warn_exact_buffer",
+]

@@ -46,8 +46,25 @@ batch's hottest-slice row count too: one host read of a bincount); inside
 a fused update the event is recorded once per cache entry (``in_jit``),
 with no host read. A read with ``slice_ids=``/``top_k=`` records a
 ``sliced`` read event, and a full ``compute()`` carries the number of
-slices it refolded (``fanin``). Left out (ROADMAP.md, A.4): the
-partition specs of ``sliced/sharding.py``.
+slices it refolded (``fanin``).
+
+**Sharded over a process group** (``sliced/sharding.py``'s
+``shard_sliced_states``): rank ``r`` of ``W`` owns the slices
+``[r*S/W, (r+1)*S/W)`` and holds every leaf, the row counter, the dirty
+bitmap and the kept values as blocks of that size. An update is
+collective (every rank calls it in the same order, with batches of the
+same size): each rank computes its per-row states, one gather brings
+every rank's ids and rows (``W*B`` rows received per rank), and each rank
+folds them into its block at ids shifted by ``r*S/W`` through the same
+kernels (K1, K2), which drop the ids it does not own. Reads are collective
+too: ``compute()`` folds the rank's dirty slices through its own read
+plane and gathers the value blocks in rank order into ``[S]`` on every
+rank; ``compute(slice_ids=)``, ``top_k``, ``hot_slices`` and
+``slice_counts`` answer over the whole ``S``. While synced, ``compute()``
+refuses, as every synced metric's does; the other reads go through the
+owners when the sync passed the blocks through (``partition_specs=``), and
+index the gathered ``[S]`` states directly when it did not. The hot-slice
+row count covers the rank's own slices.
 """
 from copy import deepcopy
 import time
@@ -64,6 +81,7 @@ from metrics_tpu_torch.observability.memory import register_cache_plane
 from metrics_tpu_torch.observability.recorder import _DEFAULT_RECORDER as _TELEMETRY
 from metrics_tpu_torch.ops.segment_extremum import segment_max_dispatch, segment_min_dispatch
 from metrics_tpu_torch.ops.segment_sum import segment_sum_dispatch
+from metrics_tpu_torch.parallel.distributed import gather_parts
 from metrics_tpu_torch.sketches.quantile import _FILL_BOUND, fill_bound, with_fill_bound
 from metrics_tpu_torch.utils.checks import capturing_checks, checks_read_nothing, in_entry_build
 from metrics_tpu_torch.utils.data import (
@@ -155,6 +173,8 @@ class SlicedMetric(Metric):
 
     higher_is_better = None
     is_differentiable = False
+    # a sharded update gathers the batch rows and folds the owned ones
+    _routes_sharded_update = True
 
     def __init__(self, metric: Metric, num_slices: int, **kwargs: Any) -> None:
         if not isinstance(metric, Metric):
@@ -166,6 +186,8 @@ class SlicedMetric(Metric):
         self._validate_sliceable(metric)
         super().__init__(device=metric.device, **kwargs)
         self.num_slices = num_slices
+        # the slices this process holds: all of them, or a rank's block
+        self._offset, self._n_local = 0, num_slices
         # the wrapped metric is a TEMPLATE: its pure update and compute run
         # per row and per slice; its own states are never accumulated
         # set past the child registry: the template is not a child (a child
@@ -242,8 +264,51 @@ class SlicedMetric(Metric):
 
     @property
     def slice_counts(self) -> Tensor:
-        """Rows ingested per slice, ``[S]`` int32."""
-        return getattr(self, SLICE_ROWS)
+        """Rows ingested per slice, ``[S]`` int32 (sharded: gathered from
+        every rank, a collective)."""
+        return self._gathered([getattr(self, SLICE_ROWS)])[0]
+
+    def _holds_blocks(self) -> bool:
+        """Whether the states are this rank's blocks of slices: sharded, and
+        not gathered into the full ``[S]`` by a sync (a sync whose
+        ``partition_specs`` pass every state through leaves the blocks, the
+        same objects; one without gathers them). A sync that gathered some
+        states and passed others leaves nothing a read can fold per slice."""
+        if not self._shardings:
+            return False
+        rows = {getattr(self, name).shape[0] for name in self._defaults}
+        if rows == {self._n_local}:
+            return True
+        if rows == {self.num_slices}:
+            return False
+        raise MetricsUserError(
+            f"a sharded {type(self).__name__} cannot be read while a sync has gathered some of its states and"
+            " passed others through: sync every state with the axis in `partition_specs`, or none"
+        )
+
+    def _gathered(self, blocks: list) -> list:
+        """Per-rank blocks (leading axis the rank's slices) laid end to end
+        in rank order, in one round; as they are when the states are not
+        blocks (not sharded, or gathered by a sync)."""
+        if not self._holds_blocks():
+            return blocks
+        stacks = gather_parts(blocks, self._shard_mesh().group, self.dist_sync_fn)
+        return [stack.reshape((-1,) + tuple(stack.shape[2:])) for stack in stacks]
+
+    def _on_sharded(self) -> None:
+        """Every leaf holds the same block of slices: the read plane (dirty
+        bitmap, kept values, readers) is resized to it."""
+        names = set(self._defaults)
+        if set(self._shardings) != names:
+            raise MetricsUserError(
+                f"a SlicedMetric shards all of its states or none; sharded {sorted(self._shardings)} of {sorted(names)}"
+            )
+        sharding = self._shardings[SLICE_ROWS]
+        self._offset, hi = sharding.block(self.num_slices)
+        self._n_local = hi - self._offset
+        self._dirty = torch.ones(self._n_local + 1, dtype=torch.bool, device=self.device)
+        self._values = None
+        self._readers.clear()
 
     def _row_states(self, args: Tuple, kwargs: Dict[str, Any], n_rows: int) -> Dict[str, Tensor]:
         """Per-row post-update states ``{leaf: [B, *leaf_shape]}``: the
@@ -295,15 +360,28 @@ class SlicedMetric(Metric):
             raise MetricsUserError(f"`slice_ids` must be integer-typed, got dtype {slice_ids.dtype}")
         m = self._template
         n_rows = int(slice_ids.shape[0])
-        num = self.num_slices
+        num = self._n_local
         row_states = self._row_states(args, m._filter_kwargs(**kwargs), n_rows)
+        # per-row delta against the default for the sums: exact for
+        # additive accumulation
+        rows_by_leaf = {
+            name: row_states[name] - m._defaults[name] if red is dim_zero_sum else row_states[name]
+            for name, red in m._reductions.items()
+        }
+        if self._shardings:
+            # every rank's ids and rows, in rank order; ids outside this
+            # rank's block land out of range and the kernels drop them
+            names = list(rows_by_leaf)
+            stacks = gather_parts([slice_ids] + [rows_by_leaf[n] for n in names], self._shard_mesh().group, self.dist_sync_fn)
+            slice_ids = stacks[0].reshape(-1) - self._offset
+            rows_by_leaf = {n: stack.reshape((-1,) + tuple(stack.shape[2:])) for n, stack in zip(names, stacks[1:])}
+            n_rows = int(slice_ids.shape[0])
         for name, red in m._reductions.items():
-            rows = row_states[name]
+            rows = rows_by_leaf[name]
             old = getattr(self, name)
             if red is dim_zero_sum:
-                # per-row delta against the default, segment-summed into the
-                # slice axis: exact for additive accumulation
-                new = old + segment_sum_dispatch(rows - m._defaults[name], slice_ids, num)
+                # segment-summed into the slice axis
+                new = old + segment_sum_dispatch(rows, slice_ids, num)
             elif red is dim_zero_max:
                 # empty segments hold -inf, so untouched slices keep their bits
                 new = maximum_ieee(old, segment_max_dispatch(rows, slice_ids, num))
@@ -330,8 +408,10 @@ class SlicedMetric(Metric):
             return  # the probe, the warm-ups, later plain runs
         hot_rows = None
         if not in_jit and _TELEMETRY.timeseries is not None and n_rows:
-            ids = torch.clamp(slice_ids, 0, self.num_slices - 1).long()
-            hot_rows = int(torch.bincount(ids, minlength=1).max())
+            # only the rows this process folds: a sharded update's rows of
+            # other ranks' blocks (and dropped ids) count in no slice
+            held = slice_ids[(slice_ids >= 0) & (slice_ids < self._n_local)].long()
+            hot_rows = int(torch.bincount(held, minlength=1).max())
         _TELEMETRY.record_sliced_scatter(
             self, n_rows=n_rows, n_slices=self.num_slices, n_leaves=n_leaves, in_jit=in_jit, hot_rows=hot_rows
         )
@@ -393,17 +473,17 @@ class SlicedMetric(Metric):
         reader) and kept, the others come from the kept values. Returns
         ``(values, n_folded)``. The dirty bitmap is read to the host once."""
         m = self._template
-        dirty = self._dirty[: self.num_slices].cpu().numpy()
+        dirty = self._dirty[: self._n_local].cpu().numpy()
         fold = np.unique(req[dirty[req]])
         if fold.size:
-            bucket = round_up_bucket(fold.size, self.num_slices)
+            bucket = round_up_bucket(fold.size, self._n_local)
             index = torch.as_tensor(pad_ids(fold, bucket), device=self.device).long()
             reader = self._subset_reader(bucket, index)
             # the rows dict's order is the reader's flattened argument order
             sources = [getattr(self, name) for name in m._defaults]
             flat, spec = tree_flatten(reader.gather(sources, index))
             if self._values is None:
-                cache = [torch.zeros((self.num_slices,) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device) for v in flat]
+                cache = [torch.zeros((self._n_local,) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device) for v in flat]
                 self._values = (cache, spec)
             for kept, value in zip(self._values[0], flat):
                 # a copy: the reader's next replay overwrites its outputs
@@ -415,14 +495,56 @@ class SlicedMetric(Metric):
         return tree_unflatten([kept[index] for kept in cache], spec), int(fold.size)
 
     def _compute(self) -> Any:
-        if self._is_synced:
+        if self._is_synced and not self._holds_blocks():
             # synced states are the cross-rank reduction, not the local
             # accumulation that the dirty bitmap and the kept values
-            # describe: fold every slice, and touch neither
+            # describe: fold every slice, and touch neither (blocks passed
+            # through a sync are the local states themselves)
             return self._fold({name: getattr(self, name) for name in self._template._defaults})
-        values, n_folded = self._fold_slices(np.arange(self.num_slices))
+        values, n_folded = self._fold_slices(np.arange(self._n_local))
         self._last_fold_fanin = n_folded
         return values
+
+    def _compute_cold(self, synced: bool) -> Any:
+        if not self._shardings:
+            return super()._compute_cold(synced)
+        if self._is_synced:
+            # what the base's sync_context refuses: compute() syncs itself
+            raise MetricsUserError("The Metric has already been synced.")
+        # sharded: the rank folds its own dirty slices (its memo and value
+        # cache), then the value blocks are gathered in rank order
+        epoch0 = self._write_epoch
+        flat, spec = tree_flatten(self._compute())
+        value = self._undonated(tree_unflatten(self._gathered(flat), spec))
+        self._computed, self._computed_epoch, self._computed_synced = value, epoch0, synced
+        return value
+
+    def _local_values(self, local: np.ndarray) -> Tuple[list, Any, int]:
+        """Flat values, tree spec and slices refolded of the held slices
+        ``local`` (ids into this process's block), through the read plane;
+        an empty subset is the fold of one slice, cut to none."""
+        if local.size:
+            values, n_folded = self._fold_slices(local)
+            return (*tree_flatten(values), n_folded)
+        flat, spec = tree_flatten(self._fold({name: getattr(self, name)[:1] for name in self._template._defaults}))
+        return [v[:0] for v in flat], spec, 0
+
+    def _sharded_subset(self, host_ids: np.ndarray) -> Tuple[Any, int]:
+        """Values of the global slices ``host_ids`` on every rank: each rank
+        folds the ones it owns into their places, zeros elsewhere; one
+        gather, and each place takes its owner's row."""
+        owner = host_ids // self._n_local
+        mine = np.flatnonzero(owner == self._shardings[SLICE_ROWS].rank)
+        flat, spec, n_folded = self._local_values(host_ids[mine] - self._offset)
+        index = torch.as_tensor(mine, device=self.device).long()
+        parts = []
+        for v in flat:
+            placed = torch.zeros((host_ids.size,) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device)
+            parts.append(placed.index_copy(0, index, v))
+        stacks = gather_parts(parts, self._shard_mesh().group, self.dist_sync_fn)
+        rows = torch.as_tensor(owner, device=self.device).long()
+        cols = torch.arange(host_ids.size, device=self.device)
+        return tree_unflatten([stack[rows, cols] for stack in stacks], spec), n_folded
 
     def _read_extras(self) -> Dict[str, Any]:
         # the refolded slices of the last cold compute, on its read event
@@ -461,15 +583,14 @@ class SlicedMetric(Metric):
                     f" min {int(host_ids.min())}, max {int(host_ids.max())}"
                 )
         n_folded = int(host_ids.size)
-        if host_ids.size and self._is_synced:
+        if self._holds_blocks():
+            values, n_folded = self._sharded_subset(host_ids)
+        elif host_ids.size and self._is_synced:
             index = torch.as_tensor(host_ids, device=self.device).long()
             values = self._fold({name: getattr(self, name)[index] for name in self._template._defaults})
-        elif host_ids.size:
-            values, n_folded = self._fold_slices(host_ids)
-        else:  # an empty subset: the fold of one slice, cut to none
-            one = self._fold({name: getattr(self, name)[:1] for name in self._template._defaults})
-            flat, spec = tree_flatten(one)
-            values = tree_unflatten([v[:0] for v in flat], spec)
+        else:
+            flat, spec, n_folded = self._local_values(host_ids)
+            values = tree_unflatten(flat, spec)
         if _TELEMETRY.enabled:
             # leaves folded = wrapped leaves gathered per selected slice
             _TELEMETRY.record_read(
@@ -483,14 +604,14 @@ class SlicedMetric(Metric):
             )
         return self._undonated((ids, values) if top_k is not None else values)
 
-    def _top_ids(self, k: int) -> Tensor:
+    def _top_ids(self, k: int, counts: Optional[Tensor] = None) -> Tensor:
         """Ids (int32) of the ``k`` fullest slices, in descending count with
         ties to the lower id (``lax.top_k``'s order; ``torch.topk`` promises
         no order on ties, a stable descending sort does), through the
         ``sliced_topk`` reader at ``k`` rounded up to a bucket: the
         ``k``-prefix of a larger ``k``'s order is the ``k`` order."""
         kb = round_up_bucket(k, self.num_slices)
-        counts = self.slice_counts
+        counts = self.slice_counts if counts is None else counts
         reader = self._readers.fast("sliced_topk", kb)
         if reader is None:
 
@@ -511,7 +632,7 @@ class SlicedMetric(Metric):
             raise MetricsUserError(f"`k` must be a positive int, got {k!r}")
         counts = self.slice_counts
         total = torch.clamp(counts.sum(dtype=torch.int32), min=1)
-        ids = self._top_ids(min(k, self.num_slices))
+        ids = self._top_ids(min(k, self.num_slices), counts)
         return ids, counts[ids.long()].to(torch.float32) / total.to(torch.float32)
 
     def state_footprint(self, include_children: bool = True) -> Dict[str, int]:

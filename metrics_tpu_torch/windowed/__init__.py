@@ -6,6 +6,6 @@ all-of-time metric into a live one; ``WindowedMetric(SlicedMetric(...))``
 is the per-tenant live view.
 """
 from metrics_tpu_torch.windowed.metric import DECAY_WEIGHT, RING_COUNT, RING_ROWS, WindowedMetric  # noqa: F401
-from metrics_tpu_torch.windowed.reducers import decay_sum_fx, ring_sum_fx  # noqa: F401
+from metrics_tpu_torch.windowed.reducers import decay_sum_fx, ring_merge_fx, ring_sum_fx  # noqa: F401
 
-__all__ = ["DECAY_WEIGHT", "RING_COUNT", "RING_ROWS", "WindowedMetric", "decay_sum_fx", "ring_sum_fx"]
+__all__ = ["DECAY_WEIGHT", "RING_COUNT", "RING_ROWS", "WindowedMetric", "decay_sum_fx", "ring_merge_fx", "ring_sum_fx"]

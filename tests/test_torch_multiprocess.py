@@ -5,8 +5,10 @@ worker processes that join a ``torch.distributed`` gloo group and check, in
 one run: ``gather_all_arrays`` (a scalar, even and uneven shapes, a rank
 with zero rows, ``bool`` and ``bfloat16`` NaN payloads bit for bit), the
 MSE and capacity ``AUROC`` lifecycles, an ``exact=True`` metric with an
-empty rank (no rank waits), a sketched ``AUROC`` past its capacity and
-``sync_pytree`` over a collection, and the telemetry aggregate
+empty rank (no rank waits), a sketched ``AUROC`` past its capacity,
+``sync_pytree`` over a collection, a ``SlicedMetric(MSE, 16)`` sharded
+over the two ranks (routed updates, a collective compute, a pass-through
+sync that moves nothing), and the telemetry aggregate
 (``aggregate_across_hosts``). The workers import no JAX: they write
 what they synced to a file, and this process holds it against the JAX
 package's sync of the same shards (a simulated world of two).
@@ -126,6 +128,25 @@ reset_collective_counts()
 out["pytree"] = sync_pytree(state, col.state_reductions())
 out["pytree_counts"] = collective_counts()
 out["pytree_inputs"] = {"x": x, "labels": labels}
+
+# a sharded SlicedMetric(MSE, 16): routed updates, a collective compute,
+# a pass-through sync
+from metrics_tpu_torch.sliced import shard_sliced_states, sliced_partition_specs
+shard = tm.SlicedMetric(tm.MeanSquaredError(device="cpu"), 16)
+shard_sliced_states(shard, None)
+reset_collective_counts()
+for step in range(3):
+    srng_ = np.random.default_rng(300 + 10 * rank + step)
+    shard.update(torch.from_numpy(srng_.integers(0, 16, 12)), torch.from_numpy(srng_.integers(0, 8, 12).astype(np.float32)),
+                 torch.from_numpy(srng_.integers(0, 8, 12).astype(np.float32)))
+out["sharded_update_counts"] = collective_counts()
+out["sharded_block"] = {k: getattr(shard, k).clone() for k in shard._defaults}
+out["sharded_value"] = shard.compute()
+sh_state = {k: getattr(shard, k) for k in shard._defaults}
+reset_collective_counts()
+synced = sync_pytree(sh_state, shard.state_reductions(), partition_specs=sliced_partition_specs(shard, None))
+out["sharded_sync_counts"] = collective_counts()
+out["sharded_passed"] = all(synced[k] is sh_state[k] for k in sh_state)
 
 # telemetry: every rank's counters merged on every rank, the payloads as
 # bytes through gather_all_arrays
@@ -309,3 +330,27 @@ def test_aggregate_across_hosts_merges_both_ranks_like_jax(worker_results):
     # every rank merged the same payloads, as the JAX package merges them
     assert aggs[0]["processes"] == aggs[1]["processes"]
     assert aggs[0] == jax_merge_payloads(aggs[0]["processes"])
+
+
+def test_sharded_sliced_metric_across_processes_matches_jax(worker_results):
+    """Each rank's block of 8 slices and the gathered ``compute()`` against
+    the JAX package's SlicedMetric fed each step's rows in rank order; one
+    round per update (ids and rows of both ranks), none in the
+    pass-through sync."""
+    jm = metrics_tpu.sliced.SlicedMetric(metrics_tpu.MeanSquaredError(), num_slices=16)
+    for step in range(3):
+        cols = []
+        for rank in range(2):
+            r = np.random.default_rng(300 + 10 * rank + step)
+            cols.append((r.integers(0, 16, 12), r.integers(0, 8, 12).astype(np.float32), r.integers(0, 8, 12).astype(np.float32)))
+        jm.update(*(jnp.asarray(np.concatenate(c)) for c in zip(*cols)))
+    want = np.asarray(jm.compute())
+    for rank, out in enumerate(worker_results):
+        for k, v in out["sharded_block"].items():
+            np.testing.assert_array_equal(v.numpy(), np.asarray(getattr(jm, k))[rank * 8 : (rank + 1) * 8], err_msg=k)
+        np.testing.assert_allclose(out["sharded_value"].numpy(), want, rtol=1e-6, equal_nan=True)
+        # per update, 12 rows from each of 2 ranks: an 8-byte id and MSE's two
+        # 4-byte leaves (the row counter's ones are not sent)
+        assert out["sharded_update_counts"] == {"rounds": 3, "bytes_received": 3 * 2 * 12 * (8 + 2 * 4), "host_reads": 0}
+        assert out["sharded_sync_counts"] == {"rounds": 0, "bytes_received": 0, "host_reads": 0}
+        assert out["sharded_passed"]

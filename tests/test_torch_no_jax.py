@@ -47,7 +47,7 @@ for name in ("core.fused", "core.pipeline", "observability.freshness", "classifi
              "observability.drift", "observability.health", "observability.wire",
              "observability.collector", "core.readers", "analysis", "analysis.engine", "analysis.baseline",
              "analysis.reporters", "analysis.rules", "analysis.interp", "analysis.stateflow", "analysis.manifest",
-             "analysis.layout", "analysis.layout_rules", "analysis.cli", "analysis.__main__"):
+             "analysis.layout", "analysis.layout_rules", "analysis.cli", "analysis.__main__", "sliced.sharding"):
     assert "metrics_tpu_torch." + name in names, name
 from metrics_tpu_torch import BootStrapper, CompositionalMetric, MeanMetric, MetricTracker  # noqa: F401
 from metrics_tpu_torch.parallel import class_reduce, gather_all_arrays, sync_pytree  # noqa: F401
@@ -58,6 +58,8 @@ from metrics_tpu_torch import BERTScore, BLEUScore, ROUGEScore, SQuAD, Translati
 from metrics_tpu_torch.audio import PerceptualEvaluationSpeechQuality, ShortTimeObjectiveIntelligibility  # noqa: F401
 from metrics_tpu_torch import PermutationInvariantTraining, SignalDistortionRatio  # noqa: F401
 from metrics_tpu_torch.native import lsap  # noqa: F401
+from metrics_tpu_torch.sliced import shard_sliced_states, sliced_partition_specs  # noqa: F401
+from metrics_tpu_torch.parallel.distributed import RankSharding, layout_verify_counters  # noqa: F401
 from metrics_tpu_torch.observability import HealthMonitor, MetricRecorder, TimeSeriesRegistry, get_recorder  # noqa: F401
 from metrics_tpu_torch.observability import FleetCollector, SnapshotSink, decode_snapshot, encode_snapshot  # noqa: F401
 from metrics_tpu_torch.core.readers import ReaderCache, pad_ids  # noqa: F401
