@@ -521,6 +521,27 @@ Phases, each printed as one JSON line:
    METRICS_TPU_TORCH_VERIFY_MANIFEST=1 (every member probed, no warning),
    and every class the fused phases used with its verdict and probe
    results;
+18z2. fused-labels -- fused_collection's eight metrics over
+   fused-classification's batches with each row's argmax label as its
+   prediction (buckets=(2048,)), then ConfusionMatrix(1000) over the
+   flagship batches' labels, eager against compile_update(); gates: a
+   UserWarning fails the phase, Accuracy() alone declined (as the JAX
+   package declines it), states bit for bit, 2 bincount_i32 per bucketed
+   replay and 1 on the flagship, its counts equal to np.bincount;
+18z3. sliced-kernels -- the five kernel wrappers under torch.func.vmap at
+   [64, 37] ids (one batched launch each, eager and captured, the plain
+   version's bits row by row); then eight SlicedMetric templates over 1000
+   Zipf(1.2) tenants, 8 updates of 4096 rows each: the confusion family on
+   labels (ConfusionMatrix on softmax rows too), CalibrationError and
+   BinnedAveragePrecision(thresholds=100) on binary scores, R2Score;
+   gates: states bit-equal to the port's CPU run, values within 1e-6,
+   compute(slice_ids=) bit-equal to the full read, the confusion counts
+   equal to a numpy per-tenant bincount, per update the batched launches
+   (one per template kernel call) and the folds each as expected; last,
+   MetricCollection([SlicedMetric(ConfusionMatrix(10), 1000)]) on labels
+   eager against compile_update(): no member declined, no UserWarning,
+   states bit for bit, one batched bincount_i32 and two segment_sum_i32
+   per replay;
 19. the kernels line: per kernel its launches on its main path (flagship for
    K1, sketch-binary for K3, map-coco for K6, the entry point ops.box_iou
    on 2-D boxes for K5, retrieval-mslr for K4, sliced-psnr for K2 and
@@ -856,6 +877,22 @@ SLICED_PROB_ROWS = 4096
 SLICED_PROB_UPDATES = 8
 SLICED_PROB_CLASSES = 10
 SLICED_PROB_TENANTS = 1000
+# fused-labels and sliced-kernels: template updates on label inputs under
+# capture and under torch.func.vmap. fused-labels runs fused_collection's
+# eight metrics on fused_batches' shapes with the rows' argmax labels as
+# predictions, then ConfusionMatrix(1000) on the flagship batches' labels;
+# sliced-kernels runs eight per-tenant templates over 4096-row batches of
+# 1000 Zipf(1.2) tenants (numpy draws from SLICED_K_SEED), 8 updates each,
+# a full compute() and a compute(slice_ids=) of SLICED_K_SUBSET tenants
+LABELS_DEVICE = "cuda"
+SLICED_K_SEED = 26000
+SLICED_K_ROWS = 4096
+SLICED_K_UPDATES = 8
+SLICED_K_TENANTS = 1000
+SLICED_K_CLASSES = 10
+SLICED_K_THRESHOLDS = 100
+SLICED_K_SUBSET = 64
+SLICED_K_RTOL = 1e-6
 # text-corpus: a synthetic corpus of a WMT newstest set's size (3000
 # sentence pairs), made from a seed: hypotheses of 10-40 words drawn from a
 # Zipf vocabulary of 5000 seeded pseudo-words (a capital first letter, a
@@ -2985,6 +3022,7 @@ def fused_legs(torch, ops, name, make, batches, compile_kw, update=update_args):
         torch.cuda.synchronize()
         steady_s = time.perf_counter() - t0
         launches = ops.launch_counts()
+        batched = {k: n for k, n in ops.batched_launch_counts().items() if n}
         values = collection.compute()
         legs[leg] = {
             "label": f"{name} {leg}",
@@ -2993,6 +3031,7 @@ def fused_legs(torch, ops, name, make, batches, compile_kw, update=update_args):
             "first_update_ms": first_ms,
             "ms_per_update": steady_s / (len(batches) - 2) * 1e3,
             "launches": launches,
+            "batched_launches": batched,
             "updates": len(batches) - 1,
             "values": values,
             "states": collection_states(torch, collection),
@@ -3041,6 +3080,7 @@ def leg_report(torch, ops, leg, update, batches, profiled=3):
         ops.reset_launch_counts()
         profile = device_profile(torch, lambda i: update(collection, batches[i]), profiled)
         counted = {k: n for k, n in ops.launch_counts().items() if n}
+        batched = {k + ops.BATCHED: n for k, n in ops.batched_launch_counts().items() if n}
         seen = device_launches(profile["kernel_calls"])
         if seen == counted:
             break
@@ -3051,8 +3091,13 @@ def leg_report(torch, ops, leg, update, batches, profiled=3):
         for kernel, n in entry.launches.items():
             replayed[kernel] = replayed.get(kernel, 0) + n * (entry.calls - c0)
     if handle is not None:
+        # a graph's batched launches (K1 under torch.func.vmap) replay with
+        # it, apart from the kernels' own counts
         replayed = {k: n for k, n in replayed.items() if n}
+        replayed_batched = {k: n for k, n in replayed.items() if k.endswith(ops.BATCHED)}
+        replayed = {k: n for k, n in replayed.items() if k not in replayed_batched}
         check(replayed == counted and profile_agrees(seen, replayed), f"{leg['label']}: the device ran {seen} launches, the graphs' replays hold {replayed}")
+        check(replayed_batched == batched, f"{leg['label']}: batched launches {batched}, the graphs' replays hold {replayed_batched}")
     out = {
         "ms_per_update": leg["ms_per_update"],
         "first_update_ms": leg["first_update_ms"],
@@ -3061,6 +3106,7 @@ def leg_report(torch, ops, leg, update, batches, profiled=3):
         "device_idle_share": 1 - profile["device_busy_ms_per_step"] / leg["ms_per_update"],
         "host_syncs_per_update": syncs_per_update(torch, lambda b: update(collection, b), batches[3:6]),
         "launches": leg["launches"],
+        "batched_launches": leg["batched_launches"],
         "device_launches_profiled": seen,
         "profiler_missed": {k: n - seen.get(k, 0) for k, n in counted.items() if n != seen.get(k, 0)},
         "profiled_windows": windows,
@@ -6137,6 +6183,396 @@ def sliced_probability_phase(torch, ops, card, tm):
 
 
 # ---------------------------------------------------------------------------
+# fused-labels and sliced-kernels
+# ---------------------------------------------------------------------------
+
+
+def memory_line(torch, reserved0):
+    """The card's reserved bytes at a phase's start and now (graph pools
+    included), and what is allocated now."""
+    return {"reserved_before": reserved0, "reserved_after": torch.cuda.memory_reserved(), "allocated_after": torch.cuda.memory_allocated()}
+
+
+def fused_labels_phase(torch, ops, card, tm, preds_all, target_all):
+    """fused-labels: the confusion-matrix family and the stat-scores metrics
+    on integer label predictions under the fused update. fused_collection's
+    eight metrics over fused-classification's 30 batches (1900/2000/2048
+    rows, buckets=(2048,)) with each row's argmax label as its prediction,
+    then ConfusionMatrix(1000) over the 12 flagship batches' labels; each
+    eager against compile_update() (a UserWarning is an error here: a
+    stale-manifest demotion warns), the members declined those the JAX
+    package declines (Accuracy() alone), states bit for bit, and 2
+    bincount_i32 per bucketed replay (the batch's and the pad row's)."""
+    t_phase = time.perf_counter()
+    reserved0 = torch.cuda.memory_reserved()
+    fused = fused_batches()
+    epoch = [fused[i % len(fused)] for i in range(len(fused) * CLS_REPEATS)]
+    batches = [(torch.from_numpy(p.argmax(-1)).to(LABELS_DEVICE), torch.from_numpy(t).to(LABELS_DEVICE)) for p, t in epoch]
+    flagship = [(preds_all[i].argmax(dim=1).to(LABELS_DEVICE), target_all[i].to(LABELS_DEVICE)) for i in range(STATEFUL_BATCHES)]
+
+    def make_flagship():
+        return tm.MetricCollection([tm.ConfusionMatrix(num_classes=NUM_CLASSES, device=LABELS_DEVICE)])
+
+    out = {}
+    for name, make, data, compile_kw, per_replay, declined in (
+        ("fused-labels", lambda: fused_collection(tm, LABELS_DEVICE), batches, {"buckets": (FUSED_BUCKET,)}, 2, ["Accuracy"]),
+        ("fused-labels-flagship", make_flagship, flagship, {}, 1, []),
+    ):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", UserWarning)
+            legs = fused_legs(torch, ops, name, make, data, compile_kw)
+        seeding = legs["fused"]["seeding"]
+        report = {leg: leg_report(torch, ops, legs[leg], update_args, data) for leg in legs}
+        fused_r = report["fused"]
+        check(fused_r["cache_size"] == 1 and fused_r["captures"] == 1, f"{name}: {fused_r['captures']} captures, cache {fused_r['cache_size']}")
+        # the JAX package's decisions on the same inputs: Accuracy() has no
+        # num_classes, so its formatter cannot format labels under capture
+        # (jit there), and its probe sends it to the eager leg; every other
+        # member fuses, with no stale-manifest warning
+        check(sorted(seeding["declined"]) == fused_r["eager_leg"] == sorted(declined), f"{name}: members declined {seeding['declined']}, expected {declined}")
+        check(all("under capture" in seeding["declined"][m] for m in declined), f"{name}: {seeding['declined']}")
+        # the graph reads nothing; an eager-leg member's value checks read
+        # the card once per update
+        check(fused_r["host_syncs_per_update"] == len(declined), f"{name}: {fused_r['host_syncs_per_update']} host syncs per fused update")
+        k1 = check_replay_launches(name, legs, "bincount_i32", len(data) - 1)
+        check(fused_r["launches_per_replay"][0].get("bincount_i32") == per_replay, f"{name}: graph launches {fused_r['launches_per_replay']}")
+        out[name] = {"updates": len(data), "bincount_i32": k1, "seeding": seeding, **report}
+    # the flagship's counts against numpy, from the fused leg's states
+    want = np.zeros(NUM_CLASSES * NUM_CLASSES, dtype=np.int64)
+    for preds, target in flagship:
+        want += np.bincount((target.cpu().numpy() * NUM_CLASSES + preds.cpu().numpy()), minlength=NUM_CLASSES**2)
+    got = legs["fused"]["states"]["ConfusionMatrix.confmat"].numpy().reshape(-1)
+    check(np.array_equal(got, want), "fused-labels-flagship: the confusion matrix differs from np.bincount")
+    memory = memory_line(torch, reserved0)
+    emit({"phase": "fused-labels", "card": card, "bucket": FUSED_BUCKET, **out, "memory": memory, "seconds": time.perf_counter() - t_phase})
+    return out
+
+
+def sliced_kernel_batches(torch):
+    """sliced-kernels' batches, drawn with numpy from SLICED_K_SEED and moved
+    to LABELS_DEVICE: tenant ids Zipf(1.2) over SLICED_K_TENANTS (as
+    sync-sharded draws them), softmax rows of 10 classes and their argmax
+    labels, uniform labels, binary scores with targets drawn at those odds,
+    and regression pairs (target N(0, 1), preds plus 0.5 N(0, 1) noise)."""
+    rng = np.random.default_rng(SLICED_K_SEED)
+    rows, c = SLICED_K_ROWS, SLICED_K_CLASSES
+    batches = []
+    for _ in range(SLICED_K_UPDATES):
+        logits = rng.standard_normal((rows, c)).astype(np.float32)
+        scores = rng.random(rows).astype(np.float32)
+        reg_target = rng.standard_normal(rows).astype(np.float32)
+        batch = {
+            "ids": (rng.zipf(READ_ZIPF, rows) - 1) % SLICED_K_TENANTS,
+            "labels": logits.argmax(-1),
+            "target": rng.integers(0, c, rows),
+            "scores": scores,
+            "binary": (rng.random(rows) < scores).astype(np.int64),
+            "reg_target": reg_target,
+            "reg_preds": (reg_target + 0.5 * rng.standard_normal(rows)).astype(np.float32),
+        }
+        batch = {k: torch.from_numpy(v).to(LABELS_DEVICE) for k, v in batch.items()}
+        batch["softmax"] = torch.softmax(torch.from_numpy(logits).to(LABELS_DEVICE), dim=1)
+        batches.append(batch)
+    return batches
+
+
+def sliced_kernel_templates(tm):
+    """``{name: (template maker, batch keys of its inputs, kernels one
+    vmapped update of the template launches)}``: K1 once per ``_bincount``
+    call (twice for the binned AP's two counts) and once for
+    CalibrationError's histogram, over the whole batch."""
+    c = SLICED_K_CLASSES
+    confusion = {"bincount_i32": 1}
+    return {
+        "ConfusionMatrix-labels": (lambda d: tm.ConfusionMatrix(num_classes=c, device=d), ("labels", "target"), confusion),
+        "ConfusionMatrix-softmax": (lambda d: tm.ConfusionMatrix(num_classes=c, device=d), ("softmax", "target"), confusion),
+        "CohenKappa-labels": (lambda d: tm.CohenKappa(num_classes=c, device=d), ("labels", "target"), confusion),
+        "JaccardIndex-labels": (lambda d: tm.JaccardIndex(num_classes=c, device=d), ("labels", "target"), confusion),
+        "MatthewsCorrCoef-labels": (lambda d: tm.MatthewsCorrCoef(num_classes=c, device=d), ("labels", "target"), confusion),
+        "CalibrationError": (lambda d: tm.CalibrationError(device=d), ("scores", "binary"), {"segment_sum_f32": 1}),
+        "BinnedAveragePrecision": (
+            lambda d: tm.BinnedAveragePrecision(num_classes=1, thresholds=SLICED_K_THRESHOLDS, device=d),
+            ("scores", "binary"),
+            {"bincount_i32": 2},
+        ),
+        "R2Score": (lambda d: tm.R2Score(device=d), ("reg_preds", "reg_target"), {}),
+    }
+
+
+def sliced_fold_kernels(torch, template):
+    """The segment folds one sliced update launches: one per sum leaf of the
+    template (``segment_sum_i32`` for int32, ``segment_sum_f32`` for
+    float32) and one ``segment_sum_i32`` of the row counter."""
+    folds = {"segment_sum_i32": 1}
+    for default in template._defaults.values():
+        kernel = "segment_sum_i32" if default.dtype == torch.int32 else "segment_sum_f32"
+        folds[kernel] = folds.get(kernel, 0) + 1
+    return folds
+
+
+def same_values(torch, what, got, want, rtol):
+    """Card and CPU values agree: NaN where the other is NaN, equal values
+    (infinities included) equal, the others within ``rtol`` (relative, with
+    an absolute floor of ``rtol``); returns the largest difference."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    nan = torch.isnan(got)
+    check(torch.equal(nan, torch.isnan(want)), f"{what}: NaN positions differ from the CPU's")
+    diff = torch.where((got == want) | nan, 0.0, (got - want).abs())
+    bound = rtol * torch.clamp(want.abs(), min=1.0)
+    check(bool((diff <= bound).all()), f"{what}: values differ from the CPU's by up to {float(diff.max())}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def vmap_rules(torch, ops):
+    """Each of the five wrappers vmapped over 64 rows of 37 ids (some out of
+    range) on the card: one launch, counted as the kernel's one batched
+    launch, the plain version's bits row by row; the same call captured in
+    a CUDA graph records one batched launch and replays to the same bits."""
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    ids = torch.randint(-3, 12, (64, 37), generator=gen)
+    vals = torch.randn(64, 37, 5, generator=gen)
+    ivals = torch.randint(-100, 100, (64, 37), generator=gen, dtype=torch.int32)
+    cases = {
+        "bincount_i32": (lambda i: ops.bincount_i32(i, 10), (ids,), lambda i: ops.bincount_reference(i, 10)),
+        "segment_sum_f32": (lambda v, i: ops.segment_sum_f32(v, i, 10), (vals, ids), lambda v, i: ops.segment_sum_reference(v, i, 10)),
+        "segment_sum_i32": (lambda v, i: ops.segment_sum_i32(v, i, 10), (ivals, ids), lambda v, i: ops.segment_sum_reference(v, i, 10)),
+        "segment_max_f32": (lambda v, i: ops.segment_max_f32(v, i, 10), (vals, ids), lambda v, i: ops.segment_extremum_reference(v, i, 10, True)),
+        "segment_min_f32": (lambda v, i: ops.segment_min_f32(v, i, 10), (vals, ids), lambda v, i: ops.segment_extremum_reference(v, i, 10, False)),
+    }
+    out = {}
+    for name, (fn, args, plain) in cases.items():
+        card_args = [a.cuda() for a in args]
+        ops.reset_launch_counts()
+        got = torch.func.vmap(fn)(*card_args)
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in ops.launch_counts().items() if n}
+        batched = {k: n for k, n in ops.batched_launch_counts().items() if n}
+        want = torch.stack([plain(*row) for row in zip(*args)])
+        static = [a.clone() for a in card_args]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            torch.func.vmap(fn)(*static)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        ops.reset_launch_counts()
+        with torch.cuda.graph(graph):
+            replayed = torch.func.vmap(fn)(*static)
+        captured = {k: n for k, n in ops.batched_launch_counts().items() if n}
+        graph.replay()
+        torch.cuda.synchronize()
+        out[name] = {
+            "launches": launches,
+            "batched_launches": batched,
+            "bit_equal_rowwise": same_bits(torch, [got], [want]),
+            "captured_batched_launches": captured,
+            "graph_bit_equal": same_bits(torch, [replayed], [want]),
+        }
+        one = {name: 1}
+        check(launches == batched == captured == one and out[name]["bit_equal_rowwise"] and out[name]["graph_bit_equal"], f"{name} under vmap: {out[name]}")
+        del graph
+    return out
+
+
+def sliced_kernels_fused(torch, ops, tm, batches):
+    """sliced-kernels' fused leg: MetricCollection([SlicedMetric(
+    ConfusionMatrix(10), 1000)]) over the label batches, eager against
+    compile_update() (a UserWarning is an error here): the member fused,
+    none declined, its states bit-equal to the eager leg's, and each replay
+    launches one bincount_i32, batched (the op's vmap rule inside the
+    fused update's capture), and the two segment_sum_i32 folds; the batched
+    count is one per update on both legs."""
+    data = [(b["ids"], b["labels"], b["target"]) for b in batches]
+
+    def make():
+        return tm.MetricCollection([tm.SlicedMetric(tm.ConfusionMatrix(num_classes=SLICED_K_CLASSES, device=LABELS_DEVICE), SLICED_K_TENANTS)])
+
+    name = "sliced-kernels-fused"
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", UserWarning)
+        legs = fused_legs(torch, ops, name, make, data, {})
+    report = {leg: leg_report(torch, ops, legs[leg], update_args, data) for leg in legs}
+    fused_r = report["fused"]
+    check(fused_r["cache_size"] == 1 and fused_r["captures"] == 1, f"{name}: {fused_r['captures']} captures, cache {fused_r['cache_size']}")
+    check(not fused_r["eager_leg"] and not fused_r["declined"], f"{name}: members declined {fused_r['declined']}")
+    per_replay = {"bincount_i32": 1, "bincount_i32" + ops.BATCHED: 1, "segment_sum_i32": 2}
+    check(fused_r["launches_per_replay"] == [per_replay], f"{name}: graph launches {fused_r['launches_per_replay']}, expected {per_replay}")
+    updates = len(data) - 1
+    for leg in legs:
+        check(legs[leg]["batched_launches"] == {"bincount_i32": updates}, f"{name} {leg}: batched launches {legs[leg]['batched_launches']}")
+    k1 = check_replay_launches(name, legs, "bincount_i32", updates)
+    return {"updates": len(data), "bincount_i32": k1, **report}
+
+
+def sliced_kernels_phase(torch, ops, card, tm):
+    """sliced-kernels: first the five wrappers' vmap rules at small shapes
+    (``vmap_rules``); then eight per-tenant templates whose updates reach K1
+    inside SlicedMetric's vmapped update (the confusion-matrix family on
+    labels and on softmax rows, CalibrationError's histogram, the binned
+    AP's two counts) and R2Score, whose sliced reads vmap a compute that
+    reads its row count. Each runs SLICED_K_UPDATES updates, a full
+    compute() and a compute(slice_ids=); every per-slice state bit-equal to
+    the port's CPU run of the same batches, the values within SLICED_K_RTOL
+    of the CPU's (a subset read bit-equal to the full read), the confusion
+    counts equal to numpy's per-tenant bincount. Of each template's
+    launches, counted, the batched ones (one per template kernel call, not
+    one per row) and the folds after the vmap are each held to their
+    expected number. Last, the fused leg (``sliced_kernels_fused``).
+    Returns the kernel-line inputs and the batched launches counted."""
+    t_phase = time.perf_counter()
+    reserved0 = torch.cuda.memory_reserved()
+    rules = vmap_rules(torch, ops)
+    batches = sliced_kernel_batches(torch)
+    templates = sliced_kernel_templates(tm)
+    subset = torch.arange(0, SLICED_K_TENANTS, SLICED_K_TENANTS // SLICED_K_SUBSET, device=LABELS_DEVICE)[:SLICED_K_SUBSET]
+    updates = SLICED_K_UPDATES - 1
+    lines, batched = {}, {}
+    for name, (make, keys, kernels) in templates.items():
+        metric = tm.SlicedMetric(make(LABELS_DEVICE), SLICED_K_TENANTS)
+        metric.update(batches[0]["ids"], *(batches[0][k] for k in keys))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for batch in batches[1:]:
+            metric.update(batch["ids"], *(batch[k] for k in keys))
+        torch.cuda.synchronize()
+        update_ms = (time.perf_counter() - t0) / updates * 1e3
+        launches = {k: n for k, n in ops.launch_counts().items() if n}
+        batched_n = {k: n for k, n in ops.batched_launch_counts().items() if n}
+        folds = {k: n - batched_n.get(k, 0) for k, n in launches.items() if n != batched_n.get(k, 0)}
+        want_batched = {k: n * updates for k, n in kernels.items()}
+        want_folds = {k: n * updates for k, n in sliced_fold_kernels(torch, metric._template).items()}
+        check(batched_n == want_batched, f"sliced-kernels {name}: batched launches {batched_n}, expected {want_batched}")
+        check(folds == want_folds, f"sliced-kernels {name}: fold launches {folds}, expected {want_folds}")
+        for kernel, n in batched_n.items():
+            batched[kernel] = batched.get(kernel, 0) + n
+        value, compute_ms = timed(torch, metric.compute)
+        part, subset_ms = timed(torch, lambda: metric.compute(slice_ids=subset))
+        check(same_bits(torch, [part], [value.index_select(0, subset)]), f"sliced-kernels {name}: compute(slice_ids=) differs from compute()")
+        cpu = tm.SlicedMetric(make("cpu"), SLICED_K_TENANTS)
+        for batch in batches:
+            cpu.update(batch["ids"].cpu(), *(batch[k].cpu() for k in keys))
+        leaves = list(metric._defaults)
+        differ = [leaf for leaf in leaves if not same_bits(torch, [getattr(metric, leaf)], [getattr(cpu, leaf)])]
+        check(not differ, f"sliced-kernels {name}: states {differ} differ from the CPU run")
+        value_err = same_values(torch, f"sliced-kernels {name}", value, cpu.compute(), SLICED_K_RTOL)
+        if "confmat" in leaves:
+            c = SLICED_K_CLASSES
+            pred_key = "labels" if "labels" in keys else None
+            want = np.zeros(SLICED_K_TENANTS * c * c, dtype=np.int64)
+            for batch in batches:
+                preds = batch[pred_key] if pred_key else batch["softmax"].argmax(dim=1)
+                flat = batch["ids"].cpu().numpy() * c * c + batch["target"].cpu().numpy() * c + preds.cpu().numpy()
+                want += np.bincount(flat, minlength=SLICED_K_TENANTS * c * c)
+            check(np.array_equal(metric.confmat.cpu().numpy().reshape(-1), want), f"sliced-kernels {name}: counts differ from numpy")
+        lines[name] = {
+            "ms_per_update": update_ms,
+            "compute_ms": compute_ms,
+            "subset_compute_ms": subset_ms,
+            "launches_per_update": {k: n / updates for k, n in launches.items()},
+            "batched_launches_per_update": {k: n / updates for k, n in batched_n.items()},
+            "fold_launches_per_update": {k: n / updates for k, n in folds.items()},
+            "state_bytes": state_bytes(metric),
+            "value_max_abs_diff_vs_cpu": value_err,
+            "nan_slices": int(torch.isnan(value.reshape(value.shape[0], -1)).any(dim=1).sum()) if value.is_floating_point() else 0,
+        }
+        del metric, cpu
+    fused = sliced_kernels_fused(torch, ops, tm, batches)
+    memory = memory_line(torch, reserved0)
+    emit({"phase": "sliced-kernels", "card": card, "tenants": SLICED_K_TENANTS, "rows_per_update": SLICED_K_ROWS,
+          "updates": SLICED_K_UPDATES, "vmap_rules": rules, "templates": lines, "batched_launches": batched,
+          "fused": fused, "memory": memory, "seconds": time.perf_counter() - t_phase})
+    return {"batches": batches, "batched_launches": batched}
+
+
+def vmapped_kernel_lines(torch, ops, sliced):
+    """Kernels-line rows of K1 under torch.func.vmap at the sliced-kernels
+    shapes: ``bincount_i32`` over the confusion ids ``target * 10 + label`` of
+    one batch (``[4096, 1]`` rows, 100 bins each: one launch over 409,600
+    bins) and ``segment_sum_f32`` at CalibrationError's histogram insert
+    (``[4096, 16, 3]`` rows: the 15 bins of the default state, then the row's
+    ``(1, confidence, accuracy)`` at its bin; one launch over 61,440
+    segments). Each is held bit for bit against its plain version row by row
+    on the CPU; ``plain_ms`` times the plain version of the one flattened
+    call on the card, ``library_ms`` torch.bincount / index_add_ over the
+    same flattened ids. ``launches`` are the batched launches of the kernel
+    that the counters showed over sliced-kernels' template runs (the fused
+    leg's not included)."""
+    from metrics_tpu_torch.sketches.histogram import hist_bin_index
+    from metrics_tpu_torch.utils.data import linspace_f32
+
+    batch = sliced["batches"][0]
+    v, c = SLICED_K_ROWS, SLICED_K_CLASSES
+    rows_out = []
+    # bincount_i32: one confusion id per row
+    ids = (batch["target"] * c + batch["labels"]).reshape(v, 1)
+    bins = c * c
+
+    def bincount_call():
+        return torch.func.vmap(lambda i: ops.bincount_i32(i, bins))(ids)
+
+    got = bincount_call()
+    host_ids = ids.cpu()
+    want = torch.stack([ops.bincount_reference(row, bins) for row in host_ids])
+    check(torch.equal(got.cpu(), want), "bincount_i32 under vmap differs from the plain version row by row")
+    flat = (ids[:, 0] + torch.arange(v, device=ids.device) * bins).contiguous()
+    rows_out.append(
+        {
+            "name": "bincount_i32",
+            "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": REPLACES,
+            "path": "sliced-kernels (under torch.func.vmap)",
+            "shape": [[v, 1], bins, v * bins],
+            "launches": sliced["batched_launches"].get("bincount_i32", 0),
+            "max_abs_err": float((got.cpu() - want).abs().max()),
+            "ms": time_ms(torch, bincount_call),
+            "plain_ms": time_ms(torch, lambda: ops.bincount_reference(flat, v * bins)),
+            "bound_ms": (ids.numel() * ids.element_size() + v * bins * 4) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": library_bincount_ms(torch, flat, v * bins),
+            "host_us_per_call": host_us_per_call(torch, bincount_call),
+            **kernel_device_time(torch, bincount_call, "bincount_i32_kernel"),
+        }
+    )
+    # segment_sum_f32: CalibrationError's histogram insert per row
+    n_bins = CURVE_CE_BINS
+    scores, binary = batch["scores"], batch["binary"].to(torch.float32)
+    bin_idx = hist_bin_index(linspace_f32(n_bins + 1, device=scores.device), scores).reshape(v, 1).to(torch.int64)
+    stats = torch.stack([torch.ones_like(scores), scores, binary], dim=1)
+    vals = torch.cat([torch.zeros(v, n_bins, 3, device=scores.device), stats[:, None, :]], dim=1).contiguous()
+    seg_ids = torch.cat([torch.arange(n_bins, device=scores.device).expand(v, n_bins), bin_idx], dim=1).contiguous()
+
+    def segment_call():
+        return torch.func.vmap(lambda x, i: ops.segment_sum_f32(x, i, n_bins))(vals, seg_ids)
+
+    got = segment_call()
+    host_vals, host_ids = vals.cpu(), seg_ids.cpu()
+    want = torch.stack([ops.segment_sum_reference(x, i, n_bins) for x, i in zip(host_vals, host_ids)])
+    check(same_bits(torch, [got], [want]), "segment_sum_f32 under vmap differs from the plain version row by row")
+    flat_vals = vals.reshape(v * (n_bins + 1), 3)
+    flat_ids = (seg_ids + torch.arange(v, device=scores.device)[:, None] * n_bins).reshape(-1)
+    line = segment_line(
+        torch, lambda *_: segment_call(), ops.segment_sum_reference, library_index_add(torch, flat_vals, flat_ids, v * n_bins),
+        flat_vals, flat_ids, v * n_bins, "segment_sum_f32_kernel",
+    )
+    rows_out.append(
+        {
+            "name": "segment_sum_f32",
+            "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": REPLACES,
+            "path": "sliced-kernels CalibrationError (under torch.func.vmap)",
+            "shape": [list(vals.shape), n_bins, v * n_bins],
+            "launches": sliced["batched_launches"].get("segment_sum_f32", 0),
+            "max_abs_err": float((got.cpu() - want).abs().max()),
+            **line,
+        }
+    )
+    return rows_out
+
+
+# ---------------------------------------------------------------------------
 # text-corpus and bertscore-base
 # ---------------------------------------------------------------------------
 
@@ -8713,6 +9149,13 @@ def main():
     # one, and every class the fused phases used held to its verdict
     free_card(torch)
     manifest_phase(torch, ops, card, tm, preds_all, target_all)
+    # template updates on label inputs under the fused update's capture, and
+    # K1 launched once per batched template call inside SlicedMetric's vmap
+    free_card(torch)
+    fused_labels_phase(torch, ops, card, tm, preds_all, target_all)
+    free_card(torch)
+    sliced_kernels = sliced_kernels_phase(torch, ops, card, tm)
+    free_card(torch)
     # K5 is reached by 2-D boxes through the entry point ops.box_iou
     gen = torch.Generator(device="cpu").manual_seed(5)
     k5_inputs = [(iou_boxes(torch, gen, n).cuda(), iou_boxes(torch, gen, m).cuda()) for n, m in K5_PARITY_SHAPES]
@@ -8868,6 +9311,9 @@ def main():
     # K1 and K2 at the sharded slice state's [8192] -> 500,000, with
     # sync-sharded's launches on rank 0
     kernels += sharded_lines
+    # K1 under torch.func.vmap: the batched bincount_i32 and CalibrationError's
+    # batched segment_sum_f32 at sliced-kernels' shapes, with its launches
+    kernels += vmapped_kernel_lines(torch, ops, sliced_kernels)
     # each kernel's launches inside the sync phases' syncs, by phase and rank
     for entry in kernels:
         entry["sync_launches"] = sync_launches.get(entry["name"], {})

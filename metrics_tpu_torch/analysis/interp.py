@@ -294,22 +294,33 @@ def _mentions_guard(node: ast.AST) -> bool:
     return False
 
 
-def _capture_value(node: ast.AST, guards: Optional[Dict[str, bool]] = None) -> Optional[bool]:
+def _capture_value(
+    node: ast.AST, guards: Optional[Dict[str, bool]] = None, empty: FrozenSet[str] = frozenset()
+) -> Optional[bool]:
     """The value a test takes while the update is probed or captured, when
     the guard decides it: ``checks_read_nothing()`` is True there, so
     ``G``/``G or ...`` are True and ``not G``/``not G and ...`` are False;
     ``guards`` gives the locals bound to the guard's value (``in_jit =
-    checks_read_nothing()``). None when the test does not decide on the
-    guard alone."""
+    checks_read_nothing()``), ``empty`` the locals empty under capture (the
+    value stats), so ``"pmax" not in stats`` is True there and ``"pmax" in
+    stats`` False. None when the test does not decide on the guard alone."""
     if isinstance(node, ast.Call) and _last_name(node.func) in _GUARD_CALLS:
         return True
     if isinstance(node, ast.Name):
         return (guards or {}).get(node.id)
+    if (
+        isinstance(node, ast.Compare)
+        and len(node.ops) == 1
+        and isinstance(node.ops[0], (ast.In, ast.NotIn))
+        and isinstance(node.comparators[0], ast.Name)
+        and node.comparators[0].id in empty
+    ):
+        return isinstance(node.ops[0], ast.NotIn)
     if isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.Not):
-        inner = _capture_value(node.operand, guards)
+        inner = _capture_value(node.operand, guards, empty)
         return None if inner is None else not inner
     if isinstance(node, ast.BoolOp):
-        values = [_capture_value(v, guards) for v in node.values]
+        values = [_capture_value(v, guards, empty) for v in node.values]
         if isinstance(node.op, ast.Or) and any(v is True for v in values):
             return True
         if isinstance(node.op, ast.And) and any(v is False for v in values):
@@ -488,6 +499,10 @@ class _Value:
     #: a Python container (list, tuple, dict) of tensors: its truthiness is
     #: its length, a host fact
     container: bool = False
+    #: a container that is empty while the update is probed or captured: an
+    #: empty literal, or a value reader's result (``_value_stats`` returns
+    #: ``{}`` under ``checks_read_nothing()``), so ``"k" in it`` is False there
+    capture_empty: bool = False
 
 
 _HOST = _Value(tainted=False, noneness=_NOT_NONE)
@@ -507,6 +522,8 @@ class _Env:
     guards: Dict[str, bool] = field(default_factory=dict)
     #: locals holding Python containers (see ``_Value.container``)
     containers: Set[str] = field(default_factory=set)
+    #: locals empty under capture (see ``_Value.capture_empty``)
+    capture_empty: Set[str] = field(default_factory=set)
 
     def value_of(self, name: str) -> _Value:
         return _Value(
@@ -514,6 +531,7 @@ class _Env:
             noneness=self.noneness.get(name, _MAYBE),
             boolish=name in self.boolmask,
             container=name in self.containers,
+            capture_empty=name in self.capture_empty,
         )
 
     def truthiness_reads_tensor(self, test: ast.AST, value: "_Value") -> bool:
@@ -540,10 +558,15 @@ class _Env:
             self.containers.add(name)
         else:
             self.containers.discard(name)
+        if value.capture_empty:
+            self.capture_empty.add(name)
+        else:
+            self.capture_empty.discard(name)
 
     def capture_value(self, node: ast.AST) -> Optional[bool]:
-        """:func:`_capture_value` with this function's guard-valued locals."""
-        return _capture_value(node, self.guards)
+        """:func:`_capture_value` with this function's guard-valued locals
+        and its locals that are empty under capture."""
+        return _capture_value(node, self.guards, self.capture_empty)
 
     def snapshot(self) -> "_Env":
         return _Env(
@@ -554,6 +577,7 @@ class _Env:
             list_states=self.list_states,
             guards=dict(self.guards),
             containers=set(self.containers),
+            capture_empty=set(self.capture_empty),
         )
 
     def absorb_branches(self, a: "_Env", b: "_Env") -> None:
@@ -579,6 +603,9 @@ class _Env:
         containers = a.containers & b.containers
         self.containers.clear()
         self.containers.update(containers)
+        empty = a.capture_empty & b.capture_empty
+        self.capture_empty.clear()
+        self.capture_empty.update(empty)
 
 
 # ---------------------------------------------------------------------------
@@ -828,7 +855,8 @@ class _Scanner:
                 self._saw_return = True
                 if stmt.value is not None:
                     value = self._eval(stmt.value, env, conditional)
-                    if not self._returned_once:
+                    first = not self._returned_once
+                    if first:
                         merged_elts = value.elts
                     elif (
                         self.return_value.elts is not None
@@ -839,6 +867,7 @@ class _Scanner:
                             _Value(
                                 tainted=a.tainted or b.tainted,
                                 noneness=a.noneness if a.noneness == b.noneness else _MAYBE,
+                                capture_empty=a.capture_empty and b.capture_empty,
                             )
                             for a, b in zip(self.return_value.elts, value.elts)
                         ]
@@ -850,6 +879,7 @@ class _Scanner:
                         if self.return_value.noneness != value.noneness
                         else value.noneness,
                         elts=merged_elts,
+                        capture_empty=value.capture_empty and (first or self.return_value.capture_empty),
                     )
                     self._returned_once = True
             elif isinstance(stmt, ast.Expr):
@@ -1182,7 +1212,7 @@ class _Scanner:
                 if k is not None:
                     tainted |= self._eval(k, env, conditional).tainted
                 tainted |= self._eval(v, env, conditional).tainted
-            return _Value(tainted=tainted, noneness=_NOT_NONE, container=True)
+            return _Value(tainted=tainted, noneness=_NOT_NONE, container=True, capture_empty=not node.keys)
         if isinstance(node, (ast.ListComp, ast.SetComp, ast.GeneratorExp, ast.DictComp)):
             tainted = False
             for gen in node.generators:
@@ -1542,7 +1572,7 @@ class _Scanner:
                 Signal(sig.kind, f"{sig.detail} (via `{name}`)", sig.conditional or conditional, sig.line)
             )
         ret = inner.return_value
-        return _Value(tainted=ret.tainted, noneness=ret.noneness, elts=ret.elts)
+        return _Value(tainted=ret.tainted, noneness=ret.noneness, elts=ret.elts, capture_empty=ret.capture_empty)
 
     def _torch_module_call(
         self,
@@ -1838,7 +1868,7 @@ def summarize_function(
     )
     cached = project._summary_cache.get(key)
     if cached is not None:
-        return list(cached[0]), _Value(tainted=cached[1], noneness=cached[2], elts=cached[3])
+        return list(cached[0]), _Value(tainted=cached[1], noneness=cached[2], elts=cached[3], capture_empty=cached[4])
     if key in project._in_progress:
         return [], _Value(tainted=True, noneness=_MAYBE)  # recursion: optimistic
     project._in_progress.add(key)
@@ -1858,12 +1888,14 @@ def summarize_function(
         # element values survive memoization WITHOUT nested elts (one level
         # is what tuple unpacking at the call site consumes)
         elts = (
-            [_Value(tainted=e.tainted, noneness=e.noneness) for e in ret.elts]
+            [_Value(tainted=e.tainted, noneness=e.noneness, capture_empty=e.capture_empty) for e in ret.elts]
             if ret.elts is not None
             else None
         )
-        project._summary_cache[key] = (list(scanner.signals), ret.tainted, ret.noneness, elts)
-        return list(scanner.signals), _Value(tainted=ret.tainted, noneness=ret.noneness, elts=elts)
+        project._summary_cache[key] = (list(scanner.signals), ret.tainted, ret.noneness, elts, ret.capture_empty)
+        return list(scanner.signals), _Value(
+            tainted=ret.tainted, noneness=ret.noneness, elts=elts, capture_empty=ret.capture_empty
+        )
     finally:
         project._in_progress.discard(key)
 

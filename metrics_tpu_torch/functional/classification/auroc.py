@@ -25,7 +25,7 @@ import torch
 from metrics_tpu_torch.functional.classification.auc import _auc_compute_without_check
 from metrics_tpu_torch.functional.classification.roc import roc
 from metrics_tpu_torch.ops import segment_sum_dispatch
-from metrics_tpu_torch.utils.checks import _input_format_classification
+from metrics_tpu_torch.utils.checks import _input_format_classification, _score_mode_static, checks_read_nothing
 from metrics_tpu_torch.utils.data import _as_tensor, _bincount, _tie_runs
 from metrics_tpu_torch.utils.enums import AverageMethod, DataType
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -36,7 +36,13 @@ Tensor = torch.Tensor
 def _auroc_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor, DataType]:
     """Validate the inputs (one host read), deduce the mode, and flatten
     multi-dimensional multiclass and multilabel inputs to ``(N, C)`` rows."""
-    _, _, mode = _input_format_classification(preds, target)
+    if checks_read_nothing():
+        # the capture rule: the mode from the shapes alone, as the JAX
+        # package deduces it from a tracer's shapes (the value checks are
+        # host work, and integer predictions cannot be formatted there)
+        mode = _score_mode_static(preds, target)
+    else:
+        _, _, mode = _input_format_classification(preds, target)
 
     if mode == DataType.MULTIDIM_MULTICLASS:
         n_classes = preds.shape[1]

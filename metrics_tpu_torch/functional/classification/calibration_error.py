@@ -13,7 +13,7 @@ from typing import Any, Optional, Tuple, Union
 import torch
 
 from metrics_tpu_torch.ops import segment_sum_dispatch
-from metrics_tpu_torch.utils.checks import _input_format_classification
+from metrics_tpu_torch.utils.checks import _input_format_classification, _score_mode_static, checks_read_nothing
 from metrics_tpu_torch.utils.data import _as_tensor, amax_ieee, linspace_f32
 from metrics_tpu_torch.utils.enums import DataType
 
@@ -75,7 +75,13 @@ def _ce_compute(
 def _ce_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
     """Top-label confidences and 0/1 accuracies, float32 (the value checks
     read the card once)."""
-    _, _, mode = _input_format_classification(preds, target)
+    if checks_read_nothing():
+        # the capture rule: the mode from the shapes alone, as the JAX
+        # package deduces it from a tracer's shapes (the value checks are
+        # host work, and integer predictions cannot be formatted there)
+        mode = _score_mode_static(preds, target)
+    else:
+        _, _, mode = _input_format_classification(preds, target)
 
     if mode == DataType.BINARY:
         confidences, accuracies = preds, target

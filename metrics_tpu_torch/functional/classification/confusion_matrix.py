@@ -12,6 +12,7 @@ from metrics_tpu_torch.utils.checks import (
     _check_classification_inputs,
     _input_format_classification,
     _input_squeeze,
+    checks_read_nothing,
 )
 from metrics_tpu_torch.utils.data import _as_tensor, _bincount, to_categorical
 from metrics_tpu_torch.utils.enums import DataType
@@ -20,14 +21,18 @@ from metrics_tpu_torch.utils.prints import rank_zero_warn
 Tensor = torch.Tensor
 
 
-def _labels(preds: Tensor, target: Tensor, threshold: float) -> Tuple[Tensor, Tensor, DataType]:
+def _labels(preds: Tensor, target: Tensor, threshold: float, num_classes: int) -> Tuple[Tensor, Tensor, DataType]:
     """Predicted and true labels (or binary indicators) for the count.
 
     ``[N, C]`` float scores with ``[N]`` labels, the common multiclass case,
     are validated as ``_input_format_classification`` validates them and
     then reduced with one argmax: the label its top-1 one-hot would give
     (totalOrder, first maximum), without building the two ``[N, C]``
-    one-hots. Every other input style goes through the full formatter.
+    one-hots. Every other input style goes through the full formatter; label
+    inputs under the capture rule of ``utils/checks.py`` cannot infer the
+    class count from their values, so the formatter's refusal there is
+    retried with the explicit ``num_classes``, as the JAX package retries
+    under jit. Eager inputs, and every eager error, are unchanged.
     """
     squeezed_preds, squeezed_target = _input_squeeze(preds, target)
     if (
@@ -42,7 +47,12 @@ def _labels(preds: Tensor, target: Tensor, threshold: float) -> Tuple[Tensor, Te
             squeezed_preds, squeezed_target, threshold=threshold, num_classes=None, multiclass=None, top_k=None
         )
         return to_categorical(squeezed_preds, 1), squeezed_target, mode
-    preds, target, mode = _input_format_classification(preds, target, threshold)
+    try:
+        preds, target, mode = _input_format_classification(preds, target, threshold)
+    except ValueError as err:
+        if "under capture" not in str(err):
+            raise
+        preds, target, mode = _input_format_classification(preds, target, threshold, num_classes=num_classes)
     if mode not in (DataType.BINARY, DataType.MULTILABEL):
         preds, target = preds.argmax(dim=1), target.argmax(dim=1)
     return preds, target, mode
@@ -51,7 +61,7 @@ def _labels(preds: Tensor, target: Tensor, threshold: float) -> Tuple[Tensor, Te
 def _confusion_matrix_update(
     preds: Tensor, target: Tensor, num_classes: int, threshold: float = 0.5, multilabel: bool = False
 ) -> Tensor:
-    preds, target, _ = _labels(preds, target, threshold)
+    preds, target, _ = _labels(preds, target, threshold, num_classes)
     if multilabel:
         classes = torch.arange(num_classes, device=preds.device)
         unique_mapping = ((2 * target + preds) + 4 * classes).flatten()
@@ -80,7 +90,9 @@ def _confusion_matrix_compute(confmat: Tensor, normalize: Optional[str] = None) 
             confmat = confmat / confmat.sum()
 
         nan_mask = torch.isnan(confmat)
-        n_nan = int(nan_mask.sum())
+        # the warning's count is a host read: none under the capture rule,
+        # as the JAX package warns on concrete values only
+        n_nan = 0 if checks_read_nothing() else int(nan_mask.sum())
         if n_nan:
             rank_zero_warn(f"{n_nan} nan values found in confusion matrix have been replaced with zeros.")
         confmat = torch.where(nan_mask, torch.zeros_like(confmat), confmat)

@@ -9,6 +9,8 @@ from metrics_tpu_torch.ops.box_iou import (  # noqa: F401
     box_iou_reference,
 )
 from metrics_tpu_torch.ops.dispatch import (  # noqa: F401
+    BATCHED,
+    batched_launch_counts,
     count_launch,
     launch_counts,
     on_card,

@@ -16,6 +16,11 @@ update (``core/fused.py``) therefore records the launches of each capture
 the counters) and adds them to the counters at every replay
 (:func:`add_launches`); the launches of its warm-up and probe runs are
 recorded and dropped.
+
+A launch that serves every row of a ``torch.func.vmap`` (the vmap rules of
+:mod:`metrics_tpu_torch.ops.segment_sum`) also counts as a batched launch
+of its kernel (:func:`batched_launch_counts`), recorded and replayed with
+the rest.
 """
 import contextlib
 import ctypes
@@ -31,12 +36,16 @@ __all__ = [
     "launch",
     "count_launch",
     "launch_counts",
+    "batched_launch_counts",
     "reset_launch_counts",
     "recording_launches",
     "add_launches",
 ]
 
 _LAUNCHES: Dict[str, int] = {}
+#: the suffix of a kernel's batched-launch counter in ``_LAUNCHES`` and in
+#: the dicts :func:`recording_launches` yields
+BATCHED = "@vmap"
 _LOCK = threading.Lock()
 _RECORDING = threading.local()
 
@@ -82,10 +91,11 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{name} is a CUDA kernel; it takes CUDA tensors (the CPU takes the plain version)")
 
 
-def launch(kernel: str, lib: ctypes.CDLL, device: torch.device, fn: Any, *args: Any) -> None:
+def launch(kernel: str, lib: ctypes.CDLL, device: torch.device, fn: Any, *args: Any, batched: bool = False) -> None:
     """Call the C launcher ``fn`` of ``lib`` with ``device``'s current
-    stream, raise on the CUDA error it returns, and count the launch. The
-    device and its stream are looked up once."""
+    stream, raise on the CUDA error it returns, and count the launch (a
+    ``batched`` one too: it serves a whole ``torch.func.vmap``). The device
+    and its stream are looked up once."""
     stream = torch.cuda.current_stream(device).cuda_stream
     if device.index == torch.cuda.current_device():
         code = fn(*args, stream)
@@ -95,16 +105,19 @@ def launch(kernel: str, lib: ctypes.CDLL, device: torch.device, fn: Any, *args: 
     if code != 0:
         reason = lib.cuda_error_string(code).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {code} ({reason})")
-    count_launch(kernel)
+    count_launch(kernel, batched)
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, batched: bool = False) -> None:
+    names = (name, name + BATCHED) if batched else (name,)
     recording = getattr(_RECORDING, "counts", None)
     if recording is not None:
-        recording[name] = recording.get(name, 0) + 1
+        for key in names:
+            recording[key] = recording.get(key, 0) + 1
         return
     with _LOCK:
-        _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+        for key in names:
+            _LAUNCHES[key] = _LAUNCHES.get(key, 0) + 1
 
 
 @contextlib.contextmanager
@@ -130,7 +143,14 @@ def add_launches(counts: Dict[str, int]) -> None:
 def launch_counts() -> Dict[str, int]:
     """Launches per kernel since the last :func:`reset_launch_counts`."""
     with _LOCK:
-        return dict(_LAUNCHES)
+        return {k: n for k, n in _LAUNCHES.items() if not k.endswith(BATCHED)}
+
+
+def batched_launch_counts() -> Dict[str, int]:
+    """Of :func:`launch_counts`, the launches per kernel that each served
+    every row of a ``torch.func.vmap``."""
+    with _LOCK:
+        return {k[: -len(BATCHED)]: n for k, n in _LAUNCHES.items() if k.endswith(BATCHED)}
 
 
 def reset_launch_counts() -> None:

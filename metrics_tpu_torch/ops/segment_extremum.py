@@ -20,7 +20,8 @@ S is small), counted as two kernels:
 PyTorch over integer totalOrder keys (``scatter_reduce_`` of floats keeps
 whichever zero it meets first); :func:`segment_max` / :func:`segment_min`
 take it for CPU tensors only, and launch the kernel for CUDA tensors at any
-B, S and D (the TPU's shape route is gone) or raise.
+B, S and D (the TPU's shape route is gone) or raise. Both kernels are
+custom ops with the segment fold's vmap rule, as the segment sums are.
 """
 import ctypes
 
@@ -28,7 +29,7 @@ import torch
 
 from metrics_tpu_torch.ops.build import load
 from metrics_tpu_torch.ops.dispatch import route
-from metrics_tpu_torch.ops.segment_sum import FOLD_ARGS, segment_fold_launch
+from metrics_tpu_torch.ops.segment_sum import FOLD_ARGS, define_fold_op
 from metrics_tpu_torch.utils.data import _is_integer, _total_order_key
 
 Tensor = torch.Tensor
@@ -54,13 +55,14 @@ def load_library() -> ctypes.CDLL:
 
 
 def segment_max_f32(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
-    """Float32 ``[B, D]`` (or ``[B]``) rows folded by id into their max on the card."""
-    return segment_fold_launch("segment_max_f32", load_library, torch.float32, True, vals, ids, num_segments, -torch.inf)
+    """Float32 ``[B, D]`` (or ``[B]``) rows folded by id into their max on
+    the card. Under ``torch.func.vmap`` one launch folds every row."""
+    return _SEGMENT_MAX(vals, ids, num_segments)
 
 
 def segment_min_f32(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
     """Float32 ``[B, D]`` (or ``[B]``) rows folded by id into their min on the card."""
-    return segment_fold_launch("segment_min_f32", load_library, torch.float32, True, vals, ids, num_segments, torch.inf)
+    return _SEGMENT_MIN(vals, ids, num_segments)
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +105,17 @@ def segment_extremum_reference(vals: Tensor, ids: Tensor, num_segments: int, is_
     values = _from_total_order_key(out, vals.dtype)
     values = torch.where(nan_seen > 0, torch.full_like(values, float("nan")), values)
     return values[:num_segments]
+
+
+# the custom ops ``metrics_tpu_torch::segment_max_f32``/``segment_min_f32``:
+# the launch on the card, the plain version on the CPU, a fake and the fold's
+# vmap rule (see :mod:`metrics_tpu_torch.ops.segment_sum`)
+_SEGMENT_MAX = define_fold_op(
+    "segment_max_f32", load_library, torch.float32, True, -torch.inf, lambda vals, ids, s: segment_extremum_reference(vals, ids, s, True)
+)
+_SEGMENT_MIN = define_fold_op(
+    "segment_min_f32", load_library, torch.float32, True, torch.inf, lambda vals, ids, s: segment_extremum_reference(vals, ids, s, False)
+)
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,24 @@ launches it for all four, with the geometry of :func:`segment_fold_geometry`
 over blocks (the int32 sum, max and min, when S is small) launches a
 second kernel that combines the partial tiles; the call still counts as
 one launch.
+
+**Under ``torch.func.vmap`` and CUDA-graph capture.** The five wrappers of
+this family (``bincount_i32``, ``segment_sum_f32`` and ``segment_sum_i32``
+here, ``segment_max_f32``/``segment_min_f32`` in
+:mod:`metrics_tpu_torch.ops.segment_extremum`) call ``torch.library``
+custom ops in the ``metrics_tpu_torch`` namespace: a CUDA implementation
+(the launch), a CPU implementation (the plain version), a fake one (the
+output's static shape) and a vmap rule. A vmapped call (a sliced metric's
+per-row update reaching a kernel) is one launch over the flattened batch:
+``V`` bincounts over ``minlength`` bins become one over ``V * minlength``
+bins at ``ids + v * minlength``, ``V`` folds over ``S`` segments one over
+``V * S`` segments. An id out of its row's range is masked to ``-1``
+before the offset, so it drops in the kernel and never lands in a
+neighbouring row; each segment keeps its rows in order, so the float sum's
+bits are those of ``V`` separate calls. The Python wrappers stay the entry
+points and take CUDA tensors only: a tensor that ``torch.func`` wraps takes
+the op, a plain one launches directly (the op's CUDA implementation without
+the dispatcher, which costs 20-25 us of host time a call on an H100 host).
 """
 import ctypes
 import functools
@@ -33,6 +51,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch._C._functorch import is_functorch_wrapped_tensor
 
 from metrics_tpu_torch.ops.build import load
 from metrics_tpu_torch.ops.dispatch import check_cuda, launch, route
@@ -91,13 +110,22 @@ def _ids_for_kernel(ids: Tensor) -> Tensor:
 
 
 def bincount_i32(ids: Tensor, minlength: int) -> Tensor:
-    """int32 counts of ``ids`` over ``[0, minlength)`` on the card; other ids drop."""
+    """int32 counts of ``ids`` over ``[0, minlength)`` on the card; other
+    ids drop. Under ``torch.func.vmap`` one launch counts every row."""
     check_cuda("bincount_i32", ids)
+    if _wrapped(ids):
+        return _BINCOUNT_OP(ids, minlength, False)
+    return _bincount_launch(ids, minlength)
+
+
+def _bincount_launch(ids: Tensor, minlength: int, batched: bool = False) -> Tensor:
+    """The ``bincount_i32`` op's CUDA implementation: one launch
+    (``batched`` when it counts every row of a vmap)."""
     ids = _ids_for_kernel(ids)
     lib = load_library()
     out = torch.zeros(minlength, dtype=torch.int32, device=ids.device)
     fn = lib.bincount_i32_ids64 if ids.dtype == torch.int64 else lib.bincount_i32_ids32
-    launch("bincount_i32", lib, ids.device, fn, ids.data_ptr(), ids.numel(), out.data_ptr(), minlength)
+    launch("bincount_i32", lib, ids.device, fn, ids.data_ptr(), ids.numel(), out.data_ptr(), minlength, batched=batched)
     return out
 
 
@@ -174,6 +202,7 @@ def segment_fold_launch(
     ids: Tensor,
     num_segments: int,
     empty_fill: Any,
+    batched: bool = False,
 ) -> Tensor:
     """Launch the row-order segment tile ``kernel`` (``segment_sum_f32``,
     ``segment_sum_i32``, ``segment_max_f32`` or ``segment_min_f32``: the C
@@ -212,6 +241,7 @@ def segment_fold_launch(
         fn,
         vals.data_ptr(), ids.data_ptr(), b, d, out.data_ptr(), num_segments, g.dc, g.sw, g.seg_tiles, g.col_chunks,
         g.splits, g.rows_per_split, None if scratch is None else scratch.data_ptr(),
+        batched=batched,
     )
     return out
 
@@ -220,13 +250,13 @@ def segment_sum_f32(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
     """``[B, D]`` (or ``[B]``) float32 rows summed by id into
     ``[num_segments, D]`` (or ``[num_segments]``) on the card; out-of-range
     ids drop. Deterministic: each output is summed in row order."""
-    return segment_fold_launch("segment_sum_f32", load_library, torch.float32, False, vals, ids, num_segments, 0.0)
+    return _SEGMENT_SUM_F32(vals, ids, num_segments)
 
 
 def segment_sum_i32(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
     """int32 ``[B, D]`` (or ``[B]``) rows summed by id on the card, wrapping
     modulo 2**32; out-of-range ids drop."""
-    return segment_fold_launch("segment_sum_i32", load_library, torch.int32, True, vals, ids, num_segments, 0)
+    return _SEGMENT_SUM_I32(vals, ids, num_segments)
 
 
 # ---------------------------------------------------------------------------
@@ -258,6 +288,133 @@ def segment_sum_reference(vals: Tensor, ids: Tensor, num_segments: int) -> Tenso
         low = out & 0xFFFFFFFF
         out = torch.where(low >= 1 << 31, low - (1 << 32), low).to(torch.int32)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the custom ops: CUDA launch, plain CPU version, fake, vmap rule
+# ---------------------------------------------------------------------------
+
+#: the ``torch.library`` namespace of the port's kernels
+OP_NAMESPACE = "metrics_tpu_torch"
+
+
+def _wrapped(*tensors: Tensor) -> bool:
+    """Whether ``torch.func`` wraps any of ``tensors`` (a vmapped row): such
+    a call takes the custom op, whose vmap rule launches once for the batch."""
+    return any(is_functorch_wrapped_tensor(t) for t in tensors)
+
+
+def _check_values(kernel: str, vals: Tensor, dtype: torch.dtype) -> None:
+    """Raise unless ``vals`` have the kernel's value dtype (the launch and
+    the op's CPU implementation take the same values)."""
+    if vals.dtype != dtype:
+        raise TypeError(f"{kernel} takes {dtype} values, got {vals.dtype}")
+
+
+def _flat_ids(ids: Tensor, v: int, width: int) -> Tensor:
+    """``[V, n]`` per-row ids in ``[0, width)`` as one ``[V * n]`` id vector
+    over ``V * width``: row ``v``'s ids shifted by ``v * width``; an id out
+    of its row's range becomes -1, which the kernels drop."""
+    ids = ids.reshape(v, -1)
+    wide = v * width >= 2**31 or ids.dtype == torch.int64
+    offsets = torch.arange(v, dtype=torch.int64 if wide else torch.int32, device=ids.device)[:, None] * width
+    keep = (ids >= 0) & (ids < width)
+    return torch.where(keep, ids.to(offsets.dtype) + offsets, -1).reshape(-1)
+
+
+def _bincount_vmap(info: Any, in_dims: Tuple[Optional[int], ...], ids: Tensor, minlength: int, batched: bool = False) -> Tuple[Tensor, Any]:
+    """A vmapped ``bincount_i32``: ``V`` rows of ids, one launch over
+    ``V * minlength`` bins."""
+    if in_dims[0] is None:
+        return _BINCOUNT_OP(ids, minlength, batched), None
+    v = info.batch_size
+    counts = _BINCOUNT_OP(_flat_ids(ids.movedim(in_dims[0], 0), v, minlength), v * minlength, True)
+    return counts.reshape(v, minlength), 0
+
+
+def fold_vmap(op: Any) -> Callable[..., Tuple[Tensor, Any]]:
+    """The vmap rule of a row-order segment fold op ``op(vals, ids, S,
+    batched)``: ``V`` folds of ``[B]``/``[B, D]`` rows over ``S`` segments
+    are one fold of the ``V * B`` rows over ``V * S`` segments (an
+    unbatched argument is expanded to the batch first)."""
+
+    def rule(info: Any, in_dims: Tuple[Optional[int], ...], vals: Tensor, ids: Tensor, num_segments: int, batched: bool = False):
+        vals_dim, ids_dim = in_dims[0], in_dims[1]
+        if vals_dim is None and ids_dim is None:
+            return op(vals, ids, num_segments, batched), None
+        v = info.batch_size
+        vals = vals.movedim(vals_dim, 0) if vals_dim is not None else vals.expand((v,) + tuple(vals.shape))
+        ids = ids.movedim(ids_dim, 0) if ids_dim is not None else ids.expand((v,) + tuple(ids.shape))
+        rows = vals.reshape((-1,) + tuple(vals.shape[2:]))
+        out = op(rows, _flat_ids(ids, v, num_segments), v * num_segments, True)
+        return out.reshape((v, num_segments) + tuple(out.shape[1:])), 0
+
+    return rule
+
+
+def define_fold_op(
+    kernel: str,
+    load_library: Callable[[], ctypes.CDLL],
+    dtype: torch.dtype,
+    order_free: bool,
+    empty_fill: Any,
+    plain_fn: Callable[[Tensor, Tensor, int], Tensor],
+) -> Callable[[Tensor, Tensor, int], Tensor]:
+    """Register the row-order segment fold ``kernel`` (the arguments of
+    :func:`segment_fold_launch`) as the custom op
+    ``metrics_tpu_torch::<kernel>(vals, ids, S, batched=False)``: the launch
+    on the card, ``plain_fn`` on the CPU, a fake of the ``[S]``/``[S, D]``
+    output in the values' dtype and :func:`fold_vmap`. Returns the
+    wrapper's body: the op for tensors that ``torch.func`` wraps (their
+    values detached: the kernels have no gradient), the launch for plain
+    ones."""
+
+    def cuda_impl(vals: Tensor, ids: Tensor, num_segments: int, batched: bool = False) -> Tensor:
+        return segment_fold_launch(kernel, load_library, dtype, order_free, vals, ids, num_segments, empty_fill, batched)
+
+    op = torch.library.custom_op(f"{OP_NAMESPACE}::{kernel}", cuda_impl, mutates_args=(), device_types="cuda")
+
+    @op.register_kernel("cpu")
+    def _(vals: Tensor, ids: Tensor, num_segments: int, batched: bool = False) -> Tensor:
+        _check_values(kernel, vals, dtype)
+        return plain_fn(vals, ids, num_segments)
+
+    @op.register_fake
+    def _(vals: Tensor, ids: Tensor, num_segments: int, batched: bool = False) -> Tensor:
+        return vals.new_empty((num_segments,) + tuple(vals.shape[1:2]))
+
+    overload = op._opoverload
+    op.register_vmap(fold_vmap(overload))
+
+    def call(vals: Tensor, ids: Tensor, num_segments: int) -> Tensor:
+        if _wrapped(vals, ids):
+            check_cuda(kernel, vals, ids)
+            return overload(vals.detach(), ids, num_segments, False)
+        return segment_fold_launch(kernel, load_library, dtype, order_free, vals, ids, num_segments, empty_fill)
+
+    return call
+
+
+@torch.library.custom_op(f"{OP_NAMESPACE}::bincount_i32", mutates_args=(), device_types="cuda")
+def _bincount_op(ids: Tensor, minlength: int, batched: bool = False) -> Tensor:
+    return _bincount_launch(ids, minlength, batched)
+
+
+@_bincount_op.register_kernel("cpu")
+def _(ids: Tensor, minlength: int, batched: bool = False) -> Tensor:
+    return bincount_reference(ids, minlength)
+
+
+@_bincount_op.register_fake
+def _(ids: Tensor, minlength: int, batched: bool = False) -> Tensor:
+    return ids.new_empty(minlength, dtype=torch.int32)
+
+
+_bincount_op.register_vmap(_bincount_vmap)
+_BINCOUNT_OP = _bincount_op._opoverload
+
+_SEGMENT_SUM_F32 = define_fold_op("segment_sum_f32", load_library, torch.float32, False, 0.0, segment_sum_reference)
+_SEGMENT_SUM_I32 = define_fold_op("segment_sum_i32", load_library, torch.int32, True, 0, segment_sum_reference)
 
 
 # ---------------------------------------------------------------------------

@@ -134,6 +134,42 @@ def _svc_plane_nbytes() -> int:
 register_cache_plane("sliced_value_cache", _svc_plane_nbytes)
 
 
+def _wrapper_device(metric: Metric, kwargs: Dict[str, Any], wrapper: str) -> torch.device:
+    """The device a wrapper of ``metric`` runs on: the template's. A
+    ``device=`` among ``kwargs`` (taken out of them) must name it."""
+    device = kwargs.pop("device", None)
+    if device is not None and not _same_device(torch.device(device), metric.device):
+        raise MetricsUserError(
+            f"{wrapper} runs on its wrapped metric's device {metric.device}; got device={str(device)!r}."
+            f" Build the wrapped metric with device={str(device)!r} instead"
+        )
+    return metric.device
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one: a CUDA device without an index is the
+    current one."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or a.index == b.index:
+        return True
+    current = torch.cuda.current_device()
+    return (current if a.index is None else a.index) == (current if b.index is None else b.index)
+
+
+def _vmapped_compute(template: Metric) -> Any:
+    """The template's compute vmapped over a leading slice axis, under the
+    capture rule of ``utils/checks.py``: no value of a vmapped slice can be
+    read on the host, as the JAX package's checks skip vmap's tracers."""
+    fold = torch.func.vmap(template.compute_state)
+
+    def compute(states: Dict[str, Tensor]) -> Any:
+        with capturing_checks():
+            return fold(states)
+
+    return compute
+
+
 def _template_of(metric: Metric) -> Metric:
     """A reset copy of ``metric``, the wrapper's template. The wrapper runs
     on the template's device."""
@@ -168,7 +204,8 @@ class SlicedMetric(Metric):
     ``compute(top_k=k)`` returns ``(slice_ids, values)`` for the ``k``
     slices with the most rows (ties to the lower id). Reset,
     ``merge_states`` and ``state_dict`` are the ordinary :class:`Metric`
-    ones. The metric runs on the wrapped metric's device.
+    ones. The metric runs on the wrapped metric's device; a ``device=``
+    must name that device (:class:`MetricsUserError` otherwise).
     """
 
     higher_is_better = None
@@ -184,7 +221,7 @@ class SlicedMetric(Metric):
         if not isinstance(num_slices, int) or isinstance(num_slices, bool) or num_slices <= 0:
             raise MetricsUserError(f"`num_slices` must be a positive int, got {num_slices!r}")
         self._validate_sliceable(metric)
-        super().__init__(device=metric.device, **kwargs)
+        super().__init__(device=_wrapper_device(metric, kwargs, "SlicedMetric"), **kwargs)
         self.num_slices = num_slices
         # the slices this process holds: all of them, or a rank's block
         self._offset, self._n_local = 0, num_slices
@@ -446,7 +483,7 @@ class SlicedMetric(Metric):
     # ------------------------------------------------------------------
     def _fold(self, states: Dict[str, Tensor]) -> Any:
         """The wrapped compute over the leading axis of ``states``."""
-        return torch.func.vmap(self._template.compute_state)(states)
+        return _vmapped_compute(self._template)(states)
 
     def compute_state(self, state: Dict[str, Tensor]) -> Any:
         """Pure functional compute: the wrapped compute over every slice of
@@ -465,7 +502,7 @@ class SlicedMetric(Metric):
         # the reader holds the template, not this metric: no reference
         # cycle keeps a metric's graphs alive past the metric
         template = self._template
-        return self._readers.get("sliced_subset", lambda: torch.func.vmap(template.compute_state), rows, bucket=bucket)
+        return self._readers.get("sliced_subset", lambda: _vmapped_compute(template), rows, bucket=bucket)
 
     def _fold_slices(self, req: np.ndarray) -> Tuple[Any, int]:
         """Values of the slices ``req`` (host ids): the dirty ones among them

@@ -83,7 +83,7 @@ from metrics_tpu_torch.core.readers import ReaderCache
 from metrics_tpu_torch.observability.freshness import FreshnessStamp
 from metrics_tpu_torch.observability.memory import register_cache_plane
 from metrics_tpu_torch.observability.recorder import _DEFAULT_RECORDER as _TELEMETRY
-from metrics_tpu_torch.sliced.metric import _reducer_name, _template_of
+from metrics_tpu_torch.sliced.metric import _reducer_name, _template_of, _wrapper_device
 from metrics_tpu_torch.utils.checks import checks_read_nothing
 from metrics_tpu_torch.utils.data import (
     _squeeze_if_scalar,
@@ -151,7 +151,8 @@ class WindowedMetric(Metric):
     ``w`` buckets. Decay mode: ``WindowedMetric(m, mode="decay",
     decay=0.99)``. Reset, ``state_dict`` and ``merge_states`` are the
     ordinary :class:`Metric` ones. The metric runs on the wrapped metric's
-    device.
+    device; a ``device=`` must name that device (:class:`MetricsUserError`
+    otherwise).
     """
 
     higher_is_better = None
@@ -190,7 +191,7 @@ class WindowedMetric(Metric):
             if not isinstance(decay, (int, float)) or not 0.0 < float(decay) < 1.0:
                 raise MetricsUserError(f"`decay` must be a float in (0, 1), got {decay!r}")
         self._validate_windowable(metric, mode)
-        super().__init__(device=metric.device, **kwargs)
+        super().__init__(device=_wrapper_device(metric, kwargs, "WindowedMetric"), **kwargs)
         self.mode = mode
         self.window = int(window)
         self.updates_per_bucket = int(updates_per_bucket)

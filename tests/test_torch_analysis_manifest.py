@@ -117,12 +117,6 @@ class TestSchema:
 
 #: verdicts that differ, (port, JAX, why)
 VERDICT_DIFFERENCES = {
-    "classification/hamming.py::HammingDistance": (
-        "fusible",
-        "unknown",
-        "the port's input checks read nothing under the capture rule, where the JAX package's raise under"
-        " tracing (`if not _is_concrete(...): raise`) for some input configurations",
-    ),
     "regression/tweedie_deviance.py::TweedieDevianceScore": (
         "fusible",
         "unknown",
@@ -274,7 +268,6 @@ PROBE_INPUTS = {
     "classification/calibration_error.py::CalibrationError": ({}, _BINARY, 0),
     "classification/cohen_kappa.py::CohenKappa": ({"num_classes": 3}, _MULTICLASS, 0),
     "classification/confusion_matrix.py::ConfusionMatrix": ({"num_classes": 3}, _MULTICLASS, 0),
-    "classification/hamming.py::HammingDistance": ({}, _BINARY, 0),
     "classification/hinge.py::HingeLoss": ({}, lambda: ((_rand(_N) - 0.5, _ints(2, _N)), {}), 0),
     "classification/jaccard.py::JaccardIndex": ({"num_classes": 3}, _MULTICLASS, 0),
     "classification/matthews_corrcoef.py::MatthewsCorrCoef": ({"num_classes": 3}, _MULTICLASS, 0),
