@@ -165,6 +165,14 @@ Phases, each printed as one JSON line:
 10. map-pycoco -- the two-batch COCO fixture of the JAX package's tests
    within its tolerance (1e-1) of pycocotools' official numbers; the
    largest deviation per key is printed;
+10b. map-fused -- map-coco's 5000 images as padded dicts (detections
+   [16, 100], ground truths [16, 30]; the last batch 8 images, padded to
+   the bucket and masked through n_valid) through
+   MeanAveragePrecision(class_metrics=True, max_images=8192) eager against
+   compile_update(buckets=(16,)); gates: the table and images_seen
+   bit-equal between the legs after every batch, the values bit-equal;
+   the class (manifest verdict ``unknown``) probed once more on every
+   batch, with captures, replays, probes passed and ms per update printed;
 11. retrieval-mslr -- the main path of K4: bench.py's config-4 fixture
    (seed 7, 5000 queries of 40-199 documents, 587,354 documents, 8%
    relevant) as card tensors in updates of 16,384 documents through
@@ -224,9 +232,16 @@ Phases, each printed as one JSON line:
    fusibility manifest's seeding (``manifest_probe_skips``, ``n_probes``,
    ``declined``; every fused phase, the regression, image, audio and
    telemetry ones too, runs seeded, and a stale-manifest warning fails the
-   run); after each fused leg every member whose class the manifest calls
-   ``fusible`` (whose probe the leg skipped) is probed on the card and must
-   pass, the trial capture included; the others' probes ran in the leg:
+   run); after each fused leg every member is probed once more on the card,
+   the trial capture included: a class the manifest calls ``fusible``
+   (whose probe the leg skipped) must pass, and an ``unknown`` or
+   ``unsafe`` class the card captures is listed (``captured_against_verdict``
+   in the fused-memory line); each fused phase runs with Python's cyclic
+   collector off and prints the card's allocated and reserved bytes at its
+   start and after it returned (``<phase> memory``: its collections, and
+   with them their handles' graphs, pools and static buffers, go by
+   reference count; reserved bytes back within 64 MiB of the start, no
+   ``gc.collect()`` in between):
    fused-classification -- classification-collection's 30 updates with
    buckets=(2048,): one capture, 0 host syncs per fused update, and
    bincount_i32 launched as the graph recorded it times its replays (2 per
@@ -528,6 +543,17 @@ Phases, each printed as one JSON line:
    UserWarning fails the phase, Accuracy() alone declined (as the JAX
    package declines it), states bit for bit, 2 bincount_i32 per bucketed
    replay and 1 on the flagship, its counts equal to np.bincount;
+18z2b. input-dtypes -- the classes repaired for mixed input dtypes
+   (ROADMAP C.13-C.18) over the CPU grid's pairs: SpearmanCorrCoef on
+   float64/float32, SNR, SI-SNR and SI-SDR on an integer target and half
+   precision beside float32, PIT over SI-SDR on an integer target, SSIM,
+   MS-SSIM and UQI on float64/float32, AUC on float32/bfloat16 and
+   float64/float32, each eager and through compile_update(); gates: states
+   bit-equal between the legs, no float64 state or value, the value within
+   the family's tolerance of the port's CPU run; the pairwise functionals
+   on int64 and float64 rows against the CPU (float32, or int32 for
+   integer manhattan distances), and bool labels against [N, C] scores
+   refused with TypeError by ConfusionMatrix and AUROC;
 18z3. sliced-kernels -- the five kernel wrappers under torch.func.vmap at
    [64, 37] ids (one batched launch each, eager and captured, the plain
    version's bits row by row); then eight SlicedMetric templates over 1000
@@ -542,6 +568,10 @@ Phases, each printed as one JSON line:
    eager against compile_update(): no member declined, no UserWarning,
    states bit for bit, one batched bincount_i32 and two segment_sum_i32
    per replay;
+18z4. fused-memory -- each fused phase's reserved and allocated growth and
+   what a gc.collect() freed after it, every class the fused phases probed
+   with its manifest verdict and outcome per phase, and the ``unknown`` or
+   ``unsafe`` classes the card captured;
 19. the kernels line: per kernel its launches on its main path (flagship for
    K1, sketch-binary for K3, map-coco for K6, the entry point ops.box_iou
    on 2-D boxes for K5, retrieval-mslr for K4, sliced-psnr for K2 and
@@ -1819,6 +1849,91 @@ def map_phases(torch, ops, card, MeanAveragePrecision):
     return launches
 
 
+#: the map fixture's most detections and ground truths in one image: the
+#: slot widths of its padded-dict batches
+MAP_DET_SLOTS = 100
+MAP_GT_SLOTS = 30
+MAP_FUSED_DEVICE = "cuda"
+
+
+def padded_images(torch, images, slots, keys, device):
+    """Per-image dicts as MeanAveragePrecision's batched padded input:
+    each field ``[images, slots, ...]``, zero past an image's own count,
+    and ``n`` the counts; built on the host, one copy per field."""
+    out = {}
+    for key in keys:
+        first = images[0][key]
+        whole = np.zeros((len(images), slots) + first.shape[1:], first.dtype)
+        for i, image in enumerate(images):
+            whole[i, : len(image[key])] = image[key]
+        out[key] = torch.from_numpy(whole).to(device)
+    out["n"] = torch.from_numpy(np.array([len(image[keys[0]]) for image in images], np.int32)).to(device)
+    return out
+
+
+def map_fused_phase(torch, ops, card, tm):
+    """map-fused: map-coco's 5000 images as padded dicts (detections
+    ``[16, 100]``, ground truths ``[16, 30]``; the last batch holds 8
+    images, which the fused update pads to the bucket and masks through
+    ``n_valid``) through MetricCollection([MeanAveragePrecision(
+    class_metrics=True, max_images=8192)]), eager against
+    compile_update(buckets=(16,)). Gates: the table and images_seen
+    bit-equal between the legs after every batch, and the computed values.
+    The class is probed once more on every batch (its manifest verdict is
+    ``unknown``: the port packs the list-of-dicts input on the host); the
+    probes it passed, the captures, replays and ms per update are printed."""
+    from metrics_tpu_torch.analysis.manifest import manifest_verdict
+
+    t_phase = time.perf_counter()
+    preds_np, target_np = make_detection_data(MAP_IMAGES)
+    preds = padded_images(torch, preds_np, MAP_DET_SLOTS, ("boxes", "scores", "labels"), MAP_FUSED_DEVICE)
+    target = padded_images(torch, target_np, MAP_GT_SLOTS, ("boxes", "labels"), MAP_FUSED_DEVICE)
+    batches = [
+        ({k: v[lo : lo + MAP_BATCH] for k, v in preds.items()}, {k: v[lo : lo + MAP_BATCH] for k, v in target.items()})
+        for lo in range(0, MAP_IMAGES, MAP_BATCH)
+    ]
+
+    def make():
+        return tm.MetricCollection([tm.MeanAveragePrecision(class_metrics=True, max_images=MAP_LOSSLESS_CAPACITY, device=MAP_FUSED_DEVICE)])
+
+    legs = {"eager": make(), "fused": make()}
+    for col in legs.values():
+        col.update(*batches[0])  # eager: forms the compute groups
+    handle = legs["fused"].compile_update(buckets=(MAP_BATCH,))
+    seconds = {leg: [] for leg in legs}
+    differ, probes_passed = [], 0
+    for i, batch in enumerate(batches[1:], 1):
+        for leg, col in legs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            col.update(*batch)
+            torch.cuda.synchronize()
+            seconds[leg].append(time.perf_counter() - t0)
+        eager, fused = (legs[leg]["MeanAveragePrecision"] for leg in ("eager", "fused"))
+        if not (same_bits(torch, [eager.table], [fused.table]) and torch.equal(eager.images_seen, fused.images_seen)):
+            differ.append(i)
+        probes_passed += handle._probe("MeanAveragePrecision", fused, batch, {})
+    declined = handle.declined.pop("MeanAveragePrecision", None)  # the last failed probe's reason, if any
+    check(not differ, f"map-fused: the fused leg's table differs from the eager leg's after batches {differ[:10]}")
+    results = {leg: col.compute() for leg, col in legs.items()}
+    value_differ = keys_that_differ(torch, results["eager"], results["fused"])
+    check(not value_differ, f"map-fused: the fused leg's values differ from the eager leg's in {value_differ}")
+    check(int(legs["fused"]["MeanAveragePrecision"].images_seen) == MAP_IMAGES, "map-fused: images_seen differs from the images fed")
+    entries = list(handle._cache.values())
+    emit({"phase": "map-fused", "card": card, "images": MAP_IMAGES, "updates": len(batches), "bucket": MAP_BATCH,
+          "last_batch_images": int(batches[-1][0]["n"].shape[0]),
+          "manifest_verdict": manifest_verdict(type(legs["fused"]["MeanAveragePrecision"])),
+          "fused": not handle._eager_names, "eager_leg": sorted(handle._eager_names), "declined": dict(handle.declined),
+          "captures": handle.n_compiles, "cache_size": handle.cache_size, "replays": sum(e.calls for e in entries),
+          "launches_per_replay": [dict(e.launches) for e in entries], "n_probes": handle.n_probes,
+          "probes_passed_every_batch": probes_passed == len(batches) - 1, "probes_passed": probes_passed,
+          "last_probe_declined": declined,
+          "first_update_ms": {leg: t[0] * 1e3 for leg, t in seconds.items()},
+          "ms_per_update": {leg: float(np.mean(t[1:])) * 1e3 for leg, t in seconds.items()},
+          "states_bit_equal_after_every_batch": True, "map": float(results["fused"]["map"]),
+          "seconds": time.perf_counter() - t_phase})
+
+
 def compute_breakdown(torch, metric):
     """Seconds of one warm ``compute()`` in its stages: the host unit
     packing, the matching on the card (chunk copies, matcher, K6, reads
@@ -2963,34 +3078,133 @@ def record_first_dispatch(handle):
     return seen
 
 
+#: classes whose probe (the run under the host-read mode and the trial
+#: capture) passed on the card though the manifest keeps them from fusing
+#: (``unknown`` or ``unsafe``): class path -> {verdict, phases}. Input for
+#: the manifest's per-configuration verdicts (ROADMAP B2.21), not a fault.
+CAPTURED_AGAINST_VERDICT = {}
+
+
 def verify_verdicts(name, handle, batch):
-    """Hold each fused member's class to its manifest verdict on the card:
-    a ``fusible`` class, whose probe the leg skipped, is probed now (a
-    scratch copy of the states, the run under the host-read mode, the
-    trial capture), as with ``METRICS_TPU_TORCH_VERIFY_MANIFEST=1``, and
-    must pass; the leg probed every other class itself, and its outcome is
-    recorded. Recorded in ``VERIFIED``; ``handle.declined`` is left as the
-    leg saw it."""
+    """Probe every fused member once more on the card (a scratch copy of the
+    states, the run under the host-read mode, the trial capture), as with
+    ``METRICS_TPU_TORCH_VERIFY_MANIFEST=1``: a ``fusible`` class, whose probe
+    the leg skipped, must pass; an ``unknown`` or ``unsafe`` class's outcome
+    is recorded, in ``CAPTURED_AGAINST_VERDICT`` too where the card captured
+    it. Recorded in ``VERIFIED``; ``handle.declined`` is left as the leg saw
+    it."""
     from metrics_tpu_torch.analysis.manifest import manifest_verdict
+
+    import torch
 
     args, kwargs = batch
     col = handle._collection
     declined = dict(handle.declined)
+    # a trial capture cannot use the default pool's cached blocks, and while
+    # it is underway the allocator's out-of-memory retry frees none of them
+    torch.cuda.empty_cache()
     leaders = [cg[0] for cg in col._groups.values()] if col._groups_checked else list(col._metrics)
     for member in leaders:
         m = col._metrics[member]
         if handle._static_unfusible(m) is not None:
             continue
         verdict = manifest_verdict(type(m))
-        record = VERIFIED.setdefault(f"{type(m).__module__}.{type(m).__name__}", {"verdict": verdict, "phases": {}})
-        if verdict != "fusible":
-            record["phases"][name] = "probed in the leg: " + (declined[member][:300] if member in declined else "fused")
-            continue
+        path = f"{type(m).__module__}.{type(m).__name__}"
+        record = VERIFIED.setdefault(path, {"verdict": verdict, "phases": {}})
+        handle.declined.pop(member, None)
         ok = handle._probe(member, m, args, kwargs)
         record["phases"][name] = ok or handle.declined.get(member, "declined")[:300]
-        check(ok, f"{name}: `{type(m).__name__}` reads fusible in the manifest but fails the probe on the card: {handle.declined.get(member)}")
+        if verdict == "fusible":
+            check(ok, f"{name}: `{type(m).__name__}` reads fusible in the manifest but fails the probe on the card: {handle.declined.get(member)}")
+        elif ok:
+            CAPTURED_AGAINST_VERDICT.setdefault(path, {"verdict": verdict, "phases": []})["phases"].append(name)
     handle.declined.clear()
     handle.declined.update(declined)
+
+
+#: the card's bytes around each fused phase (``fused_memory_window``)
+MEMORY_WINDOWS = []
+#: how far reserved bytes may end above a fused phase's start: the phase's
+#: collections, graphs, private pools and static buffers go with it, and
+#: what stays is the allocator's and the libraries' own (cuBLAS keeps a
+#: workspace per stream it has run on)
+FUSED_MEMORY_MARGIN = 64 * 2**20
+
+
+def card_census(torch):
+    """The card's allocated and reserved bytes, after ``empty_cache()``, by
+    memory pool: the default pool, and the private pools of CUDA graphs
+    (held by live graphs, or by a capture that failed without giving its
+    pool back); and the live fused handles and reader caches."""
+    from metrics_tpu_torch.core import fused, readers
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pools = {}
+    pinned = []
+    for segment in torch.cuda.memory_snapshot():
+        pool_id = tuple(segment.get("segment_pool_id", (0, 0)))
+        pool = pools.setdefault(pool_id, [0, 0])
+        pool[0] += segment["total_size"]
+        pool[1] += segment["allocated_size"]
+        if pool_id == (0, 0) and segment["allocated_size"] < segment["total_size"]:
+            # a default-pool segment that empty_cache() kept: a live block pins it
+            blocks = [b for b in segment.get("blocks", []) if b.get("state") != "inactive"]
+            pinned.append((segment["total_size"], segment["allocated_size"], segment.get("stream", 0), [(b["size"], b.get("state")) for b in blocks][:6]))
+    pinned.sort(reverse=True)
+    default = pools.pop((0, 0), [0, 0])
+    caches = list(readers._LIVE_READER_CACHES)
+    return {
+        "allocated": torch.cuda.memory_allocated(),
+        "reserved": torch.cuda.memory_reserved(),
+        "default_pool": {"reserved": default[0], "allocated": default[1], "segments_with_free_bytes": len(pinned),
+                         "free_bytes_kept": sum(p[0] - p[1] for p in pinned), "largest_pinned": pinned[:4]},
+        "private_pools": {"count": len(pools), "reserved": sum(p[0] for p in pools.values()), "allocated": sum(p[1] for p in pools.values())},
+        "live_fused_handles": len(fused._LIVE_FUSED),
+        "live_reader_caches": len(caches),
+        "reader_cache_graphs": sum(len(c) for c in caches),
+    }
+
+
+def fused_memory_window(torch, name, run, *args):
+    """Run one fused phase with Python's cyclic collector off and print the
+    card's bytes (``card_census``) at its start and once it has returned,
+    each after ``empty_cache()``, with no ``gc.collect()`` in between: the
+    phase's collections are dropped by reference count alone, and with
+    them their fused handles' graphs, private pools and static buffers.
+    What a ``gc.collect()`` frees after that is printed too
+    (``freed_by_gc_bytes``: what a reference cycle still held). The gate,
+    reserved bytes back within FUSED_MEMORY_MARGIN of the start, is taken
+    for every window at the end of the run (``check_memory_windows``).
+    Returns the phase's result."""
+    start = card_census(torch)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        result = run(*args)
+        end = card_census(torch)
+    finally:
+        if collecting:
+            gc.enable()
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = {
+        "phase": f"{name} memory",
+        "start": start,
+        "end": end,
+        "reserved_growth_bytes": end["reserved"] - start["reserved"],
+        "allocated_growth_bytes": end["allocated"] - start["allocated"],
+        "freed_by_gc_bytes": end["reserved"] - torch.cuda.memory_reserved(),
+        "margin_bytes": FUSED_MEMORY_MARGIN,
+    }
+    MEMORY_WINDOWS.append(line)
+    emit(line)
+    return result
+
+
+def check_memory_windows():
+    grown = {w["phase"]: w["reserved_growth_bytes"] for w in MEMORY_WINDOWS if w["reserved_growth_bytes"] > FUSED_MEMORY_MARGIN}
+    check(not grown, f"the card's reserved bytes grew past {FUSED_MEMORY_MARGIN} over the fused phases {grown}")
 
 
 def fused_legs(torch, ops, name, make, batches, compile_kw, update=update_args):
@@ -3002,8 +3216,8 @@ def fused_legs(torch, ops, name, make, batches, compile_kw, update=update_args):
     members the manifest does not prove fusible, the capture and one replay)
     is kept apart from the steady updates after it. Every state of the two
     legs is held bit for bit, and every computed value; then every fused
-    member's class is held to its manifest verdict (``verify_verdicts``).
-    Returns ``{leg: record}``."""
+    member is probed once more (``verify_verdicts``). Returns
+    ``{leg: record}``."""
     legs = {}
     for leg in ("eager", "fused"):
         collection = make()
@@ -3016,6 +3230,8 @@ def fused_legs(torch, ops, name, make, batches, compile_kw, update=update_args):
         update(collection, batches[1])
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
+        if handle is not None:
+            del handle.dispatch  # the recording wrapper (it refers to the handle)
         t0 = time.perf_counter()
         for batch in batches[2:]:
             update(collection, batch)
@@ -3187,7 +3403,6 @@ def fused_classification_phase(torch, ops, card, tm):
     emit({"phase": "fused-classification", "card": card, "updates": len(batches), "bucket": FUSED_BUCKET,
           "bincount_i32": k1, "compute_groups": {str(k): v for k, v in legs["fused"]["collection"].compute_groups.items()},
           **report, "seconds": time.perf_counter() - t_phase})
-    return legs
 
 
 def fused_flagship_phase(torch, ops, card, tm, preds_all, target_all):
@@ -3518,7 +3733,7 @@ def manifest_phase(torch, ops, card, tm, preds_all, target_all):
     out = {"phase": "manifest", "card": card, "batches": MANIFEST_BATCHES}
     for label, (make, batches, kw) in runs.items():
         out[label] = manifest_legs(torch, ops, f"manifest ({label})", make, batches, kw)
-        free_card(torch)
+        torch.cuda.empty_cache()
     # every member probed once more, under the verification switch
     os.environ[ENV_VERIFY_MANIFEST] = "1"
     try:
@@ -5157,12 +5372,13 @@ def pairwise_embeddings_phase(torch, ops, card, tm):
 
 
 def free_card(torch):
-    """Release what earlier phases left: a fused handle and its collection
-    reference each other, so their graphs' memory pools wait for the
-    cyclic collector; then hand the cached blocks back. Returns the bytes
-    still allocated (the phase's starting point for its peak)."""
+    """Release what earlier phases left (any reference cycle of theirs: a
+    fused handle no longer forms one with its collection, so its graphs go
+    with the collection), hand the cached blocks back and print the card's
+    census (``card-census``, by calling phase). Returns the bytes still
+    allocated (the phase's starting point for its peak)."""
     gc.collect()
-    torch.cuda.empty_cache()
+    emit({"phase": "card-census", "at": sys._getframe(1).f_code.co_name, **card_census(torch)})
     torch.cuda.reset_peak_memory_stats()
     return torch.cuda.memory_allocated()
 
@@ -5399,7 +5615,7 @@ def fid_inception_phase(torch, ops, card, tm):
             report[name]["state_bytes"] = state_bytes(metric)
             report[name]["value"] = [float(v) for v in flat_outputs(eager_values[name])]
             del legs, leg_reports, fused
-            gc.collect()  # the fused leg's graphs (a handle-collection cycle)
+            torch.cuda.empty_cache()  # the fused leg's graphs and pools went with its collection
         # exact=True on the same batches: the features are the same bits
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
@@ -6187,12 +6403,6 @@ def sliced_probability_phase(torch, ops, card, tm):
 # ---------------------------------------------------------------------------
 
 
-def memory_line(torch, reserved0):
-    """The card's reserved bytes at a phase's start and now (graph pools
-    included), and what is allocated now."""
-    return {"reserved_before": reserved0, "reserved_after": torch.cuda.memory_reserved(), "allocated_after": torch.cuda.memory_allocated()}
-
-
 def fused_labels_phase(torch, ops, card, tm, preds_all, target_all):
     """fused-labels: the confusion-matrix family and the stat-scores metrics
     on integer label predictions under the fused update. fused_collection's
@@ -6204,7 +6414,6 @@ def fused_labels_phase(torch, ops, card, tm, preds_all, target_all):
     package declines (Accuracy() alone), states bit for bit, and 2
     bincount_i32 per bucketed replay (the batch's and the pad row's)."""
     t_phase = time.perf_counter()
-    reserved0 = torch.cuda.memory_reserved()
     fused = fused_batches()
     epoch = [fused[i % len(fused)] for i in range(len(fused) * CLS_REPEATS)]
     batches = [(torch.from_numpy(p.argmax(-1)).to(LABELS_DEVICE), torch.from_numpy(t).to(LABELS_DEVICE)) for p, t in epoch]
@@ -6243,9 +6452,127 @@ def fused_labels_phase(torch, ops, card, tm, preds_all, target_all):
         want += np.bincount((target.cpu().numpy() * NUM_CLASSES + preds.cpu().numpy()), minlength=NUM_CLASSES**2)
     got = legs["fused"]["states"]["ConfusionMatrix.confmat"].numpy().reshape(-1)
     check(np.array_equal(got, want), "fused-labels-flagship: the confusion matrix differs from np.bincount")
-    memory = memory_line(torch, reserved0)
-    emit({"phase": "fused-labels", "card": card, "bucket": FUSED_BUCKET, **out, "memory": memory, "seconds": time.perf_counter() - t_phase})
-    return out
+    emit({"phase": "fused-labels", "card": card, "bucket": FUSED_BUCKET, **out, "seconds": time.perf_counter() - t_phase})
+
+
+INPUT_DTYPES_SEED = 27000
+INPUT_DTYPES_DEVICE = "cuda"
+#: torch dtypes of the CPU grid's short names (tests/test_torch_input_dtypes.py)
+GRID_DTYPES = {"f64": "float64", "f32": "float32", "f16": "float16", "bf16": "bfloat16", "i64": "int64", "i32": "int32", "u8": "uint8", "bool": "bool"}
+
+
+def input_dtype_values(kind, rng):
+    """Seeded float64 (preds, target) of one input kind at the families'
+    shapes: 4096 regression pairs, [16, 8000] signals, [8, 2, 8000] speaker
+    pairs, [4, 3, 64, 64] images, a 4096-point curve."""
+    if kind == "pair":
+        preds = rng.random(4096) * 4 + 0.5
+        return preds, preds + rng.random(4096)
+    if kind == "audio":
+        target = rng.standard_normal((16, 8000)) * 3
+        return target + rng.standard_normal(target.shape), target
+    if kind == "pit":
+        target = rng.standard_normal((8, 2, 8000)) * 3
+        return target[:, ::-1] + rng.standard_normal(target.shape), target
+    if kind == "image":
+        preds = rng.random((4, 3, 64, 64))
+        return preds, np.clip(preds * 0.8 + 0.2 * rng.random(preds.shape), 0, 1)
+    return np.sort(rng.random(4096)) * 4, rng.random(4096) * 4
+
+
+def input_dtype_batch(torch, kind, pair, rng):
+    """One batch of ``kind`` in the grid's dtype pair, as CPU tensors
+    (integer dtypes get whole numbers of the same scale)."""
+    out = []
+    for values, name in zip(input_dtype_values(kind, rng), pair):
+        dtype = getattr(torch, GRID_DTYPES[name])
+        out.append(torch.from_numpy(np.ascontiguousarray(np.round(values) if not dtype.is_floating_point else values)).to(dtype))
+    return tuple(out)
+
+
+def input_dtypes_phase(torch, ops, card, tm):
+    """input-dtypes: the classes repaired for mixed input dtypes (ROADMAP
+    C.13-C.18) on the card over the CPU grid's pairs: SpearmanCorrCoef on
+    float64/float32 (C.13); SNR, SI-SNR and SI-SDR on an integer target and
+    on half precision beside float32, PIT over SI-SDR on an integer target
+    (C.14); SSIM, MS-SSIM and UQI on float64/float32 (C.15); AUC on
+    float32/bfloat16 and float64/float32 (C.18). Each class two batches
+    eager and through compile_update() (a fresh collection whose first
+    update runs eagerly); gates: states bit-equal between the two legs,
+    state and value dtypes float32 (never float64), the value within the
+    family's tolerance of the port's CPU run on the same batches. Then the
+    pairwise functionals on int64 and float64 rows (C.17) against the CPU,
+    float32 out, and bool labels against [N, C] scores refused with
+    TypeError by ConfusionMatrix and AUROC (C.16), as on the CPU."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(INPUT_DTYPES_SEED)
+    si_sdr = tm.functional.scale_invariant_signal_distortion_ratio
+    snr_pairs = (("f32", "i64"), ("f32", "i32"), ("bf16", "f32"), ("f32", "bf16"), ("f32", "f64"))
+    cases = [
+        ("SpearmanCorrCoef", {}, "pair", (("f64", "f32"), ("f32", "f64")), (1e-5, 0.0)),
+        ("SignalNoiseRatio", {}, "audio", snr_pairs, (0.0, AUDIO_DB_ATOL)),
+        ("ScaleInvariantSignalNoiseRatio", {}, "audio", snr_pairs, (0.0, AUDIO_DB_ATOL)),
+        ("ScaleInvariantSignalDistortionRatio", {}, "audio", snr_pairs, (0.0, AUDIO_DB_ATOL)),
+        ("PermutationInvariantTraining", {"metric_func": si_sdr}, "pit", (("f32", "i64"),), (0.0, AUDIO_DB_ATOL)),
+        ("StructuralSimilarityIndexMeasure", {"kernel_size": (7, 7)}, "image", (("f64", "f32"), ("f32", "f64")), (SSIM_RTOL, 0.0)),
+        ("MultiScaleStructuralSimilarityIndexMeasure", {"kernel_size": (3, 3), "betas": (0.5, 0.5)}, "image", (("f64", "f32"),), (SSIM_RTOL, 0.0)),
+        ("UniversalImageQualityIndex", {"kernel_size": (7, 7)}, "image", (("f64", "f32"), ("f32", "f64")), (SSIM_RTOL, 0.0)),
+        ("AUC", {"reorder": True}, "curve", (("f32", "bf16"), ("f64", "f32")), (1e-5, 0.0)),
+    ]
+    out = {}
+    for name, kwargs, kind, pairs, (rtol, atol) in cases:
+        for pair in pairs:
+            label = f"{name} {pair[0]}/{pair[1]}"
+            batches = [input_dtype_batch(torch, kind, pair, rng) for _ in range(2)]
+            card_batches = [tuple(x.to(INPUT_DTYPES_DEVICE) for x in batch) for batch in batches]
+            eager = getattr(tm, name)(device=INPUT_DTYPES_DEVICE, **kwargs)
+            for batch in card_batches:
+                eager.update(*batch)
+            collection = tm.MetricCollection([getattr(tm, name)(device=INPUT_DTYPES_DEVICE, **kwargs)])
+            collection.update(*card_batches[0])
+            handle = collection.compile_update()
+            collection.update(*card_batches[1])
+            cpu = getattr(tm, name)(device="cpu", **kwargs)
+            for batch in batches:
+                cpu.update(*batch)
+            values = {"eager": eager.compute(), "fused": collection.compute()[name], "cpu": cpu.compute()}
+            states = {leg: metric_states(torch, {name: m}) for leg, m in (("eager", eager), ("fused", collection[name]))}
+            differ = state_bits_differ(torch, states["eager"], states["fused"])
+            check(not differ, f"input-dtypes {label}: the fused leg's states differ from the eager leg's in {differ}")
+            wide = [k for k, v in states["eager"].items() if v.dtype == torch.float64]
+            check(not wide and values["eager"].dtype == torch.float32, f"input-dtypes {label}: float64 states {wide} or value {values['eager'].dtype}")
+            check(same_outputs(torch, values["eager"], values["fused"]), f"input-dtypes {label}: fused value differs from eager")
+            got, want = values["eager"].cpu().double(), values["cpu"].double()
+            err = float((got - want).abs().max())
+            check(bool(torch.allclose(got, want, rtol=rtol, atol=atol)), f"input-dtypes {label}: card {got} against the CPU's {want}")
+            out[label] = {"max_abs_diff_vs_cpu": err, "value": [float(v) for v in values["eager"].reshape(-1)[:4]],
+                          "fused": not handle._eager_names, "declined": dict(handle.declined)}
+            del eager, collection, handle, cpu
+    pairwise = {}
+    for fn, pair in (("pairwise_cosine_similarity", "i64"), ("pairwise_euclidean_distance", "f64"), ("pairwise_manhattan_distance", "i64"), ("pairwise_linear_similarity", "f64")):
+        x, y = (torch.from_numpy(np.round(rng.random((512, 64)) * 8)).to(getattr(torch, GRID_DTYPES[pair])) for _ in range(2))
+        got = getattr(tm.functional, fn)(x.to(INPUT_DTYPES_DEVICE), y.to(INPUT_DTYPES_DEVICE))
+        want = getattr(tm.functional, fn)(x, y)
+        # the x64-off dtypes: float32, or int32 where integer rows stay integers
+        check(got.dtype == want.dtype and got.dtype in (torch.float32, torch.int32), f"input-dtypes {fn} on {pair}: {got.dtype}, CPU {want.dtype}")
+        got, want = got.cpu().double(), want.double()
+        check(bool(torch.allclose(got, want, rtol=PAIRWISE_RTOL, atol=1e-6)), f"input-dtypes {fn} on {pair}: card and CPU differ")
+        pairwise[f"{fn} {pair}"] = float((got - want).abs().max())
+    refused = {}
+    scores = torch.rand(4096, CLS_CLASSES, device=INPUT_DTYPES_DEVICE).softmax(-1)
+    labels = torch.randint(0, 2, (4096,), device=INPUT_DTYPES_DEVICE).bool()
+    for name, metric in (
+        ("ConfusionMatrix", tm.ConfusionMatrix(num_classes=CLS_CLASSES, device=INPUT_DTYPES_DEVICE)),
+        ("AUROC", tm.AUROC(num_classes=CLS_CLASSES, device=INPUT_DTYPES_DEVICE)),
+    ):
+        try:
+            metric.update(scores, labels)
+            refused[name] = None
+        except TypeError as err:
+            refused[name] = str(err)[:120]
+        check(refused[name] is not None, f"input-dtypes: {name} took bool labels against [N, C] scores")
+    emit({"phase": "input-dtypes", "card": card, "classes": out, "pairwise_max_abs_diff_vs_cpu": pairwise,
+          "bool_labels_refused": refused, "seconds": time.perf_counter() - t_phase})
 
 
 def sliced_kernel_batches(torch):
@@ -6420,7 +6747,6 @@ def sliced_kernels_phase(torch, ops, card, tm):
     expected number. Last, the fused leg (``sliced_kernels_fused``).
     Returns the kernel-line inputs and the batched launches counted."""
     t_phase = time.perf_counter()
-    reserved0 = torch.cuda.memory_reserved()
     rules = vmap_rules(torch, ops)
     batches = sliced_kernel_batches(torch)
     templates = sliced_kernel_templates(tm)
@@ -6477,11 +6803,10 @@ def sliced_kernels_phase(torch, ops, card, tm):
             "nan_slices": int(torch.isnan(value.reshape(value.shape[0], -1)).any(dim=1).sum()) if value.is_floating_point() else 0,
         }
         del metric, cpu
-    fused = sliced_kernels_fused(torch, ops, tm, batches)
-    memory = memory_line(torch, reserved0)
+    fused = fused_memory_window(torch, "sliced-kernels-fused", sliced_kernels_fused, torch, ops, tm, batches)
     emit({"phase": "sliced-kernels", "card": card, "tenants": SLICED_K_TENANTS, "rows_per_update": SLICED_K_ROWS,
           "updates": SLICED_K_UPDATES, "vmap_rules": rules, "templates": lines, "batched_launches": batched,
-          "fused": fused, "memory": memory, "seconds": time.perf_counter() - t_phase})
+          "fused": fused, "seconds": time.perf_counter() - t_phase})
     return {"batches": batches, "batched_launches": batched}
 
 
@@ -9083,6 +9408,8 @@ def main():
 
     # 9-11. COCO mAP: the main path of K6, past capacity, and pycocotools
     map_launches = map_phases(torch, ops, card, MeanAveragePrecision)
+    # the same images as padded dicts through the fused update (n_valid)
+    fused_memory_window(torch, "map-fused", map_fused_phase, torch, ops, card, tm)
     # retrieval: the main path of K4, the window, the sampled default, merges
     retrieval_launches, k4_captured, retrieval_k1 = retrieval_phases(torch, ops, card, MetricCollection)
     # K1's (and bincount's) parity, segment_sum_f32 at the captured skewed inputs too
@@ -9096,19 +9423,21 @@ def main():
     windowed_decay_phase(torch, ops, card, WindowedMetric, MeanSquaredError)
     # the fused update on CUDA graphs against the eager update, and the
     # async pipeline against the blocking fused update
-    fused_classification_phase(torch, ops, card, tm)
-    fused_flagship_phase(torch, ops, card, tm, preds_all, target_all)
-    fused_sketch_phase(torch, ops, card, tm)
-    fused_sliced_windowed_phase(torch, ops, card, tm, SlicedMetric, WindowedMetric)
-    fused_retrieval_phase(torch, ops, card, MetricCollection)
-    async_phase(torch, ops, card, tm)
+    # (each with the cyclic collector off: its collections, and with them
+    # their graphs and pools, must go by reference count at its end)
+    fused_memory_window(torch, "fused-classification", fused_classification_phase, torch, ops, card, tm)
+    fused_memory_window(torch, "fused-flagship", fused_flagship_phase, torch, ops, card, tm, preds_all, target_all)
+    fused_memory_window(torch, "fused-sketch", fused_sketch_phase, torch, ops, card, tm)
+    fused_memory_window(torch, "fused-sliced-windowed", fused_sliced_windowed_phase, torch, ops, card, tm, SlicedMetric, WindowedMetric)
+    fused_memory_window(torch, "fused-retrieval", fused_retrieval_phase, torch, ops, card, MetricCollection)
+    fused_memory_window(torch, "async", async_phase, torch, ops, card, tm)
     # the regression family, half-precision sketch leaves, the ring of sketches
     depth = regression_depth_phase(torch, ops, card, tm)
-    sketch_bf16_phase(torch, ops, card, tm)
+    fused_memory_window(torch, "sketch-bf16", sketch_bf16_phase, torch, ops, card, tm)
     windowed_sketch_phase(torch, ops, card, tm, WindowedMetric, depth)
     del depth
     # the wrappers, the aggregators and a composition; pairwise functionals
-    wrappers_flagship_phase(torch, ops, card, tm, preds_all, target_all)
+    fused_memory_window(torch, "wrappers-flagship", wrappers_flagship_phase, torch, ops, card, tm, preds_all, target_all)
     bootstrap_auroc_phase(torch, ops, card, tm)
     multioutput_regression_phase(torch, ops, card, tm)
     pairwise_embeddings_phase(torch, ops, card, tm)
@@ -9148,11 +9477,13 @@ def main():
     # the fused update seeded by the fusibility manifest against the probed
     # one, and every class the fused phases used held to its verdict
     free_card(torch)
-    manifest_phase(torch, ops, card, tm, preds_all, target_all)
+    fused_memory_window(torch, "manifest", manifest_phase, torch, ops, card, tm, preds_all, target_all)
     # template updates on label inputs under the fused update's capture, and
     # K1 launched once per batched template call inside SlicedMetric's vmap
     free_card(torch)
-    fused_labels_phase(torch, ops, card, tm, preds_all, target_all)
+    fused_memory_window(torch, "fused-labels", fused_labels_phase, torch, ops, card, tm, preds_all, target_all)
+    # the classes repaired for mixed input dtypes, eager and fused, against the CPU
+    fused_memory_window(torch, "input-dtypes", input_dtypes_phase, torch, ops, card, tm)
     free_card(torch)
     sliced_kernels = sliced_kernels_phase(torch, ops, card, tm)
     free_card(torch)
@@ -9317,6 +9648,13 @@ def main():
     # each kernel's launches inside the sync phases' syncs, by phase and rank
     for entry in kernels:
         entry["sync_launches"] = sync_launches.get(entry["name"], {})
+    # every fused phase's memory window, and every class the fused phases
+    # probed on the card with its manifest verdict
+    free_card(torch)
+    emit({"phase": "fused-memory", "card": card, "margin_bytes": FUSED_MEMORY_MARGIN,
+          "windows": {w["phase"]: {k: w[k] for k in ("reserved_growth_bytes", "allocated_growth_bytes", "freed_by_gc_bytes")} for w in MEMORY_WINDOWS},
+          "verified_classes": VERIFIED, "captured_against_verdict": CAPTURED_AGAINST_VERDICT})
+    check_memory_windows()
     emit({"phase": "kernel_times", "card": card})
     emit({"kernels": kernels})
     print(card, flush=True)

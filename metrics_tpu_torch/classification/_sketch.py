@@ -33,7 +33,7 @@ from metrics_tpu_torch.core.readers import ReaderCache, round_up_bucket
 from metrics_tpu_torch.sketches.compat import register_exact_list_states, warn_exact_buffer
 from metrics_tpu_torch.sketches.quantile import qsketch_fill, qsketch_init, qsketch_insert, sketch_merge_fx
 from metrics_tpu_torch.utils.checks import checks_read_nothing
-from metrics_tpu_torch.utils.data import dim_zero_cat
+from metrics_tpu_torch.utils.data import _refuse_bool_labels, dim_zero_cat
 
 Tensor = torch.Tensor
 
@@ -123,6 +123,7 @@ class SketchCurveMixin:
                 self._rebuild_sketch_case(c)
             if target.ndim == 1:
                 tgt_kind = "int"
+                _refuse_bool_labels(target)
                 classes = torch.arange(c, dtype=target.dtype, device=target.device)
                 ytab = (target[:, None] == classes[None, :]).to(torch.float32)
             else:

@@ -117,6 +117,7 @@ from metrics_tpu_torch.observability.recorder import _DEFAULT_RECORDER as _TELEM
 from metrics_tpu_torch.ops.dispatch import add_launches, recording_launches
 from metrics_tpu_torch.utils.checks import building_entry, capturing_checks
 from metrics_tpu_torch.utils.data import dim_zero_max, dim_zero_min, dim_zero_sum
+from metrics_tpu_torch.utils.exceptions import MetricsUserError
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 Tensor = torch.Tensor
@@ -184,22 +185,45 @@ def _capturing(graph: Any, stream: Any, pool: Optional[Any] = None) -> Iterator[
     (other threads may run and synchronise meanwhile). The caller's current
     stream is restored whether the capture succeeds or not. Python's cyclic
     collector is off for the capture: a collection there could destroy an
-    unreachable CUDA graph (a fused handle and its collection form a cycle),
-    and destroying a graph is a call that invalidates the capture."""
+    unreachable CUDA graph that some reference cycle held, and destroying a
+    graph is a call that invalidates the capture.
+
+    A capture that never ended is wound up here: torch neither stops
+    routing the capture's allocations to its pool (``empty_cache()`` frees
+    nothing of the default pool while any capture counts as underway) nor
+    gives the pool back when the graph goes, so one failed trial capture (an
+    update that cannot be captured, one that ran out of memory) otherwise
+    kept every cached block, and its own, reserved for the life of the
+    process."""
+    pool = torch.cuda.graph_pool_handle() if pool is None else pool
     collecting = gc.isenabled()
     gc.disable()
     try:
         with torch.cuda.stream(stream):
             graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
-                yield
+                try:
+                    yield
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except Exception:  # noqa: BLE001 -- the error being raised comes first
+                        pass
+                    raise
+                graph.capture_end()
             except BaseException:
                 try:
-                    graph.capture_end()
+                    # answers once the capture has ended (then the graph
+                    # gives its pool back itself, even where capture_end
+                    # raised after it, as a warning turned error does)
+                    graph.pool()
                 except RuntimeError:
-                    pass  # the error being raised invalidated the capture
+                    try:
+                        torch._C._cuda_endAllocateToPool(stream.device.index, pool)
+                    except RuntimeError:
+                        pass  # capture_end got as far as ending the routing
+                    torch._C._cuda_releasePool(stream.device.index, pool)
                 raise
-            graph.capture_end()
     finally:
         if collecting:
             gc.enable()
@@ -325,7 +349,10 @@ class FusedUpdate:
         donate: Optional[bool] = None,
         use_manifest: Optional[bool] = None,
     ) -> None:
-        self._collection = collection
+        # weak: the collection holds the handle, and a strong back-reference
+        # made a cycle that kept the graphs, pools and static buffers alive
+        # until Python's cyclic collector ran
+        self._collection_ref = weakref.ref(collection)
         self._buckets: Tuple[int, ...] = tuple(sorted(int(b) for b in buckets)) if buckets else ()
         if any(b <= 0 for b in self._buckets):
             raise ValueError(f"bucket sizes must be positive, got {self._buckets}")
@@ -358,6 +385,15 @@ class FusedUpdate:
         #: and the wrappers and compositions (members with child metrics)
         self.declined: Dict[str, str] = {}
         _LIVE_FUSED.add(self)
+
+    @property
+    def _collection(self) -> Any:
+        collection = self._collection_ref()
+        if collection is None:
+            raise MetricsUserError(
+                "this fused update's MetricCollection is gone; call compile_update() on a live collection"
+            )
+        return collection
 
     # graphs, buffers and the collection back-reference are not copied:
     # MetricCollection.clone() drops the handle and the clone captures anew

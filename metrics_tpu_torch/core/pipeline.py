@@ -54,6 +54,7 @@ import contextlib
 import queue
 import threading
 import time
+import traceback
 import weakref
 from typing import Any, Dict, Iterator, Optional, Tuple
 
@@ -119,6 +120,7 @@ def _worker_main(handle_ref: "weakref.ref", q: "queue.Queue") -> None:
         if handle is None:
             return
         handle._drain_item(item)
+        handle._clear_error_frames()
         del handle
 
 
@@ -153,7 +155,8 @@ class AsyncUpdateHandle:
             raise ValueError(f"queue_depth must be >= 1, got {queue_depth}")
         if int(max_staleness) < 0:
             raise ValueError(f"max_staleness must be >= 0, got {max_staleness}")
-        self._collection = collection
+        # weak, as the fused handle's: the collection holds this handle
+        self._collection_ref = weakref.ref(collection)
         self._fused = fused
         self.queue_depth = int(queue_depth)
         self.policy = policy
@@ -192,6 +195,13 @@ class AsyncUpdateHandle:
         )
         self._thread.start()
         self._finalizer = weakref.finalize(self, _wake_worker, self._queue)
+
+    @property
+    def _collection(self) -> Any:
+        collection = self._collection_ref()
+        if collection is None:
+            raise MetricsUserError("this async handle's MetricCollection is gone")
+        return collection
 
     # the worker thread and the graphs cannot be copied: clone() drops the
     # handle and the clone compiles its own
@@ -505,6 +515,19 @@ class AsyncUpdateHandle:
         if err is not None:
             idx, original = err
             raise AsyncWorkerError(idx, original) from original
+
+    def _clear_error_frames(self) -> None:
+        """Drop the locals of a kept worker error's finished frames. The
+        frame that caught it holds this handle: a cycle that kept the
+        handle, its fused update and its graphs until Python's cyclic
+        collector ran. The traceback keeps its files and lines."""
+        with self._cond:
+            err = None if self._error is None else self._error[1]
+        seen = set()
+        while err is not None and id(err) not in seen:
+            seen.add(id(err))
+            traceback.clear_frames(err.__traceback__)
+            err = err.__cause__ or err.__context__
 
     def _yield_to_snapshot_waiters(self) -> None:
         """Let a waiting compute() take the lock before the next batch."""

@@ -31,8 +31,9 @@ taken as float32 (integer, half-precision and float64 inputs are cast
 first) and its values are float32. SI-SDR computes in float32 for
 half-precision and float64 inputs too, where the JAX package computes
 float16 and bfloat16 inputs in their own dtype with their own epsilon (see
-``ROADMAP.md`` C, "float16 sums"); integer inputs raise ``ValueError``, as
-the JAX package's ``jnp.finfo`` of an integer dtype does.
+``ROADMAP.md`` C, "float16 sums"); integer estimates raise ``ValueError``,
+as the JAX package's ``jnp.finfo`` of an integer dtype does, and the target
+takes the estimate's float dtype whatever its own.
 """
 from typing import Optional, Tuple
 
@@ -45,13 +46,15 @@ from metrics_tpu_torch.utils.data import _widen_half, _x64_off
 Tensor = torch.Tensor
 
 
-def _float_input(x: Tensor) -> Tensor:
-    """``x`` as float32 (float64, bfloat16 and float16 are cast), the dtype
-    the SNR family computes in; integer inputs raise."""
-    x = _widen_half(_x64_off(x))
-    if not x.is_floating_point():
-        raise ValueError(f"data type {x.dtype} not inexact: the SNR family takes floating-point signals")
-    return x
+def _float_inputs(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
+    """``preds`` as float32 (float64, bfloat16 and float16 are cast), the
+    dtype the SNR family computes in, and ``target`` in that dtype. Only
+    ``preds`` is checked: integer estimates raise, an integer reference is
+    promoted, as the JAX package checks ``jnp.finfo(preds.dtype)`` alone."""
+    preds = _widen_half(_x64_off(preds))
+    if not preds.is_floating_point():
+        raise ValueError(f"data type {preds.dtype} not inexact: the SNR family takes floating-point signals")
+    return preds, target.to(preds.dtype)
 
 
 def _l2_normalize(x: Tensor, eps: float) -> Tensor:
@@ -208,7 +211,7 @@ def scale_invariant_signal_distortion_ratio(preds: Tensor, target: Tensor, zero_
         tensor(18.4030)
     """
     _check_same_shape(preds, target)
-    preds, target = _float_input(preds), _float_input(target)
+    preds, target = _float_inputs(preds, target)
     eps = torch.finfo(preds.dtype).eps
 
     if zero_mean:

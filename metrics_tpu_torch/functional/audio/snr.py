@@ -3,12 +3,13 @@
 Counterpart of ``metrics_tpu/functional/audio/snr.py``: elementwise math and
 time-axis sums, batched over leading dims. Half-precision and float64
 inputs are computed in float32 (the JAX package computes float16 and
-bfloat16 in their own dtype with their own epsilon); integer inputs raise
-``ValueError``, as the JAX package's ``jnp.finfo`` of an integer dtype does.
+bfloat16 in their own dtype with their own epsilon); integer estimates
+raise ``ValueError``, as the JAX package's ``jnp.finfo`` of an integer
+dtype does, and an integer target takes the estimate's float dtype.
 """
 import torch
 
-from metrics_tpu_torch.functional.audio.sdr import _float_input, scale_invariant_signal_distortion_ratio
+from metrics_tpu_torch.functional.audio.sdr import _float_inputs, scale_invariant_signal_distortion_ratio
 from metrics_tpu_torch.utils.checks import _check_same_shape
 
 Tensor = torch.Tensor
@@ -33,7 +34,7 @@ def signal_noise_ratio(preds: Tensor, target: Tensor, zero_mean: bool = False) -
         tensor(16.1805)
     """
     _check_same_shape(preds, target)
-    preds, target = _float_input(preds), _float_input(target)
+    preds, target = _float_inputs(preds, target)
     eps = torch.finfo(preds.dtype).eps
 
     if zero_mean:

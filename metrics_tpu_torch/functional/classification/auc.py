@@ -6,7 +6,7 @@ from typing import Any, Optional, Tuple, Union
 
 import torch
 
-from metrics_tpu_torch.utils.data import _as_tensor
+from metrics_tpu_torch.utils.data import _as_tensor, _x64_off
 
 Tensor = torch.Tensor
 
@@ -24,7 +24,13 @@ def _auc_update(x: Tensor, y: Tensor) -> Tuple[Tensor, Tensor]:
         raise ValueError(
             f"Expected the same number of elements in `x` and `y` tensor but received {x.numel()} and {y.numel()}"
         )
-    return x, y
+    # the x64-off dtypes, then one dtype for both: ``jnp.trapezoid`` promotes
+    # first, where ``torch.trapezoid`` would average ``y`` in its own dtype
+    x, y = _x64_off(x), _x64_off(y)
+    dtype = torch.promote_types(x.dtype, y.dtype)
+    if not dtype.is_floating_point:
+        dtype = torch.float32
+    return x.to(dtype), y.to(dtype)
 
 
 def _auc_compute_without_check(x: Tensor, y: Tensor, direction: Any) -> Tensor:

@@ -14,7 +14,7 @@ from metrics_tpu_torch.utils.checks import (
     _input_squeeze,
     checks_read_nothing,
 )
-from metrics_tpu_torch.utils.data import _as_tensor, _bincount, to_categorical
+from metrics_tpu_torch.utils.data import _as_tensor, _bincount, _refuse_bool_labels, to_categorical
 from metrics_tpu_torch.utils.enums import DataType
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
@@ -46,6 +46,7 @@ def _labels(preds: Tensor, target: Tensor, threshold: float, num_classes: int) -
         mode = _check_classification_inputs(
             squeezed_preds, squeezed_target, threshold=threshold, num_classes=None, multiclass=None, top_k=None
         )
+        _refuse_bool_labels(squeezed_target)  # as the target's one-hot would
         return to_categorical(squeezed_preds, 1), squeezed_target, mode
     try:
         preds, target, mode = _input_format_classification(preds, target, threshold)

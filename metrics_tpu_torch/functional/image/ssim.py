@@ -21,26 +21,21 @@ from metrics_tpu_torch.functional.image.helper import (
     _reflect_pad,
 )
 from metrics_tpu_torch.parallel.distributed import reduce
-from metrics_tpu_torch.utils.checks import _check_same_shape
-from metrics_tpu_torch.utils.data import _x64_off
+from metrics_tpu_torch.utils.checks import _check_same_shape, _same_dtype_x64_off
 
 Tensor = torch.Tensor
 
 
 def _ssim_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
     _check_floating_images(preds, target)
-    if preds.dtype != target.dtype:
-        raise TypeError(
-            "Expected `preds` and `target` to have the same data type."
-            f" Got preds: {preds.dtype} and target: {target.dtype}."
-        )
+    preds, target = _same_dtype_x64_off(preds, target)
     _check_same_shape(preds, target)
     if preds.ndim != 4:
         raise ValueError(
             "Expected `preds` and `target` to have BxCxHxW shape."
             f" Got preds: {preds.shape} and target: {target.shape}."
         )
-    return _x64_off(preds), _x64_off(target)
+    return preds, target
 
 
 def _ssim_check_kernel(kernel_size: Sequence[int], sigma: Sequence[float]) -> None:

@@ -13,6 +13,8 @@ Tensor = torch.Tensor
 
 def _pairwise_cosine_similarity_update(x: Tensor, y: Optional[Tensor] = None, zero_diagonal: Optional[bool] = None) -> Tensor:
     x, y, zero_diagonal = _check_input(x, y, zero_diagonal)
+    # integer rows divide into float32, as jnp's norm and division promote
+    x, y = (v if v.is_floating_point() else v.to(torch.float32) for v in (x, y))
     x = x / torch.linalg.norm(x, dim=1, keepdim=True)
     y = y / torch.linalg.norm(y, dim=1, keepdim=True)
     return _zero_diagonal(_matmul_t(x, y), zero_diagonal)

@@ -8,20 +8,25 @@ inputs is taken in float64 and rounded once to the inputs' dtype
 (:func:`_matmul_t`): TF32 (``torch.backends.cuda.matmul.allow_tf32``,
 ``torch.set_float32_matmul_precision``) applies to float32 products only,
 so the result does not depend on the caller's setting, and it is at least
-as accurate as a float32 product.
+as accurate as a float32 product. Inputs take the JAX package's x64-off
+dtypes first (float64 as float32, int64 as int32).
 """
 from typing import Optional, Tuple
 
 import torch
 
+from metrics_tpu_torch.utils.data import _x64_off
+
 Tensor = torch.Tensor
 
 
 def _check_input(x: Tensor, y: Optional[Tensor] = None, zero_diagonal: Optional[bool] = None) -> Tuple[Tensor, Tensor, bool]:
+    x = _x64_off(x)
     if x.ndim != 2:
         raise ValueError(f"Expected argument `x` to be a 2D tensor of shape `[N, d]` but got {x.shape}")
 
     if y is not None:
+        y = _x64_off(y)
         if y.ndim != 2 or y.shape[1] != x.shape[1]:
             raise ValueError(
                 "Expected argument `y` to be a 2D tensor of shape `[M, d]` where"

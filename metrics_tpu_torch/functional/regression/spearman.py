@@ -13,7 +13,7 @@ from typing import Tuple
 
 import torch
 
-from metrics_tpu_torch.utils.checks import _check_same_shape
+from metrics_tpu_torch.utils.checks import _check_same_shape, _same_dtype_x64_off
 from metrics_tpu_torch.utils.data import _tie_runs, _tree_sum
 
 Tensor = torch.Tensor
@@ -28,11 +28,7 @@ def _rank_data(data: Tensor) -> Tensor:
 
 
 def _spearman_corrcoef_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
-    if preds.dtype != target.dtype:
-        raise TypeError(
-            "Expected `preds` and `target` to have the same data type."
-            f" Got preds: {preds.dtype} and target: {target.dtype}."
-        )
+    preds, target = _same_dtype_x64_off(preds, target)
     _check_same_shape(preds, target)
     preds = torch.squeeze(preds)
     target = torch.squeeze(target)

@@ -28,7 +28,7 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
-from metrics_tpu_torch.utils.data import _is_integer, select_topk, to_onehot
+from metrics_tpu_torch.utils.data import _is_integer, _x64_off, select_topk, to_onehot
 from metrics_tpu_torch.utils.enums import DataType
 
 Tensor = torch.Tensor
@@ -40,6 +40,21 @@ def _check_same_shape(preds: Tensor, target: Tensor) -> None:
         raise RuntimeError(
             f"Predictions and targets are expected to have the same shape, but got {preds.shape} and {target.shape}."
         )
+
+
+def _same_dtype_x64_off(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
+    """``preds`` and ``target`` in the dtypes the JAX package's arrays take
+    with x64 off (:func:`~metrics_tpu_torch.utils.data._x64_off`), refused
+    with ``TypeError`` unless those are one dtype. The rounding comes first,
+    as at the JAX package's intake: a float64/float32 pair is float32 twice,
+    a float16/float32 pair raises."""
+    preds, target = _x64_off(preds), _x64_off(target)
+    if preds.dtype != target.dtype:
+        raise TypeError(
+            "Expected `preds` and `target` to have the same data type."
+            f" Got preds: {preds.dtype} and target: {target.dtype}."
+        )
+    return preds, target
 
 
 def _check_for_empty_tensors(preds: Tensor, target: Tensor) -> bool:

@@ -250,13 +250,22 @@ def _rank_key(x: Tensor) -> Tensor:
     return torch.where(torch.isnan(wide), sign * 1e301, key)
 
 
+def _refuse_bool_labels(labels: Tensor) -> None:
+    """Class labels are integers: a bool tensor of them raises ``TypeError``,
+    as the JAX package's one-hot and label table (an ``iota`` in bool) do."""
+    if labels.dtype == torch.bool:
+        raise TypeError("bool tensors are not class labels: pass integer labels (or 0/1 indicator rows)")
+
+
 def to_onehot(label_tensor: Tensor, num_classes: Optional[int] = None) -> Tensor:
     """Integer labels ``(N, ...)`` to an int32 one-hot ``(N, C, ...)``.
 
     Labels outside ``[0, C)`` give an all-zero row, as ``jax.nn.one_hot``
-    does (``torch.nn.functional.one_hot`` would raise)."""
+    does (``torch.nn.functional.one_hot`` would raise). Bool labels raise
+    ``TypeError``, as ``jax.nn.one_hot`` does."""
     if label_tensor.ndim == 2 and label_tensor.is_floating_point():
         return label_tensor
+    _refuse_bool_labels(label_tensor)
     if num_classes is None:
         num_classes = int(label_tensor.max()) + 1
     classes = torch.arange(num_classes, device=label_tensor.device)

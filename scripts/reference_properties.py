@@ -1,6 +1,7 @@
 #!/usr/bin/env python
-"""Measure, on the CPU, two properties of the JAX package that the port
-does not copy: its bfloat16 sketch compaction and its float32 Gumbel logs.
+"""Measure, on the CPU, properties of the JAX package that the port does
+not copy: its bfloat16 sketch compaction, its float32 Gumbel logs, and its
+half-precision arithmetic beside float32 inputs.
 
 Run from the root of a checkout (JAX and the JAX package on the CPU):
 
@@ -20,10 +21,16 @@ Run from the root of a checkout (JAX and the JAX package on the CPU):
    logs where XLA's float32 ``log`` differs from the correctly rounded one,
    the share of priorities that differ, and the largest difference in ulps
    counted at ``max(|g|, 1)``.
+3. Every half-precision gap of ``tests/test_torch_input_dtypes.py``
+   (``HALF_GAPS``): on the grid's seeded inputs, the functional's first
+   values in both packages and in float64 (the JAX package with x64 on, on
+   the same rounded inputs), and each package's largest relative distance
+   from float64.
 
 Prints one JSON object per measurement.
 """
 import argparse
+import importlib.util
 import json
 import os
 import sys
@@ -115,6 +122,29 @@ def gumbel_logs(n):
     }
 
 
+def half_gaps():
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests", "test_torch_input_dtypes.py")
+    spec = importlib.util.spec_from_file_location("input_dtype_grid", path)
+    grid = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(grid)
+    for (name, pd, td), kind in sorted(grid.HALF_GAPS.items()):
+        _, input_kind, cls, ckw, fn, fkw = grid.SPECS[name]
+        (preds, jax_preds), (target, jax_target) = (grid._both(v, d) for v, d in zip(grid.KINDS[input_kind](pd, td), (pd, td)))
+        port = grid._port_functional(fn, fkw, preds, target)
+        ref = grid._float64_evaluation("functional", cls, ckw, fn, fkw, preds, target)
+        jax_value = getattr(metrics_tpu.functional, fn)(jax_preds, jax_target, **grid._resolve(fkw, metrics_tpu.functional))
+        port, jax_value, ref = (grid._float64(grid._leaves(v)[0]).reshape(-1) for v in (port, jax_value, ref))
+
+        def rel(x):
+            return float(np.max(np.abs(x - ref) / np.maximum(np.abs(ref), 1e-6)))
+
+        yield {
+            "measurement": "half_gap", "case": name, "preds": pd, "target": td, "computed_in_half_by": kind,
+            "jax": jax_value[:2].tolist(), "port": port[:2].tolist(), "float64": ref[:2].tolist(),
+            "jax_rel_from_float64": rel(jax_value), "port_rel_from_float64": rel(port),
+        }
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batches", type=int, nargs="+", default=[2, 16, 245])
@@ -123,6 +153,8 @@ def main():
     for batches in args.batches:
         print(json.dumps(bf16_sketch(batches)), flush=True)
     print(json.dumps(gumbel_logs(args.draws)), flush=True)
+    for line in half_gaps():
+        print(json.dumps(line), flush=True)
 
 
 if __name__ == "__main__":
